@@ -1,0 +1,1 @@
+"""See the matching module of attentiondm_tpu for the reference."""
