@@ -16,13 +16,14 @@
 //      shared memory, then the int8 quant of proj_out's input;
 //   4. the output projection: the int8 GEMM with a dequant + residual-add
 //      epilogue, written at the residual's dtype (bf16).
-// The core's three sums (q.k, the softmax denominator, p.v) accumulate in
-// f64 and round once to f32, like the GroupNorm sums (common.cuh): every
-// value stays the f32 the TPU kernel computes, but independent of the
-// summation order, so the plain version (f64 einsum, then f32) gives the
-// same bits and the int8 codes downstream agree exactly.
+// The core runs in f32, as the TPU kernel's default core: the q.k dot, the
+// softmax denominator and p.v accumulate in f32 (fmaf for the dot
+// products).  Its plain version (torch f32 einsums, cuBLAS on the card)
+// sums in another order, so the two agree to rounding, not to the bit; the
+// GroupNorm sums in front follow the fixed order of common.cuh and agree
+// exactly.
 // What bounds it on the H100: the core runs on the CUDA cores (no TF32),
-// 2*L*L*C f64 multiply-adds per image with their operands read from shared
+// 2*L*L*C f32 multiply-adds per image with their operands read from shared
 // memory.  Fusing the chain (flash-style, tensor-core f32 emulation or a
 // bf16 core with a quality check) is later work.
 #include "igemm.cuh"
@@ -36,11 +37,11 @@ gn_quant3_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ 
                  const float* __restrict__ sqkv, int nq, int nk, int nv, int8_t* __restrict__ q8,
                  int8_t* __restrict__ k8, int8_t* __restrict__ v8, int L, int C, int G,
                  float inv_count) {
-  __shared__ double red[2 * GQ_THREADS];
+  extern __shared__ float smem[];
   __shared__ float mean_g[32], rstd_g[32];
   const long long base = (long long)blockIdx.x * L * C;
   auto h_at = [&](int p, int c) { return to_f32(x[base + (long long)p * C + c]); };
-  block_gn_stats(h_at, L, C, G, inv_count, red, mean_g, rstd_g);
+  block_gn_stats(h_at, L, C, G, inv_count, smem, mean_g, rstd_g);
 
   const int c = threadIdx.x % C, r0 = threadIdx.x / C, R = blockDim.x / C;
   const int grp = c / (C / G);
@@ -59,7 +60,7 @@ static __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-static __device__ __forceinline__ double warp_sum(double v) {
+static __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
@@ -69,11 +70,11 @@ __global__ void __launch_bounds__(AT_THREADS)
 attn_core_kernel(const float* __restrict__ qf, const float* __restrict__ kf,
                  const float* __restrict__ vf, const float* __restrict__ sqo, int n_o,
                  int8_t* __restrict__ o8, int L, float scale) {
-  extern __shared__ double sm[];
+  extern __shared__ float sm[];
   constexpr int LD = C + 1;  // padded rows: conflict-free column walks
-  double* Qs = sm;                // [BQ][LD]
-  double* Ks = Qs + AT_BQ * LD;   // [TK][LD]
-  double* S = Ks + AT_TK * LD;    // [BQ][L] f32 logits, then f32 probabilities
+  float* Qs = sm;                // [BQ][LD]
+  float* Ks = Qs + AT_BQ * LD;   // [TK][LD]
+  float* S = Ks + AT_TK * LD;    // [BQ][L] logits, then probabilities
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y, q0 = blockIdx.x * AT_BQ;
   const float* Q = qf + ((long long)b * L + q0) * C;
@@ -82,7 +83,7 @@ attn_core_kernel(const float* __restrict__ qf, const float* __restrict__ kf,
 
   for (int i = tid; i < AT_BQ * C; i += AT_THREADS) {
     const int r = i / C, cc = i - r * C;
-    Qs[r * LD + cc] = (q0 + r < L) ? (double)Q[i] : 0.0;
+    Qs[r * LD + cc] = (q0 + r < L) ? Q[i] : 0.f;
   }
   // logits: thread -> query qi, key kj of each TK-key tile
   const int qi = tid / AT_TK, kj = tid % AT_TK;
@@ -90,52 +91,66 @@ attn_core_kernel(const float* __restrict__ qf, const float* __restrict__ kf,
     __syncthreads();
     for (int i = tid; i < AT_TK * C; i += AT_THREADS) {
       const int r = i / C, cc = i - r * C;
-      Ks[r * LD + cc] = (j0 + r < L) ? (double)K[(long long)(j0 + r) * C + cc] : 0.0;
+      Ks[r * LD + cc] = (j0 + r < L) ? K[(long long)(j0 + r) * C + cc] : 0.f;
     }
     __syncthreads();
-    double d = 0.0;
+    float d = 0.f;
 #pragma unroll 8
-    for (int cc = 0; cc < C; ++cc) d = fma(Qs[qi * LD + cc], Ks[kj * LD + cc], d);
-    if (j0 + kj < L) S[qi * L + j0 + kj] = (double)((float)d * scale);
+    for (int cc = 0; cc < C; ++cc) d = fmaf(Qs[qi * LD + cc], Ks[kj * LD + cc], d);
+    if (j0 + kj < L) S[qi * L + j0 + kj] = d * scale;
   }
   __syncthreads();
-  // softmax, one warp per row: e = exp(l - max) in f32, p = e / (f32 of the f64 sum)
+  // softmax, one warp per row: e = exp(l - max), p = e / sum(e)
   for (int r = warp; r < AT_BQ; r += AT_THREADS / 32) {
-    double* row = S + r * L;
+    float* row = S + r * L;
     float m = -INFINITY;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, (float)row[j]);
+    for (int j = lane; j < L; j += 32) m = fmaxf(m, row[j]);
     m = warp_max(m);
-    double sum = 0.0;
+    float sum = 0.f;
     for (int j = lane; j < L; j += 32) {
-      const float e = expf((float)row[j] - m);
+      const float e = expf(row[j] - m);
       row[j] = e;
       sum += e;
     }
-    const float total = (float)warp_sum(sum);
-    for (int j = lane; j < L; j += 32) row[j] = (double)((float)row[j] / total);
+    const float total = warp_sum(sum);
+    for (int j = lane; j < L; j += 32) row[j] = row[j] / total;
   }
   __syncthreads();
-  // AV: thread -> channel cc, RPT consecutive query rows; then int8 quant
-  constexpr int RPT = AT_BQ * C / AT_THREADS;
-  const int cc = tid % C, rb = (tid / C) * RPT;
-  double acc[RPT];
+  // AV: thread -> CPT channels c0 + i * CW and RPT consecutive query rows
+  // (C = 512: 2 channels x 16 rows = 32 accumulators); then int8 quant
+  constexpr int CPT = C > AT_THREADS ? C / AT_THREADS : 1, CW = C / CPT;
+  constexpr int RPT = AT_BQ * CW / AT_THREADS;
+  const int c0 = tid % CW, rb = (tid / CW) * RPT;
+  float acc[CPT][RPT];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.0;
+  for (int i = 0; i < CPT; ++i)
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) acc[i][r] = 0.f;
   for (int j = 0; j < L; ++j) {
-    const double vv = V[(long long)j * C + cc];
+    float vv[CPT];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) acc[r] = fma(S[(rb + r) * L + j], vv, acc[r]);
+    for (int i = 0; i < CPT; ++i) vv[i] = V[(long long)j * C + c0 + i * CW];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const float p = S[(rb + r) * L + j];
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) acc[i][r] = fmaf(p, vv[i], acc[i][r]);
+    }
   }
-  const float so = sqo[cc], zo = sqo[C + cc];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r)
-    if (q0 + rb + r < L) o8[((long long)b * L + q0 + rb + r) * C + cc] = quant_i8((float)acc[r], so, zo, n_o);
+  for (int i = 0; i < CPT; ++i) {
+    const int cc = c0 + i * CW;
+    const float so = sqo[cc], zo = sqo[C + cc];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      if (q0 + rb + r < L) o8[((long long)b * L + q0 + rb + r) * C + cc] = quant_i8(acc[i][r], so, zo, n_o);
+  }
 }
 
 template <int C>
 static cudaError_t launch_core(const float* qf, const float* kf, const float* vf, const float* sqo,
                                int n_o, int8_t* o8, int B, int L, float scale, cudaStream_t s) {
-  const size_t smem = sizeof(double) * ((size_t)(AT_BQ + AT_TK) * (C + 1) + (size_t)AT_BQ * L);
+  const size_t smem = sizeof(float) * ((size_t)(AT_BQ + AT_TK) * (C + 1) + (size_t)AT_BQ * L);
   cudaError_t err = cudaFuncSetAttribute(attn_core_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
@@ -163,13 +178,18 @@ extern "C" int adm_fused_attention_block(const void* x, const void* gn, const vo
                                          void* q8, void* k8, void* v8, void* qf, void* kf, void* vf,
                                          void* o8, void* out, int B, int L, int C, int groups,
                                          float inv_count, float scale, void* stream) {
-  if ((C != 128 && C != 256) || groups > 32 || C % groups != 0) return (int)cudaErrorInvalidValue;
+  if ((C != 128 && C != 256 && C != 512) || L > GN_CHUNK || groups > 32 || C % groups != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gn_quant3_kernel<<<B, GQ_THREADS, 0, s>>>(
+  const size_t gq_smem = gn_smem_bytes(GQ_THREADS, C);
+  cudaError_t err =
+      cudaFuncSetAttribute(gn_quant3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gq_smem);
+  if (err != cudaSuccess) return (int)err;
+  gn_quant3_kernel<<<B, GQ_THREADS, gq_smem, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gn), static_cast<const float*>(sqkv),
       nq, nk, nv, static_cast<int8_t*>(q8), static_cast<int8_t*>(k8), static_cast<int8_t*>(v8), L, C,
       groups, inv_count);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const float* e = static_cast<const float*>(eqkv);
@@ -182,11 +202,12 @@ extern "C" int adm_fused_attention_block(const void* x, const void* gn, const vo
   }
 
   const float* so = static_cast<const float*>(sqo);
-  err = (C == 128)
-            ? launch_core<128>(static_cast<const float*>(qf), static_cast<const float*>(kf),
-                               static_cast<const float*>(vf), so, n_o, static_cast<int8_t*>(o8), B, L, scale, s)
-            : launch_core<256>(static_cast<const float*>(qf), static_cast<const float*>(kf),
-                               static_cast<const float*>(vf), so, n_o, static_cast<int8_t*>(o8), B, L, scale, s);
+  const float *qp = static_cast<const float*>(qf), *kp = static_cast<const float*>(kf),
+              *vp = static_cast<const float*>(vf);
+  int8_t* op = static_cast<int8_t*>(o8);
+  if (C == 128) err = launch_core<128>(qp, kp, vp, so, n_o, op, B, L, scale, s);
+  else if (C == 256) err = launch_core<256>(qp, kp, vp, so, n_o, op, B, L, scale, s);
+  else err = launch_core<512>(qp, kp, vp, so, n_o, op, B, L, scale, s);
   if (err != cudaSuccess) return (int)err;
 
   IgemmArgs a = proj_args(o8, wo, so + 2 * C, so + 3 * C, out, B, L, C);

@@ -49,6 +49,19 @@ class DiffusionSchedule:
 
         return DiffusionSchedule(betas=f32(betas), alphas_cumprod=f32(alphas_cumprod), logvar=f32(logvar))
 
+    @classmethod
+    def from_config(cls, config, device="cpu") -> "DiffusionSchedule":
+        """From a config namespace (`config.load_config`): its `diffusion`
+        group; the model's `var_type` must be "fixedlarge", the variance
+        `create` computes."""
+        d = config.diffusion
+        var_type = getattr(config.model, "var_type", "fixedlarge")
+        if var_type != "fixedlarge":
+            raise NotImplementedError(
+                f"var_type={var_type!r}: only 'fixedlarge' is ported; the others come with ROADMAP "
+                "Queue 1, 'runner/CLI, eval, data, parallel and tools'")
+        return cls.create(d.beta_schedule, d.beta_start, d.beta_end, d.num_diffusion_timesteps, device=device)
+
 
 def compute_alpha(betas: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """alpha_bar at integer index t, with t = -1 mapping to 1 (zero prepended)."""

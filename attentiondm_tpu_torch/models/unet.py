@@ -57,6 +57,23 @@ class UNetConfig:
     attn_variant: str = "ddim"
     attn_heads: int = 8
 
+    @classmethod
+    def from_config(cls, config) -> "UNetConfig":
+        """Build from a config namespace (`config.load_config`): its `model`
+        group, with `attn_resolutions` as a list of resolutions."""
+        m, d = config.model, config.data
+        return cls(
+            in_channels=m.in_channels,
+            out_ch=getattr(m, "out_ch", getattr(m, "out_channels", d.channels)),
+            ch=m.ch,
+            ch_mult=tuple(m.ch_mult),
+            num_res_blocks=m.num_res_blocks,
+            attn_resolutions=tuple(m.attn_resolutions),
+            dropout=m.dropout,
+            resamp_with_conv=getattr(m, "resamp_with_conv", True),
+            resolution=d.image_size,
+        )
+
     @property
     def temb_ch(self) -> int:
         return self.ch * 4

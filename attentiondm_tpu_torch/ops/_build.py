@@ -8,9 +8,9 @@ failed build raises; nothing falls back.
 
 Compile flags: `-fmad=false` keeps nvcc from contracting `a*b - c` into one
 FMA, so every quantize and dequantize step rounds its product first, as
-torch's plain versions and JAX do; the kernels write `fma` where they want
-one (the attention core's f64 sums of f32 products, which are exact in f64
-either way).
+torch's plain versions and JAX do; the kernels write `fmaf` where they
+want one (the attention core's dot products).  Each source compiles in its
+own nvcc process, all started together, and one more links them.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ BUILD_DIR = PKG / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -43,6 +43,8 @@ SIGNATURES = {
     # x, x_is_int32, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp, out,
     # B, HW, N, groups, n_levels, inv_count, stream
     "adm_epilogue_gn_swish_quant": [_P, _I] + [_P] * 8 + [_I] * 5 + [_F, _P],
+    # the same with the f32 scratch `partial` [B, nchunk, 2, groups] before out
+    "adm_epilogue_gn_swish_quant_blocked": [_P, _I] + [_P] * 9 + [_I] * 5 + [_F, _P],
     # x, gn (2,C), sqkv (6,C), n_q, n_k, n_v, wq, wk, wv, eqkv (6,C), sqo (4,C), n_o, wo,
     # scratch q8 k8 v8 qf kf vf o8, out, B, L, C, groups, inv_count, scale, stream
     "adm_fused_attention_block": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
@@ -75,21 +77,33 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the library unless this source hash is already built.
+    """Compile the library unless this source hash is already built: one
+    nvcc per source into an object, all in parallel, then one link.
     Returns (path, seconds spent compiling)."""
     so = BUILD_DIR / f"libadm_kernels_{source_hash()}.so"
     if so.exists():
         return so, 0.0
     BUILD_DIR.mkdir(exist_ok=True)
     cus, _ = _sources()
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in cus]
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)],
-                          capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(cu)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for cu, o in zip(cus, objs)]
+    logs = [(cu.name, p.communicate()[0], p.returncode) for cu, p in zip(cus, procs)]
+    tmp = so.with_name(f"{tag}.tmp.so")
+    if all(rc == 0 for _, _, rc in logs):
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(("link", link.stdout + link.stderr, link.returncode))
     seconds = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(f"== {name} (rc {rc})\n{out}" for name, out, rc in logs))
+    failed = [(name, out, rc) for name, out, rc in logs if rc != 0]
+    if failed:
+        name, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{out[-8000:]}")
     os.replace(tmp, so)
     return so, seconds
 

@@ -9,9 +9,12 @@ On the TPU one program held whole images in VMEM.  One image's f32 logits
 (L*L*4 B = 256 KB at L = 256) exceed a Hopper block's shared memory, so the
 CUDA version (csrc/int8_attention.cu) is a short chain of launches behind
 this one wrapper; its launch count is one per block.  The attention core
-stays float32, as on the TPU without `attn_int8`; its sums accumulate in
-float64 and round once to float32, in the kernel and the plain version
-alike, so the two agree to the bit.
+stays float32, as on the TPU without `attn_int8`: q.k, the softmax
+denominator and p.v accumulate in float32, in the kernel and in the plain
+version's einsums alike.  The two sum in different orders, so they agree to
+float32 rounding (a rare int8 code of proj_out's input one step apart), not
+to the bit; the GroupNorm in front sums in `fused_gn.window_sum`'s order in
+both and agrees exactly.
 """
 from __future__ import annotations
 
@@ -32,13 +35,10 @@ def fused_attention_block_ref(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_qu
         (int8_matmul_ref(quant_i8(h, s, z, b), gq).to(torch.float32) * iw + zc).reshape(B, L, C)
         for (s, z, b), (gq, iw, zc) in zip(qkv_quant, qkv_weights)
     )
-    # f32 values throughout; each sum accumulates in f64 and rounds once, as
-    # the kernel's core does (csrc/int8_attention.cu)
-    f64 = torch.float64
-    logits = torch.einsum("blc,bmc->blm", q.to(f64), k.to(f64)).to(torch.float32) * scale
+    logits = torch.einsum("blc,bmc->blm", q, k) * scale
     e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    p = e / e.to(f64).sum(dim=-1, keepdim=True).to(torch.float32)
-    av = torch.einsum("blm,bmc->blc", p.to(f64), v.to(f64)).to(torch.float32).reshape(B * L, C)
+    p = e / e.sum(dim=-1, keepdim=True)
+    av = torch.einsum("blm,bmc->blc", p, v).reshape(B * L, C)
     so, zo, bo = o_quant
     gq_o, iw_o, zc_o = o_weights
     out = int8_matmul_ref(quant_i8(av, so, zo, bo), gq_o).to(torch.float32) * iw_o + zc_o
@@ -60,9 +60,9 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
     if plain or x.device.type == "cpu":
         return fused_attention_block_ref(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
                                          o_weights, scale=scale)
-    if x.dtype != torch.bfloat16 or C not in (128, 256) or L > 1024:
+    if x.dtype != torch.bfloat16 or C not in (128, 256, 512) or L > 1024:
         raise NotImplementedError(
-            f"fused_attention_block on CUDA: bf16 residual, C in (128, 256), L <= 1024; got "
+            f"fused_attention_block on CUDA: bf16 residual, C in (128, 256, 512), L <= 1024; got "
             f"{x.dtype}, C={C}, L={L} (larger maps take K10/K11, ROADMAP Queue 2)")
     g = min(GROUPS, C)
     f32 = dict(dtype=torch.float32, device=x.device)

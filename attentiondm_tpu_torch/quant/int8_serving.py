@@ -5,7 +5,8 @@ Activations are int8-resident between convs.  Per resblock:
 
   entry:   GroupNorm -> swish -> quantize in plain torch (`gn_act_quant_xla`)
   conv1:   K1, 3x3, bf16 epilogue (`acc*inv_ws + zcbias`)
-  middle:  K2 (ops/fused_gn.py): +temb -> GroupNorm -> swish -> int8
+  middle:  K2 or K6 (ops/fused_gn.py, routed by image size): +temb ->
+           GroupNorm -> swish -> int8
   conv2:   K1, 3x3, bf16 epilogue
   exit:    + shortcut (K1 1x1 int8 `nin_shortcut` where channels change)
 

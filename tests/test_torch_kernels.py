@@ -1,4 +1,4 @@
-"""PyTorch port vs the JAX package: the three kernels of the serving path,
+"""PyTorch port vs the JAX package: the kernels of the serving path,
 through their plain versions (the CUDA kernels run only on a GPU; see
 tests/test_torch_gpu.py).
 
@@ -7,15 +7,21 @@ tests/test_torch_gpu.py).
       int8_conv3_pallas (interpret mode) and the int32 Pallas kernels it also
       replaces, _conv3x3_int8_dot (K13) and int8_matmul (K5);
   K2  ops.fused_gn.epilogue_gn_swish_quant;
+  K6  ops.fused_gn.epilogue_gn_swish_quant_blocked, and the routing between
+      K2 and K6;
   K3  ops.int8_attention.fused_attention_block.
 
 Inputs come from seeded numpy generators."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
+from attentiondm_tpu.ops import fused_gn as jfg
 from attentiondm_tpu.ops.fused_gn import epilogue_gn_swish_quant as j_epilogue_gn_swish_quant
 from attentiondm_tpu.ops.int8_attention import fused_attention_block as j_fused_attention_block
 from attentiondm_tpu.ops.pallas_conv import int8_conv3_pallas as j_int8_conv3_pallas
@@ -23,7 +29,13 @@ from attentiondm_tpu.ops.quant_conv import _conv3x3_int8_dot as j_conv3x3_int8_d
 from attentiondm_tpu.ops.quant_conv import int8_matmul as j_int8_matmul
 from attentiondm_tpu.quant import int8_serving as js
 from attentiondm_tpu_torch.ops import _build
-from attentiondm_tpu_torch.ops.fused_gn import epilogue_gn_swish_quant
+from attentiondm_tpu_torch.ops import fused_gn as tfg
+from attentiondm_tpu_torch.ops.fused_gn import (
+    epilogue_gn_swish_quant,
+    epilogue_gn_swish_quant_blocked,
+    epilogue_gn_swish_quant_whole,
+    epilogue_route,
+)
 from attentiondm_tpu_torch.ops.int8_attention import fused_attention_block
 from attentiondm_tpu_torch.ops.pallas_conv import int8_conv
 from attentiondm_tpu_torch.quant import int8_serving as ts
@@ -161,22 +173,145 @@ def _k2_inputs(rng, HW, N, dtype):
     return dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp
 
 
+def _torch_args(args):
+    ta = [_t(a.astype(np.float32)) if a.dtype == ml_dtypes.bfloat16 else _t(a) for a in args]
+    if args[0].dtype == ml_dtypes.bfloat16:
+        ta[0] = ta[0].to(torch.bfloat16)  # exact: the values are bf16
+    return ta
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "int32"])
 @pytest.mark.parametrize("HW,N", [(64, 128), (16, 256)])
 def test_k2_matches_jax(HW, N, dtype):
-    """int8 equal, except 1 LSB on a few elements: the port sums the
-    GroupNorm statistics in f64, JAX in f32, and the last-bit difference
-    moves a rare value across a rounding tie (measured: at most 7.6e-6 of
-    the elements over 72 seeded cases, 0 at these seeds; bound about 4x)."""
+    """int8 equal, except 1 LSB on a few elements: both sum the GroupNorm
+    statistics in f32, but in different orders where XLA's CPU reduction
+    leaves the windowed order of `fused_gn.window_sum`, and JAX takes
+    rsqrt and sigmoid where the port takes 1/sqrt and 1/(1+exp), so a rare
+    value crosses a rounding tie (measured with f32 sums: 1 LSB on at most
+    1.5e-5 of the elements, in 3 of 72 seeded cases over these shapes and
+    (256, 128); 0 at these seeds)."""
     rng = np.random.default_rng(HW + N + len(dtype))
     args = _k2_inputs(rng, HW, N, dtype)
-    torch_args = [_t(a.astype(np.float32)) if a.dtype == ml_dtypes.bfloat16 else _t(a) for a in args]
-    if dtype == "bfloat16":
-        torch_args[0] = torch_args[0].to(torch.bfloat16)  # exact: the values are bf16
-    got = epilogue_gn_swish_quant(*torch_args, 8).numpy().astype(np.int32)
+    got = epilogue_gn_swish_quant(*_torch_args(args), 8).numpy().astype(np.int32)
     want = np.asarray(j_epilogue_gn_swish_quant(*map(jnp.asarray, args), 8)).astype(np.int32)
     d = np.abs(got - want)
     assert d.max() <= 1 and (d > 0).mean() <= 3e-5, (d.max(), (d > 0).mean())
+
+
+def _offset_case(rng, HW, N=128, B=2):
+    """GroupNorm input with a large common offset (mean 50, std 1): f32
+    E[x^2] - mu^2 cancels to about 2.4e-4 of the variance."""
+    dot = rng.integers(-30000, 30000, (B, HW, N)).astype(np.int32)  # std about 17320
+    return (dot, np.full(N, 1 / 17320.0, np.float32), np.full(N, 50.0, np.float32),
+            np.zeros((B, N), np.float32), np.ones(N, np.float32), np.zeros(N, np.float32),
+            np.full(N, 255 / 6.0, np.float32), np.zeros(N, np.float32))
+
+
+def _f64_sums_normalize(h):
+    """For contrast only: the statistics summed in f64 and rounded once to f32."""
+    B, HW, N = h.shape
+    g = min(tfg.GROUPS, N)
+    xd = h.double().reshape(B, HW, g, N // g)
+    mean_g, rstd_g = tfg._finalize(xd.sum(dim=(1, 3)).float(), (xd * xd).sum(dim=(1, 3)).float(),
+                                   1.0 / (HW * (N // g)))
+    return tfg._normalize(h, mean_g, rstd_g, torch.ones(N), torch.zeros(N))
+
+
+def test_gn_sums_in_f32_agree_with_jax_where_f64_sums_do_not():
+    """At a large common offset (HW 4096, mean 50, std 1) f32 E[x^2] - mu^2
+    cancels visibly.  The port's plain statistics, summed in f32, give
+    JAX's `_gn_normalize` (XLA on the CPU; K2's Pallas kernel in interpret
+    mode for the codes) to 1 ulp, where sums in f64 rounded once to f32 do
+    not.  Measured over 4 seeds and HW 256..4096: normalized values
+    within 2.4e-7 of JAX's and at most 1.0e-4 of the int8 codes one apart
+    (rsqrt and sigmoid vs 1/sqrt and 1/(1+exp)); f64 sums land 4.3e-4..1.1e-3
+    away and flip 1.7e-3..2.6e-3 of the codes.  Bounds: 1e-6 and 4e-4."""
+    rng = np.random.default_rng(0)
+    HW = 4096
+    args = _offset_case(rng, HW)
+    dot, inv_ws, zcbias = (_t(a) for a in args[:3])
+    h = dot.float() * inv_ws + zcbias
+    onehot, g, cg = jfg._group_onehots(128, 32)
+    want = np.asarray(jfg._gn_normalize(jnp.asarray(h.numpy()), onehot, 1.0 / (HW * cg),
+                                        jnp.ones(128), jnp.zeros(128)))
+    got = tfg.gn_normalize(h, torch.ones(128), torch.zeros(128)).numpy()
+    f64 = _f64_sums_normalize(h).numpy()
+    assert np.abs(got - want).max() <= 1e-6 < np.abs(f64 - want).max()
+
+    shaped = (args[0].reshape(2, 64, 64, 128),) + args[1:]
+    codes_jax = np.asarray(j_epilogue_gn_swish_quant(*map(jnp.asarray, shaped), 8, interpret=True))
+    codes = epilogue_gn_swish_quant(*map(_t, shaped), 8).numpy()
+    codes_f64 = tfg.quant_i8(tfg.swish(torch.from_numpy(f64)), _t(args[6]), _t(args[7]), 8).numpy()
+    assert (codes != codes_jax).mean() <= 4e-4 < (codes_f64.reshape(codes_jax.shape) != codes_jax).mean()
+
+
+# ---------------------------------------------------------------------------
+# K6
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int32"])
+def test_k6_matches_jax_blocked(dtype):
+    """K6's plain version vs JAX's two-pass blocked kernel (interpret mode)
+    at (B=1, 64x64, N=128).  Both sum in f32, the port per 1024-row chunk,
+    JAX per 4096-row block, and JAX takes rsqrt and sigmoid, so a rare value
+    crosses a rounding tie (measured over 9 seeds each: 1 LSB on at most
+    5.7e-6 of the elements; at these seeds 0 (bf16) and 1.9e-6 (int32);
+    bound about 4x)."""
+    rng = np.random.default_rng(64 + len(dtype))
+    args = list(_k2_inputs(rng, 4096, 128, dtype))
+    args[0], args[3] = args[0][:1], args[3][:1]  # batch 1
+    got = epilogue_gn_swish_quant_blocked(*_torch_args(args), 8).numpy().astype(np.int32)
+    want = np.asarray(jfg.epilogue_gn_swish_quant_blocked(*map(jnp.asarray, args), 8, interpret=True))
+    d = np.abs(got - want.astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= 2.5e-5, (d.max(), (d > 0).mean())
+
+
+def _jax_route(monkeypatch, shape, dtype):
+    """Which path JAX's epilogue_gn_swish_quant takes at this shape, read
+    off its calls while it is traced (nothing runs)."""
+    seen = []
+
+    def record(name):
+        def fn(dot, *a, **k):
+            seen.append(name)
+            return jnp.zeros(dot.shape, jnp.int8)
+        return fn
+
+    monkeypatch.setattr(jfg, "epilogue_gn_swish_quant_blocked", record("K6"))
+    monkeypatch.setattr(jfg, "epilogue_gn_swish_quant_reference", record("xla"))
+    B, N = shape[0], shape[-1]
+    vec = jax.ShapeDtypeStruct((N,), jnp.float32)
+    jax.eval_shape(functools.partial(jfg.epilogue_gn_swish_quant, a_bit=8, interpret=True),
+                   jax.ShapeDtypeStruct(shape, dtype), vec, vec, jax.ShapeDtypeStruct((B, N), jnp.float32),
+                   vec, vec, vec, vec)
+    return seen[0] if seen else "K2"
+
+
+# (B, H, W, N) around the 4 MiB whole-image edge: HW * N * (itemsize + 1)
+ROUTES = [
+    ((2, 1365, 8, 128), "bfloat16"), ((2, 1366, 8, 128), "bfloat16"), ((1, 128, 128, 128), "bfloat16"),
+    ((1, 256, 256, 128), "bfloat16"), ((2, 682, 8, 256), "bfloat16"), ((2, 683, 8, 256), "bfloat16"),
+    ((1, 64, 64, 512), "bfloat16"), ((2, 819, 8, 128), "int32"), ((2, 820, 8, 128), "int32"),
+    ((1, 64, 64, 256), "int32"), ((1, 128, 128, 96), "bfloat16"), ((1, 105, 105, 128), "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("shape,dtype", ROUTES, ids=[f"{'x'.join(map(str, s))}-{d}" for s, d in ROUTES])
+def test_epilogue_routes_like_jax(monkeypatch, shape, dtype):
+    """The port sends a conv1 output to K2 or K6 at exactly the shapes where
+    JAX's dispatcher takes its whole-image or its blocked kernel; where JAX
+    takes its XLA reference (over the budget, N off the 128 grid or HW not a
+    multiple of 8), the port raises."""
+    want = _jax_route(monkeypatch, shape, getattr(jnp, dtype))
+    if want == "xla":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            epilogue_route(shape, getattr(torch, dtype))
+        with pytest.raises(NotImplementedError):
+            epilogue_gn_swish_quant(torch.zeros(shape, dtype=getattr(torch, dtype)), *(torch.ones(shape[-1]),) * 2,
+                                    torch.zeros(shape[0], shape[-1]), *(torch.ones(shape[-1]),) * 4, 8)
+    else:
+        assert epilogue_route(shape, getattr(torch, dtype)) == want
 
 
 # ---------------------------------------------------------------------------
@@ -219,14 +354,16 @@ def _to_jax(tree):
     return tree
 
 
-@pytest.mark.parametrize("L,C", [(64, 128), (16, 256)])
+@pytest.mark.parametrize("L,C", [(64, 128), (16, 256), (16, 512), (64, 512)])
 def test_k3_matches_jax(L, C):
     """The whole attention block, bf16 residual: at least 99% of elements
-    within 1 bf16 ulp and a small mean relative error.  The port's sums are
-    f64-accumulated, JAX's f32, so a few int8 codes of q/k/v or proj_out's
-    input cross a rounding tie (measured over 24 seeded cases: mean rel err
-    at most 3.7e-5, at least 99.6% within 1 ulp; 0 at these seeds; the
-    mean bound is about 4x)."""
+    within 1 bf16 ulp and a small mean relative error.  Both cores sum in
+    f32 in different orders, so a few int8 codes of q/k/v or proj_out's
+    input cross a rounding tie; with B = 2 and L = 16 one flipped code of
+    proj_out's input moves a whole row, 1/32 of the output.  Measured with
+    f32 sums over 24 seeded cases at these four shapes: mean rel err at most
+    2.1e-4, at least 98.5% within 1 ulp; at these seeds at most 5.5e-7 and
+    100%."""
     rng = np.random.default_rng(L + C)
     x, *rest = _k3_inputs(rng, L, C)
     got = fused_attention_block(_t(x.astype(np.float32)).to(torch.bfloat16), *_to_torch(rest), scale=C ** -0.5)
@@ -247,16 +384,20 @@ def test_cpu_tensors_take_the_plain_versions():
     """Each wrapper runs its plain version on CPU tensors (bit-identical to
     calling it with plain=True) and counts no launch."""
     rng = np.random.default_rng(9)
-    before = (int8_conv.launches, epilogue_gn_swish_quant.launches, fused_attention_block.launches)
+    counters = (int8_conv, epilogue_gn_swish_quant_whole, epilogue_gn_swish_quant_blocked, fused_attention_block)
+    before = tuple(f.launches for f in counters)
     xp, gq = _t(_i8(rng, (1, 6, 6, 128))), _t(_i8(rng, (9 * 128, 128), -8, 7))
     assert torch.equal(int8_conv(xp, gq), int8_conv(xp, gq, plain=True))
     k2 = [_t(a) for a in _k2_inputs(rng, 16, 256, "int32")]
     assert torch.equal(epilogue_gn_swish_quant(*k2, 8), epilogue_gn_swish_quant(*k2, 8, plain=True))
+    k6 = [_t(a) for a in _k2_inputs(rng, 9216, 128, "int32")]  # 96^2 * 128 * 5 B: over the budget
+    assert epilogue_route(k6[0].shape, k6[0].dtype) == "K6"
+    assert torch.equal(epilogue_gn_swish_quant(*k6, 8), epilogue_gn_swish_quant_blocked(*k6, 8, plain=True))
     x, *rest = _k3_inputs(rng, 16, 256)
     xt = _t(x.astype(np.float32)).to(torch.bfloat16)
     assert torch.equal(fused_attention_block(xt, *_to_torch(rest), scale=1 / 16),
                        fused_attention_block(xt, *_to_torch(rest), scale=1 / 16, plain=True))
-    assert (int8_conv.launches, epilogue_gn_swish_quant.launches, fused_attention_block.launches) == before
+    assert tuple(f.launches for f in counters) == before
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -103,11 +103,12 @@ def test_serving_step_matches_jax(chain):
                              torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0)
     assert eps.shape == chain["eps"].shape and torch.isfinite(eps).all()
     rel = _rel(eps.numpy(), chain["eps"])
-    # measured 0.0 at this seed.  Not bit-exact by construction: JAX sums the
-    # GroupNorm and attention statistics in f32, the port in f64, and the
-    # fake-quant conv_in is an f32 conv in another order, so one value on a
-    # rounding tie can flip an int8 code by 1 LSB, and the chain of
-    # quantizers carries the flip to the output (about 1.5e-3 here when
+    # measured 0.0 at this seed.  Not bit-exact by construction: both sum the
+    # GroupNorm and attention statistics in f32 but not always in one order,
+    # JAX takes rsqrt and sigmoid where the port takes 1/sqrt and 1/(1+exp),
+    # and the fake-quant conv_in is an f32 conv in another order, so one
+    # value on a rounding tie can flip an int8 code by 1 LSB, and the chain
+    # of quantizers carries the flip to the output (about 1.5e-3 here when
     # that happened)
     assert rel < 2e-3, rel
 
