@@ -6,9 +6,10 @@
 // L = 256) exceed a Hopper block's shared memory, so here the block is a
 // chain of four launches behind one C entry point, in the TPU kernel's
 // order of operations:
-//   1. gn_quant3: GroupNorm statistics and normalize of the bf16 residual,
-//      one block per image, written as three int8 tensors at the q / k / v
-//      input quant scales;
+//   1. the K4 pass (common.cuh gn_act_quant_kernel, no activation):
+//      GroupNorm statistics and normalize of the bf16 residual, one block
+//      per image, written as three int8 tensors at the q / k / v input
+//      quant scales;
 //   2. the q / k / v 1x1 projections: the int8 implicit GEMM of K1
 //      (igemm.cuh) with an f32 dequant epilogue;
 //   3. attn_core: f32 logits (q k^T, then * C^-1/2), softmax (max, exp,
@@ -30,30 +31,7 @@
 
 using namespace adm;
 
-constexpr int AT_THREADS = 256, AT_BQ = 16, AT_TK = 16, GQ_THREADS = 512;
-
-__global__ void __launch_bounds__(GQ_THREADS)
-gn_quant3_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gn,
-                 const float* __restrict__ sqkv, int nq, int nk, int nv, int8_t* __restrict__ q8,
-                 int8_t* __restrict__ k8, int8_t* __restrict__ v8, int L, int C, int G,
-                 float inv_count) {
-  extern __shared__ float smem[];
-  __shared__ float mean_g[32], rstd_g[32];
-  const long long base = (long long)blockIdx.x * L * C;
-  auto h_at = [&](int p, int c) { return to_f32(x[base + (long long)p * C + c]); };
-  block_gn_stats(h_at, L, C, G, inv_count, smem, mean_g, rstd_g);
-
-  const int c = threadIdx.x % C, r0 = threadIdx.x / C, R = blockDim.x / C;
-  const int grp = c / (C / G);
-  const float mu = mean_g[grp], rs = rstd_g[grp], gs = gn[c], gb = gn[C + c];
-  for (int p = r0; p < L; p += R) {
-    const long long o = base + (long long)p * C + c;
-    const float h = (h_at(p, c) - mu) * rs * gs + gb;
-    q8[o] = quant_i8(h, sqkv[c], sqkv[C + c], nq);
-    k8[o] = quant_i8(h, sqkv[2 * C + c], sqkv[3 * C + c], nk);
-    v8[o] = quant_i8(h, sqkv[4 * C + c], sqkv[5 * C + c], nv);
-  }
-}
+constexpr int AT_THREADS = 256, AT_BQ = 16, AT_TK = 16;
 
 static __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -181,15 +159,19 @@ extern "C" int adm_fused_attention_block(const void* x, const void* gn, const vo
   if ((C != 128 && C != 256 && C != 512) || L > GN_CHUNK || groups > 32 || C % groups != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t gq_smem = gn_smem_bytes(GQ_THREADS, C);
-  cudaError_t err =
-      cudaFuncSetAttribute(gn_quant3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gq_smem);
-  if (err != cudaSuccess) return (int)err;
-  gn_quant3_kernel<<<B, GQ_THREADS, gq_smem, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gn), static_cast<const float*>(sqkv),
-      nq, nk, nv, static_cast<int8_t*>(q8), static_cast<int8_t*>(k8), static_cast<int8_t*>(v8), L, C,
-      groups, inv_count);
-  err = cudaGetLastError();
+  GnQuantArgs ga = {};
+  ga.gn_scale = static_cast<const float*>(gn);
+  ga.gn_bias = ga.gn_scale + C;
+  void* q8s[3] = {q8, k8, v8};
+  const int ns[3] = {nq, nk, nv};
+  for (int i = 0; i < 3; ++i) {
+    ga.scale[i] = static_cast<const float*>(sqkv) + 2 * i * C;
+    ga.zp[i] = ga.scale[i] + C;
+    ga.out[i] = static_cast<int8_t*>(q8s[i]);
+    ga.n_levels[i] = ns[i];
+  }
+  ga.n_out = 3; ga.swish = 0; ga.HW = L; ga.N = C; ga.G = groups; ga.inv_count = inv_count; ga.halo_w = 0;
+  cudaError_t err = launch_gn_act_quant(static_cast<const __nv_bfloat16*>(x), ga, B, s);
   if (err != cudaSuccess) return (int)err;
 
   const float* e = static_cast<const float*>(eqkv);

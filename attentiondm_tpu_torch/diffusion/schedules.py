@@ -1,7 +1,7 @@
 """Diffusion noise schedules (port of `attentiondm_tpu/diffusion/schedules.py`).
 
 Computed in float64 numpy once, then frozen into float32 tensors on the
-caller's device.  Only the linear schedule, the one the serving path uses,
+caller's device (`device=None`: the package's `default_device()`).  Only the linear schedule, the one the serving path uses,
 is ported; the others raise.
 """
 from __future__ import annotations
@@ -10,6 +10,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .. import default_device
 
 
 def get_beta_schedule(beta_schedule: str, *, beta_start: float, beta_end: float,
@@ -38,7 +40,8 @@ class DiffusionSchedule:
 
     @staticmethod
     def create(beta_schedule: str, beta_start: float, beta_end: float,
-               num_diffusion_timesteps: int, device="cpu") -> "DiffusionSchedule":
+               num_diffusion_timesteps: int, device=None) -> "DiffusionSchedule":
+        device = default_device() if device is None else device
         betas = get_beta_schedule(beta_schedule, beta_start=beta_start, beta_end=beta_end,
                                   num_diffusion_timesteps=num_diffusion_timesteps)
         alphas_cumprod = np.cumprod(1.0 - betas)
@@ -50,7 +53,7 @@ class DiffusionSchedule:
         return DiffusionSchedule(betas=f32(betas), alphas_cumprod=f32(alphas_cumprod), logvar=f32(logvar))
 
     @classmethod
-    def from_config(cls, config, device="cpu") -> "DiffusionSchedule":
+    def from_config(cls, config, device=None) -> "DiffusionSchedule":
         """From a config namespace (`config.load_config`): its `diffusion`
         group; the model's `var_type` must be "fixedlarge", the variance
         `create` computes."""

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import default_device
+
 Params = Any  # nested dict / list tree of tensors
 
 
@@ -260,9 +262,11 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
-def from_jax_params(tree, device="cpu") -> Params:
+def from_jax_params(tree, device=None) -> Params:
     """Map the JAX param tree (leaves already numpy, e.g. via `np.asarray`)
-    into the port's: same structure and names, HWIO kernels as stored."""
+    into the port's: same structure and names, HWIO kernels as stored, on
+    `device` (None: the package's `default_device()`)."""
+    device = default_device() if device is None else device
     return map_tree(lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device), tree)
 
 

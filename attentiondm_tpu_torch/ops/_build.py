@@ -35,6 +35,8 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+VEC6 = ctypes.c_void_p * 6  # an array of six device pointers, read by the launcher on the host
+_VEC6 = ctypes.POINTER(ctypes.c_void_p)
 
 # C entry points: name -> argtypes (every launcher returns cudaGetLastError())
 SIGNATURES = {
@@ -49,6 +51,14 @@ SIGNATURES = {
     # scratch q8 k8 v8 qf kf vf o8, out, B, L, C, groups, inv_count, scale, stream
     "adm_fused_attention_block": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
     + [_P] * 8 + [_I] * 4 + [_F, _F, _P],
+    # x, x_is_f32, gn_scale, gn_bias, (scale, zp) x3, n_out, n_levels x3, out x3, swish,
+    # B, HW, N, groups, inv_count, stream
+    "adm_gn_act_quant": [_P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 3 + [_I] * 5 + [_F, _P],
+    # dot, dot_is_int32, inv_ws, zcbias, x_res, res_is_f32, out, out_is_f32, sums, B, HW, N, groups, stream
+    "adm_epilogue_residual_gn_stats": [_P, _I, _P, _P, _P, _I, _P, _I, _P] + [_I] * 4 + [_P],
+    # r, tproj, v1 (six vector pointers: gn scale, gn bias, act scale, act zp, inv_ws, zcbias), n1, g1,
+    # v2, n2, g2, scratch pad1 acc pad2, out, B, H, W, C, groups, inv_count, stream
+    "adm_resblock": [_P, _P, _VEC6, _I, _P, _VEC6, _I, _P] + [_P] * 4 + [_I] * 5 + [_F, _P],
 }
 
 
@@ -129,6 +139,15 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def f32c(v, device=None):
+    """v as a contiguous float32 tensor (itself when it already is one)."""
+    import torch
+
+    if v.dtype == torch.float32 and v.is_contiguous() and (device is None or v.device == device):
+        return v
+    return v.to(device=device, dtype=torch.float32).contiguous()
 
 
 def require_cuda(name: str, *tensors):

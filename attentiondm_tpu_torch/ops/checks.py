@@ -6,9 +6,16 @@ Used by `chip_smoke.py` and `tests/test_torch_gpu.py` on the card.
 Tolerances, per kernel output against the plain version on the same inputs:
   K1 (K13, K5)  int32 out: equal; bf16 out: within 1 bf16 ulp everywhere
                 (one rounding of the same f32 epilogue);
-  K2, K6        int8 codes: at most 1 LSB apart, on at most 0.1% of them;
+  K2, K6, K4    int8 codes: at most 1 LSB apart, on at most 0.1% of them;
   K3            mean relative error < 1e-3 and at least 99% of the
-                elements within 1 bf16 ulp (f32 sums in another order).
+                elements within 1 bf16 ulp (f32 sums in another order);
+  K7            residual' within 1 bf16 ulp everywhere and the sums within
+                1e-6 relative (of the largest sum of their kind);
+  K12           mean relative error < 1e-3 and at least 99.9% of the
+                elements within 1 bf16 ulp.
+K4, K7 and K12 sum in the plain versions' order, so 0 LSB, equal sums and
+equal outputs are what a run should print; the tolerances say what would
+still be a pass.
 """
 from __future__ import annotations
 
@@ -19,9 +26,23 @@ import torch
 from . import fused_gn
 
 
+def _ulp_share(gf, wf):
+    return ((gf - wf).abs() <= wf.abs() * 2.0 ** -7 + 1e-30).float().mean().item()
+
+
 def compare(kind: str, got, want) -> dict:
     """Agreement figures of a kernel output with its plain version, and
-    whether they meet the kernel's tolerance (`ok`)."""
+    whether they meet the kernel's tolerance (`ok`).  K4's outputs come as a
+    tuple of int8 tensors (the worst one counts), K7's as (residual', sums)."""
+    if kind == "K4":
+        figs = [compare("K2", g, w) for g, w in zip(got, want)]
+        return max(figs, key=lambda f: (not f["ok"], f["max_abs_err"], f["frac"]))
+    if kind == "K7":
+        (go, gs), (wo, ws) = got, want
+        err = (go.float() - wo.float()).abs().max().item()
+        within = _ulp_share(go.float(), wo.float())
+        sums_rel = ((gs - ws).abs().amax(dim=(0, 2)) / ws.abs().amax(dim=(0, 2))).max().item()
+        return dict(max_abs_err=err, within=within, sums_rel=sums_rel, ok=within == 1.0 and sums_rel <= 1e-6)
     if kind == "K1" and got.dtype == torch.int32:
         err = (got - want).abs().max().item()
         return dict(max_abs_err=err, ok=err == 0)
@@ -31,11 +52,12 @@ def compare(kind: str, got, want) -> dict:
     if kind in ("K2", "K6"):
         frac = (d > 0).float().mean().item()
         return dict(max_abs_err=err, frac=frac, ok=err <= 1 and frac <= 1e-3)
-    within = (d <= wf.abs() * 2.0 ** -7 + 1e-30).float().mean().item()
+    within = _ulp_share(gf, wf)
     if kind == "K1":
         return dict(max_abs_err=err, within=within, ok=within == 1.0)
     rel = (d.mean() / wf.abs().mean()).item()
-    return dict(max_abs_err=err, rel=rel, within=within, ok=rel < 1e-3 and within >= 0.99)
+    return dict(max_abs_err=err, rel=rel, within=within,
+                ok=rel < 1e-3 and within >= (0.999 if kind == "K12" else 0.99))
 
 
 @contextlib.contextmanager
@@ -47,7 +69,9 @@ def per_site(records: list):
     calls launch nothing, so launch counts stay the kernels' own."""
     from ..quant import int8_serving as srv
 
-    saved = {name: getattr(srv, name) for name in ("_k1", "epilogue_gn_swish_quant", "fused_attention_block")}
+    saved = {name: getattr(srv, name) for name in (
+        "_k1", "epilogue_gn_swish_quant", "fused_attention_block", "gn_act_quant",
+        "epilogue_residual_gn_stats", "_rb_kernel")}
 
     def wrap(name, kind_of):
         fn = saved[name]
@@ -56,7 +80,8 @@ def per_site(records: list):
             out = fn(*args, **kwargs)
             want = fn(*args, **{**kwargs, "plain": True})
             kind = kind_of(*args)
-            records.append((kind, tuple(out.shape), compare(kind, out, want)))
+            shape = tuple((out if torch.is_tensor(out) else out[0]).shape)
+            records.append((kind, shape, compare(kind, out, want)))
             return out
 
         return call
@@ -65,6 +90,9 @@ def per_site(records: list):
     srv.epilogue_gn_swish_quant = wrap("epilogue_gn_swish_quant",
                                        lambda dot, *a: fused_gn.epilogue_route(dot.shape, dot.dtype))
     srv.fused_attention_block = wrap("fused_attention_block", lambda *a: "K3")
+    srv.gn_act_quant = wrap("gn_act_quant", lambda *a: "K4")
+    srv.epilogue_residual_gn_stats = wrap("epilogue_residual_gn_stats", lambda *a: "K7")
+    srv._rb_kernel = wrap("_rb_kernel", lambda *a: "K12")
     try:
         yield records
     finally:
@@ -117,33 +145,105 @@ def conv_plan(cfg):
     return k1, epi["K2"], epi["K6"], k3
 
 
-def expected_launches(cfg, steps: int = 1) -> dict:
+def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, resblock_pallas=False) -> dict:
+    """The sites of one serving step that the three levers send through K4,
+    K7 and K12, from the config and the forward's own predicates (no
+    tensors): {"K4": [(site, HW, C)], "K7": [(site, HW, N)], "K12": [(site,
+    H, C)]}.  A site is a resblock's name, or "conv_out" for its entry."""
+    from ..models.unet import iter_conv_layers
+    from .pallas_conv import conv3_pallas_wins
+    from .pallas_resblock import resblock_pallas_fits
+
+    cin_of = {name: cin for name, cin, _k in iter_conv_layers(cfg)}
+    levels, nrb = len(cfg.ch_mult), cfg.num_res_blocks
+    res = [cfg.resolution >> i for i in range(levels)]
+    attn = [r in cfg.attn_resolutions for r in res]
+    plan = {"K4": [], "K7": [], "K12": []}
+    sums = False  # whether a K7 exit's sums reach the next block's norm1
+
+    def block(name, lvl, want=False):
+        nonlocal sums
+        H, cin = res[lvl], cin_of[f"{name}.conv1"]
+        cout = cin if name.startswith("mid") else cfg.ch * cfg.ch_mult[lvl]
+        entry_sums, sums = sums, False
+        if (resblock_pallas and not entry_sums and not want and cin == cout and cin % 128 == 0
+                and resblock_pallas_fits(batch, H, H, cin)
+                and (resblock_pallas == "all" or conv3_pallas_wins(batch, H, H, cin, cin))):
+            plan["K12"].append((name, H, cin))
+            return
+        if entry_pallas and not entry_sums and fused_gn.gn_act_quant_fits(H * H, cin):
+            plan["K4"].append((name, H * H, cin))
+        if want and cout % 128 == 0 and fused_gn.epilogue_residual_gn_stats_fits(H * H, cout):
+            plan["K7"].append((name, H * H, cout))
+            sums = True
+
+    for lvl in range(levels):
+        for j in range(nrb):
+            block(f"down.{lvl}.block.{j}", lvl,
+                  want=bool(boundary_fusion) and not attn[lvl] and (j != nrb - 1 or lvl == levels - 1))
+            if attn[lvl]:
+                sums = False
+        if lvl != levels - 1:
+            sums = False
+    block("mid.block_1", levels - 1)
+    sums = False  # mid.attn_1
+    block("mid.block_2", levels - 1)
+    for lvl in reversed(range(levels)):
+        for j in range(nrb + 1):
+            block(f"up.{lvl}.block.{j}", lvl)
+    if entry_pallas and fused_gn.gn_act_quant_fits(res[0] * res[0], cin_of["conv_out"]):
+        plan["K4"].append(("conv_out", res[0] * res[0], cin_of["conv_out"]))
+    return plan
+
+
+def expected_launches(cfg, steps: int = 1, batch: int = 1, **levers) -> dict:
     """Launch counts of `steps` serving steps, per kernel (K13 and K5 are
-    K1's int32 3x3 and 1x1 launches)."""
+    K1's int32 3x3 and 1x1 launches), under the levers given (`lever_plan`'s
+    keywords; none: the levers-off path).  A block K12 takes launches
+    neither its two K1 convs nor its K2 / K6 epilogue."""
     k1, k2, k6, k3 = conv_plan(cfg)
-    return {"K1": len(k1) * steps, "K2": len(k2) * steps, "K6": len(k6) * steps, "K3": len(k3) * steps,
-            "K5": sum(1 for c in k1 if c[4] == 1) * steps,
-            "K13": sum(1 for c in k1 if c[4] == 3 and c[5] == 1 and c[6] == torch.int32) * steps}
+    plan = lever_plan(cfg, batch, **levers)
+    whole = {site for site, _H, _C in plan["K12"]}
+    k1 = [c for c in k1 if c[0].rsplit(".", 1)[0] not in whole]
+    taken = [(H * H, C) for _site, H, C in plan["K12"]]
+    for shapes in (k2, k6):
+        for shape in list(taken):
+            if shape in shapes:
+                shapes.remove(shape)
+                taken.remove(shape)
+    counts = {"K1": len(k1), "K2": len(k2), "K6": len(k6), "K3": len(k3),
+              "K5": sum(1 for c in k1 if c[4] == 1),
+              "K13": sum(1 for c in k1 if c[4] == 3 and c[5] == 1 and c[6] == torch.int32),
+              "K4": len(plan["K4"]), "K7": len(plan["K7"]), "K12": len(plan["K12"])}
+    return {k: n * steps for k, n in counts.items()}
 
 
-def launch_counters():
+def launch_counters() -> dict:
     """The kernel wrappers whose `.launches` count their kernels."""
-    from .fused_gn import epilogue_gn_swish_quant_blocked, epilogue_gn_swish_quant_whole
+    from .fused_gn import (
+        epilogue_gn_swish_quant_blocked,
+        epilogue_gn_swish_quant_whole,
+        epilogue_residual_gn_stats,
+        gn_act_quant,
+    )
     from .int8_attention import fused_attention_block
     from .pallas_conv import int8_conv
+    from .pallas_resblock import resblock_pallas
 
-    return int8_conv, epilogue_gn_swish_quant_whole, epilogue_gn_swish_quant_blocked, fused_attention_block
+    return {"K1": int8_conv, "K2": epilogue_gn_swish_quant_whole, "K6": epilogue_gn_swish_quant_blocked,
+            "K3": fused_attention_block, "K4": gn_act_quant, "K7": epilogue_residual_gn_stats,
+            "K12": resblock_pallas}
 
 
 def reset_launches():
-    int8_conv, *rest = launch_counters()
-    int8_conv.launches, int8_conv.launches_by_mode = 0, {}
-    for fn in rest:
+    counters = launch_counters()
+    counters["K1"].launches_by_mode = {}
+    for fn in counters.values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    int8_conv, k2, k6, k3 = launch_counters()
-    by_mode = int8_conv.launches_by_mode
-    return {"K1": int8_conv.launches, "K2": k2.launches, "K6": k6.launches, "K3": k3.launches,
+    counters = launch_counters()
+    by_mode = counters["K1"].launches_by_mode
+    return {**{k: fn.launches for k, fn in counters.items()},
             "K5": by_mode.get("1x1/s1/int32", 0), "K13": by_mode.get("3x3/s1/int32", 0)}

@@ -1,8 +1,16 @@
-"""K2 and K6: the resblock's fused conv1 epilogue -> +temb -> GroupNorm ->
-swish -> int8 quant (port of `attentiondm_tpu/ops/fused_gn.epilogue_gn_swish_quant`
-and `epilogue_gn_swish_quant_blocked`).
+"""The fused GroupNorm kernels of the serving resblock (port of
+`attentiondm_tpu/ops/fused_gn.py`): K4 `gn_act_quant` (the entry), K2 and
+K6 `epilogue_gn_swish_quant` / `_blocked` (conv1 epilogue -> +temb ->
+GroupNorm -> swish -> int8 quant) and K7 `epilogue_residual_gn_stats` (the
+exit plus the next entry's statistics).
 
-One pass from conv1's output (bf16 already dequantized, or the int32
+K4 (csrc/gn_act_quant.cu): GroupNorm -> swish or none -> one to three int8
+quantizations of the same normalized tensor, one block per image.  K7
+(csrc/epilogue_residual_gn_stats.cu): residual' = x_res + dequant(dot) and
+the per-(image, group) sums [B, 2, G] of the f32 residual', which
+`gn_finalize_sums` turns into the next GroupNorm's mean and rstd.
+
+K2 and K6: one pass from conv1's output (bf16 already dequantized, or the int32
 accumulator with `inv_ws` / `zcbias`) to conv2's int8 input; the float32
 intermediate never reaches device memory.  `epilogue_gn_swish_quant`
 routes by JAX's own predicate: images within the TPU kernel's whole-image
@@ -160,7 +168,7 @@ def epilogue_gn_swish_quant(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_sc
 def epilogue_gn_swish_quant_whole(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp,
                                   a_bit: int, *, plain: bool = False):
     """K2: `epilogue_gn_swish_quant`, one block per image, at any shape it
-    takes (N dividing 512, HW up to 32 * 32 * CHUNK rows).  The serving path
+    takes (N up to 1024, HW up to 32 * 32 * CHUNK rows).  The serving path
     reaches it through the router; called directly it also runs at K6's
     shapes, for comparing the two.  `plain=True` runs the plain version on
     any device."""
@@ -170,10 +178,10 @@ def epilogue_gn_swish_quant_whole(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, 
     B, N = dot.shape[0], dot.shape[-1]
     HW = dot.numel() // (B * N)
     g = min(GROUPS, N)
-    if dot.dtype not in (torch.bfloat16, torch.int32) or N % g or 512 % N or HW > WIN * WIN * CHUNK:
+    if dot.dtype not in (torch.bfloat16, torch.int32) or N % g or N > 1024 or HW > WIN * WIN * CHUNK:
         raise NotImplementedError(
-            f"epilogue_gn_swish_quant_whole: {dot.dtype}, N={N}, HW={HW} (K2 takes bf16 or int32, N "
-            f"dividing 512 and HW <= {WIN * WIN * CHUNK})")
+            f"epilogue_gn_swish_quant_whole: {dot.dtype}, N={N}, HW={HW} (K2 takes bf16 or int32, N up "
+            f"to 1024 and HW <= {WIN * WIN * CHUNK})")
     dot, vecs = _vectors(*args[:-1])
     _build.require_cuda("epilogue_gn_swish_quant_whole", dot, *vecs)
     out = torch.empty(dot.shape, dtype=torch.int8, device=dot.device)
@@ -217,3 +225,132 @@ def epilogue_gn_swish_quant_blocked(dot, inv_ws, zcbias, temb, gn_scale, gn_bias
 
 
 epilogue_gn_swish_quant_blocked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: GroupNorm -> swish or none -> n_out int8 quantizations
+# ---------------------------------------------------------------------------
+
+
+def gn_act_quant_fits(HW: int, C: int) -> bool:
+    """JAX's predicate for the one-pass entry kernel (a whole f32 image and
+    its int8 output within 4 MiB); callers that route the entry
+    (`quant/int8_serving._entry_gn_quant`) gate on it."""
+    return HW * C * 5 <= WHOLE_IMAGE_BYTES
+
+
+def gn_act_quant_ref(x, gn_scale, gn_bias, quant_params, *, act: str = "swish"):
+    """Plain version of K4."""
+    B, C = x.shape[0], x.shape[-1]
+    h = gn_normalize(x.to(torch.float32).reshape(B, -1, C), gn_scale.float(), gn_bias.float())
+    if act == "swish":
+        h = swish(h)
+    return tuple(quant_i8(h, s, z, b).reshape(x.shape) for (s, z, b) in quant_params)
+
+
+def gn_act_quant(x, gn_scale, gn_bias, quant_params, *, groups: int = GROUPS, act: str = "swish",
+                 plain: bool = False):
+    """K4: x [B, H, W, C] or [B, HW, C] (bf16 or f32) -> a tuple of int8
+    tensors of x's shape, one per (act_scale [C], act_zp [C], a_bit) of
+    `quant_params` (1 to 3), each the quantized GroupNorm(x) after `act`
+    ("swish" or "none").  `plain=True` runs the plain version on any device."""
+    if act not in ("swish", "none"):
+        raise ValueError(f"gn_act_quant: act={act!r}")
+    if groups != GROUPS:
+        raise NotImplementedError(f"gn_act_quant: groups={groups} (the UNet's GroupNorm has {GROUPS})")
+    if plain or x.device.type == "cpu":
+        return gn_act_quant_ref(x, gn_scale, gn_bias, quant_params, act=act)
+    B, C = x.shape[0], x.shape[-1]
+    HW = x.numel() // (B * C)
+    g = min(GROUPS, C)
+    n_out = len(quant_params)
+    if (x.dtype not in (torch.bfloat16, torch.float32) or C % g or C > 1024 or not 1 <= n_out <= 3
+            or HW > WIN * WIN * CHUNK):
+        raise NotImplementedError(
+            f"gn_act_quant: {x.dtype}, C={C}, HW={HW}, {n_out} outputs (K4 takes bf16 or f32, C up to "
+            f"1024, HW <= {WIN * WIN * CHUNK}, 1 to 3 outputs)")
+    x = x.contiguous()
+    vecs = [_build.f32c(v, x.device) for v in (gn_scale, gn_bias)]
+    vecs += [_build.f32c(v, x.device) for (s, z, _b) in quant_params for v in (s, z)]
+    _build.require_cuda("gn_act_quant", x, *vecs)
+    if any(v.numel() != C for v in vecs):
+        raise ValueError(f"gn_act_quant: per-channel vectors must hold {C} values")
+    outs = [torch.empty(x.shape, dtype=torch.int8, device=x.device) for _ in range(n_out)]
+    pad = [0] * (3 - n_out)
+    err = _build.kernels().adm_gn_act_quant(
+        x.data_ptr(), int(x.dtype == torch.float32), *(v.data_ptr() for v in vecs), *pad, *pad, n_out,
+        *(2 ** (b - 1) for (_s, _z, b) in quant_params), *pad, *(o.data_ptr() for o in outs), *pad,
+        int(act == "swish"), B, HW, C, g, 1.0 / (HW * (C // g)), _build.stream_ptr(x.device))
+    _build.check(err, "adm_gn_act_quant")
+    gn_act_quant.launches += 1
+    return tuple(outs)
+
+
+gn_act_quant.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: resblock exit + the next GroupNorm's sums
+# ---------------------------------------------------------------------------
+
+
+def epilogue_residual_gn_stats_fits(HW: int, N: int, res_b: int = 4, out_b: int = 4) -> bool:
+    """JAX's predicate for the fused exit (whole image in the TPU kernel's
+    4 MiB block, N on the 128 grid, HW on the 8 grid)."""
+    return HW * N * (4 + res_b + out_b + 4) <= WHOLE_IMAGE_BYTES and N % 128 == 0 and HW % 8 == 0
+
+
+def gn_finalize_sums(sums, HW: int, cg: int):
+    """[B, 2, G] sum / sum of squares -> (mean [B, G], rstd [B, G])."""
+    return _finalize(sums[:, 0, :], sums[:, 1, :], 1.0 / (HW * cg))
+
+
+def epilogue_residual_gn_stats_ref(dot, inv_ws, zcbias, x_res, *, out_dtype=torch.float32):
+    """Plain version of K7, its sums in `window_sum`'s order."""
+    B, N = dot.shape[0], dot.shape[-1]
+    g = min(GROUPS, N)
+    r = x_res.to(torch.float32).reshape(B, -1, N) + (dot.to(torch.float32).reshape(B, -1, N) * inv_ws + zcbias)
+    s_g = _seq_sum(window_sum(r).reshape(B, g, N // g), -1)
+    s2_g = _seq_sum(window_sum(r * r).reshape(B, g, N // g), -1)
+    return r.to(out_dtype).reshape(dot.shape), torch.stack([s_g, s2_g], dim=1)
+
+
+def epilogue_residual_gn_stats(dot, inv_ws, zcbias, x_res, *, out_dtype=torch.float32,
+                               groups: int = GROUPS, plain: bool = False):
+    """K7: dot [B, H, W, N] (conv2's int32 accumulator, or bf16 already
+    dequantized with inv_ws = 1, zcbias = 0) and the shortcut branch x_res
+    (f32 or bf16) -> (residual' = x_res + dot * inv_ws + zcbias at
+    `out_dtype`, sums [B, 2, G] f32 of the f32 residual' per image and
+    group, before the rounding to `out_dtype`).  `plain=True` runs the plain
+    version on any device."""
+    if groups != GROUPS:
+        raise NotImplementedError(f"epilogue_residual_gn_stats: groups={groups}")
+    if plain or dot.device.type == "cpu":
+        return epilogue_residual_gn_stats_ref(dot, inv_ws, zcbias, x_res, out_dtype=out_dtype)
+    B, N = dot.shape[0], dot.shape[-1]
+    HW = dot.numel() // (B * N)
+    g = min(GROUPS, N)
+    if (dot.dtype not in (torch.bfloat16, torch.int32) or x_res.dtype not in (torch.float32, torch.bfloat16)
+            or out_dtype not in (torch.float32, torch.bfloat16) or x_res.shape != dot.shape
+            or N % g or N > 1024 or HW > WIN * WIN * CHUNK):
+        raise NotImplementedError(
+            f"epilogue_residual_gn_stats: dot {dot.dtype} {tuple(dot.shape)}, x_res {x_res.dtype} "
+            f"{tuple(x_res.shape)}, out {out_dtype} (K7 takes bf16 or int32 dot, f32 or bf16 x_res and out of "
+            f"one shape, N up to 1024, HW <= {WIN * WIN * CHUNK})")
+    dot, x_res = dot.contiguous(), x_res.contiguous()
+    iw, zc = _build.f32c(inv_ws, dot.device), _build.f32c(zcbias, dot.device)
+    _build.require_cuda("epilogue_residual_gn_stats", dot, x_res, iw, zc)
+    if iw.numel() != N or zc.numel() != N:
+        raise ValueError(f"epilogue_residual_gn_stats: inv_ws and zcbias must hold {N} values")
+    out = torch.empty(dot.shape, dtype=out_dtype, device=dot.device)
+    sums = torch.empty((B, 2, g), dtype=torch.float32, device=dot.device)
+    err = _build.kernels().adm_epilogue_residual_gn_stats(
+        dot.data_ptr(), int(dot.dtype == torch.int32), iw.data_ptr(), zc.data_ptr(), x_res.data_ptr(),
+        int(x_res.dtype == torch.float32), out.data_ptr(), int(out_dtype == torch.float32), sums.data_ptr(),
+        B, HW, N, g, _build.stream_ptr(dot.device))
+    _build.check(err, "adm_epilogue_residual_gn_stats")
+    epilogue_residual_gn_stats.launches += 1
+    return out, sums
+
+
+epilogue_residual_gn_stats.launches = 0

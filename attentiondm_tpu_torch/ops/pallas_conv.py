@@ -27,6 +27,38 @@ from . import _build
 from .quant_conv import int8_matmul_ref
 
 _MODES = {torch.int32: 0, torch.bfloat16: 1}
+VMEM_BUDGET = 8 << 20  # the TPU conv kernel's plan, kept for JAX's routing predicates
+
+
+def conv3_pallas_fits(B: int, H: int, W: int, Cp: int, Np: int) -> bool:
+    """JAX's eligibility of a 3x3 shape for its conv kernel: channels on the
+    128 grid and the TPU kernel's plan (weights, one halo'd image, its
+    accumulator and output) within its budget."""
+    return Cp % 128 == 0 and Np % 128 == 0 and 9 * Cp * Np + (H + 2) * (W + 2) * Cp + H * W * Np * 6 <= VMEM_BUDGET
+
+
+def conv3_pallas_wins(B: int, H: int, W: int, Cp: int, Np: int) -> bool:
+    """JAX's per-shape routing policy for its conv kernel, a pure predicate:
+    every shape but (Cp, Np) = (128, 128), and below 8x8 only Cp >= 512 with
+    Np >= 256.  `resblock_pallas=True` gates K12 on it, as JAX does."""
+    if H < 8 or W < 8:
+        return Cp >= 512 and Np >= 256
+    return not (Cp == 128 and Np == 128)
+
+
+def qzero(zp, a_bit: int):
+    """Each channel's quantized zero, clip(round(-zp), -n, n - 1): the int8
+    code that decodes to 0.0."""
+    n = 2 ** (a_bit - 1)
+    return torch.clamp(torch.round(-zp), -n, n - 1).to(torch.int8)
+
+
+def pad_qzero(xq, zp, a_bit: int):
+    """Spatial +1 halo filled with each channel's quantized zero."""
+    B, H, W, C = xq.shape
+    out = qzero(zp, a_bit).expand(B, H + 2, W + 2, C).clone()
+    out[:, 1:H + 1, 1:W + 1, :] = xq
+    return out
 
 
 def _out_hw(Hp: int, Wp: int, ksize: int, stride: int):

@@ -3,22 +3,31 @@
 
 Activations are int8-resident between convs.  Per resblock:
 
-  entry:   GroupNorm -> swish -> quantize in plain torch (`gn_act_quant_xla`)
+  entry:   GroupNorm -> swish -> quantize in plain torch (`gn_act_quant_xla`),
+           or K4 (`entry_pallas`, where the image fits JAX's budget)
   conv1:   K1, 3x3, bf16 epilogue (`acc*inv_ws + zcbias`)
   middle:  K2 or K6 (ops/fused_gn.py, routed by image size): +temb ->
            GroupNorm -> swish -> int8
   conv2:   K1, 3x3, bf16 epilogue
-  exit:    + shortcut (K1 1x1 int8 `nin_shortcut` where channels change)
+  exit:    + shortcut (K1 1x1 int8 `nin_shortcut` where channels change), or
+           K7 (`boundary_fusion`): the add plus the next block's GroupNorm
+           sums, which then skips its statistics pass
+
+With `resblock_pallas` an identity-residual block (no shortcut, no boundary
+fusion on either side) is K12 (ops/pallas_resblock.py), the whole chain
+behind one call.
 
 Attention blocks are K3 (ops/int8_attention.py) whole; the stride-2
 downsample, the int8-domain nearest upsample and `conv_out` are K1 in int32
 mode with a plain-torch dequant.  `conv_in` (3 input channels) stays on the
 fake-quant float conv.
 
-The port takes only the serving path's flag values: bf16 residual stream,
-`dot_bf16`, f32 attention core, no levers, symmetric weights, DDIM update,
-no step chunking.  Every other value raises NotImplementedError naming the
-ROADMAP slice that ports it.
+The port takes the serving path's flag values: bf16 residual stream,
+`dot_bf16`, f32 attention core, symmetric weights, DDIM update, no step
+chunking; and JAX's three fusion levers `entry_pallas`, `boundary_fusion`
+and `resblock_pallas` (True or "all"), routed by JAX's predicates.  Every
+other value raises NotImplementedError naming the ROADMAP slice that ports
+it.
 """
 from __future__ import annotations
 
@@ -40,9 +49,18 @@ from ..models.unet import (
     lookup,
     swish,
 )
-from ..ops.fused_gn import epilogue_gn_swish_quant, quant_i8 as _quant_i8
+from ..ops.fused_gn import (
+    epilogue_gn_swish_quant,
+    epilogue_residual_gn_stats,
+    epilogue_residual_gn_stats_fits,
+    gn_act_quant,
+    gn_act_quant_fits,
+    gn_finalize_sums,
+    quant_i8 as _quant_i8,
+)
 from ..ops.int8_attention import fused_attention_block
-from ..ops.pallas_conv import int8_conv as _k1
+from ..ops.pallas_conv import conv3_pallas_wins, int8_conv as _k1, pad_qzero as _pad_qzero, qzero as _qzero
+from ..ops.pallas_resblock import resblock_pallas as _rb_kernel, resblock_pallas_fits
 from .int8_runtime import _eligible, _fold_all_steps
 from .primitives import div
 from .qunet import QuantizedUNet
@@ -59,9 +77,7 @@ _SLICE = {
     "pack_int4": _CHUNK,
     "rank1": _CHUNK,
     "weight_extras": "Queue 1, 'stage 2/3 calibration and GPTQ/AdaRound'",
-    "boundary_fusion": "Queue 2, K7",
-    "entry_pallas": "Queue 2, K4",
-    "resblock_pallas": "Queue 2, K12",
+    "resblock_pallas": _FLAGS + " (the (H, Cp, Np) shape-list form)",
     "conv_pallas": _FLAGS,
     "mp_states": _FLAGS,
     "symmetric": _FLAGS,
@@ -72,18 +88,22 @@ _SLICE = {
 
 # the serving path's values; anything else raises
 _SERVING_FLAGS = dict(
-    residual_dtype=torch.bfloat16, attn_int8=False, attn_ranges=None, boundary_fusion=False,
-    dot_bf16=True, entry_pallas=False, conv_pallas=False, resblock_pallas=False, mp_states=None,
+    residual_dtype=torch.bfloat16, attn_int8=False, attn_ranges=None, dot_bf16=True, conv_pallas=False,
+    mp_states=None,
 )
 
 
 def _require(**flags):
     for name, value in flags.items():
-        want = {**_SERVING_FLAGS, "step_chunk": None, "micro_batch": None, "pack_int4": False,
-                "rank1": False, "weight_extras": None, "symmetric": True, "update": "ddim"}[name]
-        if value is not want and value != want:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet; it comes with ROADMAP {_SLICE[name]}")
+        if name == "resblock_pallas":  # False, True (JAX's per-shape gate) or "all"
+            if value is False or value is True or (isinstance(value, str) and value == "all"):
+                continue
+        else:
+            want = {**_SERVING_FLAGS, "step_chunk": None, "micro_batch": None, "pack_int4": False,
+                    "rank1": False, "weight_extras": None, "symmetric": True, "update": "ddim"}[name]
+            if value is want or value == want:
+                continue
+        raise NotImplementedError(f"{name}={value!r} is not ported yet; it comes with ROADMAP {_SLICE[name]}")
 
 
 # ---------------------------------------------------------------------------
@@ -149,39 +169,44 @@ def runtime_nbytes(runtime: Dict[str, ServingLayer]) -> int:
 # ---------------------------------------------------------------------------
 
 
-def gn_act_quant_xla(x, gn_p, quant_params):
-    """GroupNorm(32 groups, eps 1e-6) -> swish -> quantize, two passes
-    (stats, then a fused normalize/swish/quantize); one int8 output per
-    (scale, zp, bit)."""
+def gn_act_quant_xla(x, gn_p, quant_params, *, act="swish", sums=None):
+    """GroupNorm(32 groups, eps 1e-6) -> act -> quantize in plain torch, two
+    passes (stats, then a fused normalize/swish/quantize); one int8 output
+    per (scale, zp, bit).
+
+    `sums` [B, 2, G] (K7's, the previous resblock's fused exit) skips the
+    statistics pass: mean and rstd come from `gn_finalize_sums`."""
     xf = x.to(torch.float32)
     B, C = xf.shape[0], xf.shape[-1]
     g = min(32, C)
-    xg = xf.reshape(B, -1, g, C // g)
-    mean, rstd = xg.mean(dim=(1, 3)), torch.rsqrt(xg.var(dim=(1, 3), correction=0) + 1e-6)
+    if sums is None:
+        xg = xf.reshape(B, -1, g, C // g)
+        mean, rstd = xg.mean(dim=(1, 3)), torch.rsqrt(xg.var(dim=(1, 3), correction=0) + 1e-6)
+    else:
+        mean, rstd = gn_finalize_sums(sums, xf.numel() // (B * C), C // g)
     shape = (B,) + (1,) * (xf.ndim - 2) + (C,)
     mean_c = mean.repeat_interleave(C // g, dim=1).reshape(shape)
     rstd_c = rstd.repeat_interleave(C // g, dim=1).reshape(shape)
     h = (xf - mean_c) * rstd_c * gn_p["scale"].float() + gn_p["bias"].float()
-    h = h * torch.sigmoid(h)
+    if act == "swish":
+        h = h * torch.sigmoid(h)
     return tuple(_quant_i8(h, s, z, b) for (s, z, b) in quant_params)
 
 
-def _qzero(zp, a_bit):
-    n = 2 ** (a_bit - 1)
-    return torch.clamp(torch.round(-zp), -n, n - 1).to(torch.int8)
+def _entry_gn_quant(h_res, gn_p, quant_params, *, sums=None, entry_pallas=False, plain=False):
+    """Resblock / conv_out entry: GN -> swish -> quantize.  `entry_pallas`
+    takes K4 where the image fits JAX's one-pass budget; with `sums`
+    (boundary fusion) the plain entry is already one pass and stays."""
+    if entry_pallas and sums is None:
+        C = h_res.shape[-1]
+        if gn_act_quant_fits(h_res.numel() // (h_res.shape[0] * C), C):
+            return gn_act_quant(h_res, gn_p["scale"], gn_p["bias"], quant_params, plain=plain)
+    return gn_act_quant_xla(h_res, gn_p, quant_params, sums=sums)
 
 
 def _pad_channels(xp, Cp):
     C = xp.shape[-1]
     return xp if C == Cp else F.pad(xp, (0, Cp - C))
-
-
-def _pad_qzero(xq, zp, a_bit):
-    """Spatial +1 halo filled with each channel's quantized zero."""
-    B, H, W, C = xq.shape
-    out = _qzero(zp, a_bit).expand(B, H + 2, W + 2, C).clone()
-    out[:, 1:H + 1, 1:W + 1, :] = xq
-    return out
 
 
 def int8_conv(xq, gq_flat, ksize: int, *, plain: bool = False):
@@ -242,18 +267,38 @@ def _uncovered(name):
         f"channels off the 128 grid) take the unfused serving branch, not ported yet (ROADMAP {_FLAGS})")
 
 
-def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, plain=False):
+def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, entry_sums=None,
+                    want_exit_stats=False, entry_pallas=False, resblock_pallas=False, plain=False):
     """norm1 -> swish -> conv1 -> (+temb) -> norm2 -> swish -> conv2 (+shortcut),
-    the `dot_bf16` fused branch."""
+    the `dot_bf16` fused branch.  Returns (residual', exit sums or None).
+
+    Boundary fusion: `entry_sums` are the previous fused exit's GroupNorm
+    sums over this block's input (norm1 skips its statistics pass);
+    `want_exit_stats` asks the exit for residual' and the next norm1's sums
+    in one pass (K7)."""
     c1, c2 = rt_i.get(f"{name}.conv1"), rt_i.get(f"{name}.conv2")
     a1, a2 = qunet.policy[f"{name}.conv1"], qunet.policy[f"{name}.conv2"]
     co1, co2 = p["conv1"]["kernel"].shape[3], p["conv2"]["kernel"].shape[3]
     if c1 is None or c2 is None or c1.zcbias.shape[-1] != co1:
         raise _uncovered(name)
     tproj = dense(swish(temb_act), p["temb_proj"]).to(torch.float32)  # [B, co1]
-    hf = h_res.to(torch.float32)
 
-    (hq,) = gn_act_quant_xla(h_res, p["norm1"], [(c1.act_scale, c1.act_zp, a1.a_bit)])
+    # K12: identity-residual blocks outside boundary fusion run whole, gated
+    # per shape by JAX's conv policy unless "all"
+    if (resblock_pallas and entry_sums is None and not want_exit_stats and "nin_shortcut" not in p
+            and h_res.shape[-1] == co1 == co2 and c1.gq.shape[-1] == co1 and c2.gq.shape[-1] == co2):
+        B_, H_, W_, C_ = h_res.shape
+        if resblock_pallas_fits(B_, H_, W_, C_) and (
+                resblock_pallas == "all" or conv3_pallas_wins(B_, H_, W_, C_, C_)):
+            out = _rb_kernel(
+                h_res, tproj, p["norm1"]["scale"], p["norm1"]["bias"], (c1.act_scale, c1.act_zp), c1.gq,
+                (c1.inv_ws, c1.zcbias), p["norm2"]["scale"], p["norm2"]["bias"], (c2.act_scale, c2.act_zp),
+                c2.gq, (c2.inv_ws, c2.zcbias), a_bit1=a1.a_bit, a_bit2=a2.a_bit, out_dtype=res_dtype,
+                plain=plain)
+            return out, None
+
+    (hq,) = _entry_gn_quant(h_res, p["norm1"], [(c1.act_scale, c1.act_zp, a1.a_bit)], sums=entry_sums,
+                            entry_pallas=entry_pallas, plain=plain)
     hq2 = epilogue_gn_swish_quant(
         _conv3_bf16(hq, c1.act_zp, a1.a_bit, c1, plain=plain),
         torch.ones_like(c1.inv_ws), torch.zeros_like(c1.zcbias), tproj,
@@ -261,6 +306,7 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, plain=F
     )
     dot2 = _conv3_bf16(hq2, c2.act_zp, a2.a_bit, c2, plain=plain)
 
+    hf = h_res.to(torch.float32)
     if "nin_shortcut" in p:
         sname = f"{name}.nin_shortcut"
         lay = rt_i.get(sname)
@@ -270,8 +316,12 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, plain=F
         x_sc = _epilogue(int8_conv(xq, lay.gq, 1, plain=plain), lay, p["nin_shortcut"]["kernel"].shape[3])
     else:
         x_sc = hf
-    # identity dequant: dot2 already carries inv_ws + zcbias
-    return (x_sc + dot2.to(torch.float32)[..., :co2]).to(res_dtype)
+    # identity dequant below: dot2 already carries inv_ws + zcbias
+    B, Np = dot2.shape[0], dot2.shape[-1]
+    if want_exit_stats and Np == co2 and epilogue_residual_gn_stats_fits(dot2.numel() // (B * Np), Np):
+        return epilogue_residual_gn_stats(dot2, torch.ones_like(c2.inv_ws), torch.zeros_like(c2.zcbias), x_sc,
+                                          out_dtype=res_dtype, plain=plain)
+    return (x_sc + dot2.to(torch.float32)[..., :co2]).to(res_dtype), None
 
 
 def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, plain=False):
@@ -311,31 +361,46 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     """Fused int8-resident forward (eps, float32).  Mirrors
     models/unet.unet_apply at inference.
 
+    The three levers, each routed by JAX's predicates: `entry_pallas` sends
+    every resblock and conv_out entry whose image fits through K4;
+    `boundary_fusion` fuses a resblock exit with the next block's GroupNorm
+    statistics (K7) where that block's norm1 reads exactly the exit's
+    tensor; `resblock_pallas` (True: where JAX's conv policy says so; "all":
+    wherever it fits) runs identity-residual blocks as K12.
+
     `plain=True` runs the kernels' plain versions instead, on any device
     (for comparisons)."""
     _require(residual_dtype=residual_dtype, attn_int8=attn_int8, attn_ranges=attn_ranges,
-             boundary_fusion=boundary_fusion, dot_bf16=dot_bf16, entry_pallas=entry_pallas,
-             conv_pallas=conv_pallas, resblock_pallas=resblock_pallas, mp_states=mp_states)
+             dot_bf16=dot_bf16, conv_pallas=conv_pallas, resblock_pallas=resblock_pallas, mp_states=mp_states)
     check_ported(cfg)
     rt_i = gather_step(runtime, step_idx)
     num_levels = len(cfg.ch_mult)
     res = residual_dtype
+    levers = dict(entry_pallas=bool(entry_pallas), resblock_pallas=resblock_pallas, plain=plain)
 
     temb = get_timestep_embedding(t, cfg.ch)
     temb = dense(swish(dense(temb, params["temb"]["dense0"])), params["temb"]["dense1"])
 
     hs = [_conv_any("conv_in", x.to(torch.float32), params["conv_in"], rt_i, qunet, qstates,
                     step_idx, plain=plain).to(res)]
+    # boundary fusion: `sums` carries the previous fused exit's GroupNorm sums
+    # only while the next consumer is a resblock norm1 over exactly that
+    # tensor; attention, downsampling and the up path's concats reset it
+    sums = None
     for i_level in range(num_levels):
         lp = params["down"][i_level]
         for i_block in range(cfg.num_res_blocks):
-            h = _resblock_fused(f"down.{i_level}.block.{i_block}", lp["block"][i_block], hs[-1],
-                                temb, rt_i, qunet, res, plain=plain)
+            last_blk = i_block == cfg.num_res_blocks - 1
+            want = bool(boundary_fusion) and not lp["attn"] and (not last_blk or i_level == num_levels - 1)
+            h, sums = _resblock_fused(f"down.{i_level}.block.{i_block}", lp["block"][i_block], hs[-1],
+                                      temb, rt_i, qunet, res, entry_sums=sums, want_exit_stats=want, **levers)
             if lp["attn"]:
                 h = _attn_fused(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, rt_i,
                                 qunet, res, plain=plain)
+                sums = None
             hs.append(h)
         if i_level != num_levels - 1:
+            sums = None
             nm = f"down.{i_level}.downsample.conv"
             lay = rt_i.get(nm)
             if lay is None:
@@ -347,15 +412,16 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
             hs.append(_epilogue(dot, lay, lookup(params, nm)["kernel"].shape[3]).to(res))
 
     h = hs[-1]
-    h = _resblock_fused("mid.block_1", params["mid"]["block_1"], h, temb, rt_i, qunet, res, plain=plain)
+    h, _ = _resblock_fused("mid.block_1", params["mid"]["block_1"], h, temb, rt_i, qunet, res,
+                           entry_sums=sums, **levers)
     h = _attn_fused("mid.attn_1", params["mid"]["attn_1"], h, rt_i, qunet, res, plain=plain)
-    h = _resblock_fused("mid.block_2", params["mid"]["block_2"], h, temb, rt_i, qunet, res, plain=plain)
+    h, _ = _resblock_fused("mid.block_2", params["mid"]["block_2"], h, temb, rt_i, qunet, res, **levers)
 
     for i_level in reversed(range(num_levels)):
         lp = params["up"][i_level]
         for i_block in range(cfg.num_res_blocks + 1):
-            h = _resblock_fused(f"up.{i_level}.block.{i_block}", lp["block"][i_block],
-                                torch.cat([h, hs.pop()], dim=-1), temb, rt_i, qunet, res, plain=plain)
+            h, _ = _resblock_fused(f"up.{i_level}.block.{i_block}", lp["block"][i_block],
+                                   torch.cat([h, hs.pop()], dim=-1), temb, rt_i, qunet, res, **levers)
             if lp["attn"]:
                 h = _attn_fused(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, rt_i,
                                 qunet, res, plain=plain)
@@ -379,7 +445,8 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     if lay is None:
         raise _uncovered("conv_out")
     a_bit = qunet.policy["conv_out"].a_bit
-    (hq,) = gn_act_quant_xla(h, params["norm_out"], [(lay.act_scale, lay.act_zp, a_bit)])
+    (hq,) = _entry_gn_quant(h, params["norm_out"], [(lay.act_scale, lay.act_zp, a_bit)],
+                            entry_pallas=bool(entry_pallas), plain=plain)
     dot = int8_conv3_qzero(hq, lay.act_zp, a_bit, lay.gq, plain=plain)
     return _epilogue(dot, lay, cfg.out_ch).to(torch.float32)
 
@@ -399,12 +466,16 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
                          mp_states=None, runtime=None):
     """Deterministic (eta = 0) DDIM sampler over the fused int8 serving
     path, unchunked: folds every step's weights once (or reuses a prebuilt
-    `runtime`), then returns ``sample(x) -> x_final``."""
+    `runtime`), then returns ``sample(x) -> x_final``.
+
+    `runtime`: a prebuilt `prepare_serving_runtime` tree to reuse; samplers
+    that differ only in compute-path flags (`entry_pallas`,
+    `boundary_fusion`, `resblock_pallas`; see `serving_unet_apply`) share
+    one fold instead of holding a copy each."""
     check_eta(eta)
     _require(step_chunk=step_chunk, micro_batch=micro_batch, update=update,
              residual_dtype=residual_dtype, attn_int8=attn_int8, attn_ranges=attn_ranges,
-             boundary_fusion=boundary_fusion, dot_bf16=dot_bf16, entry_pallas=entry_pallas,
-             conv_pallas=conv_pallas, resblock_pallas=resblock_pallas, mp_states=mp_states)
+             dot_bf16=dot_bf16, conv_pallas=conv_pallas, resblock_pallas=resblock_pallas, mp_states=mp_states)
     t_rev, _, at, at_next = _seq_alphas(betas, seq)
     if runtime is None:
         runtime = prepare_serving_runtime(qunet, params, qstates, symmetric=symmetric,
@@ -414,7 +485,8 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
         n = x.shape[0]
         for i in range(t_rev.shape[0]):
             et = serving_unet_apply(params, qunet.cfg, qunet, runtime, qstates, x,
-                                    t_rev[i].to(torch.float32).expand(n), i)
+                                    t_rev[i].to(torch.float32).expand(n), i, boundary_fusion=boundary_fusion,
+                                    entry_pallas=entry_pallas, resblock_pallas=resblock_pallas)
             x, _ = ddim_step(x, et, at[i], at_next[i], 0.0, torch.zeros_like(x))
         return x
 

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import default_device
 from .primitives import fake_quant
 
 
@@ -54,8 +55,10 @@ def init_act_quant_state(num_steps: int, in_channels: int, cfg: ActQuantConfig, 
     )
 
 
-def from_jax_qstates(tree, device="cpu") -> dict:
-    """{name: dict of numpy arrays (the JAX ActQuantState fields)} -> {name: ActQuantState}."""
+def from_jax_qstates(tree, device=None) -> dict:
+    """{name: dict of numpy arrays (the JAX ActQuantState fields)} -> {name: ActQuantState}
+    on `device` (None: the package's `default_device()`)."""
+    device = default_device() if device is None else device
     fields = [f.name for f in dataclasses.fields(ActQuantState)]
     return {
         name: ActQuantState(**{k: torch.tensor(np.asarray(st[k]), dtype=torch.float32, device=device)

@@ -5,7 +5,7 @@
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
-3. then each path in turn, the CIFAR-10 W4A8 sampler (`UNetConfig()`,
+3. then each model in turn, the CIFAR-10 W4A8 sampler (`UNetConfig()`,
    batch 128) and the LSUN church W4A8 sampler (`configs/church.yml`,
    256^2, batch 32):
    a. kernels: each kernel against its plain PyTorch version on the card at
@@ -16,8 +16,17 @@
       shapes is K13's check, its 1x1 mode at the shortcut shapes K5's), K2
       and K6 at every resblock epilogue shape as the router sends them, K3
       at every attention shape.  At K6's shapes K2 is also run and timed
-      against K6.  A kernel's `ms` / `plain_ms` in the JSON line is the sum
-      over one serving step's launches of it;
+      against K6.  K4, K7 and K12 at every shape a serving step launches
+      under the three levers together or one alone (`ops.checks.lever_plan`).
+      A kernel's `ms` / `plain_ms` / `bound_ms` in the JSON line is the sum
+      over one serving step's launches of it (the step with all three
+      levers for K4, K7 and K12).  `bound_ms` is the least time the card
+      could take: per launch the larger of its bytes (every input read once,
+      every output written once) over 3.35 TB/s and its operations over the
+      peak of their type (1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s
+      f32 outside them); `library_ms` times the one PyTorch call that
+      computes the same function, where there is one (`torch._int_mm` for
+      K5), and is null elsewhere;
    b. slice: the full-width UNet at W4A8 with seeded random weights: FP DDIM
       teacher trajectory on 2 images, stage-1 calibration, the per-step fold
       and the int8 serving DDIM sampler (--steps quad steps; --steps 100 is
@@ -27,7 +36,14 @@
       tolerance against its plain version on the same inputs
       (`ops.checks.per_site`), and the whole step through the kernels
       against the whole step through the plain versions (printed, held to a
-      gross-fault bound).
+      gross-fault bound);
+   c. levers: the same params, calibration and fold with `entry_pallas`,
+      `boundary_fusion` and `resblock_pallas="all"`.  CIFAR-10: the sampler
+      again with all three (launch counts of K4, K7, K12 and the changed
+      K1 / K2 counts against `expected_launches`), the per-site step and the
+      chained step under the levers, and timed runs in turns of levers off,
+      all three, and each lever alone (the median of each is printed).  Church: one per-site step with the
+      three levers, launch counts checked.
 Prints a JSON line of per-kernel results, then {"ok": true, "device": ...}
 as the last line.  Any failure raises (nonzero exit, no result line); so
 does a machine without a CUDA device.
@@ -43,6 +59,7 @@ import time
 
 CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative error (gross faults only)
 BATCH = {"cifar10": 128, "church": 32}
+LEVER_ROUNDS = 5  # timed runs per lever setting, taken in turns
 
 META = {  # kernel -> (wrapper, source, the TPU kernel it replaces)
     "K1": ("int8_conv (implicit-GEMM int8 conv, all modes)", "attentiondm_tpu_torch/csrc/int8_conv.cu",
@@ -57,7 +74,29 @@ META = {  # kernel -> (wrapper, source, the TPU kernel it replaces)
            "attentiondm_tpu/ops/fused_gn.py:432"),
     "K3": ("fused_attention_block", "attentiondm_tpu_torch/csrc/int8_attention.cu",
            "attentiondm_tpu/ops/int8_attention.py:448"),
+    "K4": ("gn_act_quant", "attentiondm_tpu_torch/csrc/gn_act_quant.cu", "attentiondm_tpu/ops/fused_gn.py:109"),
+    "K7": ("epilogue_residual_gn_stats", "attentiondm_tpu_torch/csrc/epilogue_residual_gn_stats.cu",
+           "attentiondm_tpu/ops/fused_gn.py:292"),
+    "K12": ("resblock_pallas", "attentiondm_tpu_torch/csrc/resblock.cu",
+            "attentiondm_tpu/ops/pallas_resblock.py:114"),
 }
+ALL_LEVERS = dict(entry_pallas=True, boundary_fusion=True, resblock_pallas="all")
+LEVER_SETS = {"all three": ALL_LEVERS, "entry_pallas": dict(entry_pallas=True),
+              "boundary_fusion": dict(boundary_fusion=True), "resblock_pallas=all": dict(resblock_pallas="all")}
+
+# the card's published peaks (H100 SXM data sheet), for `bound_ms`
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12  # tensor cores, dense
+F32_FLOPS_PER_S = 67e12  # outside the tensor cores
+
+
+def bound(nbytes, int8_ops=0, f32_flops=0):
+    """(bytes ms, operations ms) the card needs at least for one launch."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, (int8_ops / INT8_OPS_PER_S + f32_flops / F32_FLOPS_PER_S) * 1e3
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def nvidia_smi_line() -> str:
@@ -80,11 +119,12 @@ def path_config(path):
             "church.yml LSUN church_outdoor")
 
 
-def time_ms(fn, reps: int = 20) -> float:
+def time_ms(fn, reps: int = 20, warm: bool = True) -> float:
     """Median per-call time in ms, CUDA events around each call, after a warm-up."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     ts = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -103,15 +143,25 @@ class Report:
     def __init__(self):
         self.rows = {}
 
-    def add(self, key, err, ms, plain_ms, weight=1):
-        r = self.rows.setdefault(key, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+    def add(self, key, err, ms, plain_ms, bound_ms, weight=1, library_ms=None):
+        r = self.rows.setdefault(key, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                       "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], float(err))
         r["ms"] += weight * ms
         r["plain_ms"] += weight * plain_ms
+        r["bound_ms"] += weight * max(bound_ms)
+        r["bytes_ms"] += weight * bound_ms[0]
+        r["ops_ms"] += weight * bound_ms[1]
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + weight * library_ms
 
 
 def _fig(f) -> str:
     return ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in f.items())
+
+
+def _bound_fig(b) -> str:
+    return f"bound {max(b):.4f} ms ({'bytes' if b[0] >= b[1] else 'operations'})"
 
 
 def _held(kind, label, got, want):
@@ -127,9 +177,15 @@ def kernel_phase(cfg, batch, gen, dev, report):
     import torch
 
     from attentiondm_tpu_torch.ops import checks
-    from attentiondm_tpu_torch.ops.fused_gn import epilogue_gn_swish_quant, epilogue_gn_swish_quant_whole
+    from attentiondm_tpu_torch.ops.fused_gn import (
+        epilogue_gn_swish_quant,
+        epilogue_gn_swish_quant_whole,
+        epilogue_residual_gn_stats,
+        gn_act_quant,
+    )
     from attentiondm_tpu_torch.ops.int8_attention import fused_attention_block
     from attentiondm_tpu_torch.ops.pallas_conv import int8_conv
+    from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
 
     k1, k2, k6, k3 = checks.conv_plan(cfg)
 
@@ -158,12 +214,29 @@ def kernel_phase(cfg, batch, gen, dev, report):
         kw = dict(ksize=k, stride=s, out_dtype=mode)
         f = _held("K1", f"H={H} Cp={Cp} Np={Np} k={k} s={s} {mode}", int8_conv(*args, **kw),
                   int8_conv(*args, **kw, plain=True))
+        out = int8_conv(*args, **kw)
         ms = time_ms(lambda: int8_conv(*args, **kw))
         pms = time_ms(lambda: int8_conv(*args, **kw, plain=True), reps=10)
-        report.add(key, f["max_abs_err"], ms, pms, weight=n)
+        b = bound(nbytes(xp, gq, out) + (0 if mode == torch.int32 else nbytes(inv_ws, zcbias)),
+                  int8_ops=2 * out.numel() * gq.shape[0], f32_flops=0 if mode == torch.int32 else 2 * out.numel())
+        lib, lib_fig = None, ""
+        if key == "K5":  # the one library call for an int8 product: torch's private cuBLASLt int8 matmul
+            a2 = xp.reshape(-1, Cp)
+            try:
+                lib_out = torch._int_mm(a2, gq)
+            except RuntimeError as e:  # the yardstick is not available here: say why, time nothing
+                lib_fig = f" torch._int_mm none ({str(e).splitlines()[0][:80]})"
+            else:
+                if not torch.equal(lib_out.reshape(out.shape), out):
+                    raise AssertionError(f"torch._int_mm disagrees with K5 at H={H} Cp={Cp} Np={Np}")
+                lib = time_ms(lambda: torch._int_mm(a2, gq))
+                lib_fig = f" torch._int_mm {lib:.4f} ms"
+                del lib_out
+        report.add(key, f["max_abs_err"], ms, pms, b, weight=n, library_ms=lib)
         print(f"[kernels] {key} int8_conv B={batch} H={H} Cp={Cp} Np={Np} k={k} s={s} "
-              f"{str(mode).removeprefix('torch.')} x{n}/step: {_fig(f)}; kernel {ms:.4f} ms plain {pms:.4f} ms")
-        del xp, gq, args
+              f"{str(mode).removeprefix('torch.')} x{n}/step: {_fig(f)}; kernel {ms:.4f} ms plain {pms:.4f} ms"
+              f"{lib_fig} {_bound_fig(b)}")
+        del xp, gq, args, out
 
     # K2 and K6: bf16 conv1 output (identity epilogue) at every resblock shape, as
     # the router sends it; the first channel group sits at a large offset (mean 40),
@@ -181,9 +254,11 @@ def kernel_phase(cfg, batch, gen, dev, report):
                       epilogue_gn_swish_quant(*args, plain=True))
             ms = time_ms(lambda: epilogue_gn_swish_quant(*args))
             pms = time_ms(lambda: epilogue_gn_swish_quant(*args, plain=True), reps=10)
-            report.add(kind, f["max_abs_err"], ms, pms, weight=n)
+            # 18 f32 operations per element: the TPU kernel's own cost estimate
+            b = bound(nbytes(*args[:8]) + dot.numel(), f32_flops=18 * dot.numel())
+            report.add(kind, f["max_abs_err"], ms, pms, b, weight=n)
             print(f"[kernels] {kind} epilogue_gn_swish_quant B={batch} HW={HW} N={N} x{n}/step: {_fig(f)}; "
-                  f"kernel {ms:.4f} ms plain {pms:.4f} ms")
+                  f"kernel {ms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
             if kind == "K6":
                 f2 = _held("K2", f"HW={HW} N={N} (at K6's shape)", epilogue_gn_swish_quant_whole(*args),
                            epilogue_gn_swish_quant_whole(*args, plain=True))
@@ -205,10 +280,89 @@ def kernel_phase(cfg, batch, gen, dev, report):
                   fused_attention_block(*args, scale=C ** -0.5, plain=True))
         ms = time_ms(lambda: fused_attention_block(*args, scale=C ** -0.5))
         pms = time_ms(lambda: fused_attention_block(*args, scale=C ** -0.5, plain=True), reps=10)
-        report.add("K3", f["max_abs_err"], ms, pms, weight=n)
+        # in and out residual, four folds; int8 projections, f32 core (q k^T and p v), ~30 f32 per element around
+        b = bound(2 * nbytes(x) + 4 * C * C + 16 * 4 * C, int8_ops=4 * 2 * batch * L * C * C,
+                  f32_flops=2 * 2 * batch * L * L * C + 30 * x.numel() + 5 * batch * L * L)
+        report.add("K3", f["max_abs_err"], ms, pms, b, weight=n)
         print(f"[kernels] K3 fused_attention_block B={batch} L={L} C={C} x{n}/step: {_fig(f)}; "
-              f"kernel {ms:.4f} ms plain {pms:.4f} ms")
+              f"kernel {ms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+        del x, args
     torch.cuda.empty_cache()
+
+    # K4, K7, K12: every shape a step launches under the three levers together (the
+    # weight n of the JSON line's sums) or under one lever alone (m, printed)
+    plans = {name: checks.lever_plan(cfg, batch, **kw) for name, kw in LEVER_SETS.items()}
+    alone = {"K4": "entry_pallas", "K7": "boundary_fusion", "K12": "resblock_pallas=all"}
+
+    def shapes(kind):
+        both = collections.Counter(tuple(shape) for _site, *shape in plans["all three"][kind])
+        single = collections.Counter(tuple(shape) for _site, *shape in plans[alone[kind]][kind])
+        return [(shape, both[shape], single[shape]) for shape in sorted(set(both) | set(single))]
+
+    def quant(C, lo, hi):  # an 8-bit range [lo, hi] as (scale, zero point)
+        sc = 255 / (hi - lo)
+        return torch.full((C,), sc, device=dev), torch.full((C,), round(sc * lo) + 128.0, device=dev)
+
+    for (HW, C), n, m in shapes("K4"):  # bf16 residual, one output, swish; one group at offset 40
+        x = randf((batch, HW, C), 2.0, 0.3)
+        x[..., :C // 32] += 40.0
+        x = x.to(torch.bfloat16)
+        args = (x, randf((C,), 0.1, 1.0), randf((C,), 0.1), [(*quant(C, -0.5, 4.0), 8)])
+        f = _held("K4", f"HW={HW} C={C}", gn_act_quant(*args), gn_act_quant(*args, plain=True))
+        ms = time_ms(lambda: gn_act_quant(*args))
+        pms = time_ms(lambda: gn_act_quant(*args, plain=True), reps=10)
+        b = bound(nbytes(x) + x.numel() + 4 * 4 * C, f32_flops=16 * x.numel())  # 12 + 4 per output, as the TPU estimate
+        report.add("K4", f["max_abs_err"], ms, pms, b, weight=n)
+        print(f"[kernels] K4 gn_act_quant B={batch} HW={HW} C={C} x{n}/step (entry_pallas alone x{m}): {_fig(f)}; "
+              f"kernel {ms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+        del x, args
+
+    for (HW, N), n, m in shapes("K7"):  # bf16 conv2 output (identity dequant), f32 shortcut branch, bf16 out
+        H = int(HW ** 0.5)
+        dot = randf((batch, H, H, N), 1.5, 0.2).to(torch.bfloat16)
+        args = (dot, torch.ones(N, device=dev), torch.zeros(N, device=dev), randf((batch, H, H, N), 2.0, 0.5))
+        kw = dict(out_dtype=torch.bfloat16)
+        got = epilogue_residual_gn_stats(*args, **kw)
+        f = _held("K7", f"HW={HW} N={N}", got, epilogue_residual_gn_stats(*args, **kw, plain=True))
+        ms = time_ms(lambda: epilogue_residual_gn_stats(*args, **kw))
+        pms = time_ms(lambda: epilogue_residual_gn_stats(*args, **kw, plain=True), reps=10)
+        b = bound(nbytes(*args, *got), f32_flops=8 * dot.numel())
+        report.add("K7", f["max_abs_err"], ms, pms, b, weight=n)
+        print(f"[kernels] K7 epilogue_residual_gn_stats B={batch} HW={HW} N={N} x{n}/step (boundary_fusion alone "
+              f"x{m}): {_fig(f)}; kernel {ms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+        del dot, args, got
+
+    for (H, C), n, m in shapes("K12"):
+        def fold():
+            return randint8((9 * C, C), -8, 7), (randf((C,), 2e-5, 2e-4).abs(), randf((C,), 0.1))
+
+        (g1, sb1), (g2, sb2) = fold(), fold()
+        r = randf((batch, H, H, C), 1.5, 0.2).to(torch.bfloat16)
+        args = (r, randf((batch, C)), randf((C,), 0.1, 1.0), randf((C,), 0.1), quant(C, -0.5, 4.0), g1, sb1,
+                randf((C,), 0.1, 1.0), randf((C,), 0.1), quant(C, -0.5, 3.0), g2, sb2)
+        f = _held("K12", f"H={H} C={C}", resblock_pallas(*args), resblock_pallas(*args, plain=True))
+        ms = time_ms(lambda: resblock_pallas(*args))
+        pms = time_ms(lambda: resblock_pallas(*args, plain=True), reps=10)
+        # residual in and out, both folds; two int8 convs, the entry's 16 and the epilogue's 18 f32 per element
+        b = bound(2 * nbytes(r) + nbytes(g1, g2) + 4 * batch * C + 12 * 4 * C,
+                  int8_ops=2 * 2 * r.numel() * 9 * C, f32_flops=(16 + 18 + 3) * r.numel())
+        report.add("K12", f["max_abs_err"], ms, pms, b, weight=n)
+        print(f"[kernels] K12 resblock_pallas B={batch} H={H} C={C} x{n}/step (resblock_pallas=all alone x{m}): "
+              f"{_fig(f)}; kernel {ms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+        del r, args, g1, g2
+    torch.cuda.empty_cache()
+
+
+def clock(what, fn, tag="slice"):
+    """Run fn between synchronizations and print its host-clock seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    print(f"[{tag}] {what}: {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def profile_sampler(run, wall_ms, top: int = 25):
@@ -245,17 +399,8 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False):
         prepare_serving_runtime,
         runtime_nbytes,
         serving_ddim_sampler,
-        serving_unet_apply,
     )
     from attentiondm_tpu_torch.quant.qunet import QuantizedUNet
-
-    def clock(what, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        print(f"[slice] {what}: {time.perf_counter() - t0:.2f} s")
-        return out
 
     R, shape = cfg.resolution, (batch, cfg.resolution, cfg.resolution, cfg.out_ch)
     params = unet_init(gen, cfg, dev)
@@ -295,21 +440,40 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False):
     if profile:
         profile_sampler(lambda: sample(x), best)
 
-    # one serving step, every kernel call held against its plain version on the same inputs
-    t0 = torch.full((batch,), float(seq[-1]), device=dev)
+    ctx = dict(cfg=cfg, params=params, qunet=qunet, qstates=qstates, runtime=runtime, seq=seq, betas=betas,
+               x=x, steps=steps, batch=batch, dev=dev)
+    step_checks(ctx, {})
+    return counts, ctx
+
+
+def step_checks(ctx, levers):
+    """One serving step under `levers`: every kernel call held against its
+    plain version on the same inputs, then the whole step through the kernels
+    against the whole step through the plain versions.  Returns the step's
+    launch counts."""
+    import torch
+
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.quant.int8_serving import serving_unet_apply
+
+    t0 = torch.full((ctx["batch"],), float(ctx["seq"][-1]), device=ctx["dev"])
 
     def step(plain):
-        return serving_unet_apply(params, cfg, qunet, runtime, qstates, x, t0, 0, plain=plain)
+        return serving_unet_apply(ctx["params"], ctx["cfg"], ctx["qunet"], ctx["runtime"], ctx["qstates"],
+                                  ctx["x"], t0, 0, plain=plain, **levers)
 
+    tag = "levers" if levers else "slice"
     records = []
+    checks.reset_launches()
     with checks.per_site(records):
-        eps = clock("one serving step, per-site check", lambda: step(False))
+        eps = clock("one serving step, per-site check", lambda: step(False), tag)
+    counts = checks.read_launches()
     by_kind = collections.defaultdict(list)
     for kind, oshape, f in records:
         by_kind[kind].append((oshape, f))
     for kind, rows in by_kind.items():
         worst = max(rows, key=lambda r: (not r[1]["ok"], r[1]["max_abs_err"]))
-        print(f"[slice] per-site {kind}: {len(rows)} sites, {sum(r[1]['ok'] for r in rows)} within tolerance; "
+        print(f"[{tag}] per-site {kind}: {len(rows)} sites, {sum(r[1]['ok'] for r in rows)} within tolerance; "
               f"worst {worst[0]}: {_fig(worst[1])}")
     bad = [r for r in records if not r[2]["ok"]]
     if bad:
@@ -318,10 +482,78 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False):
     # the same step, chained: through the kernels vs through the plain versions
     eps_p = step(True)
     rel = ((eps - eps_p).abs().mean() / eps_p.abs().mean()).item()
-    print(f"[slice] one serving step chained, kernels vs plain versions: mean rel err {rel:.3e} "
+    print(f"[{tag}] one serving step chained, kernels vs plain versions: mean rel err {rel:.3e} "
           f"(bit-identical: {torch.equal(eps, eps_p)}; gross-fault bound {CHAINED_BOUND})")
     if not rel < CHAINED_BOUND:
         raise AssertionError(f"serving step kernels vs plain: mean rel err {rel}")
+    return counts
+
+
+def levers_phase(ctx, timed, profile=False):
+    """The same params, calibration and fold under the three levers.  With
+    `timed` (CIFAR-10): the sampler with all three, counted and checked, the
+    per-site and chained step, and timed runs in turns of levers off, all
+    three and each lever alone.  Without (church): the per-site and chained
+    step, launch counts checked.  Returns the counted run's launch counts."""
+    import torch
+
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
+
+    cfg, steps, batch, x = ctx["cfg"], ctx["steps"], ctx["batch"], ctx["x"]
+    plan = checks.lever_plan(cfg, batch, **ALL_LEVERS)
+    print(f"[levers] {ALL_LEVERS}: per step K4 at {len(plan['K4'])} entries, K7 at "
+          f"{[site for site, *_ in plan['K7']]}, K12 at {[site for site, *_ in plan['K12']]}")
+    if not timed:
+        expected = checks.expected_launches(cfg, 1, batch, **ALL_LEVERS)
+        counts = step_checks(ctx, ALL_LEVERS)
+        print(f"[levers] launches of the step {counts}, expected {expected}")
+        if counts != expected:
+            raise AssertionError(f"lever step launch counts {counts} != expected {expected}")
+        return counts
+
+    def sampler(levers):
+        return serving_ddim_sampler(ctx["qunet"], ctx["params"], ctx["qstates"], ctx["seq"], ctx["betas"],
+                                    runtime=ctx["runtime"], **levers)
+
+    sample = sampler(ALL_LEVERS)
+    expected = checks.expected_launches(cfg, steps, batch, **ALL_LEVERS)
+    checks.reset_launches()
+    out = clock(f"serving sampler with the three levers, first run ({steps} steps, batch {batch})",
+                lambda: sample(x), "levers")
+    counts = checks.read_launches()
+    print(f"[levers] launches {counts}, expected {expected}")
+    if counts != expected:
+        raise AssertionError(f"lever launch counts {counts} != expected {expected}")
+    if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"lever sampler output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
+    off = sampler({})(x)
+    rel = ((out - off).abs().mean() / off.abs().mean()).item()
+    print(f"[levers] sampler output, three levers vs levers off: mean rel err {rel:.3e} (information only: the "
+          f"levers change the GroupNorm statistics' formula and where bf16 rounds)")
+    del out, off
+
+    step_checks(ctx, ALL_LEVERS)
+
+    # timed runs in turns (levers off, all three, each lever alone), LEVER_ROUNDS rounds: the host's ~1000
+    # launches a step set these times as much as the card does, and the host's clock varies, so every run is shown
+    fns = {name: sampler(levers) for name, levers in [("levers off", {}), *LEVER_SETS.items()]}
+    for fn in fns.values():
+        fn(x)  # warm-up
+    runs = {name: [] for name in fns}
+    for _ in range(LEVER_ROUNDS):
+        for name, fn in fns.items():
+            runs[name].append(time_ms(lambda: fn(x), reps=1, warm=False))
+    times = {}
+    for name, levers in [("levers off", {}), *LEVER_SETS.items()]:
+        ms = times[name] = sorted(runs[name])[LEVER_ROUNDS // 2]
+        per = checks.expected_launches(cfg, 1, batch, **levers)
+        print(f"[levers] serving sampler, {name}: median {ms:.1f} ms for {steps} steps at batch {batch} = "
+              f"{batch / ms * 1e3:.2f} images/s ({ms / steps:.2f} ms/step; best {min(runs[name]):.1f} ms; runs "
+              f"{' '.join(f'{t:.1f}' for t in runs[name])}; launches per step "
+              f"K1 {per['K1']} K2 {per['K2']} K3 {per['K3']} K4 {per['K4']} K7 {per['K7']} K12 {per['K12']})")
+    if profile:
+        profile_sampler(lambda: sample(x), times["all three"])
     return counts
 
 
@@ -356,16 +588,21 @@ def main(argv=None):
         print(f"== {path}: {label}, batch {BATCH[path]}")
         report = Report()
         kernel_phase(cfg, BATCH[path], gen, dev, report)
-        counts = slice_phase(cfg, sched, label, args.steps, BATCH[path], gen, dev, args.profile)
-        for key in ("K1", "K13", "K5", "K2", "K6", "K3"):
+        counts, ctx = slice_phase(cfg, sched, label, args.steps, BATCH[path], gen, dev, args.profile)
+        lever_counts = levers_phase(ctx, timed=path == "cifar10", profile=args.profile)
+        del ctx
+        for key, (name, source, replaces) in META.items():
             if key not in report.rows:
                 continue
-            name, source, replaces = META[key]
             r = report.rows[key]
+            launches = (lever_counts if key in ("K4", "K7", "K12") else counts)[key]
             kernels.append({"name": f"{key} {name}", "path": path, "route": "cuda", "source": source,
-                            "replaces": replaces, "launches": counts[key], "max_abs_err": r["max_abs_err"],
-                            "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4)})
-            if counts[key] == 0:
+                            "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
+                            "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
+                            "bound_ms": round(r["bound_ms"], 4),
+                            "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
+                            "library_ms": None if r["library_ms"] is None else round(r["library_ms"], 4)})
+            if launches == 0:
                 raise AssertionError(f"{key} was not launched on the {path} path")
         torch.cuda.empty_cache()
         print(f"== {path}: {time.perf_counter() - t0:.1f} s")

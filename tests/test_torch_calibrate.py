@@ -70,7 +70,7 @@ def calibrated():
 
         j_unet_apply(jparams, jcfg, xs_in[s], jnp.full((2,), t_rev[s]), conv_apply=conv_apply)
     q = QuantizedUNet.create(UNetConfig(**TOY), 4, 8)
-    params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams))
+    params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     qs = calibrate_ranges(q, params, q.init_state(len(SEQ), "cpu"), _t(xs_in), SEQ)
     return q, records, qs
 
@@ -119,7 +119,8 @@ def test_calibrate_ranges_end_to_end(calibrated):
 def test_from_jax_qstates_round_trip():
     jq = JQuantizedUNet.create(JConfig(**TOY), 4, 8)
     jqs = jq.init_state(3)
-    qs = from_jax_qstates({k: {f: np.asarray(getattr(v, f)) for f in FIELDS} for k, v in jqs.items()})
+    qs = from_jax_qstates({k: {f: np.asarray(getattr(v, f)) for f in FIELDS} for k, v in jqs.items()},
+                          device="cpu")
     ref = QuantizedUNet.create(UNetConfig(**TOY), 4, 8).init_state(3, "cpu")
     for name in qs:
         for f in FIELDS:

@@ -82,7 +82,7 @@ def test_from_config_matches_jax(name):
     assert namespace2dict(cfg) == namespace2dict(jcfg)
     assert UNetConfig.from_config(cfg) == UNetConfig(**{
         f: getattr(JConfig.from_config(jcfg), f) for f in UNetConfig.__dataclass_fields__})
-    sched, jsched = DiffusionSchedule.from_config(cfg), JSchedule.from_config(jcfg)
+    sched, jsched = DiffusionSchedule.from_config(cfg, device="cpu"), JSchedule.from_config(jcfg)
     for f in ("betas", "alphas_cumprod", "logvar"):
         np.testing.assert_array_equal(getattr(sched, f).numpy(), np.asarray(getattr(jsched, f)), err_msg=f)
 
@@ -100,7 +100,7 @@ def test_unported_var_type_raises():
     cfg = load_config("church.yml")
     cfg.model.var_type = "fixedsmall"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiffusionSchedule.from_config(cfg)
+        DiffusionSchedule.from_config(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -132,14 +132,14 @@ def chain():
     its first step recording every K2/K6 and K3 call (inputs and output)."""
     jcfg = JConfig(**TOY)
     jparams = j_unet_init(jax.random.PRNGKey(0), jcfg)
-    params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams))
+    params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     cfg = UNetConfig(**TOY)
     betas = JSchedule.create("linear", 1e-4, 0.02, 1000).betas
     rng = np.random.default_rng(0)
     x_small = torch.from_numpy(rng.standard_normal((1, 112, 112, 3)).astype(np.float32))
     x = rng.standard_normal((1, 112, 112, 3)).astype(np.float32)
     _, traj, _ = ddim_sample(lambda xt, t, i: unet_apply(params, cfg, xt, t), x_small, SEQ,
-                             DiffusionSchedule.create("linear", 1e-4, 0.02, 1000).betas, keep_trajectory=True)
+                             DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu").betas, keep_trajectory=True)
     xs_in = jnp.asarray(torch.cat([x_small[None], traj[:-1]]).numpy())
     jq = JQuantizedUNet.create(jcfg, bitwidth=4, a_bitwidth=8)
     jqs = j_calibrate_ranges(jq, jparams, jq.init_state(len(SEQ)), xs_in, SEQ, first=True)
@@ -169,7 +169,7 @@ def chain():
     qs_np = {k: {f: np.asarray(getattr(v, f)) for f in ("init_range", "act_min", "act_max", "group_ranges",
                                                         "alpha_logits")} for k, v in jqs.items()}
     return dict(
-        params=params, qstates=from_jax_qstates(qs_np),
+        params=params, qstates=from_jax_qstates(qs_np, device="cpu"),
         runtime={k: ServingLayer(*(torch.tensor(np.asarray(a)) for a in
                                    (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp))) for k, v in jrt.items()},
         x=x, eps=np.asarray(eps0), sample=np.asarray(xt), sites=sites,
@@ -178,7 +178,7 @@ def chain():
 
 def _port():
     cfg = UNetConfig(**TOY)
-    return cfg, QuantizedUNet.create(cfg, 4, 8), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000)
+    return cfg, QuantizedUNet.create(cfg, 4, 8), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu")
 
 
 def test_kernel_sites_follow_the_plan(chain):

@@ -139,8 +139,8 @@ def toy_fold():
     jqs = {k: JActQuantState(**{f: jnp.asarray(v) for f, v in d.items()}) for k, d in states.items()}
     jrt = j_prepare(jq, jparams, jqs)
     q = QuantizedUNet.create(UNetConfig(**TOY), 4, 8)
-    rt = prepare_serving_runtime(q, from_jax_params(jax.tree_util.tree_map(np.asarray, jparams)),
-                                 from_jax_qstates(states))
+    rt = prepare_serving_runtime(q, from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), device="cpu"),
+                                 from_jax_qstates(states, device="cpu"))
     return jrt, rt
 
 

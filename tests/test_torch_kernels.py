@@ -9,7 +9,10 @@ tests/test_torch_gpu.py).
   K2  ops.fused_gn.epilogue_gn_swish_quant;
   K6  ops.fused_gn.epilogue_gn_swish_quant_blocked, and the routing between
       K2 and K6;
-  K3  ops.int8_attention.fused_attention_block.
+  K3  ops.int8_attention.fused_attention_block;
+  K4  ops.fused_gn.gn_act_quant;
+  K7  ops.fused_gn.epilogue_residual_gn_stats and gn_finalize_sums;
+  K12 ops.pallas_resblock.resblock_pallas, and JAX's routing predicates.
 
 Inputs come from seeded numpy generators."""
 import functools
@@ -24,20 +27,27 @@ import torch
 from attentiondm_tpu.ops import fused_gn as jfg
 from attentiondm_tpu.ops.fused_gn import epilogue_gn_swish_quant as j_epilogue_gn_swish_quant
 from attentiondm_tpu.ops.int8_attention import fused_attention_block as j_fused_attention_block
+from attentiondm_tpu.ops import pallas_conv as jpc
+from attentiondm_tpu.ops import pallas_resblock as jrb
 from attentiondm_tpu.ops.pallas_conv import int8_conv3_pallas as j_int8_conv3_pallas
 from attentiondm_tpu.ops.quant_conv import _conv3x3_int8_dot as j_conv3x3_int8_dot
 from attentiondm_tpu.ops.quant_conv import int8_matmul as j_int8_matmul
 from attentiondm_tpu.quant import int8_serving as js
 from attentiondm_tpu_torch.ops import _build
 from attentiondm_tpu_torch.ops import fused_gn as tfg
+from attentiondm_tpu_torch.ops import pallas_conv as tpc
+from attentiondm_tpu_torch.ops import pallas_resblock as trb
 from attentiondm_tpu_torch.ops.fused_gn import (
     epilogue_gn_swish_quant,
     epilogue_gn_swish_quant_blocked,
     epilogue_gn_swish_quant_whole,
+    epilogue_residual_gn_stats,
     epilogue_route,
+    gn_act_quant,
 )
 from attentiondm_tpu_torch.ops.int8_attention import fused_attention_block
 from attentiondm_tpu_torch.ops.pallas_conv import int8_conv
+from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
 from attentiondm_tpu_torch.quant import int8_serving as ts
 
 
@@ -376,6 +386,129 @@ def test_k3_matches_jax(L, C):
 
 
 # ---------------------------------------------------------------------------
+# K4, K7, K12
+# ---------------------------------------------------------------------------
+
+
+def _quant_np(rng, C, a_bit, lo, hi):
+    rmin, rmax = rng.uniform(lo, lo / 2, C), rng.uniform(hi / 2, hi, C)
+    s = ((2 ** a_bit - 1) / (rmax - rmin)).astype(np.float32)
+    return s, (np.round(s * rmin) + 2 ** (a_bit - 1)).astype(np.float32), a_bit
+
+
+def _gn_np(rng, C):
+    return (1 + 0.1 * rng.standard_normal(C)).astype(np.float32), (0.1 * rng.standard_normal(C)).astype(np.float32)
+
+
+def _bf16_t(a):
+    return _t(a.astype(np.float32)).to(torch.bfloat16)  # exact: the values are bf16
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("HW,C,n_out,act", [(64, 128, 1, "swish"), (64, 256, 1, "swish"), (64, 256, 3, "none"),
+                                            (16, 384, 2, "swish")])
+def test_k4_matches_jax(HW, C, n_out, act, dtype):
+    """K4's plain version vs the TPU kernel in interpret mode: int8 codes at
+    most 1 LSB apart on at most 0.1% of them (the port sums in
+    `window_sum`'s order and takes 1/sqrt and 1/(1+exp) where JAX takes
+    rsqrt and sigmoid, so a rare value crosses a rounding tie; measured 0 at
+    these seeds but one output at (16, 384), 8.1e-5 of its codes)."""
+    rng = np.random.default_rng(HW + C + n_out)
+    x = (rng.standard_normal((2, HW, C)) * 2 + 0.3).astype(ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32)
+    gs, gb = _gn_np(rng, C)
+    qp = [_quant_np(rng, C, b, -1.0, 5.0) for b in (8, 6, 8)[:n_out]]
+    got = gn_act_quant(_bf16_t(x) if dtype == "bfloat16" else _t(x), _t(gs), _t(gb),
+                       [(_t(s), _t(z), b) for s, z, b in qp], act=act)
+    want = jfg.gn_act_quant(jnp.asarray(x), jnp.asarray(gs), jnp.asarray(gb),
+                            [(jnp.asarray(s), jnp.asarray(z), b) for s, z, b in qp], act=act, interpret=True)
+    assert len(got) == len(want) == n_out
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int8 and tuple(g.shape) == w.shape
+        d = np.abs(g.numpy().astype(np.int32) - np.asarray(w).astype(np.int32))
+        assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (d.max(), (d > 0).mean())
+
+
+@pytest.mark.parametrize("dot_dtype,res_dtype", [("bfloat16", "float32"), ("int32", "bfloat16")])
+@pytest.mark.parametrize("HW,N", [(64, 128), (64, 256)])
+def test_k7_matches_jax(HW, N, dot_dtype, res_dtype):
+    """K7's plain version vs the TPU kernel in interpret mode: residual' in
+    bf16 within 1 ulp (one rounding of the same f32 sum) and the [B, 2, G]
+    sums within 1e-5 relative (f32 sums in another order); the mean and rstd
+    `gn_finalize_sums` makes of them agree to 1e-5 (1/sqrt against rsqrt)."""
+    rng = np.random.default_rng(HW + N + len(dot_dtype))
+    B, H = 2, int(HW ** 0.5)
+    if dot_dtype == "bfloat16":
+        dot = (rng.standard_normal((B, H, H, N)) * 1.5 + 0.2).astype(ml_dtypes.bfloat16)
+        inv_ws, zcbias = np.ones(N, np.float32), np.zeros(N, np.float32)
+    else:
+        dot = rng.integers(-20000, 20000, (B, H, H, N)).astype(np.int32)
+        inv_ws = rng.uniform(5e-5, 2e-4, N).astype(np.float32)
+        zcbias = rng.standard_normal(N).astype(np.float32)
+    x_res = (rng.standard_normal((B, H, H, N)) * 2 + 0.5).astype(
+        ml_dtypes.bfloat16 if res_dtype == "bfloat16" else np.float32)
+    tt = lambda a: _bf16_t(a) if a.dtype == ml_dtypes.bfloat16 else _t(a)
+    out, sums = epilogue_residual_gn_stats(tt(dot), _t(inv_ws), _t(zcbias), tt(x_res), out_dtype=torch.bfloat16)
+    jout, jsums = jfg.epilogue_residual_gn_stats(jnp.asarray(dot), jnp.asarray(inv_ws), jnp.asarray(zcbias),
+                                                 jnp.asarray(x_res), out_dtype=jnp.bfloat16, interpret=True)
+    assert out.dtype == torch.bfloat16 and tuple(sums.shape) == jsums.shape == (B, 2, 32)
+    assert _bf16_ulps(out.float().numpy(), np.asarray(jout).astype(np.float32)).max() <= 1.0
+    np.testing.assert_allclose(sums.numpy(), np.asarray(jsums), rtol=1e-5)
+    mean, rstd = tfg.gn_finalize_sums(sums, HW, N // 32)
+    jmean, jrstd = jfg.gn_finalize_sums(jsums, HW, N // 32)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(jrstd), rtol=1e-5)
+
+
+def _k12_inputs(rng, H, C):
+    B = 2
+    r = (rng.standard_normal((B, H, H, C)) * 1.5 + 0.2).astype(ml_dtypes.bfloat16)
+    tproj = rng.standard_normal((B, C)).astype(np.float32)
+
+    def half():
+        s, z, _ = _quant_np(rng, C, 8, -1.0, 5.0)
+        sb = (rng.uniform(1e-4, 3e-4, C).astype(np.float32), (0.1 * rng.standard_normal(C)).astype(np.float32))
+        return (*_gn_np(rng, C), (s, z), _i8(rng, (9 * C, C), -8, 7), sb)
+
+    return (r, tproj, *half(), *half())
+
+
+@pytest.mark.parametrize("H,C", [(8, 128), (8, 256)])
+def test_k12_matches_jax(H, C):
+    """K12's plain version vs the TPU kernel in interpret mode, bf16 in and
+    out: at least 99% of the elements within 1 bf16 ulp and a small mean
+    relative error.  Both keep conv1's output in f32 up to GroupNorm 2 (the
+    unfused chain rounds it to bf16 and would miss this bound); a few int8
+    codes cross a rounding tie (summation order, 1/sqrt against rsqrt) and
+    each moves its 3x3 neighbourhood of conv outputs.  Measured at these
+    seeds: 100% within 1 ulp, mean rel err 0 and 2.2e-7."""
+    rng = np.random.default_rng(H + C)
+    args = _k12_inputs(rng, H, C)
+    got = resblock_pallas(_bf16_t(args[0]), *_to_torch(args[1:]))
+    want = jrb.resblock_pallas(*_to_jax(args), interpret=True)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    got, want = got.float().numpy(), np.asarray(want).astype(np.float32)
+    rel = np.abs(got - want).mean() / np.abs(want).mean()
+    within = (_bf16_ulps(got, want) <= 1.0).mean()
+    assert within >= 0.99 and rel < 1e-3, (rel, within)
+
+
+SHAPES = [(128, 32, 128), (128, 32, 256), (128, 16, 256), (128, 8, 256), (128, 4, 256), (32, 256, 128),
+          (32, 64, 256), (32, 32, 256), (32, 16, 512), (32, 8, 512), (2, 4, 512), (7, 16, 384), (1, 8, 96)]
+
+
+@pytest.mark.parametrize("B,H,C", SHAPES, ids=[f"B{b}-H{h}-C{c}" for b, h, c in SHAPES])
+def test_lever_predicates_match_jax(B, H, C):
+    """The routing predicates the port copied from JAX, at the CIFAR-10 and
+    church shapes and off the grid."""
+    assert tfg.gn_act_quant_fits(H * H, C) == jfg.gn_act_quant_fits(H * H, C)
+    assert tfg.epilogue_residual_gn_stats_fits(H * H, C) == jfg.epilogue_residual_gn_stats_fits(H * H, C)
+    assert trb.resblock_pallas_fits(B, H, H, C) == jrb.resblock_pallas_fits(B, H, H, C)
+    assert tpc.conv3_pallas_wins(B, H, H, C, C) == jpc.conv3_pallas_wins(B, H, H, C, C)
+    assert tpc.conv3_pallas_wins(B, H, H, 512, 256) == jpc.conv3_pallas_wins(B, H, H, 512, 256)
+    assert tpc.conv3_pallas_fits(B, H, H, C, C) == jpc.conv3_pallas_fits(B, H, H, C, C)
+
+
+# ---------------------------------------------------------------------------
 # routing: plain versions only for CPU tensors, no silent fallback
 # ---------------------------------------------------------------------------
 
@@ -384,7 +517,8 @@ def test_cpu_tensors_take_the_plain_versions():
     """Each wrapper runs its plain version on CPU tensors (bit-identical to
     calling it with plain=True) and counts no launch."""
     rng = np.random.default_rng(9)
-    counters = (int8_conv, epilogue_gn_swish_quant_whole, epilogue_gn_swish_quant_blocked, fused_attention_block)
+    counters = (int8_conv, epilogue_gn_swish_quant_whole, epilogue_gn_swish_quant_blocked, fused_attention_block,
+                gn_act_quant, epilogue_residual_gn_stats, resblock_pallas)
     before = tuple(f.launches for f in counters)
     xp, gq = _t(_i8(rng, (1, 6, 6, 128))), _t(_i8(rng, (9 * 128, 128), -8, 7))
     assert torch.equal(int8_conv(xp, gq), int8_conv(xp, gq, plain=True))
@@ -397,6 +531,15 @@ def test_cpu_tensors_take_the_plain_versions():
     xt = _t(x.astype(np.float32)).to(torch.bfloat16)
     assert torch.equal(fused_attention_block(xt, *_to_torch(rest), scale=1 / 16),
                        fused_attention_block(xt, *_to_torch(rest), scale=1 / 16, plain=True))
+    k4 = (xt, _t(rest[0]), _t(rest[1]), _to_torch(rest[2]))
+    assert all(torch.equal(a, b) for a, b in zip(gn_act_quant(*k4, act="none"),
+                                                 gn_act_quant(*k4, act="none", plain=True)))
+    k7 = (k2[0], k2[1], k2[2], torch.randn(k2[0].shape, generator=torch.Generator().manual_seed(0)))
+    assert all(torch.equal(a, b) for a, b in zip(epilogue_residual_gn_stats(*k7),
+                                                 epilogue_residual_gn_stats(*k7, plain=True)))
+    r, *k12 = _k12_inputs(rng, 4, 128)
+    assert torch.equal(resblock_pallas(_bf16_t(r), *_to_torch(k12)),
+                       resblock_pallas(_bf16_t(r), *_to_torch(k12), plain=True))
     assert tuple(f.launches for f in counters) == before
 
 

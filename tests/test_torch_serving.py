@@ -84,8 +84,8 @@ def chain():
                                  (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp)))
                for k, v in jrt.items()}
     return dict(
-        params=from_jax_params(jax.tree_util.tree_map(np.asarray, jparams)),
-        qstates=from_jax_qstates(_qstates_np(jqs)), runtime=runtime,
+        params=from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), device="cpu"),
+        qstates=from_jax_qstates(_qstates_np(jqs), device="cpu"), runtime=runtime,
         x_small=x_small, x=x, t=t, eps=np.asarray(eps), sample=np.asarray(sample),
         qstates_np=_qstates_np(jqs),
     )
@@ -93,7 +93,7 @@ def chain():
 
 def _port():
     cfg = UNetConfig(**TOY)
-    return cfg, QuantizedUNet.create(cfg, 4, 8), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000)
+    return cfg, QuantizedUNet.create(cfg, 4, 8), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu")
 
 
 def test_serving_step_matches_jax(chain):
@@ -168,8 +168,9 @@ def test_fold_of_jax_qstates_matches_jax_runtime(chain):
 
 FLAGS = [
     ("residual_dtype", torch.float32), ("attn_int8", True), ("attn_ranges", {}),
-    ("boundary_fusion", True), ("dot_bf16", False), ("entry_pallas", True), ("conv_pallas", True),
-    ("resblock_pallas", True), ("mp_states", {}),
+    ("dot_bf16", False), ("conv_pallas", True),
+    ("resblock_pallas", ((8, 128, 128),)),  # JAX's (H, Cp, Np) shape list; True and "all" are ported
+    ("mp_states", {}),
 ]
 SAMPLER_FLAGS = FLAGS + [
     ("step_chunk", 1), ("micro_batch", 1), ("symmetric", False), ("weight_extras", {}),

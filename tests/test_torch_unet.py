@@ -55,7 +55,7 @@ def _np(tree):
 @pytest.fixture(scope="module")
 def toy():
     params = j_unet_init(jax.random.PRNGKey(0), JConfig(**TOY))
-    return JConfig(**TOY), params, from_jax_params(_np(params))
+    return JConfig(**TOY), params, from_jax_params(_np(params), device="cpu")
 
 
 @pytest.mark.parametrize("cfg_kw", [TOY, {}], ids=["toy", "cifar10"])
@@ -91,7 +91,7 @@ def test_group_norm_and_attention_match_jax():
 
 def test_schedule_and_timestep_seq_match_jax():
     a = JSchedule.create("linear", 1e-4, 0.02, 1000)
-    b = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000)
+    b = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu")
     for f in ("betas", "alphas_cumprod", "logvar"):
         np.testing.assert_array_equal(getattr(b, f).numpy(), np.asarray(getattr(a, f)))
     for steps, kind in ((10, "quad"), (100, "quad"), (7, "uniform"), (300, "uniform")):
@@ -107,7 +107,7 @@ def test_ddim_sample_trajectory_matches_jax(toy):
                                      jnp.asarray(x), seq, betas, keep_trajectory=True)
     cfg = UNetConfig(**TOY)
     xf, xs, x0 = ddim_sample(lambda xt, t, i: unet_apply(tparams, cfg, xt, t), torch.from_numpy(x), seq,
-                             DiffusionSchedule.create("linear", 1e-4, 0.02, 1000).betas, keep_trajectory=True)
+                             DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu").betas, keep_trajectory=True)
     # two f32 UNet evaluations deep: 1e-4 as for one forward, both ways
     np.testing.assert_allclose(xs.numpy(), np.asarray(xs_j), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(x0.numpy(), np.asarray(x0_j), atol=1e-4, rtol=1e-4)
@@ -148,11 +148,11 @@ def test_port_imports_without_jax_triton_or_gpu():
 def test_unported_fp_options_raise(call):
     with pytest.raises(NotImplementedError):
         if call == "schedule":
-            DiffusionSchedule.create("cosine", 1e-4, 0.02, 1000)
+            DiffusionSchedule.create("cosine", 1e-4, 0.02, 1000, device="cpu")
         elif call == "enhanced":
             list(iter_conv_layers(UNetConfig(attn_variant="enhanced")))
         elif call == "eta":
-            sched = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000)
+            sched = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu")
             ddim_sample(lambda xt, t, i: xt, torch.zeros(1, 8, 8, 3), [0, 500], sched.betas, eta=0.5)
         else:
             q = torch.zeros(1, 1024, 128)
