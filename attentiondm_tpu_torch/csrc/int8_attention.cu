@@ -14,7 +14,11 @@
 //      (igemm.cuh) with an f32 dequant epilogue;
 //   3. attn_core: f32 logits (q k^T, then * C^-1/2), softmax (max, exp,
 //      divide by the sum) and AV for a 16-query tile per block, logits in
-//      shared memory, then the int8 quant of proj_out's input;
+//      shared memory, then the int8 quant of proj_out's input.  In the
+//      `int8_core` mode (amax != nullptr) q and k are first re-quantized to
+//      int8 at per-image dynamic scales (attn_common.cuh) and the logits are
+//      float(q8 . k8) * (sq * sk * C^-1/2), the dot in integers (__dp4a);
+//      softmax and AV stay f32 on the f32 v, as in the TPU kernel;
 //   4. the output projection: the int8 GEMM with a dequant + residual-add
 //      epilogue, written at the residual's dtype (bf16).
 // The core runs in f32, as the TPU kernel's default core: the q.k dot, the
@@ -27,55 +31,64 @@
 // 2*L*L*C f32 multiply-adds per image with their operands read from shared
 // memory.  Fusing the chain (flash-style, tensor-core f32 emulation or a
 // bf16 core with a quality check) is later work.
+#include "attn_common.cuh"
 #include "igemm.cuh"
 
 using namespace adm;
 
 constexpr int AT_THREADS = 256, AT_BQ = 16, AT_TK = 16;
 
-static __device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// words per shared-memory row of a Q / K tile: f32 values, or int8 packed four
+// to a word; one word of padding makes the column walks conflict-free
+#define AT_LD(C, I8) (((I8) ? (C) / 4 : (C)) + 1)
 
-static __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int C>
+template <int C, bool I8>
 __global__ void __launch_bounds__(AT_THREADS)
 attn_core_kernel(const float* __restrict__ qf, const float* __restrict__ kf,
-                 const float* __restrict__ vf, const float* __restrict__ sqo, int n_o,
-                 int8_t* __restrict__ o8, int L, float scale) {
+                 const float* __restrict__ vf, const int8_t* __restrict__ q8,
+                 const int8_t* __restrict__ k8, const unsigned* __restrict__ amax,
+                 const float* __restrict__ sqo, int n_o, int8_t* __restrict__ o8, int L, float scale) {
   extern __shared__ float sm[];
-  constexpr int LD = C + 1;  // padded rows: conflict-free column walks
+  constexpr int LD = AT_LD(C, I8), W = LD - 1;  // W words of data a row
   float* Qs = sm;                // [BQ][LD]
   float* Ks = Qs + AT_BQ * LD;   // [TK][LD]
   float* S = Ks + AT_TK * LD;    // [BQ][L] logits, then probabilities
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y, q0 = blockIdx.x * AT_BQ;
-  const float* Q = qf + ((long long)b * L + q0) * C;
-  const float* K = kf + (long long)b * L * C;
   const float* V = vf + (long long)b * L * C;
+  // rows as words: the f32 q / k, or the int8 q8 / k8 four channels to a word
+  const float* Q = I8 ? reinterpret_cast<const float*>(q8 + ((long long)b * L + q0) * C)
+                      : qf + ((long long)b * L + q0) * C;
+  const float* K = I8 ? reinterpret_cast<const float*>(k8 + (long long)b * L * C) : kf + (long long)b * L * C;
+  float ls = scale;
+  if (I8) ls = dyn_scale(amax[b * 2]) * dyn_scale(amax[b * 2 + 1]) * scale;
 
-  for (int i = tid; i < AT_BQ * C; i += AT_THREADS) {
-    const int r = i / C, cc = i - r * C;
+  for (int i = tid; i < AT_BQ * W; i += AT_THREADS) {
+    const int r = i / W, cc = i - r * W;
     Qs[r * LD + cc] = (q0 + r < L) ? Q[i] : 0.f;
   }
   // logits: thread -> query qi, key kj of each TK-key tile
   const int qi = tid / AT_TK, kj = tid % AT_TK;
   for (int j0 = 0; j0 < L; j0 += AT_TK) {
     __syncthreads();
-    for (int i = tid; i < AT_TK * C; i += AT_THREADS) {
-      const int r = i / C, cc = i - r * C;
-      Ks[r * LD + cc] = (j0 + r < L) ? K[(long long)(j0 + r) * C + cc] : 0.f;
+    for (int i = tid; i < AT_TK * W; i += AT_THREADS) {
+      const int r = i / W, cc = i - r * W;
+      Ks[r * LD + cc] = (j0 + r < L) ? K[(long long)(j0 + r) * W + cc] : 0.f;
     }
     __syncthreads();
-    float d = 0.f;
+    float lf;
+    if (I8) {
+      int d = 0;
 #pragma unroll 8
-    for (int cc = 0; cc < C; ++cc) d = fmaf(Qs[qi * LD + cc], Ks[kj * LD + cc], d);
-    if (j0 + kj < L) S[qi * L + j0 + kj] = d * scale;
+      for (int cc = 0; cc < W; ++cc) d = __dp4a(__float_as_int(Qs[qi * LD + cc]), __float_as_int(Ks[kj * LD + cc]), d);
+      lf = (float)d * ls;
+    } else {
+      float d = 0.f;
+#pragma unroll 8
+      for (int cc = 0; cc < W; ++cc) d = fmaf(Qs[qi * LD + cc], Ks[kj * LD + cc], d);
+      lf = d * ls;
+    }
+    if (j0 + kj < L) S[qi * L + j0 + kj] = lf;
   }
   __syncthreads();
   // softmax, one warp per row: e = exp(l - max), p = e / sum(e)
@@ -125,16 +138,29 @@ attn_core_kernel(const float* __restrict__ qf, const float* __restrict__ kf,
   }
 }
 
-template <int C>
-static cudaError_t launch_core(const float* qf, const float* kf, const float* vf, const float* sqo,
-                               int n_o, int8_t* o8, int B, int L, float scale, cudaStream_t s) {
-  const size_t smem = sizeof(float) * ((size_t)(AT_BQ + AT_TK) * (C + 1) + (size_t)AT_BQ * L);
-  cudaError_t err = cudaFuncSetAttribute(attn_core_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <int C, bool I8>
+static cudaError_t launch_core_mode(const float* qf, const float* kf, const float* vf, const int8_t* q8,
+                                    const int8_t* k8, const unsigned* amax, const float* sqo, int n_o,
+                                    int8_t* o8, int B, int L, float scale, cudaStream_t s) {
+  const size_t smem = sizeof(float) * ((size_t)(AT_BQ + AT_TK) * AT_LD(C, I8) + (size_t)AT_BQ * L);
+  cudaError_t err = cudaFuncSetAttribute(attn_core_kernel<C, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + AT_BQ - 1) / AT_BQ, B);
-  attn_core_kernel<C><<<grid, AT_THREADS, smem, s>>>(qf, kf, vf, sqo, n_o, o8, L, scale);
+  attn_core_kernel<C, I8><<<grid, AT_THREADS, smem, s>>>(qf, kf, vf, q8, k8, amax, sqo, n_o, o8, L, scale);
   return cudaGetLastError();
+}
+
+// amax == nullptr: the f32 core.  Otherwise the int8 core: q8 / k8 (free
+// once the projections have read them) take the re-quantized q and k.
+template <int C>
+static cudaError_t launch_core(const float* qf, const float* kf, const float* vf, int8_t* q8, int8_t* k8,
+                               unsigned* amax, const float* sqo, int n_o, int8_t* o8, int B, int L,
+                               float scale, cudaStream_t s) {
+  if (!amax) return launch_core_mode<C, false>(qf, kf, vf, q8, k8, amax, sqo, n_o, o8, B, L, scale, s);
+  cudaError_t err = launch_dyn_quant_qk<float>(qf, nullptr, nullptr, kf, nullptr, nullptr, amax, q8, k8, B, L, C, s);
+  if (err != cudaSuccess) return err;
+  return launch_core_mode<C, true>(qf, kf, vf, q8, k8, amax, sqo, n_o, o8, B, L, scale, s);
 }
 
 static IgemmArgs proj_args(const void* x8, const void* w, const float* iw, const float* zc, void* out,
@@ -154,7 +180,7 @@ extern "C" int adm_fused_attention_block(const void* x, const void* gn, const vo
                                          int nv, const void* wq, const void* wk, const void* wv,
                                          const void* eqkv, const void* sqo, int n_o, const void* wo,
                                          void* q8, void* k8, void* v8, void* qf, void* kf, void* vf,
-                                         void* o8, void* out, int B, int L, int C, int groups,
+                                         void* o8, void* amax, void* out, int B, int L, int C, int groups,
                                          float inv_count, float scale, void* stream) {
   if ((C != 128 && C != 256 && C != 512) || L > GN_CHUNK || groups > 32 || C % groups != 0)
     return (int)cudaErrorInvalidValue;
@@ -186,10 +212,11 @@ extern "C" int adm_fused_attention_block(const void* x, const void* gn, const vo
   const float* so = static_cast<const float*>(sqo);
   const float *qp = static_cast<const float*>(qf), *kp = static_cast<const float*>(kf),
               *vp = static_cast<const float*>(vf);
-  int8_t* op = static_cast<int8_t*>(o8);
-  if (C == 128) err = launch_core<128>(qp, kp, vp, so, n_o, op, B, L, scale, s);
-  else if (C == 256) err = launch_core<256>(qp, kp, vp, so, n_o, op, B, L, scale, s);
-  else err = launch_core<512>(qp, kp, vp, so, n_o, op, B, L, scale, s);
+  int8_t *op = static_cast<int8_t*>(o8), *q8p = static_cast<int8_t*>(q8), *k8p = static_cast<int8_t*>(k8);
+  unsigned* am = static_cast<unsigned*>(amax);  // [B, 2] zeroed: the int8 core; nullptr: the f32 core
+  if (C == 128) err = launch_core<128>(qp, kp, vp, q8p, k8p, am, so, n_o, op, B, L, scale, s);
+  else if (C == 256) err = launch_core<256>(qp, kp, vp, q8p, k8p, am, so, n_o, op, B, L, scale, s);
+  else err = launch_core<512>(qp, kp, vp, q8p, k8p, am, so, n_o, op, B, L, scale, s);
   if (err != cudaSuccess) return (int)err;
 
   IgemmArgs a = proj_args(o8, wo, so + 2 * C, so + 3 * C, out, B, L, C);

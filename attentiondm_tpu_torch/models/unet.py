@@ -15,7 +15,6 @@ variant is a later slice (ROADMAP Queue 1) and raises.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Any, Callable
@@ -25,24 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import default_device
+from ..ops.precision import exact_f32  # noqa: F401  re-exported
 
 Params = Any  # nested dict / list tree of tensors
-
-
-@contextlib.contextmanager
-def exact_f32():
-    """Full-precision float32 products on the GPU, for the duration of a
-    call (a context manager, or a decorator as `@exact_f32()`).
-
-    cuDNN runs float32 convolutions in TF32 by default; the calibration
-    ranges are read off these float32 activations, so both TF32 switches are
-    off while the port runs float32 math, and restored afterwards."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 @dataclasses.dataclass(frozen=True)

@@ -48,9 +48,17 @@ SIGNATURES = {
     # the same with the f32 scratch `partial` [B, nchunk, 2, groups] before out
     "adm_epilogue_gn_swish_quant_blocked": [_P, _I] + [_P] * 9 + [_I] * 5 + [_F, _P],
     # x, gn (2,C), sqkv (6,C), n_q, n_k, n_v, wq, wk, wv, eqkv (6,C), sqo (4,C), n_o, wo,
-    # scratch q8 k8 v8 qf kf vf o8, out, B, L, C, groups, inv_count, scale, stream
+    # scratch q8 k8 v8 qf kf vf o8, amax [B, 2] zeroed (the int8 core) or null (the f32 core), out,
+    # B, L, C, groups, inv_count, scale, stream
     "adm_fused_attention_block": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
-    + [_P] * 8 + [_I] * 4 + [_F, _F, _P],
+    + [_P] * 9 + [_I] * 4 + [_F, _F, _P],
+    # q8, k8, v8, scalars (sq, sk, sv), out_scale, out_zp, n_levels, out, B, L, C, block_k, online, scale, stream
+    "adm_int8_attention_static": [_P] * 6 + [_I, _P] + [_I] * 5 + [_F, _P],
+    # dot q k v (int32), (inv_ws, zcbias) x3, out_scale, out_zp, n_levels, scratch amax [B, 2] zeroed, q8, k8,
+    # v bf16, out, B, L, C, scale, stream
+    "adm_fused_int8_attention": [_P] * 11 + [_I] + [_P] * 5 + [_I] * 3 + [_F, _P],
+    # q, k, v, out (f32), B, L, D, block_k, scale, stream
+    "adm_flash_attention": [_P] * 4 + [_I] * 4 + [_F, _P],
     # x, x_is_f32, gn_scale, gn_bias, (scale, zp) x3, n_out, n_levels x3, out x3, swish,
     # B, HW, N, groups, inv_count, stream
     "adm_gn_act_quant": [_P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 3 + [_I] * 5 + [_F, _P],

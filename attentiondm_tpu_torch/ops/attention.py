@@ -1,25 +1,105 @@
-"""Dense spatial attention for the FP UNet (port of the dense branch of
-`attentiondm_tpu/ops/attention.spatial_attention`).
+"""Spatial attention of the FP UNet (port of `attentiondm_tpu/ops/attention.py`).
 
-The FP teacher runs attention at L = 256 on CIFAR, where the JAX package
-takes a plain fused softmax.  Long maps (L >= 1024) went to the Pallas flash
-kernel K11 (`attentiondm_tpu/ops/attention.py:53`), which is not ported yet.
+`spatial_attention` routes as the JAX package does: maps of L >= 1024 tokens
+on the 256 / 128 grids (L % 256 == 0, D % 128 == 0) take K11
+`flash_attention`, the online-softmax kernel that never holds an L x L
+matrix (csrc/flash_attention.cu); shorter or unaligned maps take the dense
+float32 softmax.  The FP teacher, stage-1 calibration and the serving
+forward with `attn_int8=False` all come through here.
+
+K11's order, in the kernel and in `flash_attention_ref` alike: q is scaled
+before the dot; key blocks of `block_k` (512) stream with a running maximum
+m (from -1e30), alpha = exp(m - m_new), denom = denom * alpha + sum(p) and
+acc = acc * alpha + p . v; acc / denom at the end.  Kernel and plain version
+sum their float32 dot products in different orders, so they agree to
+rounding, not to the bit.
 """
 from __future__ import annotations
 
 import torch
 
+from . import _build
 
-def spatial_attention(q, k, v, *, scale=None):
-    """softmax(q k^T * scale) v in float32; q, k, v: [B, L, D]."""
+NEG_INF = -1e30
+FLASH_THRESHOLD = 1024  # JAX's `flash_threshold`
+
+
+def takes_flash(L: int, D: int) -> bool:
+    """JAX's dispatch of `spatial_attention`: whether an (L, D) map takes K11."""
+    return L >= FLASH_THRESHOLD and L % 256 == 0 and D % 128 == 0
+
+
+def _blocks(L: int, block_q: int, block_k: int):
+    block_q, block_k = min(block_q, L), min(block_k, L)
+    if L % block_q or L % block_k:
+        raise ValueError(f"flash_attention: L={L} is not a multiple of the blocks ({block_q}, {block_k})")
+    return block_q, block_k
+
+
+def flash_attention_ref(q, k, v, *, scale=None, block_q: int = 256, block_k: int = 512):
+    """Plain version of `flash_attention`: the same key blocks in the same
+    order (query blocks are independent of each other, so all run at once)."""
     B, L, D = q.shape
     if scale is None:
         scale = D ** -0.5
-    if L >= 1024 and L % 256 == 0 and D % 128 == 0:
+    _, bk = _blocks(L, block_q, block_k)
+    qs = q.to(torch.float32) * scale
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    acc = torch.zeros((B, L, vf.shape[2]), dtype=torch.float32, device=q.device)
+    m = torch.full((B, L, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros_like(m)
+    for i in range(L // bk):
+        s = torch.einsum("blc,bmc->blm", qs, kf[:, i * bk:(i + 1) * bk])
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        denom = denom * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("blm,bmc->blc", p, vf[:, i * bk:(i + 1) * bk])
+        m = m_new
+    return (acc / denom).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, scale=None, block_q: int = 256, block_k: int = 512, plain: bool = False):
+    """softmax(q k^T * scale) v with an online softmax; q, k, v: [B, L, D].
+
+    `block_k` is the online softmax's key block (part of the result's last
+    bits).  `block_q` is kept for JAX's signature only: it has to divide L, as
+    there, and changes nothing here (the kernel sizes its query tiles from
+    D).  `plain=True` runs the plain version on any device."""
+    B, L, D = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if scale is None:
+        scale = D ** -0.5
+    _, bk = _blocks(L, block_q, block_k)
+    if plain or q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale=scale, block_q=block_q, block_k=block_k)
+    if D not in (128, 256) or L % 64 or bk % 64 or bk > 512:
         raise NotImplementedError(
-            "L >= 1024 takes the flash-attention kernel K11, still to be ported "
-            "(ROADMAP Queue 2)"
-        )
+            f"flash_attention on CUDA: D in (128, 256), L and block_k multiples of 64, block_k <= 512; got "
+            f"D={D}, L={L}, block_k={bk}")
+    qf, kf, vf = (_build.f32c(a) for a in (q, k, v))
+    _build.require_cuda("flash_attention", qf, kf, vf)
+    out = torch.empty_like(qf)
+    err = _build.kernels().adm_flash_attention(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
+                                               B, L, D, bk, float(scale), _build.stream_ptr(q.device))
+    _build.check(err, "adm_flash_attention")
+    flash_attention.launches += 1
+    return out.to(q.dtype)
+
+
+flash_attention.launches = 0
+
+
+def spatial_attention(q, k, v, *, scale=None, plain: bool = False):
+    """softmax(q k^T * scale) v in float32; q, k, v: [B, L, D].  Long maps on
+    the kernel's grid take K11 (q scaled before the dot), the rest the dense
+    softmax (the dot scaled after)."""
+    B, L, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    if takes_flash(L, D):
+        return flash_attention(q, k, v, scale=scale, plain=plain)
     w = torch.einsum("blc,bmc->blm", q.float(), k.float()) * scale
     w = torch.softmax(w, dim=-1)
     return torch.einsum("blm,bmc->blc", w, v.float()).to(q.dtype)

@@ -12,7 +12,14 @@ Tolerances, per kernel output against the plain version on the same inputs:
   K7            residual' within 1 bf16 ulp everywhere and the sums within
                 1e-6 relative (of the largest sum of their kind);
   K12           mean relative error < 1e-3 and at least 99.9% of the
-                elements within 1 bf16 ulp.
+                elements within 1 bf16 ulp;
+  K8, K9        int8 codes: at most 1 LSB apart, on at most 0.2% of them
+                (the softmax denominator and p.v sum in another order, and a
+                p on a bf16 rounding tie moves the output's last bits);
+  K10           the same on at most 1% (the online softmax rescales per key
+                block);
+  K11           float32: every element within 2e-5 + 2e-5 |want| (f32 dot
+                products in another order).
 K4, K7 and K12 sum in the plain versions' order, so 0 LSB, equal sums and
 equal outputs are what a run should print; the tolerances say what would
 still be a pass.
@@ -24,6 +31,11 @@ import contextlib
 import torch
 
 from . import fused_gn
+from .attention import takes_flash
+
+
+# int8 outputs: the share of codes that may differ (by at most 1 LSB) from the plain version's
+CODE_SHARE = {"K2": 1e-3, "K6": 1e-3, "K8": 2e-3, "K9": 2e-3, "K10": 1e-2}
 
 
 def _ulp_share(gf, wf):
@@ -49,9 +61,12 @@ def compare(kind: str, got, want) -> dict:
     gf, wf = got.float(), want.float()
     d = (gf - wf).abs()
     err = d.max().item()
-    if kind in ("K2", "K6"):
+    if kind in CODE_SHARE:
         frac = (d > 0).float().mean().item()
-        return dict(max_abs_err=err, frac=frac, ok=err <= 1 and frac <= 1e-3)
+        return dict(max_abs_err=err, frac=frac, ok=err <= 1 and frac <= CODE_SHARE[kind])
+    if kind == "K11":
+        return dict(max_abs_err=err, rel=(d.mean() / wf.abs().mean()).item(),
+                    ok=bool((d <= 2e-5 + 2e-5 * wf.abs()).all()))
     within = _ulp_share(gf, wf)
     if kind == "K1":
         return dict(max_abs_err=err, within=within, ok=within == 1.0)
@@ -69,30 +84,37 @@ def per_site(records: list):
     calls launch nothing, so launch counts stay the kernels' own."""
     from ..quant import int8_serving as srv
 
-    saved = {name: getattr(srv, name) for name in (
-        "_k1", "epilogue_gn_swish_quant", "fused_attention_block", "gn_act_quant",
-        "epilogue_residual_gn_stats", "_rb_kernel")}
+    from . import int8_attention as ia
 
-    def wrap(name, kind_of):
-        fn = saved[name]
+    kinds = {
+        "_k1": lambda *a: "K1",
+        "epilogue_gn_swish_quant": lambda dot, *a: fused_gn.epilogue_route(dot.shape, dot.dtype),
+        "fused_attention_block": lambda *a: "K3",
+        "gn_act_quant": lambda *a: "K4",
+        "epilogue_residual_gn_stats": lambda *a: "K7",
+        "_rb_kernel": lambda *a: "K12",
+        "fused_int8_attention": lambda *a: "K8",
+        "fused_int8_attention_static":
+            lambda q, *a: "K10" if ia.static_core_takes_flash(q.shape[1], q.shape[2]) else "K9",
+        # the dense float32 softmax of a short map is no kernel and has no second version
+        "spatial_attention": lambda q, *a: "K11" if takes_flash(q.shape[1], q.shape[2]) else None,
+    }
+    saved = {name: getattr(srv, name) for name in kinds}
 
+    def wrap(fn, kind_of):
         def call(*args, **kwargs):
             out = fn(*args, **kwargs)
-            want = fn(*args, **{**kwargs, "plain": True})
             kind = kind_of(*args)
-            shape = tuple((out if torch.is_tensor(out) else out[0]).shape)
-            records.append((kind, shape, compare(kind, out, want)))
+            if kind is not None:
+                want = fn(*args, **{**kwargs, "plain": True})
+                shape = tuple((out if torch.is_tensor(out) else out[0]).shape)
+                records.append((kind, shape, compare(kind, out, want)))
             return out
 
         return call
 
-    srv._k1 = wrap("_k1", lambda *a: "K1")
-    srv.epilogue_gn_swish_quant = wrap("epilogue_gn_swish_quant",
-                                       lambda dot, *a: fused_gn.epilogue_route(dot.shape, dot.dtype))
-    srv.fused_attention_block = wrap("fused_attention_block", lambda *a: "K3")
-    srv.gn_act_quant = wrap("gn_act_quant", lambda *a: "K4")
-    srv.epilogue_residual_gn_stats = wrap("epilogue_residual_gn_stats", lambda *a: "K7")
-    srv._rb_kernel = wrap("_rb_kernel", lambda *a: "K12")
+    for name, kind_of in kinds.items():
+        setattr(srv, name, wrap(saved[name], kind_of))
     try:
         yield records
     finally:
@@ -104,16 +126,19 @@ def conv_plan(cfg):
     """One serving step's kernel calls, derived from `iter_conv_layers` and
     the config: K1 launches (name, H_in, Cp, Np, ksize, stride, out dtype),
     the K2 and K6 epilogue shapes (HW, N), routed by `epilogue_route` on the
-    bf16 conv1 output, and the K3 shapes (L, C)."""
+    bf16 conv1 output, the K3 shapes (L, C) of the attention sites that
+    `fused_attention_block_fits` lets in, and the other, composed sites
+    (name, L, C), whose four 1x1 projections are K1 launches."""
     from ..models.unet import iter_conv_layers
     from ..quant.int8_runtime import _eligible
+    from .int8_attention import fused_attention_block_fits
 
     def rup(c):
         return (c + 127) // 128 * 128
 
     levels = len(cfg.ch_mult)
     res = [cfg.resolution >> i for i in range(levels)]
-    k1, epi, k3 = [], {"K2": [], "K6": []}, []
+    k1, epi, k3, composed = [], {"K2": [], "K6": []}, [], []
     for name, cin, k in iter_conv_layers(cfg):
         parts = name.split(".")
         if not _eligible((k, k, cin, 0)):
@@ -126,8 +151,13 @@ def conv_plan(cfg):
             lvl = int(parts[1])
         H, cout = res[lvl], cfg.ch * cfg.ch_mult[lvl]
         if ".attn" in name or parts[0] == "mid" and parts[1] == "attn_1":
+            if fused_attention_block_fits(H * H, cin):
+                if parts[-1] == "q":
+                    k3.append((H * H, cin))
+                continue
             if parts[-1] == "q":
-                k3.append((H * H, cin))
+                composed.append((name.rsplit(".", 1)[0], H * H, cin))
+            k1.append((name, H, rup(cin), rup(cin), 1, 1, torch.int32))
             continue
         stride, mode = 1, torch.int32
         if parts[-1] in ("conv1", "conv2"):
@@ -142,7 +172,30 @@ def conv_plan(cfg):
         elif parts[-2] == "upsample":
             cout, H = cin, 2 * H
         k1.append((name, H, rup(cin), rup(cout), k, stride, mode))
-    return k1, epi["K2"], epi["K6"], k3
+    return k1, epi["K2"], epi["K6"], k3, composed
+
+
+def attention_plan(cfg, *, attn_int8=True, attn_ranges=None) -> dict:
+    """The attention cores of one serving step under the attention flags, by
+    the dispatchers' own predicates: {"K3.int8_core": [(L, C)], "K8": [...],
+    "K9": [...], "K10": [...], "K11": [...]}.  `attn_ranges`: the calibrated
+    ranges' dict (or any container of projection names), or True for every
+    site."""
+    from . import int8_attention as ia
+
+    _k1, _k2, _k6, k3, composed = conv_plan(cfg)
+    plan = {k: [] for k in ("K3.int8_core", "K8", "K9", "K10", "K11")}
+    if attn_int8:
+        plan["K3.int8_core"] = list(k3)
+    for site, L, C in composed:
+        if not attn_int8:
+            if takes_flash(L, C):
+                plan["K11"].append((L, C))
+            continue
+        static = attn_ranges is True or (
+            attn_ranges is not None and all(f"{site}.{k}" in attn_ranges for k in ("q", "k", "v")))
+        plan[("K10" if ia.static_core_takes_flash(L, C) else "K9") if static else "K8"].append((L, C))
+    return plan
 
 
 def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, resblock_pallas=False) -> dict:
@@ -196,12 +249,17 @@ def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, re
     return plan
 
 
-def expected_launches(cfg, steps: int = 1, batch: int = 1, **levers) -> dict:
+def expected_launches(cfg, steps: int = 1, batch: int = 1, *, attn_int8=True, attn_ranges=None,
+                      **levers) -> dict:
     """Launch counts of `steps` serving steps, per kernel (K13 and K5 are
-    K1's int32 3x3 and 1x1 launches), under the levers given (`lever_plan`'s
-    keywords; none: the levers-off path).  A block K12 takes launches
-    neither its two K1 convs nor its K2 / K6 epilogue."""
-    k1, k2, k6, k3 = conv_plan(cfg)
+    K1's int32 3x3 and 1x1 launches, "K3.int8_core" the K3 launches that ran
+    the int8 core), under the attention flags
+    (`attention_plan`'s keywords, the serving defaults) and the levers given
+    (`lever_plan`'s keywords; none: the levers-off path).  A block K12 takes
+    launches neither its two K1 convs nor its K2 / K6 epilogue; a composed
+    attention site launches K1 four times."""
+    k1, k2, k6, k3, _composed = conv_plan(cfg)
+    attn = attention_plan(cfg, attn_int8=attn_int8, attn_ranges=attn_ranges)
     plan = lever_plan(cfg, batch, **levers)
     whole = {site for site, _H, _C in plan["K12"]}
     k1 = [c for c in k1 if c[0].rsplit(".", 1)[0] not in whole]
@@ -214,7 +272,8 @@ def expected_launches(cfg, steps: int = 1, batch: int = 1, **levers) -> dict:
     counts = {"K1": len(k1), "K2": len(k2), "K6": len(k6), "K3": len(k3),
               "K5": sum(1 for c in k1 if c[4] == 1),
               "K13": sum(1 for c in k1 if c[4] == 3 and c[5] == 1 and c[6] == torch.int32),
-              "K4": len(plan["K4"]), "K7": len(plan["K7"]), "K12": len(plan["K12"])}
+              "K4": len(plan["K4"]), "K7": len(plan["K7"]), "K12": len(plan["K12"]),
+              **{k: len(v) for k, v in attn.items()}}
     return {k: n * steps for k, n in counts.items()}
 
 
@@ -226,13 +285,20 @@ def launch_counters() -> dict:
         epilogue_residual_gn_stats,
         gn_act_quant,
     )
-    from .int8_attention import fused_attention_block
+    from .attention import flash_attention
+    from .int8_attention import (
+        fused_attention_block,
+        fused_int8_attention,
+        fused_int8_attention_static,
+        int8_flash_attention_static,
+    )
     from .pallas_conv import int8_conv
     from .pallas_resblock import resblock_pallas
 
     return {"K1": int8_conv, "K2": epilogue_gn_swish_quant_whole, "K6": epilogue_gn_swish_quant_blocked,
             "K3": fused_attention_block, "K4": gn_act_quant, "K7": epilogue_residual_gn_stats,
-            "K12": resblock_pallas}
+            "K12": resblock_pallas, "K8": fused_int8_attention, "K9": fused_int8_attention_static,
+            "K10": int8_flash_attention_static, "K11": flash_attention}
 
 
 def reset_launches():
@@ -240,10 +306,12 @@ def reset_launches():
     counters["K1"].launches_by_mode = {}
     for fn in counters.values():
         fn.launches = 0
+    counters["K3"].int8_core_launches = 0
 
 
 def read_launches() -> dict:
     counters = launch_counters()
     by_mode = counters["K1"].launches_by_mode
     return {**{k: fn.launches for k, fn in counters.items()},
-            "K5": by_mode.get("1x1/s1/int32", 0), "K13": by_mode.get("3x3/s1/int32", 0)}
+            "K5": by_mode.get("1x1/s1/int32", 0), "K13": by_mode.get("3x3/s1/int32", 0),
+            "K3.int8_core": counters["K3"].int8_core_launches}

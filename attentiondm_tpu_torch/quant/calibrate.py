@@ -63,10 +63,19 @@ def _calibrate_one_conv(x, st: ActQuantState, cfg: ActQuantConfig, s: int, first
     return updates, xq
 
 
+def _is_attn_proj(name: str) -> bool:
+    leaf = name.rsplit(".", 1)[-1]
+    return (".attn" in name or name.startswith("mid.attn")) and leaf in ("q", "k", "v")
+
+
 def calibrate_ranges_step(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState],
-                          x, t, s: int, first: bool):
+                          x, t, s: int, first: bool, attn_absmax: dict):
     """One calibration forward at step `s`: update every conv's ranges in
-    `qstates` (in place, at index s) and return the FP-graph eps."""
+    `qstates` (in place, at index s) and return the FP-graph eps.
+
+    `attn_absmax` collects each attention q/k/v projection's OUTPUT absmax
+    at this step, the static scales the int8 q . k^T serving cores quantize
+    with (`ops.int8_attention.fused_int8_attention_static`)."""
 
     def conv_apply(name, xin, p, *, stride=1, padding="SAME"):
         if name not in qstates:
@@ -75,7 +84,10 @@ def calibrate_ranges_step(qunet: QuantizedUNet, params, qstates: Dict[str, ActQu
         st = qstates[name]
         for field, v in upd.items():
             getattr(st, field)[s] = v
-        return conv2d(xq, p, stride=stride, padding=padding)
+        out = conv2d(xq, p, stride=stride, padding=padding)
+        if _is_attn_proj(name):
+            attn_absmax[name] = out.abs().max()
+        return out
 
     return unet_apply(params, qunet.cfg, x, t, conv_apply=conv_apply)
 
@@ -87,11 +99,10 @@ def calibrate_ranges(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantSt
     """Stage-1 calibration over the whole sampler trajectory.
 
     `xs[i]` [S, N, H, W, C] is the model input at sampling step i (x_t for
-    t = reversed(seq)[i]).  Returns new states; the inputs are not changed."""
-    if return_attn_ranges:
-        raise NotImplementedError(
-            "attn_ranges feed the attn_int8 core (K8/K9/K10), a later slice "
-            "(ROADMAP Queue 1, 'attn_int8 with K8/K9/K10')")
+    t = reversed(seq)[i]).  Returns new states; the inputs are not changed.
+
+    With `return_attn_ranges` also returns {proj_name: [S] float32}, the
+    absmax of each attention q/k/v projection's output per step."""
     if assignment_init:
         raise NotImplementedError(
             "assignment_init is a stage-2 study lever "
@@ -99,7 +110,11 @@ def calibrate_ranges(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantSt
     t_rev = np.asarray(list(seq))[::-1].astype(np.float32)
     n = xs.shape[1]
     states = {k: v.clone() for k, v in qstates.items()}
+    per_step = []
     for s in range(xs.shape[0]):
         t_vec = torch.full((n,), float(t_rev[s]), dtype=torch.float32, device=xs.device)
-        calibrate_ranges_step(qunet, params, states, xs[s], t_vec, s, first)
-    return states
+        per_step.append({})
+        calibrate_ranges_step(qunet, params, states, xs[s], t_vec, s, first, per_step[-1])
+    if not return_attn_ranges:
+        return states
+    return states, {name: torch.stack([d[name] for d in per_step]) for name in per_step[0]}

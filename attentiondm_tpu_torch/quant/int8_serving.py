@@ -17,17 +17,22 @@ With `resblock_pallas` an identity-residual block (no shortcut, no boundary
 fusion on either side) is K12 (ops/pallas_resblock.py), the whole chain
 behind one call.
 
-Attention blocks are K3 (ops/int8_attention.py) whole; the stride-2
-downsample, the int8-domain nearest upsample and `conv_out` are K1 in int32
-mode with a plain-torch dequant.  `conv_in` (3 input channels) stays on the
-fake-quant float conv.
+Attention blocks route as in JAX (`_attn_fused`): a map that
+`fused_attention_block_fits` lets in is K3 (ops/int8_attention.py) whole,
+with `int8_core=attn_int8`; a larger one is composed of a plain GroupNorm ->
+three quants, three K1 1x1 GEMMs and a core, K9 or K10 at the calibrated
+`attn_ranges` (static scales), K8 without them (dynamic scales), or with
+`attn_int8=False` the float32 `spatial_attention` (K11 at L >= 1024), then
+proj_out's K1 GEMM.  The stride-2 downsample, the int8-domain nearest
+upsample and `conv_out` are K1 in int32 mode with a plain-torch dequant.
+`conv_in` (3 input channels) stays on the fake-quant float conv.
 
 The port takes the serving path's flag values: bf16 residual stream,
-`dot_bf16`, f32 attention core, symmetric weights, DDIM update, no step
-chunking; and JAX's three fusion levers `entry_pallas`, `boundary_fusion`
-and `resblock_pallas` (True or "all"), routed by JAX's predicates.  Every
-other value raises NotImplementedError naming the ROADMAP slice that ports
-it.
+`dot_bf16`, symmetric weights, DDIM update, no step chunking; every value of
+`attn_int8` / `attn_ranges`; and JAX's three fusion levers `entry_pallas`,
+`boundary_fusion` and `resblock_pallas` (True or "all"), routed by JAX's
+predicates.  Every other value raises NotImplementedError naming the ROADMAP
+slice that ports it.
 """
 from __future__ import annotations
 
@@ -58,7 +63,13 @@ from ..ops.fused_gn import (
     gn_finalize_sums,
     quant_i8 as _quant_i8,
 )
-from ..ops.int8_attention import fused_attention_block
+from ..ops.attention import spatial_attention
+from ..ops.int8_attention import (
+    fused_attention_block,
+    fused_attention_block_fits,
+    fused_int8_attention,
+    fused_int8_attention_static,
+)
 from ..ops.pallas_conv import conv3_pallas_wins, int8_conv as _k1, pad_qzero as _pad_qzero, qzero as _qzero
 from ..ops.pallas_resblock import resblock_pallas as _rb_kernel, resblock_pallas_fits
 from .int8_runtime import _eligible, _fold_all_steps
@@ -66,12 +77,9 @@ from .primitives import div
 from .qunet import QuantizedUNet
 from .state import ActQuantState, quantize_activation
 
-_ATTN = "Queue 1, 'attn_int8 with K8/K9/K10'"
 _CHUNK = "Queue 1, 'chunking and int4 packing'"
 _FLAGS = "Queue 1, 'the enhanced variant and the remaining serving flags'"
 _SLICE = {
-    "attn_int8": _ATTN,
-    "attn_ranges": _ATTN,
     "step_chunk": _CHUNK,
     "micro_batch": _CHUNK,
     "pack_int4": _CHUNK,
@@ -88,8 +96,7 @@ _SLICE = {
 
 # the serving path's values; anything else raises
 _SERVING_FLAGS = dict(
-    residual_dtype=torch.bfloat16, attn_int8=False, attn_ranges=None, dot_bf16=True, conv_pallas=False,
-    mp_states=None,
+    residual_dtype=torch.bfloat16, dot_bf16=True, conv_pallas=False, mp_states=None,
 )
 
 
@@ -324,25 +331,63 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, entry_s
     return (x_sc + dot2.to(torch.float32)[..., :co2]).to(res_dtype), None
 
 
-def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, plain=False):
-    """DDIM single-head attention, the whole-block kernel K3."""
+def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=None, plain=False):
+    """DDIM single-head attention with int8 q/k/v/proj_out projections.
+
+    Where the map fits JAX's whole-block budget: K3, with `int8_core =
+    attn_int8`.  Else the composed branch: one plain GroupNorm pass quantizes
+    the normalized tensor at the three projections' scales, the 1x1
+    projections are K1 GEMMs to int32, and the core is K9 / K10 at the
+    step's calibrated ranges `ar_i` (the quantization at scale absmax / 127
+    in plain torch, as XLA fuses it into the projection epilogues), K8
+    without them, or with `attn_int8=False` the float32 `spatial_attention`;
+    then proj_out's int8 GEMM, dequant and the residual add."""
     B, H, W, C = h_res.shape
+    L = H * W
     names = [f"{name}.{k}" for k in ("q", "k", "v", "proj_out")]
     lays = [rt_i.get(n) for n in names]
     pols = [qunet.policy[n] for n in names]
-    if any(lay is None or tuple(lay.gq.shape) != (C, C) for lay in lays):
+    if any(lay is None for lay in lays):
         raise _uncovered(name)
-    lo = lays[3]
-    out = fused_attention_block(
-        h_res.to(res_dtype).reshape(B, H * W, C),
-        p["norm"]["scale"], p["norm"]["bias"],
-        [(lay.act_scale, lay.act_zp, pol.a_bit) for lay, pol in zip(lays[:3], pols[:3])],
-        [(lay.gq, lay.inv_ws, lay.zcbias) for lay in lays[:3]],
-        (lo.act_scale, lo.act_zp, pols[3].a_bit),
-        (lo.gq, lo.inv_ws, lo.zcbias),
-        scale=C ** -0.5, plain=plain,
-    )
-    return out.reshape(B, H, W, C)
+    lq, lk, lv, lo = lays
+    qp = [(lay.act_scale, lay.act_zp, pol.a_bit) for lay, pol in zip(lays[:3], pols[:3])]
+    scale = C ** -0.5
+    if fused_attention_block_fits(L, C) and all(tuple(lay.gq.shape) == (C, C) for lay in lays):
+        out = fused_attention_block(
+            h_res.to(res_dtype).reshape(B, L, C),
+            p["norm"]["scale"], p["norm"]["bias"], qp,
+            [(lay.gq, lay.inv_ws, lay.zcbias) for lay in lays[:3]],
+            (lo.act_scale, lo.act_zp, pols[3].a_bit),
+            (lo.gq, lo.inv_ws, lo.zcbias),
+            scale=scale, int8_core=bool(attn_int8), plain=plain,
+        )
+        return out.reshape(B, H, W, C)
+    hf = h_res.to(torch.float32)
+    hq, hk, hv = gn_act_quant_xla(hf, p["norm"], qp, act="none")
+    if attn_int8 and lq.zcbias.shape[-1] == C:
+        dots = [int8_conv(a, lay.gq, 1, plain=plain).reshape(B, L, C) for a, lay in ((hq, lq), (hk, lk), (hv, lv))]
+        scales = None
+        if ar_i is not None and all(f"{name}.{k}" in ar_i for k in ("q", "k", "v")):
+            scales = [torch.clamp(ar_i[f"{name}.{k}"], min=1e-12) / torch.full_like(ar_i[f"{name}.{k}"], 127.0)
+                      for k in ("q", "k", "v")]
+        if scales is not None:
+            q8, k8, v8 = (
+                torch.clamp(torch.round((d.to(torch.float32) * lay.inv_ws + lay.zcbias) / sc), -127, 127).to(torch.int8)
+                for d, lay, sc in zip(dots, (lq, lk, lv), scales))
+            oq = fused_int8_attention_static(q8, k8, v8, *scales, lo.act_scale, lo.act_zp, pols[3].a_bit,
+                                             scale=scale, plain=plain)
+        else:
+            oq = fused_int8_attention(*dots, (lq.inv_ws, lq.zcbias), (lk.inv_ws, lk.zcbias),
+                                      (lv.inv_ws, lv.zcbias), lo.act_scale, lo.act_zp, pols[3].a_bit,
+                                      scale=scale, plain=plain)
+        oq = oq.reshape(B, H, W, C)
+    else:
+        q, k, v = (_epilogue(int8_conv(a, lay.gq, 1, plain=plain), lay, C).reshape(B, L, C)
+                   for a, lay in ((hq, lq), (hk, lk), (hv, lv)))
+        h = spatial_attention(q, k, v, scale=scale, plain=plain).reshape(B, H, W, C)
+        oq = _quant_i8(h, lo.act_scale, lo.act_zp, pols[3].a_bit)
+    out = _epilogue(int8_conv(oq, lo.gq, 1, plain=plain), lo, C)
+    return (hf + out).to(res_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +399,7 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, plain=False):
 def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                        runtime: Dict[str, ServingLayer], qstates: Dict[str, ActQuantState],
                        x: torch.Tensor, t: torch.Tensor, step_idx: int, *,
-                       residual_dtype=torch.bfloat16, attn_int8: bool = False, attn_ranges=None,
+                       residual_dtype=torch.bfloat16, attn_int8: bool = True, attn_ranges=None,
                        boundary_fusion: bool = False, dot_bf16: bool = True,
                        entry_pallas: bool = False, conv_pallas=False, resblock_pallas=False,
                        mp_states=None, plain=False) -> torch.Tensor:
@@ -368,12 +413,19 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     tensor; `resblock_pallas` (True: where JAX's conv policy says so; "all":
     wherever it fits) runs identity-residual blocks as K12.
 
+    `attn_int8` (JAX's default, True) runs the attention logits as int8
+    products: K3's int8 core where the whole-block kernel takes the map, K8
+    on larger maps, or K9 / K10 where `attn_ranges` ({proj_name: [S]} from
+    `calibrate_ranges(return_attn_ranges=True)`) has the site's q, k and v.
+
     `plain=True` runs the kernels' plain versions instead, on any device
     (for comparisons)."""
-    _require(residual_dtype=residual_dtype, attn_int8=attn_int8, attn_ranges=attn_ranges,
-             dot_bf16=dot_bf16, conv_pallas=conv_pallas, resblock_pallas=resblock_pallas, mp_states=mp_states)
+    _require(residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
+             resblock_pallas=resblock_pallas, mp_states=mp_states)
     check_ported(cfg)
     rt_i = gather_step(runtime, step_idx)
+    ar_i = None if attn_ranges is None else {k: a[step_idx] for k, a in attn_ranges.items()}
+    attn = dict(attn_int8=attn_int8, ar_i=ar_i, plain=plain)
     num_levels = len(cfg.ch_mult)
     res = residual_dtype
     levers = dict(entry_pallas=bool(entry_pallas), resblock_pallas=resblock_pallas, plain=plain)
@@ -396,7 +448,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                                       temb, rt_i, qunet, res, entry_sums=sums, want_exit_stats=want, **levers)
             if lp["attn"]:
                 h = _attn_fused(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, rt_i,
-                                qunet, res, plain=plain)
+                                qunet, res, **attn)
                 sums = None
             hs.append(h)
         if i_level != num_levels - 1:
@@ -414,7 +466,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     h = hs[-1]
     h, _ = _resblock_fused("mid.block_1", params["mid"]["block_1"], h, temb, rt_i, qunet, res,
                            entry_sums=sums, **levers)
-    h = _attn_fused("mid.attn_1", params["mid"]["attn_1"], h, rt_i, qunet, res, plain=plain)
+    h = _attn_fused("mid.attn_1", params["mid"]["attn_1"], h, rt_i, qunet, res, **attn)
     h, _ = _resblock_fused("mid.block_2", params["mid"]["block_2"], h, temb, rt_i, qunet, res, **levers)
 
     for i_level in reversed(range(num_levels)):
@@ -424,7 +476,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                                    torch.cat([h, hs.pop()], dim=-1), temb, rt_i, qunet, res, **levers)
             if lp["attn"]:
                 h = _attn_fused(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, rt_i,
-                                qunet, res, plain=plain)
+                                qunet, res, **attn)
         if i_level != 0:
             nm = f"up.{i_level}.upsample.conv"
             lay = rt_i.get(nm)
@@ -459,7 +511,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
 def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState], seq,
                          betas: torch.Tensor, *, eta: float = 0.0, step_chunk=None,
                          micro_batch=None, residual_dtype=torch.bfloat16, symmetric: bool = True,
-                         attn_int8: bool = False, attn_ranges=None, weight_extras=None,
+                         attn_int8: bool = True, attn_ranges=None, weight_extras=None,
                          boundary_fusion: bool = False, dot_bf16: bool = True,
                          entry_pallas: bool = False, conv_pallas=False, resblock_pallas=False,
                          pack_int4: bool = False, rank1: bool = False, update: str = "ddim",
@@ -469,13 +521,14 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
     `runtime`), then returns ``sample(x) -> x_final``.
 
     `runtime`: a prebuilt `prepare_serving_runtime` tree to reuse; samplers
-    that differ only in compute-path flags (`entry_pallas`,
-    `boundary_fusion`, `resblock_pallas`; see `serving_unet_apply`) share
+    that differ only in compute-path flags (`attn_int8`, `attn_ranges`,
+    `entry_pallas`, `boundary_fusion`, `resblock_pallas`; see
+    `serving_unet_apply`) share
     one fold instead of holding a copy each."""
     check_eta(eta)
     _require(step_chunk=step_chunk, micro_batch=micro_batch, update=update,
-             residual_dtype=residual_dtype, attn_int8=attn_int8, attn_ranges=attn_ranges,
-             dot_bf16=dot_bf16, conv_pallas=conv_pallas, resblock_pallas=resblock_pallas, mp_states=mp_states)
+             residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
+             resblock_pallas=resblock_pallas, mp_states=mp_states)
     t_rev, _, at, at_next = _seq_alphas(betas, seq)
     if runtime is None:
         runtime = prepare_serving_runtime(qunet, params, qstates, symmetric=symmetric,
@@ -485,7 +538,8 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
         n = x.shape[0]
         for i in range(t_rev.shape[0]):
             et = serving_unet_apply(params, qunet.cfg, qunet, runtime, qstates, x,
-                                    t_rev[i].to(torch.float32).expand(n), i, boundary_fusion=boundary_fusion,
+                                    t_rev[i].to(torch.float32).expand(n), i, attn_int8=attn_int8,
+                                    attn_ranges=attn_ranges, boundary_fusion=boundary_fusion,
                                     entry_pallas=entry_pallas, resblock_pallas=resblock_pallas)
             x, _ = ddim_step(x, et, at[i], at_next[i], 0.0, torch.zeros_like(x))
         return x

@@ -67,6 +67,13 @@ def from_jax_qstates(tree, device=None) -> dict:
     }
 
 
+def from_jax_attn_ranges(tree, device=None) -> dict:
+    """{proj_name: numpy [S]} (JAX's `attn_ranges`) -> {proj_name: float32 tensor [S]} on `device`
+    (None: the package's `default_device()`)."""
+    device = default_device() if device is None else device
+    return {name: torch.tensor(np.asarray(a), dtype=torch.float32, device=device) for name, a in tree.items()}
+
+
 def mixed_ranges(state: ActQuantState, idx):
     """Per-channel (min, max) from the softmax group mixture at step `idx`."""
     sw = torch.softmax(state.alpha_logits[idx], dim=0)  # [G, C]

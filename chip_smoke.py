@@ -5,9 +5,9 @@
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
-3. then each model in turn, the CIFAR-10 W4A8 sampler (`UNetConfig()`,
-   batch 128) and the LSUN church W4A8 sampler (`configs/church.yml`,
-   256^2, batch 32):
+3. then the CIFAR-10 W4A8 sampler (`UNetConfig()`, batch 128) and the LSUN
+   church W4A8 sampler (`configs/church.yml`, 256^2, batch 32, at most 4
+   steps), both with the f32 attention core (`attn_int8=False`):
    a. kernels: each kernel against its plain PyTorch version on the card at
       every distinct shape the path's serving step gives it
       (`ops.checks.conv_plan`), held to its tolerance (`ops.checks.compare`),
@@ -44,6 +44,25 @@
       chained step under the levers, and timed runs in turns of levers off,
       all three, and each lever alone (the median of each is printed).  Church: one per-site step with the
       three levers, launch counts checked.
+4. celeba-wide: CelebA's UNet (`configs/celeba.yml`: 64^2, ch 128, ch_mult
+   1-2-2-2-4, batch 64) at full width and depth with `attn_resolutions` set
+   to (64, 32, 16), so that it attends at L = 4096 (C = 128), 1024 (C = 256),
+   256 (C = 256) and 16 (C = 512), the one model that reaches every attention
+   kernel:
+   a. kernels: K10, K9, K8, K11 and K3 with its int8 core against their plain
+      versions at every shape a serving step gives them under the three
+      attention settings (`ops.checks.attention_plan`), timed as above; K11
+      also beside `F.scaled_dot_product_attention`, the library call for its
+      function (`library_ms`; K8, K9 and K10 have none: no PyTorch call takes
+      int8 q and k and returns an int8 requantized output);
+   b. slice: FP teacher on 2 images (K11 at 10 sites a forward), stage-1
+      calibration with the attention ranges, the fold, then the serving
+      sampler under each setting: `attn_int8=True` with `attn_ranges` (K10,
+      K9 and K3's int8 core), `attn_int8=True` without (K8 at the 64^2 and
+      32^2 sites, K3's int8 core) and `attn_int8=False` (K11
+      and K3's f32 core); launch counts, shape and finiteness, the per-site
+      step and the chained step for each, and (information only) how far the
+      two int8-core samples lie from the f32-core sample.
 Prints a JSON line of per-kernel results, then {"ok": true, "device": ...}
 as the last line.  Any failure raises (nonzero exit, no result line); so
 does a machine without a CUDA device.
@@ -58,8 +77,13 @@ import sys
 import time
 
 CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative error (gross faults only)
-BATCH = {"cifar10": 128, "church": 32}
-LEVER_ROUNDS = 5  # timed runs per lever setting, taken in turns
+BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64}
+MAX_STEPS = {"church": 4}  # a shallower schedule where the path is long and an earlier phase
+LEVER_ROUNDS = 3  # timed runs per lever setting, taken in turns
+F32_CORE = dict(attn_int8=False)  # the attention flag of the CIFAR-10 and church paths (bench.py's)
+# the three attention settings of the celeba-wide path; attn_ranges=True stands for the calibrated ranges
+ATTN_SETTINGS = {"static int8": dict(attn_int8=True, attn_ranges=True), "dynamic int8": dict(attn_int8=True),
+                 "f32 core": F32_CORE}
 
 META = {  # kernel -> (wrapper, source, the TPU kernel it replaces)
     "K1": ("int8_conv (implicit-GEMM int8 conv, all modes)", "attentiondm_tpu_torch/csrc/int8_conv.cu",
@@ -79,7 +103,19 @@ META = {  # kernel -> (wrapper, source, the TPU kernel it replaces)
            "attentiondm_tpu/ops/fused_gn.py:292"),
     "K12": ("resblock_pallas", "attentiondm_tpu_torch/csrc/resblock.cu",
             "attentiondm_tpu/ops/pallas_resblock.py:114"),
+    "K8": ("fused_int8_attention", "attentiondm_tpu_torch/csrc/int8_attn_core.cu",
+           "attentiondm_tpu/ops/int8_attention.py:73"),
+    "K9": ("fused_int8_attention_static", "attentiondm_tpu_torch/csrc/int8_attn_core.cu",
+           "attentiondm_tpu/ops/int8_attention.py:159"),
+    "K10": ("int8_flash_attention_static", "attentiondm_tpu_torch/csrc/int8_attn_core.cu",
+            "attentiondm_tpu/ops/int8_attention.py:270"),
+    "K11": ("flash_attention", "attentiondm_tpu_torch/csrc/flash_attention.cu", "attentiondm_tpu/ops/attention.py:53"),
+    "K3.int8_core": ("fused_attention_block(int8_core=True)", "attentiondm_tpu_torch/csrc/int8_attention.cu",
+                     "attentiondm_tpu/ops/int8_attention.py:448"),
 }
+# which sampler run of the celeba-wide path a kernel's launch count is read from
+ATTN_RUN = {"K10": "static int8", "K9": "static int8", "K3.int8_core": "static int8", "K8": "dynamic int8",
+            "K11": "f32 core"}
 ALL_LEVERS = dict(entry_pallas=True, boundary_fusion=True, resblock_pallas="all")
 LEVER_SETS = {"all three": ALL_LEVERS, "entry_pallas": dict(entry_pallas=True),
               "boundary_fusion": dict(boundary_fusion=True), "resblock_pallas=all": dict(resblock_pallas="all")}
@@ -87,12 +123,14 @@ LEVER_SETS = {"all three": ALL_LEVERS, "entry_pallas": dict(entry_pallas=True),
 # the card's published peaks (H100 SXM data sheet), for `bound_ms`
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12  # tensor cores, dense
+BF16_FLOPS_PER_S = 989e12  # tensor cores, dense
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores
 
 
-def bound(nbytes, int8_ops=0, f32_flops=0):
+def bound(nbytes, int8_ops=0, f32_flops=0, bf16_flops=0):
     """(bytes ms, operations ms) the card needs at least for one launch."""
-    return nbytes / HBM_BYTES_PER_S * 1e3, (int8_ops / INT8_OPS_PER_S + f32_flops / F32_FLOPS_PER_S) * 1e3
+    ops = int8_ops / INT8_OPS_PER_S + bf16_flops / BF16_FLOPS_PER_S + f32_flops / F32_FLOPS_PER_S
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops * 1e3
 
 
 def nbytes(*tensors):
@@ -107,13 +145,20 @@ def nvidia_smi_line() -> str:
 
 def path_config(path):
     """(UNetConfig, DiffusionSchedule, label) of a path: CIFAR-10's default
-    config, or the church model loaded from the repository's church.yml."""
+    config, the church model loaded from the repository's church.yml, or
+    CelebA's from celeba.yml with attention at 64^2, 32^2 and 16^2."""
+    import dataclasses
+
     from attentiondm_tpu_torch.config import load_config
     from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
     from attentiondm_tpu_torch.models.unet import UNetConfig
 
     if path == "cifar10":
         return UNetConfig(), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000), "UNetConfig() CIFAR-10"
+    if path == "celeba-wide":
+        config = load_config("celeba.yml")
+        cfg = dataclasses.replace(UNetConfig.from_config(config), attn_resolutions=(64, 32, 16))
+        return cfg, DiffusionSchedule.from_config(config), "celeba.yml CelebA with attn_resolutions=(64, 32, 16)"
     config = load_config("church.yml")
     return (UNetConfig.from_config(config), DiffusionSchedule.from_config(config),
             "church.yml LSUN church_outdoor")
@@ -187,7 +232,7 @@ def kernel_phase(cfg, batch, gen, dev, report):
     from attentiondm_tpu_torch.ops.pallas_conv import int8_conv
     from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
 
-    k1, k2, k6, k3 = checks.conv_plan(cfg)
+    k1, k2, k6, k3, _composed = checks.conv_plan(cfg)
 
     def randint8(shape, lo, hi):
         return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8).to(dev)
@@ -353,6 +398,105 @@ def kernel_phase(cfg, batch, gen, dev, report):
     torch.cuda.empty_cache()
 
 
+def attention_kernel_phase(cfg, batch, gen, dev, report):
+    """K10, K9, K8, K11 and K3's int8 core against their plain versions at
+    every shape one serving step gives them under the three attention
+    settings, weighted by the launches of the step that runs them."""
+    import torch
+    import torch.nn.functional as F
+
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.ops.attention import flash_attention
+    from attentiondm_tpu_torch.ops.int8_attention import (
+        fused_attention_block,
+        fused_int8_attention,
+        fused_int8_attention_static,
+    )
+    from attentiondm_tpu_torch.ops.precision import exact_f32
+
+    plans = {name: checks.attention_plan(cfg, **flags) for name, flags in ATTN_SETTINGS.items()}
+    for name, plan in plans.items():
+        print(f"[kernels] attention cores of a step, {name}: "
+              + ", ".join(f"{k} x{len(v)} {sorted(set(v))}" for k, v in plan.items() if v))
+
+    def randint8(shape, lo, hi):
+        return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8).to(dev)
+
+    def randf(shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+
+    def out_quant(C):  # proj_out's input quantization: 8 bits over about [-2, 2], integral zero points
+        return torch.full((C,), 255 / 4.0, device=dev), randf((C,), 3.0).round()
+
+    def run(kind, label, n, fn, b, library=None):
+        got = fn()
+        f = _held("K3" if kind == "K3.int8_core" else kind, label, got, fn(plain=True))
+        del got
+        ms = time_ms(fn)
+        pms = time_ms(lambda: fn(plain=True), reps=5)
+        lib, lib_fig = None, ""
+        if library is not None:
+            lib = time_ms(library, reps=10)
+            lib_fig = f" F.scaled_dot_product_attention {lib:.4f} ms"
+        report.add(kind, f["max_abs_err"], ms, pms, b, weight=n, library_ms=lib)
+        print(f"[kernels] {kind} {label} x{n}/step: {_fig(f)}; kernel {ms:.4f} ms plain {pms:.4f} ms{lib_fig} "
+              f"{_bound_fig(b)}")
+        torch.cuda.empty_cache()
+
+    # K10 and K9: int8 q, k, v at scalar scales of absmax 2.4 / 127 (logits of a few units), sv 0.02
+    static = plans["static int8"]
+    for kind in ("K10", "K9"):
+        for (L, C), n in sorted(collections.Counter(static[kind]).items()):
+            q8, k8, v8 = (randint8((batch, L, C), -127, 127) for _ in range(3))
+            sq, sk, sv = (torch.tensor(x, device=dev) for x in (0.019, 0.021, 0.02))
+            osc, ozp = out_quant(C)
+            b = bound(4 * q8.numel() + 8 * C + 12, int8_ops=2 * batch * L * L * C, bf16_flops=2 * batch * L * L * C,
+                      f32_flops=5 * batch * L * L)
+            run(kind, f"B={batch} L={L} C={C}", n, lambda plain=False: fused_int8_attention_static(
+                q8, k8, v8, sq, sk, sv, osc, ozp, 8, scale=C ** -0.5, plain=plain), b)
+            del q8, k8, v8
+    # K8: int32 projection accumulators that dequantize to a few units
+    for (L, C), n in sorted(collections.Counter(plans["dynamic int8"]["K8"]).items()):
+        dots = [torch.randint(-20000, 20000, (batch, L, C), generator=gen, dtype=torch.int32).to(dev) for _ in range(3)]
+        epis = [(randf((C,), 2e-5, 1e-4).abs(), randf((C,), 0.2)) for _ in range(3)]
+        osc, ozp = out_quant(C)
+        b = bound(13 * dots[0].numel() + 8 * 4 * C, int8_ops=2 * batch * L * L * C, bf16_flops=2 * batch * L * L * C,
+                  f32_flops=5 * batch * L * L + 3 * 4 * dots[0].numel())
+        run("K8", f"B={batch} L={L} C={C}", n, lambda plain=False: fused_int8_attention(
+            *dots, *epis, osc, ozp, 8, scale=C ** -0.5, plain=plain), b)
+        del dots
+    # K11: f32 q, k, v; F.scaled_dot_product_attention computes the same function (its result is printed, not held)
+    for (L, D), n in sorted(collections.Counter(plans["f32 core"]["K11"]).items()):
+        q, k, v = (randf((batch, L, D)) for _ in range(3))
+        with exact_f32():
+            lib_out = F.scaled_dot_product_attention(q, k, v, scale=D ** -0.5)
+            lib_err = (lib_out - flash_attention(q, k, v)).abs().max().item()
+            del lib_out
+            b = bound(4 * 4 * q.numel(), f32_flops=4 * batch * L * L * D + 5 * batch * L * L)
+            run("K11", f"B={batch} L={L} D={D}", n, lambda plain=False: flash_attention(q, k, v, plain=plain), b,
+                library=lambda: F.scaled_dot_product_attention(q, k, v, scale=D ** -0.5))
+        print(f"[kernels] K11 B={batch} L={L} D={D}: max abs difference from F.scaled_dot_product_attention "
+              f"{lib_err:.3e} (information only)")
+        del q, k, v
+    # K3 with the int8 core, at the shapes of kernel_phase's K3 check
+    for (L, C), n in sorted(collections.Counter(static["K3.int8_core"]).items()):
+        x = randf((batch, L, C)).to(torch.bfloat16)
+        qkv_quant = [(torch.full((C,), 255 / 8.0, device=dev), torch.zeros(C, device=dev), b_) for b_ in (8, 6, 8)]
+        qkv_weights = [(randint8((C, C), -8, 7), randf((C,), 1e-5, 2e-4).abs(), randf((C,), 0.1)) for _ in range(3)]
+        o_quant = (torch.full((C,), 255 / 4.0, device=dev), torch.zeros(C, device=dev), 8)
+        o_weights = (randint8((C, C), -8, 7), randf((C,), 1e-5, 1e-3).abs(), randf((C,), 0.1))
+        args = (x, randf((C,), 0.1, 1.0), randf((C,), 0.1), qkv_quant, qkv_weights, o_quant, o_weights)
+        # as K3's bound, with q k^T in int8
+        b = bound(2 * nbytes(x) + 4 * C * C + 16 * 4 * C, int8_ops=4 * 2 * batch * L * C * C + 2 * batch * L * L * C,
+                  f32_flops=2 * batch * L * L * C + 30 * x.numel() + 5 * batch * L * L)
+        run("K3.int8_core", f"fused_attention_block(int8_core) B={batch} L={L} C={C}", n,
+            lambda plain=False: fused_attention_block(*args, scale=C ** -0.5, int8_core=True, plain=plain), b)
+        ms32 = time_ms(lambda: fused_attention_block(*args, scale=C ** -0.5))
+        print(f"[kernels] K3 B={batch} L={L} C={C}: the f32 core on the same inputs {ms32:.4f} ms")
+        del x, args
+    torch.cuda.empty_cache()
+
+
 def clock(what, fn, tag="slice"):
     """Run fn between synchronizations and print its host-clock seconds."""
     import torch
@@ -387,13 +531,16 @@ def profile_sampler(run, wall_ms, top: int = 25):
         print(f"[profile] {ms:9.2f} ms {n:6d}x {ms / total * 100:5.1f}% {key[:100]}")
 
 
-def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False):
-    """Drive the path's sampler once through the kernels; returns the launch counts."""
+def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False, settings=None):
+    """Drive the path's sampler through the kernels, once per attention
+    setting ({name: flags}; default: the f32 core alone); returns the launch
+    counts of each setting's counted run, and the context of the last one."""
     import torch
 
     from attentiondm_tpu_torch.diffusion.sampling import ddim_sample, make_timestep_seq
     from attentiondm_tpu_torch.models.unet import count_params, unet_apply, unet_init
     from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.ops.attention import flash_attention
     from attentiondm_tpu_torch.quant.calibrate import calibrate_ranges
     from attentiondm_tpu_torch.quant.int8_serving import (
         prepare_serving_runtime,
@@ -402,6 +549,7 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False):
     )
     from attentiondm_tpu_torch.quant.qunet import QuantizedUNet
 
+    settings = settings or {"f32 core": F32_CORE}
     R, shape = cfg.resolution, (batch, cfg.resolution, cfg.resolution, cfg.out_ch)
     params = unet_init(gen, cfg, dev)
     print(f"[slice] {label}: {R}^2, {count_params(params) / 1e6:.2f}M params, W4A8, {steps} quad steps, "
@@ -409,45 +557,60 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False):
     betas = sched.betas.to(dev)
     seq = make_timestep_seq(1000, steps, "quad")
     x_small = torch.randn((2, R, R, cfg.in_channels), generator=gen).to(dev)
+    checks.reset_launches()
     _, traj, _ = clock("FP teacher trajectory (2 images)", lambda: ddim_sample(
         lambda xt, t, i: unet_apply(params, cfg, xt, t), x_small, seq, betas, keep_trajectory=True))
+    k11_sites = len(checks.attention_plan(cfg, **F32_CORE)["K11"])  # the FP UNet's long maps are the serving path's
+    if flash_attention.launches != steps * k11_sites:
+        raise AssertionError(f"FP teacher: K11 launched {flash_attention.launches} times, expected {steps * k11_sites}")
+    if k11_sites:
+        print(f"[slice] FP teacher: K11 launched {flash_attention.launches} times ({k11_sites} sites a forward)")
     xs_in = torch.cat([x_small[None], traj[:-1]])
     qunet = QuantizedUNet.create(cfg, 4, 8)
-    qstates = clock("stage-1 calibration", lambda: calibrate_ranges(
-        qunet, params, qunet.init_state(steps, dev), xs_in, seq))
+    qstates, attn_ranges = clock("stage-1 calibration", lambda: calibrate_ranges(
+        qunet, params, qunet.init_state(steps, dev), xs_in, seq, return_attn_ranges=True))
     del traj, xs_in
     runtime = clock("per-step fold", lambda: prepare_serving_runtime(qunet, params, qstates))
-    print(f"[slice] fold size: {runtime_nbytes(runtime) / 1e9:.3f} GB for {steps} steps")
-    sample = serving_ddim_sampler(qunet, params, qstates, seq, betas, runtime=runtime)
+    print(f"[slice] fold size: {runtime_nbytes(runtime) / 1e9:.3f} GB for {steps} steps; attention ranges of "
+          f"{len(attn_ranges)} projections")
     x = torch.randn(shape, generator=gen).to(dev)
-
-    # the main path, counted
-    expected = checks.expected_launches(cfg, steps)
-    checks.reset_launches()
-    out = clock(f"serving sampler, first run ({steps} steps, batch {batch})", lambda: sample(x))
-    counts = checks.read_launches()
-    print(f"[slice] launches {counts}, expected {expected}")
-    if counts != expected:
-        raise AssertionError(f"launch counts {counts} != expected {expected}")
-    if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"sampler output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
-    del out
-
-    best = min(time_ms(lambda: sample(x), reps=1) for _ in range(2))
-    print(f"[slice] serving sampler: {best:.1f} ms for {steps} steps at batch {batch} = "
-          f"{batch / best * 1e3:.2f} images/s ({best / steps:.2f} ms/step; information only); "
-          f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
-    if profile:
-        profile_sampler(lambda: sample(x), best)
-
     ctx = dict(cfg=cfg, params=params, qunet=qunet, qstates=qstates, runtime=runtime, seq=seq, betas=betas,
                x=x, steps=steps, batch=batch, dev=dev)
-    step_checks(ctx, {})
+
+    counts, outs = {}, {}
+    for name, flags in settings.items():
+        if flags.get("attn_ranges"):
+            flags = {**flags, "attn_ranges": attn_ranges}
+        sample = serving_ddim_sampler(qunet, params, qstates, seq, betas, runtime=runtime, **flags)
+        # the main path, counted
+        expected = checks.expected_launches(cfg, steps, batch, **flags)
+        checks.reset_launches()
+        out = clock(f"serving sampler, {name}, first run ({steps} steps, batch {batch})", lambda: sample(x))
+        counts[name] = checks.read_launches()
+        print(f"[slice] {name}: launches {counts[name]}, expected {expected}")
+        if counts[name] != expected:
+            raise AssertionError(f"{name}: launch counts {counts[name]} != expected {expected}")
+        if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"sampler output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
+        outs[name] = out
+
+        best = min(time_ms(lambda: sample(x), reps=1) for _ in range(2))
+        print(f"[slice] serving sampler, {name}: {best:.1f} ms for {steps} steps at batch {batch} = "
+              f"{batch / best * 1e3:.2f} images/s ({best / steps:.2f} ms/step; information only); "
+              f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+        if profile:
+            profile_sampler(lambda: sample(x), best)
+        step_checks(ctx, flags)
+    ref = outs.get("f32 core")
+    for name, out in outs.items():
+        if ref is not None and out is not ref:
+            print(f"[slice] sampler output, {name} vs f32 core: mean rel difference "
+                  f"{((out - ref).abs().mean() / ref.abs().mean()).item():.3e} (information only; random weights)")
     return counts, ctx
 
 
-def step_checks(ctx, levers):
-    """One serving step under `levers`: every kernel call held against its
+def step_checks(ctx, levers, tag="slice"):
+    """One serving step under `levers` (and attention flags): every kernel call held against its
     plain version on the same inputs, then the whole step through the kernels
     against the whole step through the plain versions.  Returns the step's
     launch counts."""
@@ -462,7 +625,6 @@ def step_checks(ctx, levers):
         return serving_unet_apply(ctx["params"], ctx["cfg"], ctx["qunet"], ctx["runtime"], ctx["qstates"],
                                   ctx["x"], t0, 0, plain=plain, **levers)
 
-    tag = "levers" if levers else "slice"
     records = []
     checks.reset_launches()
     with checks.per_site(records):
@@ -505,8 +667,8 @@ def levers_phase(ctx, timed, profile=False):
     print(f"[levers] {ALL_LEVERS}: per step K4 at {len(plan['K4'])} entries, K7 at "
           f"{[site for site, *_ in plan['K7']]}, K12 at {[site for site, *_ in plan['K12']]}")
     if not timed:
-        expected = checks.expected_launches(cfg, 1, batch, **ALL_LEVERS)
-        counts = step_checks(ctx, ALL_LEVERS)
+        expected = checks.expected_launches(cfg, 1, batch, **F32_CORE, **ALL_LEVERS)
+        counts = step_checks(ctx, {**F32_CORE, **ALL_LEVERS}, "levers")
         print(f"[levers] launches of the step {counts}, expected {expected}")
         if counts != expected:
             raise AssertionError(f"lever step launch counts {counts} != expected {expected}")
@@ -514,10 +676,10 @@ def levers_phase(ctx, timed, profile=False):
 
     def sampler(levers):
         return serving_ddim_sampler(ctx["qunet"], ctx["params"], ctx["qstates"], ctx["seq"], ctx["betas"],
-                                    runtime=ctx["runtime"], **levers)
+                                    runtime=ctx["runtime"], **F32_CORE, **levers)
 
     sample = sampler(ALL_LEVERS)
-    expected = checks.expected_launches(cfg, steps, batch, **ALL_LEVERS)
+    expected = checks.expected_launches(cfg, steps, batch, **F32_CORE, **ALL_LEVERS)
     checks.reset_launches()
     out = clock(f"serving sampler with the three levers, first run ({steps} steps, batch {batch})",
                 lambda: sample(x), "levers")
@@ -533,7 +695,7 @@ def levers_phase(ctx, timed, profile=False):
           f"levers change the GroupNorm statistics' formula and where bf16 rounds)")
     del out, off
 
-    step_checks(ctx, ALL_LEVERS)
+    step_checks(ctx, {**F32_CORE, **ALL_LEVERS}, "levers")
 
     # timed runs in turns (levers off, all three, each lever alone), LEVER_ROUNDS rounds: the host's ~1000
     # launches a step set these times as much as the card does, and the host's clock varies, so every run is shown
@@ -547,7 +709,7 @@ def levers_phase(ctx, timed, profile=False):
     times = {}
     for name, levers in [("levers off", {}), *LEVER_SETS.items()]:
         ms = times[name] = sorted(runs[name])[LEVER_ROUNDS // 2]
-        per = checks.expected_launches(cfg, 1, batch, **levers)
+        per = checks.expected_launches(cfg, 1, batch, **F32_CORE, **levers)
         print(f"[levers] serving sampler, {name}: median {ms:.1f} ms for {steps} steps at batch {batch} = "
               f"{batch / ms * 1e3:.2f} images/s ({ms / steps:.2f} ms/step; best {min(runs[name]):.1f} ms; runs "
               f"{' '.join(f'{t:.1f}' for t in runs[name])}; launches per step "
@@ -585,17 +747,24 @@ def main(argv=None):
     for path in BATCH:
         t0 = time.perf_counter()
         cfg, sched, label = path_config(path)
+        steps = min(args.steps, MAX_STEPS.get(path, args.steps))
         print(f"== {path}: {label}, batch {BATCH[path]}")
         report = Report()
-        kernel_phase(cfg, BATCH[path], gen, dev, report)
-        counts, ctx = slice_phase(cfg, sched, label, args.steps, BATCH[path], gen, dev, args.profile)
-        lever_counts = levers_phase(ctx, timed=path == "cifar10", profile=args.profile)
+        if path == "celeba-wide":
+            attention_kernel_phase(cfg, BATCH[path], gen, dev, report)
+            counts, ctx = slice_phase(cfg, sched, label, steps, BATCH[path], gen, dev, args.profile, ATTN_SETTINGS)
+            launches_of = {key: counts[run][key] for key, run in ATTN_RUN.items()}
+        else:
+            kernel_phase(cfg, BATCH[path], gen, dev, report)
+            counts, ctx = slice_phase(cfg, sched, label, steps, BATCH[path], gen, dev, args.profile)
+            lever_counts = levers_phase(ctx, timed=path == "cifar10", profile=args.profile)
+            launches_of = {**counts["f32 core"], **{key: lever_counts[key] for key in ("K4", "K7", "K12")}}
         del ctx
         for key, (name, source, replaces) in META.items():
             if key not in report.rows:
                 continue
             r = report.rows[key]
-            launches = (lever_counts if key in ("K4", "K7", "K12") else counts)[key]
+            launches = launches_of[key]
             kernels.append({"name": f"{key} {name}", "path": path, "route": "cuda", "source": source,
                             "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
                             "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),

@@ -71,14 +71,15 @@ def calibrated():
         j_unet_apply(jparams, jcfg, xs_in[s], jnp.full((2,), t_rev[s]), conv_apply=conv_apply)
     q = QuantizedUNet.create(UNetConfig(**TOY), 4, 8)
     params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
-    qs = calibrate_ranges(q, params, q.init_state(len(SEQ), "cpu"), _t(xs_in), SEQ)
-    return q, records, qs
+    qs, attn_ranges = calibrate_ranges(q, params, q.init_state(len(SEQ), "cpu"), _t(xs_in), SEQ,
+                                       return_attn_ranges=True)
+    return q, records, qs, attn_ranges
 
 
 def test_calibrate_ranges_matches_jax_on_its_inputs(calibrated):
     """Every conv at every step, given the input JAX's calibration forward
     gave it, gets JAX's update."""
-    q, records, _ = calibrated
+    q, records, _, _ = calibrated
     assert len(records) == 2 * len(q.policy)
     st0 = q.init_state(len(SEQ), "cpu")
     for s, name, xin, want in records:
@@ -97,7 +98,7 @@ def test_calibrate_ranges_end_to_end(calibrated):
     forward is not expected: f32 conv summation order flips a few fake-quant
     codes, and the propagated codes move later layers' ranges; ROADMAP
     Queue 3.)"""
-    q, records, qs = calibrated
+    q, records, qs, _ = calibrated
     assert qs.keys() == q.policy.keys()
     grid = np.array([1.0 - 0.1 * a for a in range(9)], np.float32)
     for name, st in qs.items():
@@ -192,6 +193,11 @@ def test_bit_policy_matches_jax(cfg_kw):
 def test_unported_calibration_options_raise(calibrated):
     q = QuantizedUNet.create(UNetConfig(**TOY), 4, 8)
     xs = torch.zeros(2, 1, 8, 8, 3)
-    for kw in (dict(return_attn_ranges=True), dict(assignment_init=True)):
-        with pytest.raises(NotImplementedError):
-            calibrate_ranges(q, {}, {}, xs, SEQ, **kw)
+    with pytest.raises(NotImplementedError):
+        calibrate_ranges(q, {}, {}, xs, SEQ, assignment_init=True)
+    # return_attn_ranges is ported: the q/k/v output absmax of every attention site, one per step
+    attn_ranges = calibrated[3]
+    sites = ("down.0.attn.0", "mid.attn_1", "up.0.attn.0", "up.0.attn.1")  # the toy attends at 8x8, level 0
+    assert sorted(attn_ranges) == sorted(f"{site}.{k}" for site in sites for k in ("q", "k", "v"))
+    for a in attn_ranges.values():
+        assert a.shape == (len(SEQ),) and a.dtype == torch.float32 and (a > 0).all() and torch.isfinite(a).all()

@@ -92,7 +92,7 @@ def test_church_config_is_the_served_one():
     attention at 16^2, dropout 0, the linear 1e-4..0.02 schedule."""
     cfg = UNetConfig.from_config(load_config("church.yml"))
     assert cfg == UNetConfig(resolution=256, ch_mult=(1, 1, 2, 2, 4, 4), attn_resolutions=(16,), dropout=0.0)
-    plan = checks.expected_launches(cfg)
+    plan = checks.expected_launches(cfg, attn_int8=False)
     assert (plan["K6"], plan["K2"], plan["K3"]) == (10, 22, 6)
 
 
@@ -190,8 +190,9 @@ def test_kernel_sites_follow_the_plan(chain):
     records = []
     with checks.per_site(records):
         serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                           torch.from_numpy(chain["x"]), torch.full((1,), 500.0), 0)
-    k1, k2, k6, k3 = checks.conv_plan(cfg)
+                           torch.from_numpy(chain["x"]), torch.full((1,), 500.0), 0, attn_int8=False)
+    k1, k2, k6, k3, composed = checks.conv_plan(cfg)
+    assert not composed
     kinds = [r[0] for r in records]
     assert [kinds.count(k) for k in ("K1", "K2", "K6", "K3")] == [len(k1), len(k2), len(k6), len(k3)]
     assert (len(k6), len(k3)) == (3, 4) and {c for _, c in k3} == {512}
@@ -224,7 +225,7 @@ def test_serving_step_matches_jax(chain):
     bound is the gross-fault bound of the chip smoke's chained check."""
     cfg, q, _ = _port()
     eps = serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                             torch.from_numpy(chain["x"]), torch.full((1,), 500.0), 0)
+                             torch.from_numpy(chain["x"]), torch.full((1,), 500.0), 0, attn_int8=False)
     assert eps.shape == chain["eps"].shape and torch.isfinite(eps).all()
     rel = _rel(eps.numpy(), chain["eps"])
     assert rel < 0.1, rel
@@ -234,7 +235,8 @@ def test_serving_sampler_matches_jax(chain):
     """The 2-step serving sampler with JAX's qstates (the port folds them).
     Measured 8.5e-3; bound about 4x."""
     cfg, q, sched = _port()
-    out = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas)(torch.from_numpy(chain["x"]))
+    out = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, attn_int8=False)(
+        torch.from_numpy(chain["x"]))
     assert torch.isfinite(out).all()
     rel = _rel(out.numpy(), chain["sample"])
     assert rel < 3.5e-2, rel

@@ -8,10 +8,11 @@ neither JAX nor the JAX package, so it also runs where JAX is missing
 
 Each kernel is held to its tolerance against its plain version
 (`attentiondm_tpu_torch.ops.checks`): K1 exact (int32) or within 1 bf16 ulp,
-K2, K6 and K4 at most 1 int8 LSB on at most 0.1% of the codes, K3 mean
-relative error < 1e-3 with 99% of the elements within 1 bf16 ulp, K7 within
-1 bf16 ulp with sums within 1e-6 relative, K12 mean relative error < 1e-3
-with 99.9% within 1 bf16 ulp."""
+K2, K6 and K4 at most 1 int8 LSB on at most 0.1% of the codes, K3 (both
+cores) mean relative error < 1e-3 with 99% of the elements within 1 bf16
+ulp, K7 within 1 bf16 ulp with sums within 1e-6 relative, K12 mean relative
+error < 1e-3 with 99.9% within 1 bf16 ulp, K8 and K9 at most 1 LSB on at
+most 0.2% of the codes, K10 on at most 1%, K11 within 2e-5 + 2e-5 |x|."""
 import pytest
 import torch
 
@@ -26,7 +27,13 @@ from attentiondm_tpu_torch.ops.fused_gn import (
     epilogue_residual_gn_stats,
     gn_act_quant,
 )
-from attentiondm_tpu_torch.ops.int8_attention import fused_attention_block
+from attentiondm_tpu_torch.ops.attention import flash_attention, spatial_attention
+from attentiondm_tpu_torch.ops.int8_attention import (
+    fused_attention_block,
+    fused_int8_attention,
+    fused_int8_attention_static,
+    int8_flash_attention_static,
+)
 from attentiondm_tpu_torch.ops.pallas_conv import int8_conv
 from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
 from attentiondm_tpu_torch.quant.int8_serving import prepare_serving_runtime, serving_unet_apply
@@ -152,6 +159,99 @@ def test_k3_kernel_matches_plain(dev, gen, L, C):
     assert fig["ok"], fig
 
 
+@pytest.mark.parametrize("L,C", [(256, 256), (16, 512), (64, 128)])
+def test_k3_int8_core_matches_plain(dev, gen, L, C):
+    """K3 with the int8 core at the celeba-wide shapes (16^2 x 256, the 4^2 x
+    512 mid block) and a small one, at a batch that divides nothing."""
+    args = _k3_args(gen, dev, 3, L, C)
+    before = (fused_attention_block.launches, fused_attention_block.int8_core_launches)
+    got = fused_attention_block(*args, scale=C ** -0.5, int8_core=True)
+    assert (fused_attention_block.launches, fused_attention_block.int8_core_launches) == (before[0] + 1, before[1] + 1)
+    want = fused_attention_block(*args, scale=C ** -0.5, int8_core=True, plain=True)
+    fig = checks.compare("K3", got, want)
+    assert fig["ok"], fig
+    assert not torch.equal(want, fused_attention_block(*args, scale=C ** -0.5, plain=True))  # the mode is not a no-op
+
+
+def _core_out_quant(dev, C):
+    return torch.full((C,), 255 / 4.0, device=dev), _f(torch.Generator().manual_seed(1), (C,), dev, 3.0).round()
+
+
+def _static_args(gen, dev, B, L, C):
+    """int8 q, k, v and scalar scales that give logits a spread of a few units."""
+    q8, k8, v8 = (_i8(gen, (B, L, C), -127, 127, dev) for _ in range(3))
+    s = torch.tensor(0.019, device=dev)  # absmax 2.4 / 127: logits of std 127^2 / 3 * s * 1.1 s, about 2
+    return (q8, k8, v8, s, s * 1.1, torch.tensor(0.02, device=dev), *_core_out_quant(dev, C), 8)
+
+
+@pytest.mark.parametrize("B,L,C", [(3, 1024, 256), (2, 2048, 128), (5, 128, 128), (2, 256, 512)])
+def test_k9_kernel_matches_plain(dev, gen, B, L, C):
+    args = _static_args(gen, dev, B, L, C)
+    before = fused_int8_attention_static.launches
+    got = fused_int8_attention_static(*args, scale=C ** -0.5)
+    assert fused_int8_attention_static.launches == before + 1
+    fig = checks.compare("K9", got, fused_int8_attention_static(*args, scale=C ** -0.5, plain=True))
+    assert fig["ok"], fig
+
+
+@pytest.mark.parametrize("B,L,C", [(2, 4096, 128), (1, 2304, 128), (3, 1024, 512), (3, 2048, 256)])
+def test_k10_kernel_matches_plain(dev, gen, B, L, C):
+    """K10 through the static dispatcher (every shape here is over JAX's
+    6 MiB budget): the celeba-wide shape, L = 2304 (key blocks snap to 256)
+    and the other widths."""
+    args = _static_args(gen, dev, B, L, C)
+    before = (int8_flash_attention_static.launches, fused_int8_attention_static.launches)
+    got = fused_int8_attention_static(*args, scale=C ** -0.5)
+    assert (int8_flash_attention_static.launches, fused_int8_attention_static.launches) == (before[0] + 1, before[1])
+    fig = checks.compare("K10", got, fused_int8_attention_static(*args, scale=C ** -0.5, plain=True))
+    assert fig["ok"], fig
+
+
+@pytest.mark.parametrize("B,L,C", [(3, 1024, 256), (2, 4096, 128), (5, 128, 128), (2, 256, 512), (3, 64, 128)])
+def test_k8_kernel_matches_plain(dev, gen, B, L, C):
+    """K8 at the celeba-wide shapes (32^2 x 256, 64^2 x 128), the third width
+    and maps shorter than JAX's kernel took."""
+    dots = [torch.randint(-20000, 20000, (B, L, C), generator=gen, dtype=torch.int32).to(dev) for _ in range(3)]
+    epis = [(_f(gen, (C,), dev, 2e-5, 1e-4).abs(), _f(gen, (C,), dev, 0.2)) for _ in range(3)]
+    args = (*dots, *epis, *_core_out_quant(dev, C), 8)
+    before = fused_int8_attention.launches
+    got = fused_int8_attention(*args, scale=C ** -0.5)
+    assert fused_int8_attention.launches == before + 1
+    fig = checks.compare("K8", got, fused_int8_attention(*args, scale=C ** -0.5, plain=True))
+    assert fig["ok"], fig
+
+
+@pytest.mark.parametrize("L,C", [(72, 128), (256, 384)])
+def test_composed_cores_raise_off_their_shapes(dev, gen, L, C):
+    """On the card a core launches or raises: no shape gives way to the plain
+    version."""
+    before = (fused_int8_attention_static.launches, fused_int8_attention.launches)
+    with pytest.raises(NotImplementedError):
+        fused_int8_attention_static(*_static_args(gen, dev, 2, L, C), scale=C ** -0.5)
+    dots = [torch.zeros((2, L, C), dtype=torch.int32, device=dev) for _ in range(3)]
+    epis = [(torch.ones(C, device=dev), torch.zeros(C, device=dev)) for _ in range(3)]
+    with pytest.raises(NotImplementedError):
+        fused_int8_attention(*dots, *epis, *_core_out_quant(dev, C), 8, scale=C ** -0.5)
+    assert (fused_int8_attention_static.launches, fused_int8_attention.launches) == before
+
+
+@pytest.mark.parametrize("B,L,D,block_k", [(2, 4096, 128, 512), (3, 1024, 256, 512), (3, 512, 128, 256),
+                                           (1, 1024, 128, 512)])
+def test_k11_kernel_matches_plain(dev, gen, B, L, D, block_k):
+    """K11 at the celeba-wide shapes, with 256-key blocks, and with logits
+    large enough that a softmax without the running maximum would overflow."""
+    q, k, v = (_f(gen, (B, L, D), dev) for _ in range(3))
+    if B == 1:
+        q, k = q * 0 + 30.0, k * 0 + 30.0
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, block_k=block_k)
+    assert flash_attention.launches == before + 1 and torch.isfinite(got).all()
+    fig = checks.compare("K11", got, flash_attention(q, k, v, block_k=block_k, plain=True))
+    assert fig["ok"], fig
+    if block_k == 512 and L >= 1024:
+        assert torch.equal(got, spatial_attention(q, k, v))
+
+
 def test_k3_raises_off_its_widths(dev, gen):
     with pytest.raises(NotImplementedError):
         fused_attention_block(*_k3_args(gen, dev, 1, 16, 384), scale=384 ** -0.5)
@@ -246,6 +346,44 @@ def test_entry_points_default_to_the_card(dev):
     assert qs["c"].act_min.device.type == "cuda"
 
 
+ATTN_TOY = dict(ch=128, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(32, 16), resolution=32, dropout=0.0)
+ATTN_FLAGS = {"static": dict(attn_int8=True, attn_ranges=True), "dynamic": dict(attn_int8=True),
+              "f32": dict(attn_int8=False)}
+
+
+@pytest.mark.parametrize("setting", ATTN_FLAGS)
+def test_serving_step_attention_cores_match_plain(dev, gen, setting):
+    """One serving forward of a toy that attends at 32^2 (L = 1024, C = 128:
+    the composed branch, K9 / K8 / K11 by the flags) and 16^2 (L = 256, C =
+    256: K3, its int8 core under attn_int8), every kernel call checked against
+    its plain version and the launch counts against the plan."""
+    cfg = UNetConfig(**ATTN_TOY)
+    B, R = 3, cfg.resolution
+    params = unet_init(gen, cfg, dev)
+    q = QuantizedUNet.create(cfg, 4, 8)
+    qstates = q.init_state(1, dev)
+    for st in qstates.values():
+        st.group_ranges[..., 0], st.group_ranges[..., 1] = -1.0, 4.0
+    runtime = prepare_serving_runtime(q, params, qstates)
+    flags = dict(ATTN_FLAGS[setting])
+    if flags.get("attn_ranges"):
+        flags["attn_ranges"] = {f"{site}.{k}": torch.full((1,), 3.0, device=dev)
+                                for site, _L, _C in checks.conv_plan(cfg)[4] for k in ("q", "k", "v")}
+    checks.reset_launches()
+    records = []
+    with checks.per_site(records):
+        eps = serving_unet_apply(params, cfg, q, runtime, qstates, _f(gen, (B, R, R, 3), dev),
+                                 torch.full((B,), 500.0, device=dev), 0, **flags)
+    counts = checks.read_launches()
+    assert counts == checks.expected_launches(cfg, 1, B, **flags)
+    core = {"static": "K9", "dynamic": "K8", "f32": "K11"}[setting]
+    assert counts[core] == 3 and counts["K3"] == 4 and counts["K3.int8_core"] == (0 if setting == "f32" else 4)
+    assert torch.isfinite(eps).all()
+    bad = [r for r in records if not r[2]["ok"]]
+    assert not bad, bad
+    assert core in {r[0] for r in records}
+
+
 LEVERS = [dict(), dict(entry_pallas=True), dict(boundary_fusion=True), dict(resblock_pallas="all"),
           dict(entry_pallas=True, boundary_fusion=True, resblock_pallas="all")]
 LEVER_TOY = dict(ch=128, ch_mult=(1, 2, 2), num_res_blocks=2, attn_resolutions=(8,), resolution=16, dropout=0.0)
@@ -272,8 +410,8 @@ def test_serving_step_kernels_match_plain(dev, gen, toy, levers):
     checks.reset_launches()
     records = []
     with checks.per_site(records):
-        eps = serving_unet_apply(params, cfg, q, runtime, qstates, x, t, 0, **levers)
-    assert checks.read_launches() == checks.expected_launches(cfg, 1, B, **levers)
+        eps = serving_unet_apply(params, cfg, q, runtime, qstates, x, t, 0, attn_int8=False, **levers)
+    assert checks.read_launches() == checks.expected_launches(cfg, 1, B, attn_int8=False, **levers)
     assert torch.isfinite(eps).all()
     bad = [r for r in records if not r[2]["ok"]]
     assert not bad, bad

@@ -13,6 +13,8 @@ plan's rules need: two blocks a level (a K7 exit that feeds the next norm1,
 and two in a row into mid.block_1), an identity block at 8x8 with 256
 channels (where JAX's conv policy lets K12 in) and attention at 8x8 (which
 resets the carried sums)."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,7 +123,7 @@ def _port():
 def _step(chain, **kw):
     cfg, q, _ = _port()
     return serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                              torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, **kw)
+                              torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, attn_int8=False, **kw)
 
 
 # One serving step against JAX's, mean relative error.  2e-3 is the levers-off bound of
@@ -195,7 +197,7 @@ def test_lever_sampler_matches_jax(chain, name):
     through `runtime=` as JAX's lever grid does."""
     cfg, q, sched = _port()
     sample = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas,
-                                  runtime=chain["runtime"], **LEVERS[name])
+                                  runtime=chain["runtime"], attn_int8=False, **LEVERS[name])
     out = sample(torch.from_numpy(chain["x"]))
     assert torch.isfinite(out).all()
     assert _rel(out.numpy(), chain["sample"][name]) < 1e-2  # the levers-off sampler's bound
@@ -244,7 +246,7 @@ def _visited(deep, levers):
         for kind, n in (("K4", "gn_act_quant"), ("K7", "epilogue_residual_gn_stats"), ("K12", "_rb_kernel")):
             setattr(srv, n, spy(kind, saved[n]))
         eps = serving_unet_apply(deep["params"], deep["cfg"], deep["q"], deep["runtime"], deep["qstates"], deep["x"],
-                                 torch.full((B,), 500.0), 0, **levers)
+                                 torch.full((B,), 500.0), 0, attn_int8=False, **levers)
     finally:
         for n, fn in saved.items():
             setattr(srv, n, fn)
@@ -288,19 +290,24 @@ def test_lever_plan_at_full_width(model):
     the K7 and K12 sites, the counts with all three levers, each lever alone,
     and what K12 takes from K1 and K2."""
     batch, k7, k12, counts = FULL_WIDTH[model]
+    # the f32 attention core (bench.py's flag): no int8 core, and these models have no composed attention site
+    counts = {**counts, **{k: 0 for k in ("K3.int8_core", "K8", "K9", "K10", "K11")}}
+    expected_launches = functools.partial(checks.expected_launches, attn_int8=False)
     cfg = UNetConfig() if model == "cifar10" else UNetConfig.from_config(load_config("church.yml"))
     plan = checks.lever_plan(cfg, batch, **ALL)
     assert [s for s, *_ in plan["K7"]] == k7 and [s for s, *_ in plan["K12"]] == k12
-    assert checks.expected_launches(cfg, 1, batch, **ALL) == counts
-    off = checks.expected_launches(cfg, 1, batch)
+    assert expected_launches(cfg, 1, batch, **ALL) == counts
+    off = expected_launches(cfg, 1, batch)
     assert (off["K4"], off["K7"], off["K12"]) == (0, 0, 0)
     # entry_pallas alone: every resblock and conv_out entry whose image fits HW * C * 5 <= 4 MiB
     entries = 1 + sum(1 for name, *_ in checks.conv_plan(cfg)[0] if name.endswith(".conv1"))
     over = {"cifar10": 0, "church": 15}[model]  # church entries at 64^2 x 256 and larger
-    assert checks.expected_launches(cfg, 1, batch, entry_pallas=True)["K4"] == entries - over
+    assert expected_launches(cfg, 1, batch, entry_pallas=True)["K4"] == entries - over
     # resblock_pallas alone: each K12 block takes two K1 convs and one K2 with it
-    rb = checks.expected_launches(cfg, 1, batch, resblock_pallas="all")
+    rb = expected_launches(cfg, 1, batch, resblock_pallas="all")
     assert rb["K1"] == off["K1"] - 2 * rb["K12"] and rb["K2"] + rb["K6"] == off["K2"] + off["K6"] - rb["K12"]
     assert rb["K12"] == {"cifar10": 9, "church": 7}[model]
-    assert checks.expected_launches(cfg, 1, batch, resblock_pallas=True)["K12"] == {"cifar10": 3, "church": 7}[model]
-    assert checks.expected_launches(cfg, 3, batch, **ALL) == {k: 3 * n for k, n in counts.items()}
+    assert expected_launches(cfg, 1, batch, resblock_pallas=True)["K12"] == {"cifar10": 3, "church": 7}[model]
+    assert expected_launches(cfg, 3, batch, **ALL) == {k: 3 * n for k, n in counts.items()}
+    # the default attention flags (attn_int8=True) only switch K3's six launches to the int8 core
+    assert checks.expected_launches(cfg, 1, batch, **ALL) == {**counts, "K3.int8_core": 6}

@@ -100,7 +100,7 @@ def test_serving_step_matches_jax(chain):
     """One serving_unet_apply with JAX's qstates and fold."""
     cfg, q, _ = _port()
     eps = serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                             torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0)
+                             torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, attn_int8=False)
     assert eps.shape == chain["eps"].shape and torch.isfinite(eps).all()
     rel = _rel(eps.numpy(), chain["eps"])
     # measured 0.0 at this seed.  Not bit-exact by construction: both sum the
@@ -116,7 +116,7 @@ def test_serving_step_matches_jax(chain):
 def test_serving_sampler_matches_jax(chain):
     """The 2-step serving sampler with JAX's qstates (the port folds them)."""
     cfg, q, sched = _port()
-    sample = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas)
+    sample = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, attn_int8=False)
     out = sample(torch.from_numpy(chain["x"]))
     rel = _rel(out.numpy(), chain["sample"])
     assert torch.isfinite(out).all()
@@ -135,7 +135,7 @@ def test_whole_slice_matches_jax(chain):
                              keep_trajectory=True)
     xs_in = torch.cat([x_small[None], traj[:-1]])
     qstates = calibrate_ranges(q, params, q.init_state(len(SEQ), "cpu"), xs_in, SEQ)
-    out = serving_ddim_sampler(q, params, qstates, SEQ, sched.betas)(torch.from_numpy(chain["x"]))
+    out = serving_ddim_sampler(q, params, qstates, SEQ, sched.betas, attn_int8=False)(torch.from_numpy(chain["x"]))
     assert torch.isfinite(out).all()
     rel = _rel(out.numpy(), chain["sample"])
     assert rel < 2e-2, rel  # measured 9.2e-3: the port's own teacher, calibration and fold
@@ -146,9 +146,9 @@ def test_cpu_path_takes_plain_versions(chain):
     cfg, q, _ = _port()
     before = pallas_conv.int8_conv.launches
     a = serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                           torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 1)
+                           torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 1, attn_int8=False)
     b = serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                           torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 1, plain=True)
+                           torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 1, attn_int8=False, plain=True)
     assert pallas_conv.int8_conv.launches == before
     assert torch.equal(a, b)
 
@@ -167,8 +167,7 @@ def test_fold_of_jax_qstates_matches_jax_runtime(chain):
 
 
 FLAGS = [
-    ("residual_dtype", torch.float32), ("attn_int8", True), ("attn_ranges", {}),
-    ("dot_bf16", False), ("conv_pallas", True),
+    ("residual_dtype", torch.float32), ("dot_bf16", False), ("conv_pallas", True),
     ("resblock_pallas", ((8, 128, 128),)),  # JAX's (H, Cp, Np) shape list; True and "all" are ported
     ("mp_states", {}),
 ]
@@ -188,3 +187,26 @@ def test_unported_serving_flags_raise(chain, flag, value):
                                torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, **{flag: value})
         else:
             serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, **{flag: value})
+
+
+@pytest.mark.parametrize("flag", ["attn_int8", "attn_ranges"])
+def test_attention_flags_are_taken(chain, flag):
+    """`attn_int8=True` is the default, as in JAX, and on this toy (L = 64, C =
+    256: the whole-block kernel takes the map) runs K3's int8 core, a small
+    step away from the float32 core; `attn_ranges` are taken and, as in JAX,
+    not read where the block fits."""
+    cfg, q, _ = _port()
+
+    def step(**kw):
+        return serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
+                                  torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, **kw)
+
+    default = step()
+    assert torch.equal(default, step(attn_int8=True))
+    if flag == "attn_int8":
+        rel = _rel(default.numpy(), step(attn_int8=False).numpy())
+        # measured 3.4e-2 on this toy's random weights; tests/test_torch_attn_int8.py holds the int8 cores to JAX's
+        assert 0 < rel < 0.1, rel
+    else:
+        ranges = {f"mid.attn_1.{k}": torch.ones(len(SEQ)) for k in ("q", "k", "v")}
+        assert torch.equal(default, step(attn_ranges=ranges)) and torch.equal(default, step(attn_ranges={}))

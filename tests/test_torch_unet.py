@@ -146,17 +146,24 @@ def test_port_imports_without_jax_triton_or_gpu():
 
 @pytest.mark.parametrize("call", ["schedule", "enhanced", "eta", "flash"])
 def test_unported_fp_options_raise(call):
+    if call == "flash":  # ported: a long map takes the flash kernel's route (K11) instead of raising
+        from attentiondm_tpu_torch.ops.attention import flash_attention_ref
+
+        q, k, v = (torch.from_numpy(np.random.default_rng(i).standard_normal((1, 1024, 128)).astype(np.float32))
+                   for i in range(3))
+        out = spatial_attention(q, k, v)
+        assert torch.equal(out, flash_attention_ref(q, k, v)) and torch.isfinite(out).all()
+        dense = torch.softmax(q @ k.transpose(1, 2) * 128 ** -0.5, dim=-1) @ v
+        assert not torch.equal(out, dense) and torch.allclose(out, dense, atol=2e-5, rtol=2e-5)
+        return
     with pytest.raises(NotImplementedError):
         if call == "schedule":
             DiffusionSchedule.create("cosine", 1e-4, 0.02, 1000, device="cpu")
         elif call == "enhanced":
             list(iter_conv_layers(UNetConfig(attn_variant="enhanced")))
-        elif call == "eta":
+        else:
             sched = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu")
             ddim_sample(lambda xt, t, i: xt, torch.zeros(1, 8, 8, 3), [0, 500], sched.betas, eta=0.5)
-        else:
-            q = torch.zeros(1, 1024, 128)
-            spatial_attention(q, q, q)
 
 
 def test_exact_f32_scopes_the_tf32_switches():
