@@ -29,6 +29,15 @@ static __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// c (16 x 8 s32) += a (16 x 32 s8, row) . b (32 x 8 s8, col), the integer logits of K8 / K9 / K10
+static __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 constexpr int PRE_THREADS = 256;
 
 // the value a projection hands to the attention core: its dequantized

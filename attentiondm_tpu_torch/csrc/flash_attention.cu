@@ -9,45 +9,96 @@
 // acc = acc * alpha + p . v, and acc / denom at the end; m starts at -1e30.
 // Everything is f32.
 //
-// Here a block of 256 threads owns BQ queries of one image.  The logits of
-// one key block (BQ x bk, bk <= 512) live in shared memory, because the
-// block's row maximum has to be known before any of its p; K and then V
-// stream through one shared tile of TK keys.  Both products are register
-// tiled: thread (ty, tx) of a 16 x 16 layout owns queries ty + 16 i and, in
-// q . k^T, keys tx + 16 j of the tile (float4 steps along the channels), in
-// p . v, channels 4 (tx + 16 j) .. + 3.  The accumulator (BQ x D f32) stays in
-// registers, so tiles are sized from D: 64 queries at D = 128, 32 at D = 256.
-// Rows are padded by 4 floats, which keeps every float4 read of a quarter
-// warp on distinct banks.
-//
 // What bounds it on the H100: operations, 4 L^2 D f32 per image on the CUDA
-// cores (fmaf; the tensor cores have no f32 mode) against 16 L D bytes.
-// One block per SM and no overlap of the tile loads with the arithmetic keep
-// it well under the f32 peak; a TF32x3 or bf16x3 split on the tensor cores
-// and cp.async double buffering are later work.
+// cores (fmaf; the tensor cores have no f32 mode) against 16 L D bytes.  Every
+// FMA's operands come from shared memory, so the design is about FMAs per
+// shared-memory read and about never waiting for a load:
+//   - a block of 256 threads owns BQ queries of one image.  In q . k^T thread
+//     (ty, txq, g) owns queries ty + TY i (RQ of them) and keys txq + 16 j of a
+//     tile (RK = 4), float4 steps along the channels; in p . v it owns the same
+//     queries and channels 4 (tx + TX j) .. + 3.  The accumulator (BQ x D f32,
+//     64 registers a thread) stays in registers.  D = 128: BQ = 128, RQ = 8
+//     (12 shared-memory float4 reads per 128 FMAs) where 128-query blocks fill
+//     the 132 SMs, else BQ = 64, RQ = 4.  D = 256: BQ = 64 too (the former
+//     kernel fell to 32), with RQ = 8: lane pairs (g = 0, 1) split the channel
+//     chunks of q . k^T and add their partial dots by one shuffle, and p . v
+//     runs 8 queries x 8 channels a thread;
+//   - the logits of one inner key block (BQ x IB) live in shared memory,
+//     because a block's row maximum has to be known before any of its p.  IB
+//     is what fits beside Q and two tiles (128 keys at D = 128, 64 at D =
+//     256).  Where the caller's block_k is larger, the online update runs once
+//     per inner block: the same recurrence over finer blocks, so the last
+//     bits move, inside the tolerance (measured on the H100: 512 logits a row
+//     with 32-key tiles, 24.5 ms at (64, 4096, 128), against 15.4 ms so);
+//   - K and then V stream through two tiles of 64 keys filled by cp.async (16
+//     bytes a thread): tile t + 1 loads while tile t is multiplied, with one
+//     __syncthreads() a tile;
+//   - the softmax is spread over the whole block: each thread keeps the
+//     running maximum of the logits it produces, the lanes of a row meet by
+//     shuffles (the rows' reductions run side by side, so their latencies
+//     overlap), and each thread exponentiates the entries it wrote, once, at
+//     D = 256 straight from the registers that hold the tile's logits; the row
+//     statistics (m, denominator, alpha) live in registers.
+// Rows are padded by 4 floats (8 where lane pairs split the channels), which
+// keeps every float4 read of a quarter warp on distinct banks and every row
+// 16-byte aligned for cp.async.
 #include "attn_common.cuh"
 
 using namespace adm;
 
-constexpr int FA_THREADS = 256, FA_BK = 512, FA_SLD = FA_BK + 4;
+constexpr int FA_THREADS = 256;
 constexpr float FA_NEG_INF = -1e30f;
 
-template <int D, int BQ, int TK>
+static __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+// max / sum over the TX lanes that share a query row
+template <int TX>
+static __device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = TX / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+template <int TX>
+static __device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = TX / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int D, int BQ, int TK, int IBMAX, int TXQ, int SPLIT>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                       float* __restrict__ o, int L, int bk, float scale) {
-  constexpr int LD = D + 4, RQ = BQ / 16, RK = TK / 16, NC = D / 64;
+                       float* __restrict__ o, int L, int ib, float scale) {
+  // QK layout: thread (ty, txq, g) owns queries ty + TY i and keys txq + TXQ j of a tile, and of the
+  // channels the float4 chunks g, g + SPLIT, ... (the SPLIT partial dots meet by shuffle); p.v layout:
+  // thread (ty, tx) owns the same queries and channels 4 (tx + TX j) .. + 3, tx = txq * SPLIT + g
+  constexpr int TX = TXQ * SPLIT, TY = FA_THREADS / TX, LD = D + (SPLIT == 2 ? 8 : 4), SLD = IBMAX + 4;
+  constexpr int RQ = BQ / TY, RK = TK / TXQ, NC = D / (4 * TX);
   extern __shared__ __align__(16) float fa_smem[];
-  float* Qs = fa_smem;           // [BQ][LD], q * scale
-  float* T = Qs + BQ * LD;       // [TK][LD], a tile of K, then of V
-  float* S = T + TK * LD;        // [BQ][FA_SLD], the block's logits, then p
-  float* m_s = S + BQ * FA_SLD;  // [BQ] running maximum, denominator, and the block's alpha
-  float* den_s = m_s + BQ;
-  float* al_s = den_s + BQ;
+  float* Qs = fa_smem;          // [BQ][LD], q * scale
+  float* T = Qs + BQ * LD;      // [2][TK][LD], tiles of K, then of V
+  float* S = T + 2 * TK * LD;   // [BQ][SLD], the inner block's logits, then p
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX, g = tx % SPLIT, txq = tx / SPLIT;
   const int b = blockIdx.y, q0 = blockIdx.x * BQ;
   const long long base = (long long)b * L * D;
+  const int nkt = ib / TK, ntiles = (L / ib) * 2 * nkt;
+
+  // tile n of the stream: per inner block its nkt K tiles, then its nkt V tiles
+  auto load_tile = [&](int n) {
+    const int blk = n / (2 * nkt), r = n - blk * 2 * nkt;
+    const float* src = (r >= nkt ? v : k) + base + (long long)(blk * ib + (r % nkt) * TK) * D;
+    float* dst = T + (n & 1) * TK * LD;
+    for (int i = tid; i < TK * (D / 4); i += FA_THREADS) {
+      const int row = i / (D / 4), c4 = i - row * (D / 4);
+      cp_async16(dst + row * LD + c4 * 4, src + (long long)row * D + c4 * 4);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  load_tile(0);
 
   for (int i = tid; i < BQ * (D / 4); i += FA_THREADS) {
     const int r = i / (D / 4), c4 = i - r * (D / 4);
@@ -58,44 +109,42 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     x.w *= scale;
     *reinterpret_cast<float4*>(Qs + r * LD + c4 * 4) = x;
   }
-  if (tid < BQ) {
-    m_s[tid] = FA_NEG_INF;
-    den_s[tid] = 0.f;
-  }
-  auto load_tile = [&](const float* src, int k0) {
-    for (int i = tid; i < TK * (D / 4); i += FA_THREADS) {
-      const int r = i / (D / 4), c4 = i - r * (D / 4);
-      *reinterpret_cast<float4*>(T + r * LD + c4 * 4) =
-          *reinterpret_cast<const float4*>(src + base + (long long)(k0 + r) * D + c4 * 4);
-    }
-  };
 
-  float acc[RQ][NC][4];
+  float acc[RQ][NC][4], m[RQ], den[RQ], al[RQ], rmax[RQ];
 #pragma unroll
-  for (int i = 0; i < RQ; ++i)
+  for (int i = 0; i < RQ; ++i) {
+    m[i] = FA_NEG_INF;
+    den[i] = 0.f;
+    al[i] = 0.f;
+    rmax[i] = -INFINITY;
 #pragma unroll
     for (int j = 0; j < NC; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
 
-  for (int kb = 0; kb < L; kb += bk) {
-    // the block's logits
-    for (int kt = 0; kt < bk; kt += TK) {
-      __syncthreads();
-      load_tile(k, kb + kt);
-      __syncthreads();
+  for (int n = 0; n < ntiles; ++n) {
+    // tile n has landed; every thread is done with tile n - 1, whose buffer takes tile n + 1
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (n + 1 < ntiles) load_tile(n + 1);
+    const float* Tn = T + (n & 1) * TK * LD;
+    const int r = n % (2 * nkt);
+    if (r < nkt) {
+      // logits of this tile's keys
+      const int kt = r * TK;
       float s[RQ][RK];
 #pragma unroll
       for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
 #pragma unroll 2
-      for (int d4 = 0; d4 < D / 4; ++d4) {
+      for (int d4 = g; d4 < D / 4; d4 += SPLIT) {
         float4 qv[RQ], kv[RK];
 #pragma unroll
-        for (int i = 0; i < RQ; ++i) qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d4 * 4);
+        for (int i = 0; i < RQ; ++i) qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + TY * i) * LD + d4 * 4);
 #pragma unroll
-        for (int j = 0; j < RK; ++j) kv[j] = *reinterpret_cast<const float4*>(T + (tx + 16 * j) * LD + d4 * 4);
+        for (int j = 0; j < RK; ++j) kv[j] = *reinterpret_cast<const float4*>(Tn + (txq + TXQ * j) * LD + d4 * 4);
 #pragma unroll
         for (int i = 0; i < RQ; ++i)
 #pragma unroll
@@ -109,55 +158,89 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < RQ; ++i)
 #pragma unroll
-        for (int j = 0; j < RK; ++j) S[(ty + 16 * i) * FA_SLD + kt + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-    // online softmax of the block, one warp a row
-    for (int r = warp; r < BQ; r += FA_THREADS / 32) {
-      float* row = S + r * FA_SLD;
-      float mx = -INFINITY;
-      for (int j = lane; j < bk; j += 32) mx = fmaxf(mx, row[j]);
-      const float mo = m_s[r], mn = fmaxf(mo, warp_max(mx));
-      float sum = 0.f;
-      for (int j = lane; j < bk; j += 32) {
-        const float e = expf(row[j] - mn);
-        row[j] = e;
-        sum += e;
+        for (int j = 0; j < RK; ++j) {
+          if (SPLIT == 2) s[i][j] += __shfl_xor_sync(0xffffffffu, s[i][j], 1);
+          if (IBMAX != TK && i % SPLIT == g) S[(ty + TY * i) * SLD + kt + txq + TXQ * j] = s[i][j];
+          rmax[i] = fmaxf(rmax[i], s[i][j]);
+        }
+      if (IBMAX == TK) {
+        // the inner block is this one tile: its softmax runs on the logits in registers
+        float mn[RQ], sum[RQ];
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) mn[i] = fmaxf(m[i], row_max<TX>(rmax[i]));
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          sum[i] = 0.f;
+          if (i % SPLIT == g) {
+#pragma unroll
+            for (int j = 0; j < RK; ++j) {
+              const float e = expf(s[i][j] - mn[i]);
+              S[(ty + TY * i) * SLD + txq + TXQ * j] = e;
+              sum[i] += e;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) sum[i] = row_sum<TX>(sum[i]);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          al[i] = expf(m[i] - mn[i]);
+          den[i] = den[i] * al[i] + sum[i];
+          m[i] = mn[i];
+          rmax[i] = -INFINITY;
+        }
+      } else if (r == nkt - 1) {
+        // online softmax of the inner block, each thread on the entries it wrote (columns txq + TXQ j of
+        // its rows); the rows' reductions run side by side, so their shuffle latencies overlap
+        float mn[RQ], sum[RQ];
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) mn[i] = fmaxf(m[i], row_max<TX>(rmax[i]));
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          sum[i] = 0.f;
+          if (i % SPLIT == g) {
+            float* row = S + (ty + TY * i) * SLD + txq;
+#pragma unroll 4
+            for (int j = 0; j < ib; j += TXQ) {
+              const float e = expf(row[j] - mn[i]);
+              row[j] = e;
+              sum[i] += e;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) sum[i] = row_sum<TX>(sum[i]);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          al[i] = expf(m[i] - mn[i]);
+          den[i] = den[i] * al[i] + sum[i];
+          m[i] = mn[i];
+          rmax[i] = -INFINITY;
+        }
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float al = expf(mo - mn);
-        al_s[r] = al;
-        den_s[r] = den_s[r] * al + sum;
-        m_s[r] = mn;
+    } else {
+      // acc = acc * alpha + p . v over this tile's keys
+      const int kt = (r - nkt) * TK;
+      if (r == nkt) {
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+#pragma unroll
+          for (int j = 0; j < NC; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] *= al[i];
       }
-    }
-    __syncthreads();
-    // acc = acc * alpha + p . v
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const float al = al_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] *= al;
-    }
-    for (int kt = 0; kt < bk; kt += TK) {
-      if (kt) __syncthreads();
-      load_tile(v, kb + kt);
-      __syncthreads();
 #pragma unroll 2
       for (int k4 = 0; k4 < TK / 4; ++k4) {
         float4 pv[RQ];
 #pragma unroll
         for (int i = 0; i < RQ; ++i)
-          pv[i] = *reinterpret_cast<const float4*>(S + (ty + 16 * i) * FA_SLD + kt + k4 * 4);
+          pv[i] = *reinterpret_cast<const float4*>(S + (ty + TY * i) * SLD + kt + k4 * 4);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           float4 vv[NC];
 #pragma unroll
           for (int j = 0; j < NC; ++j)
-            vv[j] = *reinterpret_cast<const float4*>(T + (k4 * 4 + kk) * LD + (tx + 16 * j) * 4);
+            vv[j] = *reinterpret_cast<const float4*>(Tn + (k4 * 4 + kk) * LD + (tx + TX * j) * 4);
 #pragma unroll
           for (int i = 0; i < RQ; ++i) {
             const float p = kk == 0 ? pv[i].x : kk == 1 ? pv[i].y : kk == 2 ? pv[i].z : pv[i].w;
@@ -176,24 +259,28 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
-    const float den = den_s[ty + 16 * i];
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      const float4 r = make_float4(acc[i][j][0] / den, acc[i][j][1] / den, acc[i][j][2] / den, acc[i][j][3] / den);
-      *reinterpret_cast<float4*>(o + base + (long long)(q0 + ty + 16 * i) * D + (tx + 16 * j) * 4) = r;
+      const float4 r = make_float4(acc[i][j][0] / den[i], acc[i][j][1] / den[i], acc[i][j][2] / den[i],
+                                   acc[i][j][3] / den[i]);
+      *reinterpret_cast<float4*>(o + base + (long long)(q0 + ty + TY * i) * D + (tx + TX * j) * 4) = r;
     }
   }
 }
 
-template <int D, int BQ, int TK>
+static int fa_gcd(int a, int b) { return b ? fa_gcd(b, a % b) : a; }
+
+template <int D, int BQ, int TK, int IBMAX, int TXQ, int SPLIT>
 static cudaError_t launch_flash(const float* q, const float* k, const float* v, float* o, int B, int L, int bk,
                                 float scale, cudaStream_t s) {
-  if (L % BQ != 0 || bk % TK != 0 || bk > FA_BK || L % bk != 0) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)(BQ + TK) * (D + 4) + (size_t)BQ * FA_SLD + 3 * BQ);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D, BQ, TK>,
+  // the inner block: the caller's key block, or the largest part of it that fits
+  const int ib = fa_gcd(bk, IBMAX);
+  if (L % BQ != 0 || ib % TK != 0 || L % bk != 0) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)(BQ + 2 * TK) * (D + (SPLIT == 2 ? 8 : 4)) + (size_t)BQ * (IBMAX + 4));
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D, BQ, TK, IBMAX, TXQ, SPLIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  flash_attention_kernel<D, BQ, TK><<<dim3(L / BQ, B), FA_THREADS, smem, s>>>(q, k, v, o, L, bk, scale);
+  flash_attention_kernel<D, BQ, TK, IBMAX, TXQ, SPLIT><<<dim3(L / BQ, B), FA_THREADS, smem, s>>>(q, k, v, o, L, ib, scale);
   return cudaGetLastError();
 }
 
@@ -204,7 +291,13 @@ extern "C" int adm_flash_attention(const void* q, const void* k, const void* v, 
               *vp = static_cast<const float*>(v);
   float* op = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128) return (int)launch_flash<128, 64, 64>(qp, kp, vp, op, B, L, bk, scale, s);
-  if (D == 256) return (int)launch_flash<256, 32, 64>(qp, kp, vp, op, B, L, bk, scale, s);
+#define FA_GO(...) return (int)launch_flash<__VA_ARGS__>(qp, kp, vp, op, B, L, bk, scale, s)
+  // D = 128: 128 queries a block (8 x 4 register tiles in q . k^T) where that still fills the card's
+  // 132 SMs, else 64; D = 256: 64 queries, the channels of q . k^T split over lane pairs
+  if (D == 128) {
+    if (L % 128 == 0 && (long long)(L / 128) * B >= 132) FA_GO(128, 128, 64, 128, 16, 1);
+    FA_GO(128, 64, 64, 128, 16, 1);
+  }
+  if (D == 256) FA_GO(256, 64, 64, 64, 16, 2);
   return (int)cudaErrorInvalidValue;
 }

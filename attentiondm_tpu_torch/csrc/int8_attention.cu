@@ -10,8 +10,8 @@
 //      GroupNorm statistics and normalize of the bf16 residual, one block
 //      per image, written as three int8 tensors at the q / k / v input
 //      quant scales;
-//   2. the q / k / v 1x1 projections: the int8 implicit GEMM of K1
-//      (igemm.cuh) with an f32 dequant epilogue;
+//   2. the q / k / v 1x1 projections: the int8 GEMM of K1 (igemm.cuh: wgmma
+//      from a TMA-fed ring, weights K-major) with an f32 dequant epilogue;
 //   3. attn_core: f32 logits (q k^T, then * C^-1/2), softmax (max, exp,
 //      divide by the sum) and AV for a 16-query tile per block, logits in
 //      shared memory, then the int8 quant of proj_out's input.  In the
@@ -163,16 +163,17 @@ static cudaError_t launch_core(const float* qf, const float* kf, const float* vf
   return launch_core_mode<C, true>(qf, kf, vf, q8, k8, amax, sqo, n_o, o8, B, L, scale, s);
 }
 
-static IgemmArgs proj_args(const void* x8, const void* w, const float* iw, const float* zc, void* out,
-                           int B, int L, int C) {
+static IgemmArgs proj_args(const void* x8, const void* wt, const float* iw, const float* zc, void* out,
+                           int B, int L, int C, int bm, int cols) {
   IgemmArgs a;
   a.x = static_cast<const int8_t*>(x8);
-  a.w = static_cast<const int8_t*>(w);
+  a.wt = static_cast<const int8_t*>(wt);
   a.inv_ws = iw;
   a.zcbias = zc;
   a.res = nullptr;
   a.out = out;
   a.B = B; a.Hp = L; a.Wp = 1; a.Cp = C; a.Ho = L; a.Wo = 1; a.Np = C; a.stride = 1;
+  a.tile = IgemmTile{bm, cols, 1, 1};  // the flat GEMM over B * L rows (ops/pallas_conv.conv_tiles)
   return a;
 }
 
@@ -181,7 +182,7 @@ extern "C" int adm_fused_attention_block(const void* x, const void* gn, const vo
                                          const void* eqkv, const void* sqo, int n_o, const void* wo,
                                          void* q8, void* k8, void* v8, void* qf, void* kf, void* vf,
                                          void* o8, void* amax, void* out, int B, int L, int C, int groups,
-                                         float inv_count, float scale, void* stream) {
+                                         float inv_count, float scale, int bm, int cols, void* stream) {
   if ((C != 128 && C != 256 && C != 512) || L > GN_CHUNK || groups > 32 || C % groups != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -205,7 +206,7 @@ extern "C" int adm_fused_attention_block(const void* x, const void* gn, const vo
   const void* ws[3] = {wq, wk, wv};
   void* fs[3] = {qf, kf, vf};
   for (int i = 0; i < 3; ++i) {
-    err = launch_igemm<1, EPI_F32>(proj_args(xs[i], ws[i], e + 2 * i * C, e + (2 * i + 1) * C, fs[i], B, L, C), s);
+    err = launch_igemm<1, EPI_F32>(proj_args(xs[i], ws[i], e + 2 * i * C, e + (2 * i + 1) * C, fs[i], B, L, C, bm, cols), s);
     if (err != cudaSuccess) return (int)err;
   }
 
@@ -219,7 +220,7 @@ extern "C" int adm_fused_attention_block(const void* x, const void* gn, const vo
   else err = launch_core<512>(qp, kp, vp, q8p, k8p, am, so, n_o, op, B, L, scale, s);
   if (err != cudaSuccess) return (int)err;
 
-  IgemmArgs a = proj_args(o8, wo, so + 2 * C, so + 3 * C, out, B, L, C);
+  IgemmArgs a = proj_args(o8, wo, so + 2 * C, so + 3 * C, out, B, L, C, bm, cols);
   a.res = static_cast<const __nv_bfloat16*>(x);
   return (int)launch_igemm<1, EPI_RESADD_BF16>(a, s);
 }

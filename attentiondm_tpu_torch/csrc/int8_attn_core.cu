@@ -49,7 +49,6 @@
 #include <limits.h>
 
 #include "attn_common.cuh"
-#include "igemm.cuh"
 
 using namespace adm;
 

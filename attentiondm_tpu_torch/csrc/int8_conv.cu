@@ -4,14 +4,16 @@
 // int8_conv3_pallas (and, by its modes, the math of ops/quant_conv.py
 // _conv3x3_int8_dot and int8_matmul).  On the TPU one program held a
 // batch block's whole halo tile in VMEM and ran the 9 taps as MXU dots; here
-// the taps are read straight from device memory per 128 x 128 output tile
-// (igemm.cuh), and the dequant epilogue is fused so that the bf16 mode
-// never writes the int32 accumulator.
+// the taps are TMA box loads from device memory into a shared-memory ring
+// that feeds wgmma (igemm.cuh: what bounds it and the design), and the
+// dequant epilogue is fused so that the bf16 mode never writes the int32
+// accumulator.
 //
 // Modes: ksize 3 stride 1, ksize 3 stride 2 (downsample), ksize 1; out
 // int32 (mode 0) or bf16 of acc * inv_ws + zcbias computed in f32 and rounded
-// once (mode 1).  The caller applies the quantized-zero halo and pads Cp and
-// Np to multiples of 128.
+// once (mode 1).  The caller applies the quantized-zero halo, pads Cp and Np to
+// multiples of 128, hands the weights K-major (gqt [Np, ksize*ksize*Cp]) and
+// the M tiling (bm, cols, rows, imgs: ops/pallas_conv.conv_tiles).
 #include "igemm.cuh"
 
 using namespace adm;
@@ -23,18 +25,19 @@ static cudaError_t dispatch_mode(const IgemmArgs& a, int mode, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
-extern "C" int adm_int8_conv(const void* xp, const void* gq, const void* inv_ws, const void* zcbias,
+extern "C" int adm_int8_conv(const void* xp, const void* gqt, const void* inv_ws, const void* zcbias,
                              void* out, int B, int Hp, int Wp, int Cp, int Ho, int Wo, int Np,
-                             int ksize, int stride, int mode, void* stream) {
-  if (Cp % IG_BK != 0 || Np % IG_BN != 0) return (int)cudaErrorInvalidValue;
+                             int ksize, int stride, int mode, int bm, int cols, int rows, int imgs,
+                             void* stream) {
   IgemmArgs a;
   a.x = static_cast<const int8_t*>(xp);
-  a.w = static_cast<const int8_t*>(gq);
+  a.wt = static_cast<const int8_t*>(gqt);
   a.inv_ws = static_cast<const float*>(inv_ws);
   a.zcbias = static_cast<const float*>(zcbias);
   a.res = nullptr;
   a.out = out;
   a.B = B; a.Hp = Hp; a.Wp = Wp; a.Cp = Cp; a.Ho = Ho; a.Wo = Wo; a.Np = Np; a.stride = stride;
+  a.tile = IgemmTile{bm, cols, rows, imgs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (ksize == 3) err = dispatch_mode<3>(a, mode, s);

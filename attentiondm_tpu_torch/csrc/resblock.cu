@@ -27,7 +27,7 @@
 // inputs (1 B per element each, read 9 times by the GEMM, mostly from L2)
 // and the int32 accumulator of conv1 (4 B written, read twice by pass 3).
 // What bounds it on the H100: the two GEMMs' tensor-core arithmetic
-// (2 * 2 * 9 * C * C operations per pixel) at mma.sync rates, then the
+// (2 * 2 * 9 * C * C operations per pixel; igemm.cuh's wgmma core), then the
 // bytes above.  Fusing pass 3 into conv1's epilogue needs the GroupNorm
 // statistics across GEMM tiles (a K6-style partial-sum buffer); later work.
 #include "igemm.cuh"
@@ -47,26 +47,29 @@ static GnQuantArgs halo_args(const void* gn_scale, const void* gn_bias, const vo
   return a;
 }
 
-static IgemmArgs conv_args(const void* pad, const void* g, const void* inv_ws, const void* zcbias, void* out,
-                           int B, int H, int W, int C) {
+static IgemmArgs conv_args(const void* pad, const void* gt, const void* inv_ws, const void* zcbias, void* out,
+                           int B, int H, int W, int C, const int* tile) {
   IgemmArgs a;
   a.x = static_cast<const int8_t*>(pad);
-  a.w = static_cast<const int8_t*>(g);
+  a.wt = static_cast<const int8_t*>(gt);
   a.inv_ws = static_cast<const float*>(inv_ws);
   a.zcbias = static_cast<const float*>(zcbias);
   a.res = nullptr;
   a.out = out;
   a.B = B; a.Hp = H + 2; a.Wp = W + 2; a.Cp = C; a.Ho = H; a.Wo = W; a.Np = C; a.stride = 1;
+  a.tile = IgemmTile{tile[0], tile[1], tile[2], tile[3]};
   return a;
 }
 
 // r [B, H, W, C] bf16; tproj [B, C] f32; v1, v2: the six [C] f32 vectors of
 // each half in the order GroupNorm scale, bias, activation quant scale,
-// zero point, conv inv_ws, zcbias; g1, g2 [9C, C] int8; scratch pad1, pad2
-// [B, H+2, W+2, C] int8 and acc [B, H, W, C] int32; out [B, H, W, C] bf16
-extern "C" int adm_resblock(const void* r, const void* tproj, const void* const* v1, int n1, const void* g1,
-                            const void* const* v2, int n2, const void* g2, void* pad1, void* acc, void* pad2,
-                            void* out, int B, int H, int W, int C, int groups, float inv_count, void* stream) {
+// zero point, conv inv_ws, zcbias; g1t, g2t [C, 9C] int8, the folds K-major;
+// scratch pad1, pad2 [B, H+2, W+2, C] int8 and acc [B, H, W, C] int32; out
+// [B, H, W, C] bf16; tile: the GEMMs' M tiling (bm, cols, rows, imgs)
+extern "C" int adm_resblock(const void* r, const void* tproj, const void* const* v1, int n1, const void* g1t,
+                            const void* const* v2, int n2, const void* g2t, void* pad1, void* acc, void* pad2,
+                            void* out, int B, int H, int W, int C, int groups, float inv_count, const int* tile,
+                            void* stream) {
   if (C % 128 != 0 || C > 1024 || groups > 32 || C % groups != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
@@ -75,7 +78,7 @@ extern "C" int adm_resblock(const void* r, const void* tproj, const void* const*
                                         B, s);
   if (err != cudaSuccess) return (int)err;
 
-  err = launch_igemm<3, EPI_I32>(conv_args(pad1, g1, v1[4], v1[5], acc, B, H, W, C), s);
+  err = launch_igemm<3, EPI_I32>(conv_args(pad1, g1t, v1[4], v1[5], acc, B, H, W, C, tile), s);
   if (err != cudaSuccess) return (int)err;
 
   err = launch_epi_gn_swish_quant(static_cast<const int32_t*>(acc), static_cast<const float*>(v1[4]),
@@ -84,7 +87,7 @@ extern "C" int adm_resblock(const void* r, const void* tproj, const void* const*
                                   B, s);
   if (err != cudaSuccess) return (int)err;
 
-  IgemmArgs a = conv_args(pad2, g2, v2[4], v2[5], out, B, H, W, C);
+  IgemmArgs a = conv_args(pad2, g2t, v2[4], v2[5], out, B, H, W, C, tile);
   a.res = static_cast<const __nv_bfloat16*>(r);
   return (int)launch_igemm<3, EPI_RESADD_BF16>(a, s);
 }

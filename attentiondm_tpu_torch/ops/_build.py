@@ -37,11 +37,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 VEC6 = ctypes.c_void_p * 6  # an array of six device pointers, read by the launcher on the host
 _VEC6 = ctypes.POINTER(ctypes.c_void_p)
+TILE = ctypes.c_int * 4  # a GEMM's M tiling (bm, cols, rows, imgs), read by the launcher on the host
+_TILE = ctypes.POINTER(ctypes.c_int)
 
 # C entry points: name -> argtypes (every launcher returns cudaGetLastError())
 SIGNATURES = {
-    # xp, gq, inv_ws, zcbias, out, B, Hp, Wp, Cp, Ho, Wo, Np, ksize, stride, mode, stream
-    "adm_int8_conv": [_P] * 5 + [_I] * 10 + [_P],
+    # xp, gqt, inv_ws, zcbias, out, B, Hp, Wp, Cp, Ho, Wo, Np, ksize, stride, mode, bm, cols, rows, imgs, stream
+    "adm_int8_conv": [_P] * 5 + [_I] * 14 + [_P],
     # x, x_is_int32, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp, out,
     # B, HW, N, groups, n_levels, inv_count, stream
     "adm_epilogue_gn_swish_quant": [_P, _I] + [_P] * 8 + [_I] * 5 + [_F, _P],
@@ -49,9 +51,9 @@ SIGNATURES = {
     "adm_epilogue_gn_swish_quant_blocked": [_P, _I] + [_P] * 9 + [_I] * 5 + [_F, _P],
     # x, gn (2,C), sqkv (6,C), n_q, n_k, n_v, wq, wk, wv, eqkv (6,C), sqo (4,C), n_o, wo,
     # scratch q8 k8 v8 qf kf vf o8, amax [B, 2] zeroed (the int8 core) or null (the f32 core), out,
-    # B, L, C, groups, inv_count, scale, stream
+    # B, L, C, groups, inv_count, scale, bm, cols (the projections' M tiling), stream; the weights K-major
     "adm_fused_attention_block": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
-    + [_P] * 9 + [_I] * 4 + [_F, _F, _P],
+    + [_P] * 9 + [_I] * 4 + [_F, _F, _I, _I, _P],
     # q8, k8, v8, scalars (sq, sk, sv), out_scale, out_zp, n_levels, out, B, L, C, block_k, online, scale, stream
     "adm_int8_attention_static": [_P] * 6 + [_I, _P] + [_I] * 5 + [_F, _P],
     # dot q k v (int32), (inv_ws, zcbias) x3, out_scale, out_zp, n_levels, scratch amax [B, 2] zeroed, q8, k8,
@@ -65,8 +67,9 @@ SIGNATURES = {
     # dot, dot_is_int32, inv_ws, zcbias, x_res, res_is_f32, out, out_is_f32, sums, B, HW, N, groups, stream
     "adm_epilogue_residual_gn_stats": [_P, _I, _P, _P, _P, _I, _P, _I, _P] + [_I] * 4 + [_P],
     # r, tproj, v1 (six vector pointers: gn scale, gn bias, act scale, act zp, inv_ws, zcbias), n1, g1,
-    # v2, n2, g2, scratch pad1 acc pad2, out, B, H, W, C, groups, inv_count, stream
-    "adm_resblock": [_P, _P, _VEC6, _I, _P, _VEC6, _I, _P] + [_P] * 4 + [_I] * 5 + [_F, _P],
+    # v2, n2, g2, scratch pad1 acc pad2, out, B, H, W, C, groups, inv_count, tile (bm, cols, rows, imgs), stream;
+    # g1, g2 K-major
+    "adm_resblock": [_P, _P, _VEC6, _I, _P, _VEC6, _I, _P] + [_P] * 4 + [_I] * 5 + [_F, _TILE, _P],
 }
 
 

@@ -8,7 +8,8 @@ float32 softmax.  The FP teacher, stage-1 calibration and the serving
 forward with `attn_int8=False` all come through here.
 
 K11's order, in the kernel and in `flash_attention_ref` alike: q is scaled
-before the dot; key blocks of `block_k` (512) stream with a running maximum
+before the dot; key blocks of `block_k` (512; the kernel splits a block into
+inner blocks of 128 or 64 keys) stream with a running maximum
 m (from -1e30), alpha = exp(m - m_new), denom = denom * alpha + sum(p) and
 acc = acc * alpha + p . v; acc / denom at the end.  Kernel and plain version
 sum their float32 dot products in different orders, so they agree to
@@ -63,9 +64,13 @@ def flash_attention(q, k, v, *, scale=None, block_q: int = 256, block_k: int = 5
     """softmax(q k^T * scale) v with an online softmax; q, k, v: [B, L, D].
 
     `block_k` is the online softmax's key block (part of the result's last
-    bits).  `block_q` is kept for JAX's signature only: it has to divide L, as
-    there, and changes nothing here (the kernel sizes its query tiles from
-    D).  `plain=True` runs the plain version on any device."""
+    bits).  On the card the kernel runs the same recurrence over inner blocks
+    of at most 128 keys (64 at D = 256) where `block_k` is larger, which
+    moves the last bits again, inside the tolerance held against
+    `flash_attention_ref` (2e-5 + 2e-5 |x|).  `block_q` is kept for JAX's
+    signature only: it has to divide L, as there, and changes nothing here
+    (the kernel sizes its query tiles from D and the batch).  `plain=True`
+    runs the plain version on any device."""
     B, L, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")

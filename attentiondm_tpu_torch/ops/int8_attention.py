@@ -45,6 +45,7 @@ import torch
 from . import _build
 from .attention import NEG_INF
 from .fused_gn import GROUPS, gn_normalize, quant_i8
+from .pallas_conv import conv_tiles, k_major
 from .precision import exact_f32
 from .quant_conv import int8_matmul_ref
 
@@ -271,17 +272,20 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
     """x [B, L, C] residual -> x + attention(x), at x's dtype.
 
     qkv_quant: [(act_scale [C], act_zp [C], a_bit)] * 3 for q, k, v;
-    qkv_weights: [(gq [C, C] int8, inv_ws [C], zcbias [C])] * 3;
+    qkv_weights: [(gq [C, C] int8, inv_ws [C], zcbias [C])] * 3, each
+    optionally with a fourth entry, gq's K-major copy [C, C] (`gq.T`, which
+    the kernel's GEMMs read; made on the fly where absent);
     o_quant / o_weights: the same for proj_out.  `int8_core` runs q . k^T in
     int8 at per-image dynamic scales.  `plain=True` runs the plain version on
     any device."""
     B, L, C = x.shape
-    for gq, _iw, _zc in list(qkv_weights) + [o_weights]:
-        if tuple(gq.shape) != (C, C):
-            raise ValueError(f"fused_attention_block: weights {tuple(gq.shape)} != ({C}, {C})")
+    weights = [tuple(w) for w in (*qkv_weights, o_weights)]
+    for w in weights:
+        if any(tuple(g.shape) != (C, C) for g in (w[0], *w[3:])):
+            raise ValueError(f"fused_attention_block: weights {tuple(w[0].shape)} != ({C}, {C})")
     if plain or x.device.type == "cpu":
-        return fused_attention_block_ref(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
-                                         o_weights, scale=scale, int8_core=int8_core)
+        return fused_attention_block_ref(x, gn_scale, gn_bias, qkv_quant, [w[:3] for w in weights[:3]], o_quant,
+                                         weights[3][:3], scale=scale, int8_core=int8_core)
     if x.dtype != torch.bfloat16 or C not in (128, 256, 512) or L > 1024:
         raise NotImplementedError(
             f"fused_attention_block on CUDA: bf16 residual, C in (128, 256, 512), L <= 1024; got "
@@ -291,24 +295,25 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
     f32 = dict(dtype=torch.float32, device=x.device)
     gn = torch.stack([gn_scale, gn_bias]).to(**f32)
     sqkv = torch.cat([torch.stack([s, z]) for (s, z, _b) in qkv_quant]).to(**f32)
-    eqkv = torch.cat([torch.stack([iw, zc]) for (_gq, iw, zc) in qkv_weights]).to(**f32)
+    eqkv = torch.cat([torch.stack([w[1], w[2]]) for w in weights[:3]]).to(**f32)
     so, zo, bo = o_quant
-    gq_o, iw_o, zc_o = o_weights
-    sqo = torch.stack([so, zo, iw_o, zc_o]).to(**f32)
-    (wq, _, _), (wk, _, _), (wv, _, _) = qkv_weights
+    sqo = torch.stack([so, zo, weights[3][1], weights[3][2]]).to(**f32)
+    wq, wk, wv, wo = (w[3] if len(w) > 3 else k_major(w[0]) for w in weights)  # K-major
     x = x.contiguous()
-    _build.require_cuda("fused_attention_block", x, gn, sqkv, eqkv, sqo, wq, wk, wv, gq_o)
+    _build.require_cuda("fused_attention_block", x, gn, sqkv, eqkv, sqo, wq, wk, wv, wo)
     scratch8 = [torch.empty((B, L, C), dtype=torch.int8, device=x.device) for _ in range(4)]
     scratchf = [torch.empty((B, L, C), **f32) for _ in range(3)]
     out = torch.empty_like(x)
     amax = torch.zeros((B, 2), dtype=torch.int32, device=x.device) if int8_core else None
+    tiles = conv_tiles(B, L, 1, 1, 1, C)  # the four projections: flat GEMMs over B * L rows
     err = _build.kernels().adm_fused_attention_block(
         x.data_ptr(), gn.data_ptr(), sqkv.data_ptr(),
         *(2 ** (b - 1) for (_s, _z, b) in qkv_quant),
         wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), eqkv.data_ptr(), sqo.data_ptr(),
-        2 ** (bo - 1), gq_o.data_ptr(),
+        2 ** (bo - 1), wo.data_ptr(),
         *(t.data_ptr() for t in scratch8[:3]), *(t.data_ptr() for t in scratchf), scratch8[3].data_ptr(),
-        None if amax is None else amax.data_ptr(), out.data_ptr(), B, L, C, g, 1.0 / (L * (C // g)), float(scale), _build.stream_ptr(x.device))
+        None if amax is None else amax.data_ptr(), out.data_ptr(), B, L, C, g, 1.0 / (L * (C // g)), float(scale),
+        tiles.BM, tiles.cols, _build.stream_ptr(x.device))
     _build.check(err, "adm_fused_attention_block")
     fused_attention_block.launches += 1
     fused_attention_block.int8_core_launches += bool(int8_core)

@@ -18,8 +18,18 @@ stride-2 downsample, [B, H, W, Cp] for 1x1) and the fold-layout weights
 gq [ks*ks*Cp, Np] (rows in (dy, dx, c) order).  Cp and Np are multiples of
 128.  `int8_conv` launches the kernel for a CUDA tensor and takes the plain
 version `int8_conv_ref` only for a CPU tensor.
+
+The kernel's products are `wgmma`, which reads 8-bit operands only with K
+contiguous, so it takes the weights K-major: `gqt` [Np, ks*ks*Cp], the
+transpose of the fold layout.  `prepare_serving_runtime` stores that copy per
+layer at fold time and the serving path hands it on; a call without it
+transposes `gq` on the fly.  The M tiling of a launch (`conv_tiles`) is
+chosen here, in Python, and passed to the kernel.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -65,6 +75,71 @@ def _out_hw(Hp: int, Wp: int, ksize: int, stride: int):
     return (Hp - ksize) // stride + 1, (Wp - ksize) // stride + 1
 
 
+SMS = 132  # streaming multiprocessors of the H100: tiles are sized so that a launch has work for each
+
+
+class ConvTiles(NamedTuple):
+    """The M tiling of one GEMM launch: tiles of `BM` accumulator rows by `BN`
+    output channels; a tile's rows are the `cols` x `rows` x `imgs` box of
+    output pixels at (ox0, oy0, b0), row r being pixel (r // (cols * rows),
+    r // cols % rows, r % cols) of the box; `grid` = (tiles along x, y, batch,
+    output channels)."""
+
+    BM: int
+    BN: int
+    cols: int
+    rows: int
+    imgs: int
+    grid: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def conv_tiles(B: int, Ho: int, Wo: int, ksize: int, stride: int, Np: int) -> ConvTiles:
+    """How K1's kernel cuts the [B, Ho, Wo] output pixels of a launch into M
+    tiles, a pure function of the shape.  A tile is one TMA box per tap: part
+    of an output row where Wo exceeds BM, whole rows of one image, or whole
+    images where an image has fewer pixels than BM (the 8x8 and 4x4 maps); a
+    box is clipped to the tensor, so ragged edges cost accumulator rows, never
+    a second path.  A 1x1 conv is the flat GEMM over its B * Ho * Wo rows.
+    BM is 128, or 64 where 128-row tiles would leave SMs without a tile."""
+    del stride  # the tiling is over output pixels, whatever the stride
+    if ksize == 1:
+        B, Ho, Wo = 1, 1, B * Ho * Wo
+
+    def cut(bm):
+        cols = min(Wo, bm)
+        rows = min(Ho, bm // cols)
+        imgs = min(B, bm // (cols * rows))
+        return cols, rows, imgs, (-(-Wo // cols), -(-Ho // rows), -(-B // imgs), Np // 128)
+
+    for bm in (128, 64):
+        cols, rows, imgs, grid = cut(bm)
+        if bm == 64 or grid[0] * grid[1] * grid[2] * grid[3] >= SMS:
+            return ConvTiles(bm, 128, cols, rows, imgs, grid)
+
+
+def conv_tile_rows(t: ConvTiles, B: int, Ho: int, Wo: int, ksize: int = 3):
+    """The output row m = (b * Ho + oy) * Wo + ox of every accumulator row of
+    every M tile, in the kernel's order, or -1 where the row is masked: an
+    int64 tensor [tiles, BM].  What the kernel's epilogue computes, for the
+    tests."""
+    if ksize == 1:
+        B, Ho, Wo = 1, 1, B * Ho * Wo
+    tx, ty, tb, _ = t.grid
+    mt = torch.arange(tx * ty * tb)[:, None]
+    ox0, oy0, b0 = mt % tx * t.cols, mt // tx % ty * t.rows, mt // (tx * ty) * t.imgs
+    r = torch.arange(t.BM)[None, :]
+    ib, iy, ix = r // (t.cols * t.rows), r // t.cols % t.rows, r % t.cols
+    valid = (ib < t.imgs) & (b0 + ib < B) & (oy0 + iy < Ho) & (ox0 + ix < Wo)
+    m = ((b0 + ib) * Ho + oy0 + iy) * Wo + ox0 + ix
+    return torch.where(valid, m, torch.full_like(m, -1))
+
+
+def k_major(gq):
+    """The K-major copy [..., Np, K] of fold-layout weights [..., K, Np]."""
+    return gq.transpose(-1, -2).contiguous()
+
+
 def int8_conv_ref(xp, gq, inv_ws=None, zcbias=None, *, ksize: int = 3, stride: int = 1,
                   out_dtype=torch.int32):
     """Plain version of `int8_conv`: one exact integer product per tap."""
@@ -84,34 +159,47 @@ def int8_conv_ref(xp, gq, inv_ws=None, zcbias=None, *, ksize: int = 3, stride: i
 
 
 def int8_conv(xp, gq, inv_ws=None, zcbias=None, *, ksize: int = 3, stride: int = 1,
-              out_dtype=torch.int32, plain: bool = False):
+              out_dtype=torch.int32, gqt=None, plain: bool = False):
     """int8 NHWC conv over a halo-padded input -> int32 [B, Ho, Wo, Np], or
     bf16 of `acc * inv_ws + zcbias` (f32 math, one rounding to bf16).
 
-    `plain=True` runs the plain version on any device (for comparisons)."""
+    The weights come in the fold layout `gq` [ks*ks*Cp, Np], K-major as `gqt`
+    [Np, ks*ks*Cp] (`gq` may then be None), or both (the serving path: the
+    kernel reads `gqt`, the plain version `gq`).  `plain=True` runs the plain
+    version on any device (for comparisons)."""
     if ksize not in (1, 3) or stride not in (1, 2) or (ksize == 1 and stride != 1):
         raise NotImplementedError(f"int8_conv: ksize={ksize} stride={stride}")
     if out_dtype not in _MODES:
         raise NotImplementedError(f"int8_conv: out_dtype={out_dtype}")
     B, Hp, Wp, Cp = xp.shape
-    Np = gq.shape[-1]
-    if xp.dtype != torch.int8 or gq.dtype != torch.int8 or gq.shape[0] != ksize * ksize * Cp:
-        raise ValueError(f"int8_conv: xp {xp.dtype} {tuple(xp.shape)}, gq {gq.dtype} {tuple(gq.shape)}")
+    K = ksize * ksize * Cp
+    if gq is None and gqt is None:
+        raise ValueError("int8_conv: needs the weights, gq [K, Np] or gqt [Np, K]")
+    Np = gq.shape[-1] if gq is not None else gqt.shape[0]
+    for w, shape in ((gq, (K, Np)), (gqt, (Np, K))):
+        if w is not None and (w.dtype != torch.int8 or tuple(w.shape) != shape):
+            raise ValueError(f"int8_conv: xp {xp.dtype} {tuple(xp.shape)}, weights {w.dtype} {tuple(w.shape)}, "
+                             f"expected int8 {shape}")
+    if xp.dtype != torch.int8:
+        raise ValueError(f"int8_conv: xp {xp.dtype} {tuple(xp.shape)}")
     if Cp % 128 or Np % 128:
         raise ValueError(f"int8_conv: Cp={Cp} and Np={Np} must be multiples of 128")
     if plain or xp.device.type == "cpu":
-        return int8_conv_ref(xp, gq, inv_ws, zcbias, ksize=ksize, stride=stride, out_dtype=out_dtype)
+        return int8_conv_ref(xp, gq if gq is not None else gqt.t(), inv_ws, zcbias, ksize=ksize, stride=stride,
+                             out_dtype=out_dtype)
 
     Ho, Wo = _out_hw(Hp, Wp, ksize, stride)
     if inv_ws is None:  # int32 mode reads no epilogue vectors
         inv_ws = zcbias = torch.empty(0, dtype=torch.float32, device=xp.device)
-    inv_ws = inv_ws.to(torch.float32).contiguous()
-    zcbias = zcbias.to(torch.float32).contiguous()
-    _build.require_cuda("int8_conv", xp, gq, inv_ws, zcbias)
+    inv_ws, zcbias = _build.f32c(inv_ws), _build.f32c(zcbias)
+    gqt = k_major(gq) if gqt is None else gqt
+    _build.require_cuda("int8_conv", xp, gqt, inv_ws, zcbias)
     out = torch.empty((B, Ho, Wo, Np), dtype=out_dtype, device=xp.device)
+    t = conv_tiles(B, Ho, Wo, ksize, stride, Np)
     err = _build.kernels().adm_int8_conv(
-        xp.data_ptr(), gq.data_ptr(), inv_ws.data_ptr(), zcbias.data_ptr(), out.data_ptr(),
-        B, Hp, Wp, Cp, Ho, Wo, Np, ksize, stride, _MODES[out_dtype], _build.stream_ptr(xp.device))
+        xp.data_ptr(), gqt.data_ptr(), inv_ws.data_ptr(), zcbias.data_ptr(), out.data_ptr(),
+        B, Hp, Wp, Cp, Ho, Wo, Np, ksize, stride, _MODES[out_dtype], t.BM, t.cols, t.rows, t.imgs,
+        _build.stream_ptr(xp.device))
     _build.check(err, "adm_int8_conv")
     int8_conv.launches += 1
     key = f"{ksize}x{ksize}/s{stride}/{str(out_dtype).removeprefix('torch.')}"

@@ -8,9 +8,10 @@ On the TPU one program held a batch block's whole working set in VMEM.  One
 32 x 32 x 128 image is 256 KB in bf16 alone, over a Hopper block's shared
 memory, so the CUDA version (csrc/resblock.cu) is a chain of four launches
 behind this one wrapper, counted as one launch: the K4 pass into a halo'd
-int8 buffer, K1's implicit GEMM to int32, the K2 pass on that accumulator
-(float32 between conv1 and GroupNorm 2, as the TPU kernel) into a second
-halo'd buffer, and the GEMM with a dequant + residual-add epilogue.  The
+int8 buffer, K1's implicit GEMM (wgmma, reading the folds K-major) to int32,
+the K2 pass on that accumulator (float32 between conv1 and GroupNorm 2, as
+the TPU kernel) into a second halo'd buffer, and the GEMM with a dequant +
+residual-add epilogue.  The
 plain version composes the plain versions of the same stages, so its
 float32 sums run in the same order and the two agree to the bit.
 
@@ -24,7 +25,7 @@ import torch
 
 from . import _build
 from .fused_gn import GROUPS, epilogue_gn_swish_quant_ref, gn_act_quant_ref
-from .pallas_conv import int8_conv_ref, pad_qzero
+from .pallas_conv import conv_tiles, int8_conv_ref, k_major, pad_qzero
 
 VMEM_BUDGET = 10 << 20  # the TPU kernel's plan
 
@@ -63,13 +64,15 @@ def resblock_pallas_ref(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_sca
 
 def resblock_pallas(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, gn2_bias, q2, g2_flat, sb2,
                     *, a_bit1: int = 8, a_bit2: int = 8, groups: int = GROUPS, out_dtype=torch.bfloat16,
-                    plain: bool = False):
+                    g1_t=None, g2_t=None, plain: bool = False):
     """r [B, H, W, C] residual -> the resblock's output at `out_dtype`.
 
     tproj [B, C] float32 is dense(swish(temb)); gn*_scale / gn*_bias [C];
     q1, q2 = (act_scale [C], act_zp [C]) of conv1's and conv2's input;
     g1_flat, g2_flat [9C, C] int8 folded weights; sb1, sb2 = (inv_ws [C],
-    zcbias [C]).  `plain=True` runs the plain version on any device."""
+    zcbias [C]).  g1_t, g2_t [C, 9C]: the folds' K-major copies, which the
+    kernel's GEMMs read (made on the fly where not given).  `plain=True` runs
+    the plain version on any device."""
     B, H, W, C = r.shape
     if groups != GROUPS:
         raise NotImplementedError(f"resblock_pallas: groups={groups}")
@@ -86,19 +89,24 @@ def resblock_pallas(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, 
     half1 = [_build.f32c(v, r.device) for v in (gn1_scale, gn1_bias, *q1, *sb1)]
     half2 = [_build.f32c(v, r.device) for v in (gn2_scale, gn2_bias, *q2, *sb2)]
     r, tproj = r.contiguous(), _build.f32c(tproj, r.device)
-    g1_flat, g2_flat = g1_flat.contiguous(), g2_flat.contiguous()
-    _build.require_cuda("resblock_pallas", r, tproj, g1_flat, g2_flat, *half1, *half2)
+    g1_t = k_major(g1_flat) if g1_t is None else g1_t
+    g2_t = k_major(g2_flat) if g2_t is None else g2_t
+    _build.require_cuda("resblock_pallas", r, tproj, g1_t, g2_t, *half1, *half2)
+    if tuple(g1_t.shape) != (C, 9 * C) or tuple(g2_t.shape) != (C, 9 * C):
+        raise ValueError(f"resblock_pallas: K-major folds {tuple(g1_t.shape)}, {tuple(g2_t.shape)} != ({C}, {9 * C})")
     if any(v.numel() != C for v in half1 + half2) or tuple(tproj.shape) != (B, C):
         raise ValueError(f"resblock_pallas: per-channel vectors must hold {C} values and tproj be [{B}, {C}]")
     pad1, pad2 = (torch.empty((B, H + 2, W + 2, C), dtype=torch.int8, device=r.device) for _ in range(2))
     acc = torch.empty((B, H, W, C), dtype=torch.int32, device=r.device)
     out = torch.empty_like(r)
     g = min(GROUPS, C)
+    t = conv_tiles(B, H, W, 3, 1, C)
     err = _build.kernels().adm_resblock(
         r.data_ptr(), tproj.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half1)), 2 ** (a_bit1 - 1),
-        g1_flat.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half2)), 2 ** (a_bit2 - 1), g2_flat.data_ptr(),
+        g1_t.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half2)), 2 ** (a_bit2 - 1), g2_t.data_ptr(),
         pad1.data_ptr(), acc.data_ptr(), pad2.data_ptr(), out.data_ptr(),
-        B, H, W, C, g, 1.0 / (H * W * (C // g)), _build.stream_ptr(r.device))
+        B, H, W, C, g, 1.0 / (H * W * (C // g)), _build.TILE(t.BM, t.cols, t.rows, t.imgs),
+        _build.stream_ptr(r.device))
     _build.check(err, "adm_resblock")
     resblock_pallas.launches += 1
     return out

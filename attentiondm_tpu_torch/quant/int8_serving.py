@@ -70,7 +70,13 @@ from ..ops.int8_attention import (
     fused_int8_attention,
     fused_int8_attention_static,
 )
-from ..ops.pallas_conv import conv3_pallas_wins, int8_conv as _k1, pad_qzero as _pad_qzero, qzero as _qzero
+from ..ops.pallas_conv import (
+    conv3_pallas_wins,
+    int8_conv as _k1,
+    k_major,
+    pad_qzero as _pad_qzero,
+    qzero as _qzero,
+)
 from ..ops.pallas_resblock import resblock_pallas as _rb_kernel, resblock_pallas_fits
 from .int8_runtime import _eligible, _fold_all_steps
 from .primitives import div
@@ -123,6 +129,9 @@ class ServingLayer:
     """Per-step folded weights + epilogue constants for one conv.
 
     gq        [S, kh*kw*Cp, Np] int8   scale-folded quantized weights
+    gqt       [S, Np, kh*kw*Cp] int8   the same K-major: what the kernels' GEMMs
+                                       read (made at fold time; `gq` stays the
+                                       layout of JAX's fold and the plain versions)
     inv_ws    [S, Np]                  1 / per-out-channel weight scale
     zcbias    [S, Np]                  zero-point correction + conv bias
     act_scale [S, C]                   input activation quant scale
@@ -134,6 +143,11 @@ class ServingLayer:
     zcbias: torch.Tensor
     act_scale: torch.Tensor
     act_zp: torch.Tensor
+    gqt: torch.Tensor = None
+
+    def __post_init__(self):
+        if self.gqt is None:
+            self.gqt = k_major(self.gq)
 
 
 def prepare_serving_runtime(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState],
@@ -161,14 +175,14 @@ def prepare_serving_runtime(qunet: QuantizedUNet, params, qstates: Dict[str, Act
 def gather_step(runtime: Dict[str, ServingLayer], step_idx: int) -> Dict[str, ServingLayer]:
     """One sampler step's runtime (views)."""
     return {
-        k: ServingLayer(*(a[step_idx] for a in (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp)))
+        k: ServingLayer(*(a[step_idx] for a in (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp, v.gqt)))
         for k, v in runtime.items()
     }
 
 
 def runtime_nbytes(runtime: Dict[str, ServingLayer]) -> int:
     return sum(a.numel() * a.element_size() for v in runtime.values()
-               for a in (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp))
+               for a in (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp, v.gqt))
 
 
 # ---------------------------------------------------------------------------
@@ -216,31 +230,34 @@ def _pad_channels(xp, Cp):
     return xp if C == Cp else F.pad(xp, (0, Cp - C))
 
 
-def int8_conv(xq, gq_flat, ksize: int, *, plain: bool = False):
-    """1x1 int8 NHWC conv (unpadded int8 in) -> int32 [B, H, W, Np] via K1."""
+def int8_conv(xq, gq_flat, ksize: int, *, gqt=None, plain: bool = False):
+    """1x1 int8 NHWC conv (unpadded int8 in) -> int32 [B, H, W, Np] via K1.
+    Here and below `gqt` is the fold's K-major copy (`ServingLayer.gqt`),
+    which the kernel reads; without it K1 transposes `gq_flat` per call."""
     assert ksize == 1, "use int8_conv3_qzero for 3x3 (quantized-zero halo)"
-    return _k1(_pad_channels(xq, gq_flat.shape[0]), gq_flat, ksize=1, plain=plain)
+    return _k1(_pad_channels(xq, gq_flat.shape[0]), gq_flat, ksize=1, gqt=gqt, plain=plain)
 
 
-def int8_conv3_qzero_down(xq, zp, a_bit, gq_flat, *, plain: bool = False):
+def int8_conv3_qzero_down(xq, zp, a_bit, gq_flat, *, gqt=None, plain: bool = False):
     """3x3 stride-2 downsample with the asymmetric (0,1),(0,1) halo of
     quantized zeros -> int32 [B, H/2, W/2, Np] via K1."""
     B, H, W, C = xq.shape
     xp = _qzero(zp, a_bit).expand(B, H + 1, W + 1, C).clone()
     xp[:, :H, :W, :] = xq
-    return _k1(_pad_channels(xp, gq_flat.shape[0] // 9), gq_flat, ksize=3, stride=2, plain=plain)
+    return _k1(_pad_channels(xp, gq_flat.shape[0] // 9), gq_flat, ksize=3, stride=2, gqt=gqt, plain=plain)
 
 
-def int8_conv3_qzero(xq, zp, a_bit, gq_flat, *, plain: bool = False):
+def int8_conv3_qzero(xq, zp, a_bit, gq_flat, *, gqt=None, plain: bool = False):
     """3x3 int8 conv with the per-channel quantized-zero halo -> int32 via K1."""
     xp = _pad_channels(_pad_qzero(xq, zp, a_bit), gq_flat.shape[0] // 9)
-    return _k1(xp, gq_flat, ksize=3, plain=plain)
+    return _k1(xp, gq_flat, ksize=3, gqt=gqt, plain=plain)
 
 
 def _conv3_bf16(xq, zp, a_bit, lay_i: ServingLayer, *, plain: bool = False):
     """3x3 int8 conv -> pre-dequantized bf16 (the dot_bf16 layout) via K1."""
     xp = _pad_channels(_pad_qzero(xq, zp, a_bit), lay_i.gq.shape[0] // 9)
-    return _k1(xp, lay_i.gq, lay_i.inv_ws, lay_i.zcbias, ksize=3, out_dtype=torch.bfloat16, plain=plain)
+    return _k1(xp, lay_i.gq, lay_i.inv_ws, lay_i.zcbias, ksize=3, out_dtype=torch.bfloat16, gqt=lay_i.gqt,
+               plain=plain)
 
 
 def _epilogue(dot, lay_i: ServingLayer, co: int):
@@ -257,9 +274,9 @@ def _conv_any(name, x, p, rt_i, qunet, qstates, step_idx, *, stride=1, padding="
         a_bit = qunet.policy[name].a_bit
         xq = _quant_i8(x.to(torch.float32), lay.act_scale, lay.act_zp, a_bit)
         if p["kernel"].shape[0] == 3:
-            dot = int8_conv3_qzero(xq, lay.act_zp, a_bit, lay.gq, plain=plain)
+            dot = int8_conv3_qzero(xq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
         else:
-            dot = int8_conv(xq, lay.gq, 1, plain=plain)
+            dot = int8_conv(xq, lay.gq, 1, gqt=lay.gqt, plain=plain)
         return _epilogue(dot, lay, p["kernel"].shape[3])
     pol = qunet.policy.get(name)
     if pol is not None and name in qstates:
@@ -301,7 +318,7 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, entry_s
                 h_res, tproj, p["norm1"]["scale"], p["norm1"]["bias"], (c1.act_scale, c1.act_zp), c1.gq,
                 (c1.inv_ws, c1.zcbias), p["norm2"]["scale"], p["norm2"]["bias"], (c2.act_scale, c2.act_zp),
                 c2.gq, (c2.inv_ws, c2.zcbias), a_bit1=a1.a_bit, a_bit2=a2.a_bit, out_dtype=res_dtype,
-                plain=plain)
+                g1_t=c1.gqt, g2_t=c2.gqt, plain=plain)
             return out, None
 
     (hq,) = _entry_gn_quant(h_res, p["norm1"], [(c1.act_scale, c1.act_zp, a1.a_bit)], sums=entry_sums,
@@ -320,7 +337,7 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, entry_s
         if lay is None:
             raise _uncovered(sname)
         xq = _quant_i8(hf, lay.act_scale, lay.act_zp, qunet.policy[sname].a_bit)
-        x_sc = _epilogue(int8_conv(xq, lay.gq, 1, plain=plain), lay, p["nin_shortcut"]["kernel"].shape[3])
+        x_sc = _epilogue(int8_conv(xq, lay.gq, 1, gqt=lay.gqt, plain=plain), lay, p["nin_shortcut"]["kernel"].shape[3])
     else:
         x_sc = hf
     # identity dequant below: dot2 already carries inv_ws + zcbias
@@ -356,16 +373,17 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
         out = fused_attention_block(
             h_res.to(res_dtype).reshape(B, L, C),
             p["norm"]["scale"], p["norm"]["bias"], qp,
-            [(lay.gq, lay.inv_ws, lay.zcbias) for lay in lays[:3]],
+            [(lay.gq, lay.inv_ws, lay.zcbias, lay.gqt) for lay in lays[:3]],
             (lo.act_scale, lo.act_zp, pols[3].a_bit),
-            (lo.gq, lo.inv_ws, lo.zcbias),
+            (lo.gq, lo.inv_ws, lo.zcbias, lo.gqt),
             scale=scale, int8_core=bool(attn_int8), plain=plain,
         )
         return out.reshape(B, H, W, C)
     hf = h_res.to(torch.float32)
     hq, hk, hv = gn_act_quant_xla(hf, p["norm"], qp, act="none")
     if attn_int8 and lq.zcbias.shape[-1] == C:
-        dots = [int8_conv(a, lay.gq, 1, plain=plain).reshape(B, L, C) for a, lay in ((hq, lq), (hk, lk), (hv, lv))]
+        dots = [int8_conv(a, lay.gq, 1, gqt=lay.gqt, plain=plain).reshape(B, L, C)
+                for a, lay in ((hq, lq), (hk, lk), (hv, lv))]
         scales = None
         if ar_i is not None and all(f"{name}.{k}" in ar_i for k in ("q", "k", "v")):
             scales = [torch.clamp(ar_i[f"{name}.{k}"], min=1e-12) / torch.full_like(ar_i[f"{name}.{k}"], 127.0)
@@ -382,11 +400,11 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
                                       scale=scale, plain=plain)
         oq = oq.reshape(B, H, W, C)
     else:
-        q, k, v = (_epilogue(int8_conv(a, lay.gq, 1, plain=plain), lay, C).reshape(B, L, C)
+        q, k, v = (_epilogue(int8_conv(a, lay.gq, 1, gqt=lay.gqt, plain=plain), lay, C).reshape(B, L, C)
                    for a, lay in ((hq, lq), (hk, lk), (hv, lv)))
         h = spatial_attention(q, k, v, scale=scale, plain=plain).reshape(B, H, W, C)
         oq = _quant_i8(h, lo.act_scale, lo.act_zp, pols[3].a_bit)
-    out = _epilogue(int8_conv(oq, lo.gq, 1, plain=plain), lo, C)
+    out = _epilogue(int8_conv(oq, lo.gq, 1, gqt=lo.gqt, plain=plain), lo, C)
     return (hf + out).to(res_dtype)
 
 
@@ -460,7 +478,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
             # int8 stride-2 downsample (asymmetric quantized-zero pad)
             a_bit = qunet.policy[nm].a_bit
             xq = _quant_i8(hs[-1].to(torch.float32), lay.act_scale, lay.act_zp, a_bit)
-            dot = int8_conv3_qzero_down(xq, lay.act_zp, a_bit, lay.gq, plain=plain)
+            dot = int8_conv3_qzero_down(xq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
             hs.append(_epilogue(dot, lay, lookup(params, nm)["kernel"].shape[3]).to(res))
 
     h = hs[-1]
@@ -488,7 +506,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
             a_bit = qunet.policy[nm].a_bit
             xq = _quant_i8(h.to(torch.float32), lay.act_scale, lay.act_zp, a_bit)
             xq = xq.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-            dot = int8_conv3_qzero(xq, lay.act_zp, a_bit, lay.gq, plain=plain)
+            dot = int8_conv3_qzero(xq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
             h = _epilogue(dot, lay, lookup(params, nm)["kernel"].shape[3]).to(res)
     assert not hs
 
@@ -499,7 +517,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     a_bit = qunet.policy["conv_out"].a_bit
     (hq,) = _entry_gn_quant(h, params["norm_out"], [(lay.act_scale, lay.act_zp, a_bit)],
                             entry_pallas=bool(entry_pallas), plain=plain)
-    dot = int8_conv3_qzero(hq, lay.act_zp, a_bit, lay.gq, plain=plain)
+    dot = int8_conv3_qzero(hq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
     return _epilogue(dot, lay, cfg.out_ch).to(torch.float32)
 
 

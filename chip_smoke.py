@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--steps 10] [--seed 0] [--profile]
 
+(`--profile` adds, after the last phase, torch.profiler's device time per
+kernel for one run of each sampler.)
+
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
 3. then the CIFAR-10 W4A8 sampler (`UNetConfig()`, batch 128) and the LSUN
@@ -18,11 +21,14 @@
       at every attention shape.  At K6's shapes K2 is also run and timed
       against K6.  K4, K7 and K12 at every shape a serving step launches
       under the three levers together or one alone (`ops.checks.lever_plan`).
-      A kernel's `ms` / `plain_ms` / `bound_ms` in the JSON line is the sum
-      over one serving step's launches of it (the step with all three
-      levers for K4, K7 and K12).  `bound_ms` is the least time the card
-      could take: per launch the larger of its bytes (every input read once,
-      every output written once) over 3.35 TB/s and its operations over the
+      A kernel's `ms` / `device_ms` / `plain_ms` / `bound_ms` in the JSON
+      line is the sum over one serving step's launches of it (the step with
+      all three levers for K4, K7 and K12).  `ms` includes the Python
+      wrapper; `device_ms` leaves its host time out: CUDA events around
+      20 calls queued behind a busy card, which then runs them back to back.
+      `bound_ms` is the least time the card could take: per launch the
+      larger of its bytes (every input read once, every output written
+      once) over 3.35 TB/s and its operations over the
       peak of their type (1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s
       f32 outside them); `library_ms` times the one PyTorch call that
       computes the same function, where there is one (`torch._int_mm` for
@@ -164,6 +170,39 @@ def path_config(path):
             "church.yml LSUN church_outdoor")
 
 
+SPIN_CYCLES = 40_000_000  # about 20 ms of torch.cuda._sleep at the H100's clocks (`device_ms`)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time in ms of one call of `fn`, the wrapper's host time left
+    out: CUDA events around `reps` calls that the host enqueues while the card
+    still runs a spin kernel, so the card then runs them back to back.  An
+    event behind the spin kernel that has not completed when the last call is
+    enqueued shows that every call waited on the card; if it has, the spin is
+    made four times as long and the measurement taken again.  The figure
+    holds everything the wrapper launches: its own kernels and, for K3, the
+    few small torch kernels that pack its vectors."""
+    import torch
+
+    fn()
+    spun, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    cycles = SPIN_CYCLES
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        spun.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not spun.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError("device_ms: the host could not enqueue the calls while the card was busy")
+
+
 def time_ms(fn, reps: int = 20, warm: bool = True) -> float:
     """Median per-call time in ms, CUDA events around each call, after a warm-up."""
     import torch
@@ -188,17 +227,26 @@ class Report:
     def __init__(self):
         self.rows = {}
 
-    def add(self, key, err, ms, plain_ms, bound_ms, weight=1, library_ms=None):
-        r = self.rows.setdefault(key, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+    def add(self, key, err, ms, plain_ms, bound_ms, weight=1, library_ms=None, dev_ms=0.0):
+        r = self.rows.setdefault(key, {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                                       "bound_ms": 0.0,
                                        "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], float(err))
         r["ms"] += weight * ms
+        r["device_ms"] += weight * dev_ms
         r["plain_ms"] += weight * plain_ms
         r["bound_ms"] += weight * max(bound_ms)
         r["bytes_ms"] += weight * bound_ms[0]
         r["ops_ms"] += weight * bound_ms[1]
         if library_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + weight * library_ms
+
+
+def weights_kmajor(gq, inv_ws, zcbias):
+    """K3's weight tuple as the serving path hands it: with the fold's K-major copy."""
+    from attentiondm_tpu_torch.ops.pallas_conv import k_major
+
+    return gq, inv_ws, zcbias, k_major(gq)
 
 
 def _fig(f) -> str:
@@ -229,7 +277,7 @@ def kernel_phase(cfg, batch, gen, dev, report):
         gn_act_quant,
     )
     from attentiondm_tpu_torch.ops.int8_attention import fused_attention_block
-    from attentiondm_tpu_torch.ops.pallas_conv import int8_conv
+    from attentiondm_tpu_torch.ops.pallas_conv import int8_conv, k_major
     from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
 
     k1, k2, k6, k3, _composed = checks.conv_plan(cfg)
@@ -257,10 +305,15 @@ def kernel_phase(cfg, batch, gen, dev, report):
         inv_ws, zcbias = randf((Np,), 1e-3, 2e-3).abs(), randf((Np,), 0.5)
         args = (xp, gq, inv_ws, zcbias)
         kw = dict(ksize=k, stride=s, out_dtype=mode)
-        f = _held("K1", f"H={H} Cp={Cp} Np={Np} k={k} s={s} {mode}", int8_conv(*args, **kw),
-                  int8_conv(*args, **kw, plain=True))
+        want = int8_conv(*args, **kw, plain=True)
+        _held("K1", f"H={H} Cp={Cp} Np={Np} k={k} s={s} {mode} (weights transposed by the call)",
+              int8_conv(*args, **kw), want)
+        kw["gqt"] = k_major(gq)  # as the serving path calls it: the fold's K-major copy beside gq
         out = int8_conv(*args, **kw)
+        f = _held("K1", f"H={H} Cp={Cp} Np={Np} k={k} s={s} {mode}", out, want)
+        del want
         ms = time_ms(lambda: int8_conv(*args, **kw))
+        dms = device_ms(lambda: int8_conv(*args, **kw))
         pms = time_ms(lambda: int8_conv(*args, **kw, plain=True), reps=10)
         b = bound(nbytes(xp, gq, out) + (0 if mode == torch.int32 else nbytes(inv_ws, zcbias)),
                   int8_ops=2 * out.numel() * gq.shape[0], f32_flops=0 if mode == torch.int32 else 2 * out.numel())
@@ -277,9 +330,10 @@ def kernel_phase(cfg, batch, gen, dev, report):
                 lib = time_ms(lambda: torch._int_mm(a2, gq))
                 lib_fig = f" torch._int_mm {lib:.4f} ms"
                 del lib_out
-        report.add(key, f["max_abs_err"], ms, pms, b, weight=n, library_ms=lib)
+        report.add(key, f["max_abs_err"], ms, pms, b, weight=n, library_ms=lib, dev_ms=dms)
         print(f"[kernels] {key} int8_conv B={batch} H={H} Cp={Cp} Np={Np} k={k} s={s} "
-              f"{str(mode).removeprefix('torch.')} x{n}/step: {_fig(f)}; kernel {ms:.4f} ms plain {pms:.4f} ms"
+              f"{str(mode).removeprefix('torch.')} x{n}/step: {_fig(f)}; kernel {ms:.4f} ms device {dms:.4f} ms "
+              f"plain {pms:.4f} ms"
               f"{lib_fig} {_bound_fig(b)}")
         del xp, gq, args, out
 
@@ -298,12 +352,13 @@ def kernel_phase(cfg, batch, gen, dev, report):
             f = _held(kind, f"HW={HW} N={N}", epilogue_gn_swish_quant(*args),
                       epilogue_gn_swish_quant(*args, plain=True))
             ms = time_ms(lambda: epilogue_gn_swish_quant(*args))
+            dms = device_ms(lambda: epilogue_gn_swish_quant(*args))
             pms = time_ms(lambda: epilogue_gn_swish_quant(*args, plain=True), reps=10)
             # 18 f32 operations per element: the TPU kernel's own cost estimate
             b = bound(nbytes(*args[:8]) + dot.numel(), f32_flops=18 * dot.numel())
-            report.add(kind, f["max_abs_err"], ms, pms, b, weight=n)
+            report.add(kind, f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
             print(f"[kernels] {kind} epilogue_gn_swish_quant B={batch} HW={HW} N={N} x{n}/step: {_fig(f)}; "
-                  f"kernel {ms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+                  f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
             if kind == "K6":
                 f2 = _held("K2", f"HW={HW} N={N} (at K6's shape)", epilogue_gn_swish_quant_whole(*args),
                            epilogue_gn_swish_quant_whole(*args, plain=True))
@@ -316,21 +371,22 @@ def kernel_phase(cfg, batch, gen, dev, report):
     for (L, C), n in sorted(collections.Counter(k3).items()):
         x = randf((batch, L, C)).to(torch.bfloat16)
         qkv_quant = [(torch.full((C,), 255 / 8.0, device=dev), torch.zeros(C, device=dev), b) for b in (8, 6, 8)]
-        qkv_weights = [(randint8((C, C), -8, 7), randf((C,), 1e-5, 2e-4).abs(), randf((C,), 0.1))
+        qkv_weights = [weights_kmajor(randint8((C, C), -8, 7), randf((C,), 1e-5, 2e-4).abs(), randf((C,), 0.1))
                        for _ in range(3)]
         o_quant = (torch.full((C,), 255 / 4.0, device=dev), torch.zeros(C, device=dev), 8)
-        o_weights = (randint8((C, C), -8, 7), randf((C,), 1e-5, 1e-3).abs(), randf((C,), 0.1))
+        o_weights = weights_kmajor(randint8((C, C), -8, 7), randf((C,), 1e-5, 1e-3).abs(), randf((C,), 0.1))
         args = (x, randf((C,), 0.1, 1.0), randf((C,), 0.1), qkv_quant, qkv_weights, o_quant, o_weights)
         f = _held("K3", f"L={L} C={C}", fused_attention_block(*args, scale=C ** -0.5),
                   fused_attention_block(*args, scale=C ** -0.5, plain=True))
         ms = time_ms(lambda: fused_attention_block(*args, scale=C ** -0.5))
+        dms = device_ms(lambda: fused_attention_block(*args, scale=C ** -0.5))
         pms = time_ms(lambda: fused_attention_block(*args, scale=C ** -0.5, plain=True), reps=10)
         # in and out residual, four folds; int8 projections, f32 core (q k^T and p v), ~30 f32 per element around
         b = bound(2 * nbytes(x) + 4 * C * C + 16 * 4 * C, int8_ops=4 * 2 * batch * L * C * C,
                   f32_flops=2 * 2 * batch * L * L * C + 30 * x.numel() + 5 * batch * L * L)
-        report.add("K3", f["max_abs_err"], ms, pms, b, weight=n)
+        report.add("K3", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
         print(f"[kernels] K3 fused_attention_block B={batch} L={L} C={C} x{n}/step: {_fig(f)}; "
-              f"kernel {ms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+              f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
         del x, args
     torch.cuda.empty_cache()
 
@@ -355,11 +411,12 @@ def kernel_phase(cfg, batch, gen, dev, report):
         args = (x, randf((C,), 0.1, 1.0), randf((C,), 0.1), [(*quant(C, -0.5, 4.0), 8)])
         f = _held("K4", f"HW={HW} C={C}", gn_act_quant(*args), gn_act_quant(*args, plain=True))
         ms = time_ms(lambda: gn_act_quant(*args))
+        dms = device_ms(lambda: gn_act_quant(*args))
         pms = time_ms(lambda: gn_act_quant(*args, plain=True), reps=10)
         b = bound(nbytes(x) + x.numel() + 4 * 4 * C, f32_flops=16 * x.numel())  # 12 + 4 per output, as the TPU estimate
-        report.add("K4", f["max_abs_err"], ms, pms, b, weight=n)
+        report.add("K4", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
         print(f"[kernels] K4 gn_act_quant B={batch} HW={HW} C={C} x{n}/step (entry_pallas alone x{m}): {_fig(f)}; "
-              f"kernel {ms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+              f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
         del x, args
 
     for (HW, N), n, m in shapes("K7"):  # bf16 conv2 output (identity dequant), f32 shortcut branch, bf16 out
@@ -370,11 +427,12 @@ def kernel_phase(cfg, batch, gen, dev, report):
         got = epilogue_residual_gn_stats(*args, **kw)
         f = _held("K7", f"HW={HW} N={N}", got, epilogue_residual_gn_stats(*args, **kw, plain=True))
         ms = time_ms(lambda: epilogue_residual_gn_stats(*args, **kw))
+        dms = device_ms(lambda: epilogue_residual_gn_stats(*args, **kw))
         pms = time_ms(lambda: epilogue_residual_gn_stats(*args, **kw, plain=True), reps=10)
         b = bound(nbytes(*args, *got), f32_flops=8 * dot.numel())
-        report.add("K7", f["max_abs_err"], ms, pms, b, weight=n)
+        report.add("K7", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
         print(f"[kernels] K7 epilogue_residual_gn_stats B={batch} HW={HW} N={N} x{n}/step (boundary_fusion alone "
-              f"x{m}): {_fig(f)}; kernel {ms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+              f"x{m}): {_fig(f)}; kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
         del dot, args, got
 
     for (H, C), n, m in shapes("K12"):
@@ -385,16 +443,18 @@ def kernel_phase(cfg, batch, gen, dev, report):
         r = randf((batch, H, H, C), 1.5, 0.2).to(torch.bfloat16)
         args = (r, randf((batch, C)), randf((C,), 0.1, 1.0), randf((C,), 0.1), quant(C, -0.5, 4.0), g1, sb1,
                 randf((C,), 0.1, 1.0), randf((C,), 0.1), quant(C, -0.5, 3.0), g2, sb2)
-        f = _held("K12", f"H={H} C={C}", resblock_pallas(*args), resblock_pallas(*args, plain=True))
-        ms = time_ms(lambda: resblock_pallas(*args))
+        kt = dict(g1_t=k_major(g1), g2_t=k_major(g2))  # as the serving path calls it
+        f = _held("K12", f"H={H} C={C}", resblock_pallas(*args, **kt), resblock_pallas(*args, plain=True))
+        ms = time_ms(lambda: resblock_pallas(*args, **kt))
+        dms = device_ms(lambda: resblock_pallas(*args, **kt))
         pms = time_ms(lambda: resblock_pallas(*args, plain=True), reps=10)
         # residual in and out, both folds; two int8 convs, the entry's 16 and the epilogue's 18 f32 per element
         b = bound(2 * nbytes(r) + nbytes(g1, g2) + 4 * batch * C + 12 * 4 * C,
                   int8_ops=2 * 2 * r.numel() * 9 * C, f32_flops=(16 + 18 + 3) * r.numel())
-        report.add("K12", f["max_abs_err"], ms, pms, b, weight=n)
+        report.add("K12", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
         print(f"[kernels] K12 resblock_pallas B={batch} H={H} C={C} x{n}/step (resblock_pallas=all alone x{m}): "
-              f"{_fig(f)}; kernel {ms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
-        del r, args, g1, g2
+              f"{_fig(f)}; kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+        del r, args, g1, g2, kt
     torch.cuda.empty_cache()
 
 
@@ -433,14 +493,15 @@ def attention_kernel_phase(cfg, batch, gen, dev, report):
         f = _held("K3" if kind == "K3.int8_core" else kind, label, got, fn(plain=True))
         del got
         ms = time_ms(fn)
+        dms = device_ms(fn)
         pms = time_ms(lambda: fn(plain=True), reps=5)
         lib, lib_fig = None, ""
         if library is not None:
             lib = time_ms(library, reps=10)
             lib_fig = f" F.scaled_dot_product_attention {lib:.4f} ms"
-        report.add(kind, f["max_abs_err"], ms, pms, b, weight=n, library_ms=lib)
-        print(f"[kernels] {kind} {label} x{n}/step: {_fig(f)}; kernel {ms:.4f} ms plain {pms:.4f} ms{lib_fig} "
-              f"{_bound_fig(b)}")
+        report.add(kind, f["max_abs_err"], ms, pms, b, weight=n, library_ms=lib, dev_ms=dms)
+        print(f"[kernels] {kind} {label} x{n}/step: {_fig(f)}; kernel {ms:.4f} ms device {dms:.4f} ms "
+              f"plain {pms:.4f} ms{lib_fig} {_bound_fig(b)}")
         torch.cuda.empty_cache()
 
     # K10 and K9: int8 q, k, v at scalar scales of absmax 2.4 / 127 (logits of a few units), sv 0.02
@@ -482,9 +543,10 @@ def attention_kernel_phase(cfg, batch, gen, dev, report):
     for (L, C), n in sorted(collections.Counter(static["K3.int8_core"]).items()):
         x = randf((batch, L, C)).to(torch.bfloat16)
         qkv_quant = [(torch.full((C,), 255 / 8.0, device=dev), torch.zeros(C, device=dev), b_) for b_ in (8, 6, 8)]
-        qkv_weights = [(randint8((C, C), -8, 7), randf((C,), 1e-5, 2e-4).abs(), randf((C,), 0.1)) for _ in range(3)]
+        qkv_weights = [weights_kmajor(randint8((C, C), -8, 7), randf((C,), 1e-5, 2e-4).abs(), randf((C,), 0.1))
+                       for _ in range(3)]
         o_quant = (torch.full((C,), 255 / 4.0, device=dev), torch.zeros(C, device=dev), 8)
-        o_weights = (randint8((C, C), -8, 7), randf((C,), 1e-5, 1e-3).abs(), randf((C,), 0.1))
+        o_weights = weights_kmajor(randint8((C, C), -8, 7), randf((C,), 1e-5, 1e-3).abs(), randf((C,), 0.1))
         args = (x, randf((C,), 0.1, 1.0), randf((C,), 0.1), qkv_quant, qkv_weights, o_quant, o_weights)
         # as K3's bound, with q k^T in int8
         b = bound(2 * nbytes(x) + 4 * C * C + 16 * 4 * C, int8_ops=4 * 2 * batch * L * C * C + 2 * batch * L * L * C,
@@ -509,7 +571,12 @@ def clock(what, fn, tag="slice"):
     return out
 
 
-def profile_sampler(run, wall_ms, top: int = 25):
+# `--profile`: (label, run, wall ms) of each sampler, profiled after every phase has run, so that no timed
+# run has a profiler window before it
+DEFERRED_PROFILES = []
+
+
+def profile_sampler(label, run, wall_ms, top: int = 25):
     """torch.profiler over one sampler run: device time per kernel, and its
     share of the run's wall time."""
     import torch
@@ -525,7 +592,7 @@ def profile_sampler(run, wall_ms, top: int = 25):
             rows.append((dt / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"[profile] device kernel time {total:.1f} ms over one sampler run of {wall_ms:.1f} ms wall "
+    print(f"[profile] {label}: device kernel time {total:.1f} ms over one sampler run of {wall_ms:.1f} ms wall "
           f"(timed without the profiler)")
     for ms, n, key in rows[:top]:
         print(f"[profile] {ms:9.2f} ms {n:6d}x {ms / total * 100:5.1f}% {key[:100]}")
@@ -571,8 +638,9 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False, settin
         qunet, params, qunet.init_state(steps, dev), xs_in, seq, return_attn_ranges=True))
     del traj, xs_in
     runtime = clock("per-step fold", lambda: prepare_serving_runtime(qunet, params, qstates))
-    print(f"[slice] fold size: {runtime_nbytes(runtime) / 1e9:.3f} GB for {steps} steps; attention ranges of "
-          f"{len(attn_ranges)} projections")
+    kmajor = sum(lay.gqt.numel() for lay in runtime.values())
+    print(f"[slice] fold size: {runtime_nbytes(runtime) / 1e9:.3f} GB for {steps} steps, {kmajor / 1e9:.3f} GB of it "
+          f"the weights' K-major copies; attention ranges of {len(attn_ranges)} projections")
     x = torch.randn(shape, generator=gen).to(dev)
     ctx = dict(cfg=cfg, params=params, qunet=qunet, qstates=qstates, runtime=runtime, seq=seq, betas=betas,
                x=x, steps=steps, batch=batch, dev=dev)
@@ -599,7 +667,7 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False, settin
               f"{batch / best * 1e3:.2f} images/s ({best / steps:.2f} ms/step; information only); "
               f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
         if profile:
-            profile_sampler(lambda: sample(x), best)
+            DEFERRED_PROFILES.append((f"{label}, {name}", lambda sample=sample: sample(x), best))
         step_checks(ctx, flags)
     ref = outs.get("f32 core")
     for name, out in outs.items():
@@ -715,7 +783,7 @@ def levers_phase(ctx, timed, profile=False):
               f"{' '.join(f'{t:.1f}' for t in runs[name])}; launches per step "
               f"K1 {per['K1']} K2 {per['K2']} K3 {per['K3']} K4 {per['K4']} K7 {per['K7']} K12 {per['K12']})")
     if profile:
-        profile_sampler(lambda: sample(x), times["all three"])
+        DEFERRED_PROFILES.append((f"batch {batch}, the three levers", lambda: sample(x), times["all three"]))
     return counts
 
 
@@ -767,7 +835,8 @@ def main(argv=None):
             launches = launches_of[key]
             kernels.append({"name": f"{key} {name}", "path": path, "route": "cuda", "source": source,
                             "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
-                            "ms": round(r["ms"], 4), "plain_ms": round(r["plain_ms"], 4),
+                            "ms": round(r["ms"], 4), "device_ms": round(r["device_ms"], 4),
+                            "plain_ms": round(r["plain_ms"], 4),
                             "bound_ms": round(r["bound_ms"], 4),
                             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
                             "library_ms": None if r["library_ms"] is None else round(r["library_ms"], 4)})
@@ -775,6 +844,8 @@ def main(argv=None):
                 raise AssertionError(f"{key} was not launched on the {path} path")
         torch.cuda.empty_cache()
         print(f"== {path}: {time.perf_counter() - t0:.1f} s")
+    for label, run, wall_ms in DEFERRED_PROFILES:
+        profile_sampler(label, run, wall_ms)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,7 @@ from attentiondm_tpu_torch.ops.int8_attention import (
     fused_int8_attention_static,
     int8_flash_attention_static,
 )
-from attentiondm_tpu_torch.ops.pallas_conv import int8_conv
+from attentiondm_tpu_torch.ops.pallas_conv import int8_conv, k_major
 from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
 from attentiondm_tpu_torch.quant.int8_serving import prepare_serving_runtime, serving_unet_apply
 from attentiondm_tpu_torch.quant.qunet import QuantizedUNet
@@ -82,6 +82,37 @@ def test_k1_kernel_matches_plain(dev, gen, ksize, stride, out_dtype, Cp, Np):
     got = int8_conv(xp, gq, inv_ws, zcbias, **kw)
     assert int8_conv.launches == before + 1
     assert torch.equal(got, int8_conv(xp, gq, inv_ws, zcbias, **kw, plain=True))
+
+
+# (B, H, W, Cp, Np, ksize, stride): K = 9216 (church's deepest concat), Wo = 256 (a tile is part of a row), the 4x4
+# and 8x8 maps (a tile spans images), odd sizes and ragged edges, stride 2 at even and odd Hp, the flat 1x1 GEMM
+K1_SHAPES = [(2, 16, 16, 1024, 128, 3, 1), (3, 4, 256, 128, 128, 3, 1), (2, 4, 4, 256, 256, 3, 1),
+             (3, 4, 4, 128, 128, 3, 1), (37, 4, 4, 128, 256, 3, 1), (3, 8, 8, 128, 128, 3, 1),
+             (19, 8, 8, 256, 128, 1, 1), (3, 14, 14, 128, 128, 3, 1), (2, 5, 37, 128, 128, 3, 1),
+             (3, 16, 16, 128, 128, 3, 2), (2, 15, 15, 256, 128, 3, 2), (3, 7, 12, 128, 256, 3, 2),
+             (3, 1, 50, 384, 128, 1, 1), (2, 32, 32, 128, 384, 3, 1)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,Cp,Np,ksize,stride", K1_SHAPES)
+def test_k1_core_matches_plain(dev, gen, B, H, W, Cp, Np, ksize, stride, out_dtype):
+    """The wgmma core against `int8_conv_ref`: int32 out to the bit, bf16 out
+    within 1 ulp, with the weights in either layout."""
+    Hp, Wp = (H + 2, W + 2) if ksize == 3 and stride == 1 else (H + 1, W + 1) if ksize == 3 else (H, W)
+    xp = _i8(gen, (B, Hp, Wp, Cp), -128, 127, dev)
+    gq = _i8(gen, (ksize * ksize * Cp, Np), -8, 7, dev)
+    inv_ws, zcbias = _f(gen, (Np,), dev, 1e-4, 5e-4).abs(), _f(gen, (Np,), dev)
+    kw = dict(ksize=ksize, stride=stride, out_dtype=out_dtype)
+    want = int8_conv(xp, gq, inv_ws, zcbias, **kw, plain=True)
+    before = int8_conv.launches
+    got = int8_conv(xp, gq, inv_ws, zcbias, **kw)
+    got_t = int8_conv(xp, None, inv_ws, zcbias, **kw, gqt=k_major(gq))
+    assert int8_conv.launches == before + 2
+    assert got.shape == want.shape and torch.equal(got, got_t)
+    fig = checks.compare("K1", got, want)
+    assert fig["ok"], fig
+    if out_dtype == torch.int32:
+        assert torch.equal(got, want)
 
 
 def _epilogue_args(gen, dev, B, H, N, x_dtype):
@@ -155,6 +186,20 @@ def test_k3_kernel_matches_plain(dev, gen, L, C):
     before = fused_attention_block.launches
     got = fused_attention_block(*args, scale=C ** -0.5)
     assert fused_attention_block.launches == before + 1
+    fig = checks.compare("K3", got, fused_attention_block(*args, scale=C ** -0.5, plain=True))
+    assert fig["ok"], fig
+
+
+@pytest.mark.parametrize("B,L,C", [(2, 256, 256), (3, 16, 512), (3, 72, 128)])
+def test_k3_projections_take_kmajor_weights(dev, gen, B, L, C):
+    """K3's four GEMMs (the f32 and the residual-add epilogues of the wgmma
+    core) with the weights' K-major copies handed in, as the serving path
+    does: the same bits as with the fold layout alone."""
+    args = list(_k3_args(gen, dev, B, L, C))
+    got = fused_attention_block(*args, scale=C ** -0.5)
+    args[4] = [(*w, k_major(w[0])) for w in args[4]]
+    args[6] = (*args[6], k_major(args[6][0]))
+    assert torch.equal(got, fused_attention_block(*args, scale=C ** -0.5))
     fig = checks.compare("K3", got, fused_attention_block(*args, scale=C ** -0.5, plain=True))
     assert fig["ok"], fig
 
@@ -236,10 +281,14 @@ def test_composed_cores_raise_off_their_shapes(dev, gen, L, C):
 
 
 @pytest.mark.parametrize("B,L,D,block_k", [(2, 4096, 128, 512), (3, 1024, 256, 512), (3, 512, 128, 256),
-                                           (1, 1024, 128, 512)])
+                                           (1, 1024, 128, 512), (40, 1024, 128, 512), (3, 64, 256, 512),
+                                           (3, 1024, 256, 256), (2, 768, 256, 256), (2, 1536, 256, 512),
+                                           (2, 1536, 256, 256), (1, 1024, 256, 512)])
 def test_k11_kernel_matches_plain(dev, gen, B, L, D, block_k):
-    """K11 at the celeba-wide shapes, with 256-key blocks, and with logits
-    large enough that a softmax without the running maximum would overflow."""
+    """K11 at the celeba-wide shapes, with 256-key blocks, at a batch that
+    takes 128-query blocks (D = 128), at D = 256 with L = 64, 1024 and
+    multiples of 64 that are no power of two, and with logits large enough
+    that a softmax without the running maximum would overflow."""
     q, k, v = (_f(gen, (B, L, D), dev) for _ in range(3))
     if B == 1:
         q, k = q * 0 + 30.0, k * 0 + 30.0
@@ -322,6 +371,17 @@ def test_k12_kernel_matches_plain(dev, gen, H, C):
     before = resblock_pallas.launches
     got = resblock_pallas(*args)
     assert resblock_pallas.launches == before + 1
+    fig = checks.compare("K12", got, resblock_pallas(*args, plain=True))
+    assert fig["ok"], fig
+
+
+@pytest.mark.parametrize("B,H,C", [(2, 32, 128), (3, 8, 256), (2, 4, 1024)])
+def test_k12_gemms_take_kmajor_folds(dev, gen, B, H, C):
+    """K12's two GEMMs (the int32 and the residual-add epilogues of the wgmma
+    core, K = 9216 at C = 1024) with the folds' K-major copies handed in."""
+    args = _k12_args(gen, dev, B, H, C)
+    got = resblock_pallas(*args)
+    assert torch.equal(got, resblock_pallas(*args, g1_t=k_major(args[5]), g2_t=k_major(args[10])))
     fig = checks.compare("K12", got, resblock_pallas(*args, plain=True))
     assert fig["ok"], fig
 
