@@ -1,6 +1,7 @@
 // Shared device code of the attention kernels (K3 int8_attention.cu, K8 / K9 /
-// K10 int8_attn_core.cu, K11 flash_attention.cu): warp reductions and the
-// per-image dynamic int8 quantization of q and k.
+// K10 int8_attn_core.cu, K11 flash_attention.cu): warp reductions, the
+// warp-level tensor-core products (s8, TF32 and its 3xTF32 f32 emulation),
+// cp.async, and the per-image dynamic int8 quantization of q and k.
 //
 // The dynamic quantization replaces `_dyn_quant_i8` of
 // attentiondm_tpu/ops/int8_attention.py, which ran inside the TPU kernels on a
@@ -29,13 +30,65 @@ static __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// c (16 x 8 s32) += a (16 x 32 s8, row) . b (32 x 8 s8, col), the integer logits of K8 / K9 / K10
+// c (16 x 8 s32) += a (16 x 32 s8, row) . b (32 x 8 s8, col), the integer logits of K3's int8 core and K8 / K9 / K10
 static __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c (16 x 8 f32) += a (16 x 8 tf32, row) . b (8 x 8 tf32, col)
+static __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest (cvt.rna); x - hi is exact,
+// so hi + lo holds x to about 2^-22 of its size
+static __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// c += a . b in f32 on the tensor cores (3xTF32): a_hi b_lo + a_lo b_hi + a_hi b_hi, the small terms
+// first; a_lo b_lo (about 2^-22 of the product) is left out
+static __device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ahi, const uint32_t* alo, uint32_t bh0,
+                                                  uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, ahi, bl0, bl1);
+  mma_tf32(c, alo, bh0, bh1);
+  mma_tf32(c, ahi, bh0, bh1);
+}
+
+static __device__ __forceinline__ uint32_t sh_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; with `valid` false the 16 bytes are zero-filled and src is not read
+static __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sh_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wait until at most N committed groups of this thread are still in flight
+template <int N>
+static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the same with n (0 to 3) known at run time
+static __device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n <= 0) cp_async_wait<0>();
+  else if (n == 1) cp_async_wait<1>();
+  else if (n == 2) cp_async_wait<2>();
+  else cp_async_wait<3>();
 }
 
 constexpr int PRE_THREADS = 256;

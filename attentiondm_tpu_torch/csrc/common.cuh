@@ -27,6 +27,7 @@ static __device__ __forceinline__ float swishf(float x) {
 
 static __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 static __device__ __forceinline__ float to_f32(int32_t v) { return __int2float_rn(v); }
+static __device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 static __device__ __forceinline__ float to_f32(float v) { return v; }
 
 // GroupNorm statistics, in the TPU kernel's _gn_normalize form: per-group

@@ -18,6 +18,9 @@ Tolerances, per kernel output against the plain version on the same inputs:
                 p on a bf16 rounding tie moves the output's last bits);
   K10           the same on at most 1% (the online softmax rescales per key
                 block);
+  K3.core       K3's core alone (int8 codes of proj_out's input): at most
+                1 LSB on at most 0.2% of them, as K8 / K9 (f32 sums in
+                another order);
   K11           float32: every element within 2e-5 + 2e-5 |want| (f32 dot
                 products in another order).
 K4, K7 and K12 sum in the plain versions' order, so 0 LSB, equal sums and
@@ -35,7 +38,7 @@ from .attention import takes_flash
 
 
 # int8 outputs: the share of codes that may differ (by at most 1 LSB) from the plain version's
-CODE_SHARE = {"K2": 1e-3, "K6": 1e-3, "K8": 2e-3, "K9": 2e-3, "K10": 1e-2}
+CODE_SHARE = {"K2": 1e-3, "K6": 1e-3, "K8": 2e-3, "K9": 2e-3, "K10": 1e-2, "K3.core": 2e-3}
 
 
 def _ulp_share(gf, wf):
@@ -175,27 +178,69 @@ def conv_plan(cfg):
     return k1, epi["K2"], epi["K6"], k3, composed
 
 
+def attention_sites(cfg) -> list:
+    """(site, L, C) of every attention block of a serving step that the int8
+    path covers (q projection eligible), in forward order."""
+    from ..models.unet import iter_conv_layers
+    from ..quant.int8_runtime import _eligible
+
+    levels = len(cfg.ch_mult)
+    sites = []
+    for name, cin, k in iter_conv_layers(cfg):
+        parts = name.split(".")
+        if parts[-1] != "q" or not _eligible((k, k, cin, 0)):
+            continue
+        H = cfg.resolution >> (levels - 1 if parts[0] == "mid" else int(parts[1]))
+        sites.append((name.rsplit(".", 1)[0], H * H, cin))
+    return sites
+
+
 def attention_plan(cfg, *, attn_int8=True, attn_ranges=None) -> dict:
     """The attention cores of one serving step under the attention flags, by
     the dispatchers' own predicates: {"K3.int8_core": [(L, C)], "K8": [...],
-    "K9": [...], "K10": [...], "K11": [...]}.  `attn_ranges`: the calibrated
-    ranges' dict (or any container of projection names), or True for every
-    site."""
+    "K9": [...], "K10": [...], "K11": [...], "refused": [(site, L, C,
+    kernel)]}.  `attn_ranges`: the calibrated ranges' dict (or any container
+    of projection names), or True for every site.  "refused" names the sites
+    whose CUDA kernel would refuse the map (K3 off `k3_takes`, K8 / K9 / K10
+    off `int8_core_takes`): on the card `serving_ddim_sampler` raises with
+    them before its first step (`require_attention_kernels`).  The int8 core
+    of a composed site needs its projections unpadded (C % 128 == 0);
+    otherwise the site takes the f32 branch, as `_attn_fused` does."""
     from . import int8_attention as ia
 
-    _k1, _k2, _k6, k3, composed = conv_plan(cfg)
-    plan = {k: [] for k in ("K3.int8_core", "K8", "K9", "K10", "K11")}
-    if attn_int8:
-        plan["K3.int8_core"] = list(k3)
-    for site, L, C in composed:
-        if not attn_int8:
+    plan = {k: [] for k in ("K3.int8_core", "K8", "K9", "K10", "K11", "refused")}
+    for site, L, C in attention_sites(cfg):
+        if ia.fused_attention_block_fits(L, C):
+            if attn_int8:
+                plan["K3.int8_core"].append((L, C))
+            if not ia.k3_takes(L, C):
+                plan["refused"].append((site, L, C, "K3"))
+            continue
+        if not attn_int8 or C % 128:
             if takes_flash(L, C):
                 plan["K11"].append((L, C))
             continue
         static = attn_ranges is True or (
             attn_ranges is not None and all(f"{site}.{k}" in attn_ranges for k in ("q", "k", "v")))
-        plan[("K10" if ia.static_core_takes_flash(L, C) else "K9") if static else "K8"].append((L, C))
+        kind = ("K10" if ia.static_core_takes_flash(L, C) else "K9") if static else "K8"
+        plan[kind].append((L, C))
+        if not ia.int8_core_takes(L, C):
+            plan["refused"].append((site, L, C, kind))
     return plan
+
+
+def require_attention_kernels(cfg, device, *, attn_int8=True, attn_ranges=None):
+    """Raise NotImplementedError, naming every site, where a serving step on
+    `device` would reach an attention kernel that refuses its map; CPU
+    tensors take the plain versions, which take any map."""
+    if torch.device(device).type != "cuda":
+        return
+    refused = attention_plan(cfg, attn_int8=attn_int8, attn_ranges=attn_ranges)["refused"]
+    if refused:
+        raise NotImplementedError(
+            "attention sites off the CUDA kernels' shapes (K3: C in (128, 256, 512), L <= 1024; K8 / K9 / K10: "
+            "C in (128, 256, 512), L % 64 == 0): "
+            + ", ".join(f"{site} (L={L}, C={C}) -> {kind}" for site, L, C, kind in refused))
 
 
 def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, resblock_pallas=False) -> dict:
@@ -273,7 +318,7 @@ def expected_launches(cfg, steps: int = 1, batch: int = 1, *, attn_int8=True, at
               "K5": sum(1 for c in k1 if c[4] == 1),
               "K13": sum(1 for c in k1 if c[4] == 3 and c[5] == 1 and c[6] == torch.int32),
               "K4": len(plan["K4"]), "K7": len(plan["K7"]), "K12": len(plan["K12"]),
-              **{k: len(v) for k, v in attn.items()}}
+              **{k: len(v) for k, v in attn.items() if k != "refused"}}
     return {k: n * steps for k, n in counts.items()}
 
 

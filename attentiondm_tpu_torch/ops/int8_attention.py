@@ -28,9 +28,15 @@ whose core is one of (csrc/int8_attn_core.cu):
       over key blocks of 512 (snapped down to a divisor of L).
 JAX sent the shapes its K8 / K9 programs could not hold (small, unaligned,
 or over the budget off K10's grids) to plain tensor code.  The CUDA core
-streams keys, so its limits are its own (`_check_core`): on the card a
+streams keys, so its limits are its own (`int8_core_takes`): on the card a
 wrapper launches its kernel or raises, and the plain versions serve CPU
 tensors and `plain=True` only.
+
+Both CUDA cores run their products on the tensor cores: K3's by mma.sync, in
+f32 by the 3xTF32 split (or s8 q.k in its int8 mode), K8 / K9 / K10's by
+warpgroup wgmma in s8 and bf16.  Their launch geometry is computed here
+(`core_plan`, `int8_core_plan`) and handed to the launcher, which refuses a
+plan other than its own.
 
 The kernels and their plain versions sum in different orders (the softmax
 denominator, p.v; K3's f32 q.k), so they agree to float32 rounding (a rare
@@ -39,6 +45,8 @@ both, and the GroupNorm in front of K3 sums in `fused_gn.window_sum`'s order
 in both and agrees exactly.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -52,6 +60,76 @@ from .quant_conv import int8_matmul_ref
 FUSED_ATTN_VMEM_BUDGET = 6 * 1024 * 1024  # JAX's budget: it routes here, it sizes no CUDA block
 FLASH_BLOCK_K = 512  # the key block of K10's online softmax, part of its result's last bits
 _REF_LOGIT_BYTES = 1 << 29  # the plain versions hold at most this many bytes of L x L logits at once
+
+SMEM_PER_BLOCK = 232448  # the dynamic shared memory one block can have on an H100 (227 KB)
+CORE_WIDTHS = (128, 256, 512)  # the channel counts both CUDA cores are built for
+K3_MAX_L = 1024  # K3's longest map: its GroupNorm pass holds one 1024-row chunk
+
+
+class CorePlan(NamedTuple):
+    """The launch geometry of K3's core (csrc/int8_attention.cu at_*): a
+    block of `bq` queries x 8 warps; q / k chunks of `chunk` channels (128
+    bytes a row) for 64 keys; p.v in passes of `cp` channels over v tiles of
+    `vk` keys; `stages` ring stages; `smem` bytes (the block's logits
+    [bq][lp + 4] f32 and the ring)."""
+    bq: int
+    lp: int
+    chunk: int
+    cp: int
+    vk: int
+    stages: int
+    smem: int
+
+
+K3_TWO_BLOCKS = 115712  # 113 KB: two such blocks, with 1 KB reserved each, fill an SM's 228 KB
+
+
+def core_plan(L: int, C: int, int8_core: bool = False) -> CorePlan:
+    """K3's core at an (L, C) map: 64 queries a block, 32 above L = 512 so
+    that the logits fit; a warp holds 64 channels of p.v; as many ring
+    stages (2 to 4) as leave room for two blocks an SM, so that short maps,
+    whose few products cannot hide a load, keep more loads in flight."""
+    lp = -(-L // 64) * 64
+    bq = 64 if lp <= 512 else 32
+    cp = min(C, 8 // (bq // 16) * 64)
+    vk = 32 if cp <= 128 else 16
+    stage = max((bq + 64) * (128 + 16), vk * (cp + 8) * 4)
+    logits = bq * (lp + 4) * 4
+    stages = min(4, max(2, (K3_TWO_BLOCKS - logits) // stage))
+    return CorePlan(bq, lp, 128 if int8_core else 32, cp, vk, stages, logits + stages * stage)
+
+
+class Int8CorePlan(NamedTuple):
+    """The launch geometry of K8 / K9 / K10's core (csrc/int8_attn_core.cu
+    ia_*): `bq` queries a block in row groups of 64, one warpgroup a row
+    group and 128 channels (`threads`), 64-key K / V tiles in a ring of
+    `stages`, `smem` bytes."""
+    bq: int
+    threads: int
+    stages: int
+    smem: int
+
+
+def int8_core_plan(C: int) -> Int8CorePlan:
+    """128 queries a block at C = 128 and 256, 64 at 512; 3 stages, 2 at C =
+    512: 1024 bytes to align the swizzled tiles, Q [bq][C] int8, per stage K
+    [64][C] int8 and V^T [C][64] bf16, and where C > 128 the row groups'
+    exchange of maxima and sums."""
+    wgs = C // 128
+    bq = 64 if C == 512 else 128
+    stages = 2 if C == 512 else 3
+    exchange = 2 * bq * wgs * 4 if C > 128 else 0
+    return Int8CorePlan(bq, bq // 64 * wgs * 128, stages, 1024 + bq * C + stages * 64 * 3 * C + exchange)
+
+
+def k3_takes(L: int, C: int) -> bool:
+    """Whether K3's CUDA chain takes an (L, C) map (with a bf16 residual)."""
+    return C in CORE_WIDTHS and 1 <= L <= K3_MAX_L
+
+
+def int8_core_takes(L: int, C: int) -> bool:
+    """Whether the CUDA core of K8 / K9 / K10 takes an (L, C) map."""
+    return C in CORE_WIDTHS and L > 0 and L % 64 == 0
 
 
 def fused_attention_block_fits(L: int, C: int) -> bool:
@@ -155,8 +233,8 @@ def int8_flash_attention_static_ref(qq, kq, vq, scalars, out_scale, out_zp, a_bi
 
 
 def _check_core(name: str, L: int, C: int, *tensors):
-    if C not in (128, 256, 512) or L % 64:
-        raise NotImplementedError(f"{name} on CUDA: C in (128, 256, 512) and L a multiple of 64; got C={C}, L={L}")
+    if not int8_core_takes(L, C):
+        raise NotImplementedError(f"{name} on CUDA: C in {CORE_WIDTHS} and L a multiple of 64; got C={C}, L={L}")
     _build.require_cuda(name, *tensors)
 
 
@@ -169,9 +247,12 @@ def _static_core(name, qq, kq, vq, scalars, out_scale, out_zp, a_bit, scale, bk,
         raise ValueError(f"{name}: q, k and v must be int8")
     _check_core(name, L, C, qq, kq, vq, sc, osc, ozp)
     out = torch.empty_like(qq)
+    vt = torch.empty((B, C, L), dtype=torch.bfloat16, device=qq.device)  # v^T in bf16, the p.v operand
+    plan = int8_core_plan(C)
     err = _build.kernels().adm_int8_attention_static(
         qq.data_ptr(), kq.data_ptr(), vq.data_ptr(), sc.data_ptr(), osc.data_ptr(), ozp.data_ptr(),
-        2 ** (a_bit - 1), out.data_ptr(), B, L, C, bk, int(online), float(scale), _build.stream_ptr(qq.device))
+        2 ** (a_bit - 1), vt.data_ptr(), out.data_ptr(), B, L, C, bk, int(online), float(scale), plan.bq,
+        plan.stages, plan.smem, _build.stream_ptr(qq.device))
     _build.check(err, "adm_int8_attention_static")
     return out
 
@@ -230,17 +311,75 @@ def fused_int8_attention(dotq, dotk, dotv, epi_q, epi_k, epi_v, out_scale, out_z
     dev = dotq.device
     amax = torch.zeros((B, 2), dtype=torch.int32, device=dev)
     q8, k8, out = (torch.empty((B, L, C), dtype=torch.int8, device=dev) for _ in range(3))
-    vb = torch.empty((B, L, C), dtype=torch.bfloat16, device=dev)
+    vt = torch.empty((B, C, L), dtype=torch.bfloat16, device=dev)
+    plan = int8_core_plan(C)
     err = _build.kernels().adm_fused_int8_attention(
         *(d.data_ptr() for d in dots), *(a.data_ptr() for a in epi), osc.data_ptr(), ozp.data_ptr(),
-        2 ** (a_bit - 1), amax.data_ptr(), q8.data_ptr(), k8.data_ptr(), vb.data_ptr(), out.data_ptr(),
-        B, L, C, float(scale), _build.stream_ptr(dev))
+        2 ** (a_bit - 1), amax.data_ptr(), q8.data_ptr(), k8.data_ptr(), vt.data_ptr(), out.data_ptr(),
+        B, L, C, float(scale), plan.bq, plan.stages, plan.smem, _build.stream_ptr(dev))
     _build.check(err, "adm_fused_int8_attention")
     fused_int8_attention.launches += 1
     return out
 
 
 fused_int8_attention.launches = 0
+
+
+def attention_core_ref(q, k, v, out_scale, out_zp, a_bit: int, *, scale: float, int8_core: bool = False,
+                       logits: bool = False):
+    """Plain version of K3's core: f32 q, k, v [B, L, C] -> proj_out's int8
+    input, in the TPU kernel's order (and, with `logits`, the logits the
+    softmax reads).  The f32 products run with TF32 off (`exact_f32`), so the
+    yardstick does not hang on the global switch."""
+    if int8_core:
+        (qq, sq), (kq, sk) = _dyn_quant_i8(q), _dyn_quant_i8(k)
+        lg = _int8_logits(qq, kq) * (sq * sk * scale)
+    else:
+        with exact_f32():
+            lg = torch.einsum("blc,bmc->blm", q, k) * scale
+    e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    with exact_f32():
+        av = torch.einsum("blm,bmc->blc", p, v)
+    o8 = quant_i8(av, out_scale.float(), out_zp.float(), a_bit)
+    return (o8, lg) if logits else o8
+
+
+def attention_core(q, k, v, out_scale, out_zp, a_bit: int, *, scale: float, int8_core: bool = False,
+                   logits: bool = False, plain: bool = False):
+    """K3's core alone (the third launch of `fused_attention_block`'s chain,
+    through its own C entry point): f32 q, k, v [B, L, C] -> int8 [B, L, C]
+    at proj_out's input quantization (out_scale, out_zp [C], a_bit).
+    `logits=True` also returns the f32 logits [B, L, L] as the softmax reads
+    them.  The serving path runs this kernel inside `fused_attention_block`;
+    this wrapper is for measuring and testing the core on its own."""
+    B, L, C = q.shape
+    if plain or q.device.type == "cpu":
+        return attention_core_ref(q, k, v, out_scale, out_zp, a_bit, scale=scale, int8_core=int8_core,
+                                  logits=logits)
+    if not k3_takes(L, C):
+        raise NotImplementedError(f"attention_core on CUDA: C in {CORE_WIDTHS}, L <= {K3_MAX_L}; got C={C}, L={L}")
+    q, k, v = (_build.f32c(a) for a in (q, k, v))
+    sqo = torch.stack([out_scale, out_zp]).to(dtype=torch.float32, device=q.device)
+    _build.require_cuda("attention_core", q, k, v, sqo)
+    dev = q.device
+    out = torch.empty((B, L, C), dtype=torch.int8, device=dev)
+    lg = torch.empty((B, L, L), dtype=torch.float32, device=dev) if logits else None
+    amax = q8 = k8 = None
+    if int8_core:
+        amax = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+        q8, k8 = (torch.empty((B, L, C), dtype=torch.int8, device=dev) for _ in range(2))
+    plan = core_plan(L, C, int8_core)
+    err = _build.kernels().adm_attention_core(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *(None if t is None else t.data_ptr() for t in (q8, k8, amax)),
+        sqo.data_ptr(), 2 ** (a_bit - 1), out.data_ptr(), None if lg is None else lg.data_ptr(), B, L, C,
+        plan.bq, plan.vk, plan.smem, float(scale), _build.stream_ptr(dev))
+    _build.check(err, "adm_attention_core")
+    attention_core.launches += 1
+    return (out, lg) if logits else out
+
+
+attention_core.launches = 0
 
 
 def fused_attention_block_ref(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant, o_weights,
@@ -253,17 +392,10 @@ def fused_attention_block_ref(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_qu
         (int8_matmul_ref(quant_i8(h, s, z, b), gq).to(torch.float32) * iw + zc).reshape(B, L, C)
         for (s, z, b), (gq, iw, zc) in zip(qkv_quant, qkv_weights)
     )
-    if int8_core:
-        (qq, sq), (kq, sk) = _dyn_quant_i8(q), _dyn_quant_i8(k)
-        logits = _int8_logits(qq, kq) * (sq * sk * scale)
-    else:
-        logits = torch.einsum("blc,bmc->blm", q, k) * scale
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
-    av = torch.einsum("blm,bmc->blc", p, v).reshape(B * L, C)
     so, zo, bo = o_quant
+    o8 = attention_core_ref(q, k, v, so, zo, bo, scale=scale, int8_core=int8_core)
     gq_o, iw_o, zc_o = o_weights
-    out = int8_matmul_ref(quant_i8(av, so, zo, bo), gq_o).to(torch.float32) * iw_o + zc_o
+    out = int8_matmul_ref(o8.reshape(B * L, C), gq_o).to(torch.float32) * iw_o + zc_o
     return (xf + out.reshape(B, L, C)).to(x.dtype)
 
 
@@ -286,9 +418,9 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
     if plain or x.device.type == "cpu":
         return fused_attention_block_ref(x, gn_scale, gn_bias, qkv_quant, [w[:3] for w in weights[:3]], o_quant,
                                          weights[3][:3], scale=scale, int8_core=int8_core)
-    if x.dtype != torch.bfloat16 or C not in (128, 256, 512) or L > 1024:
+    if x.dtype != torch.bfloat16 or not k3_takes(L, C):
         raise NotImplementedError(
-            f"fused_attention_block on CUDA: bf16 residual, C in (128, 256, 512), L <= 1024; got "
+            f"fused_attention_block on CUDA: bf16 residual, C in {CORE_WIDTHS}, L <= {K3_MAX_L}; got "
             f"{x.dtype}, C={C}, L={L} (larger maps fail `fused_attention_block_fits` and take the composed "
             f"branch of `_attn_fused`)")
     g = min(GROUPS, C)
@@ -306,6 +438,7 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
     out = torch.empty_like(x)
     amax = torch.zeros((B, 2), dtype=torch.int32, device=x.device) if int8_core else None
     tiles = conv_tiles(B, L, 1, 1, 1, C)  # the four projections: flat GEMMs over B * L rows
+    plan = core_plan(L, C, int8_core)
     err = _build.kernels().adm_fused_attention_block(
         x.data_ptr(), gn.data_ptr(), sqkv.data_ptr(),
         *(2 ** (b - 1) for (_s, _z, b) in qkv_quant),
@@ -313,7 +446,7 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
         2 ** (bo - 1), wo.data_ptr(),
         *(t.data_ptr() for t in scratch8[:3]), *(t.data_ptr() for t in scratchf), scratch8[3].data_ptr(),
         None if amax is None else amax.data_ptr(), out.data_ptr(), B, L, C, g, 1.0 / (L * (C // g)), float(scale),
-        tiles.BM, tiles.cols, _build.stream_ptr(x.device))
+        tiles.BM, tiles.cols, plan.bq, plan.vk, plan.smem, _build.stream_ptr(x.device))
     _build.check(err, "adm_fused_attention_block")
     fused_attention_block.launches += 1
     fused_attention_block.int8_core_launches += bool(int8_core)

@@ -64,6 +64,7 @@ from ..ops.fused_gn import (
     quant_i8 as _quant_i8,
 )
 from ..ops.attention import spatial_attention
+from ..ops.checks import require_attention_kernels
 from ..ops.int8_attention import (
     fused_attention_block,
     fused_attention_block_fits,
@@ -553,6 +554,7 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
                                           weight_extras=weight_extras, pack_int4=pack_int4, rank1=rank1)
 
     def sample(x):
+        require_attention_kernels(qunet.cfg, x.device, attn_int8=attn_int8, attn_ranges=attn_ranges)
         n = x.shape[0]
         for i in range(t_rev.shape[0]):
             et = serving_unet_apply(params, qunet.cfg, qunet, runtime, qstates, x,

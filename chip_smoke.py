@@ -29,10 +29,15 @@ kernel for one run of each sampler.)
       `bound_ms` is the least time the card could take: per launch the
       larger of its bytes (every input read once, every output written
       once) over 3.35 TB/s and its operations over the
-      peak of their type (1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s
-      f32 outside them); `library_ms` times the one PyTorch call that
+      peak of their type (1,979 TOP/s int8 and 989 TFLOP/s bf16 on the tensor
+      cores, 495 / 3 TFLOP/s for f32 products run there as 3xTF32, 67
+      TFLOP/s f32 outside them); `library_ms` times the one PyTorch call that
       computes the same function, where there is one (`torch._int_mm` for
-      K5), and is null elsewhere;
+      K5, `F.scaled_dot_product_attention` for K3's core alone), and is null
+      elsewhere.  `K3.core` is K3's f32 core timed alone through its own C
+      entry point (`ops.int8_attention.attention_core`) on f32 q, k, v at K3's
+      shapes; its launches are the path's K3 launches, each of which runs
+      that kernel once;
    b. slice: the full-width UNet at W4A8 with seeded random weights: FP DDIM
       teacher trajectory on 2 images, stage-1 calibration, the per-step fold
       and the int8 serving DDIM sampler (--steps quad steps; --steps 100 is
@@ -118,6 +123,9 @@ META = {  # kernel -> (wrapper, source, the TPU kernel it replaces)
     "K11": ("flash_attention", "attentiondm_tpu_torch/csrc/flash_attention.cu", "attentiondm_tpu/ops/attention.py:53"),
     "K3.int8_core": ("fused_attention_block(int8_core=True)", "attentiondm_tpu_torch/csrc/int8_attention.cu",
                      "attentiondm_tpu/ops/int8_attention.py:448"),
+    # the core kernel of K3's chain alone; each K3 launch on the path runs it once
+    "K3.core": ("attention_core (K3's f32 core alone)", "attentiondm_tpu_torch/csrc/int8_attention.cu",
+                "attentiondm_tpu/ops/int8_attention.py:448"),
 }
 # which sampler run of the celeba-wide path a kernel's launch count is read from
 ATTN_RUN = {"K10": "static int8", "K9": "static int8", "K3.int8_core": "static int8", "K8": "dynamic int8",
@@ -131,11 +139,16 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12  # tensor cores, dense
 BF16_FLOPS_PER_S = 989e12  # tensor cores, dense
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores
+# f32 products on the tensor cores as 3xTF32 (K3's core): three TF32 products (495 TFLOP/s dense) for each.
+# One TF32 pass would be faster but rounds each operand to 10 bits, which K3's tolerance does not allow
+# (1.3% of proj_out's input codes flip), so the split is the least work that computes the function.
+TF32X3_FLOPS_PER_S = 495e12 / 3
 
 
-def bound(nbytes, int8_ops=0, f32_flops=0, bf16_flops=0):
+def bound(nbytes, int8_ops=0, f32_flops=0, bf16_flops=0, tf32x3_flops=0):
     """(bytes ms, operations ms) the card needs at least for one launch."""
-    ops = int8_ops / INT8_OPS_PER_S + bf16_flops / BF16_FLOPS_PER_S + f32_flops / F32_FLOPS_PER_S
+    ops = (int8_ops / INT8_OPS_PER_S + bf16_flops / BF16_FLOPS_PER_S + f32_flops / F32_FLOPS_PER_S
+           + tf32x3_flops / TF32X3_FLOPS_PER_S)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops * 1e3
 
 
@@ -276,9 +289,12 @@ def kernel_phase(cfg, batch, gen, dev, report):
         epilogue_residual_gn_stats,
         gn_act_quant,
     )
-    from attentiondm_tpu_torch.ops.int8_attention import fused_attention_block
+    import torch.nn.functional as F
+
+    from attentiondm_tpu_torch.ops.int8_attention import attention_core, fused_attention_block
     from attentiondm_tpu_torch.ops.pallas_conv import int8_conv, k_major
     from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
+    from attentiondm_tpu_torch.ops.precision import exact_f32
 
     k1, k2, k6, k3, _composed = checks.conv_plan(cfg)
 
@@ -381,13 +397,34 @@ def kernel_phase(cfg, batch, gen, dev, report):
         ms = time_ms(lambda: fused_attention_block(*args, scale=C ** -0.5))
         dms = device_ms(lambda: fused_attention_block(*args, scale=C ** -0.5))
         pms = time_ms(lambda: fused_attention_block(*args, scale=C ** -0.5, plain=True), reps=10)
-        # in and out residual, four folds; int8 projections, f32 core (q k^T and p v), ~30 f32 per element around
+        # in and out residual, four folds; int8 projections, f32 core (q k^T and p v as 3xTF32), ~30 f32 per
+        # element around and 5 per logit
         b = bound(2 * nbytes(x) + 4 * C * C + 16 * 4 * C, int8_ops=4 * 2 * batch * L * C * C,
-                  f32_flops=2 * 2 * batch * L * L * C + 30 * x.numel() + 5 * batch * L * L)
+                  tf32x3_flops=2 * 2 * batch * L * L * C, f32_flops=30 * x.numel() + 5 * batch * L * L)
         report.add("K3", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
         print(f"[kernels] K3 fused_attention_block B={batch} L={L} C={C} x{n}/step: {_fig(f)}; "
               f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
         del x, args
+
+        # K3's core alone on f32 q, k, v of a few units; F.scaled_dot_product_attention computes its function
+        # up to the int8 quantization of the output (timed, not held)
+        q, k, v = (randf((batch, L, C)) for _ in range(3))
+        so, zo = torch.full((C,), 255 / 4.0, device=dev), randf((C,), 3.0).round()
+
+        def core(plain=False):
+            return attention_core(q, k, v, so, zo, 8, scale=C ** -0.5, plain=plain)
+
+        f = _held("K3.core", f"L={L} C={C}", core(), core(plain=True))
+        ms, dms = time_ms(core), device_ms(core)
+        pms = time_ms(lambda: core(plain=True), reps=10)
+        with exact_f32():
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=C ** -0.5))
+        b = bound(3 * nbytes(q) + q.numel() + 2 * 4 * C, tf32x3_flops=2 * 2 * batch * L * L * C,
+                  f32_flops=5 * batch * L * L)
+        report.add("K3.core", f["max_abs_err"], ms, pms, b, weight=n, library_ms=lib, dev_ms=dms)
+        print(f"[kernels] K3.core attention_core B={batch} L={L} C={C} x{n}/step: {_fig(f)}; kernel {ms:.4f} ms "
+              f"device {dms:.4f} ms plain {pms:.4f} ms F.scaled_dot_product_attention {lib:.4f} ms {_bound_fig(b)}")
+        del q, k, v
     torch.cuda.empty_cache()
 
     # K4, K7, K12: every shape a step launches under the three levers together (the
@@ -550,7 +587,7 @@ def attention_kernel_phase(cfg, batch, gen, dev, report):
         args = (x, randf((C,), 0.1, 1.0), randf((C,), 0.1), qkv_quant, qkv_weights, o_quant, o_weights)
         # as K3's bound, with q k^T in int8
         b = bound(2 * nbytes(x) + 4 * C * C + 16 * 4 * C, int8_ops=4 * 2 * batch * L * C * C + 2 * batch * L * L * C,
-                  f32_flops=2 * batch * L * L * C + 30 * x.numel() + 5 * batch * L * L)
+                  tf32x3_flops=2 * batch * L * L * C, f32_flops=30 * x.numel() + 5 * batch * L * L)
         run("K3.int8_core", f"fused_attention_block(int8_core) B={batch} L={L} C={C}", n,
             lambda plain=False: fused_attention_block(*args, scale=C ** -0.5, int8_core=True, plain=plain), b)
         ms32 = time_ms(lambda: fused_attention_block(*args, scale=C ** -0.5))
@@ -826,7 +863,8 @@ def main(argv=None):
             kernel_phase(cfg, BATCH[path], gen, dev, report)
             counts, ctx = slice_phase(cfg, sched, label, steps, BATCH[path], gen, dev, args.profile)
             lever_counts = levers_phase(ctx, timed=path == "cifar10", profile=args.profile)
-            launches_of = {**counts["f32 core"], **{key: lever_counts[key] for key in ("K4", "K7", "K12")}}
+            launches_of = {**counts["f32 core"], **{key: lever_counts[key] for key in ("K4", "K7", "K12")},
+                           "K3.core": counts["f32 core"]["K3"]}
         del ctx
         for key, (name, source, replaces) in META.items():
             if key not in report.rows:

@@ -29,6 +29,7 @@ from attentiondm_tpu_torch.ops.fused_gn import (
 )
 from attentiondm_tpu_torch.ops.attention import flash_attention, spatial_attention
 from attentiondm_tpu_torch.ops.int8_attention import (
+    attention_core,
     fused_attention_block,
     fused_int8_attention,
     fused_int8_attention_static,
@@ -218,6 +219,48 @@ def test_k3_int8_core_matches_plain(dev, gen, L, C):
     assert not torch.equal(want, fused_attention_block(*args, scale=C ** -0.5, plain=True))  # the mode is not a no-op
 
 
+@pytest.mark.parametrize("int8_core", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("C", [128, 256, 512])
+@pytest.mark.parametrize("L", [16, 64, 256, 1024])
+def test_k3_tensor_core_cores_match_plain(dev, gen, L, C, B, int8_core):
+    """K3's redesigned core (3xTF32 f32 mode; s8 logits in the int8 mode) at
+    every width, from a map shorter than a key tile to the longest K3 takes
+    (L = 1024: 32 queries a block), at batch 1 and 3."""
+    args = _k3_args(gen, dev, B, L, C)
+    before = fused_attention_block.launches
+    got = fused_attention_block(*args, scale=C ** -0.5, int8_core=int8_core)
+    assert fused_attention_block.launches == before + 1
+    fig = checks.compare("K3", got, fused_attention_block(*args, scale=C ** -0.5, int8_core=int8_core, plain=True))
+    assert fig["ok"], fig
+
+
+@pytest.mark.parametrize("B,L,C", [(3, 256, 256), (1, 1024, 512), (2, 72, 128), (3, 16, 512), (1, 576, 256)])
+def test_k3_int8_core_logits_are_exact(dev, gen, B, L, C):
+    """The int8 mode's logits (s8 mma) equal float(q8 . k8) * ls of the plain
+    version to the bit, and the core's codes meet K3.core's tolerance."""
+    q, k, v = (_f(gen, (B, L, C), dev, 1.5) for _ in range(3))
+    so, zo = _core_out_quant(dev, C)
+    before = attention_core.launches
+    got, lg = attention_core(q, k, v, so, zo, 8, scale=C ** -0.5, int8_core=True, logits=True)
+    assert attention_core.launches == before + 1
+    want, lg_want = attention_core(q, k, v, so, zo, 8, scale=C ** -0.5, int8_core=True, logits=True, plain=True)
+    assert torch.equal(lg, lg_want)
+    fig = checks.compare("K3.core", got, want)
+    assert fig["ok"], fig
+
+
+@pytest.mark.parametrize("B,L,C", [(128, 256, 256), (32, 64, 512), (3, 1024, 128), (2, 100, 256)])
+def test_k3_f32_core_alone_matches_plain(dev, gen, B, L, C):
+    """K3's f32 core through its own entry point: proj_out's input codes
+    within K3.core's tolerance (CIFAR's and church's shapes among them)."""
+    q, k, v = (_f(gen, (B, L, C), dev) for _ in range(3))
+    so, zo = _core_out_quant(dev, C)
+    got = attention_core(q, k, v, so, zo, 8, scale=C ** -0.5)
+    fig = checks.compare("K3.core", got, attention_core(q, k, v, so, zo, 8, scale=C ** -0.5, plain=True))
+    assert fig["ok"], fig
+
+
 def _core_out_quant(dev, C):
     return torch.full((C,), 255 / 4.0, device=dev), _f(torch.Generator().manual_seed(1), (C,), dev, 3.0).round()
 
@@ -264,6 +307,57 @@ def test_k8_kernel_matches_plain(dev, gen, B, L, C):
     assert fused_int8_attention.launches == before + 1
     fig = checks.compare("K8", got, fused_int8_attention(*args, scale=C ** -0.5, plain=True))
     assert fig["ok"], fig
+
+
+@pytest.mark.parametrize("B,L,C", [(1, 512, 512), (1, 64, 512), (1, 1024, 256), (1, 4096, 128), (3, 192, 512)])
+def test_int8_cores_at_c512_and_batch_1(dev, gen, B, L, C):
+    """The redesigned K8 / K9 core at C = 512 (four warpgroups split a row
+    group's keys and channels, 2 stages, 227 KB of shared memory), at batch 1
+    and with a partial last query block of the C = 128 layout."""
+    args = _static_args(gen, dev, B, L, C)
+    got = fused_int8_attention_static(*args, scale=C ** -0.5)
+    kind = "K10" if L * C * 24 > 6 * 1024 * 1024 and L % 256 == 0 else "K9"
+    fig = checks.compare(kind, got, fused_int8_attention_static(*args, scale=C ** -0.5, plain=True))
+    assert fig["ok"], fig
+    dots = [torch.randint(-20000, 20000, (B, L, C), generator=gen, dtype=torch.int32).to(dev) for _ in range(3)]
+    epis = [(_f(gen, (C,), dev, 2e-5, 1e-4).abs(), _f(gen, (C,), dev, 0.2)) for _ in range(3)]
+    dargs = (*dots, *epis, *_core_out_quant(dev, C), 8)
+    fig = checks.compare("K8", fused_int8_attention(*dargs, scale=C ** -0.5),
+                         fused_int8_attention(*dargs, scale=C ** -0.5, plain=True))
+    assert fig["ok"], fig
+
+
+@pytest.mark.parametrize("B,L,C", [(1, 256, 512), (2, 512, 128), (1, 512, 512), (3, 256, 256)])
+def test_k10_single_key_block(dev, gen, B, L, C):
+    """K10 with one key block (bk = L): the online softmax's first and last
+    block are one."""
+    args = _static_args(gen, dev, B, L, C)
+    q8, k8, v8, sq, sk, sv, osc, ozp, a_bit = args
+    scalars = torch.stack([sq, sk, sv])
+    before = int8_flash_attention_static.launches
+    got = int8_flash_attention_static(q8, k8, v8, scalars, osc, ozp, a_bit, scale=C ** -0.5)
+    assert int8_flash_attention_static.launches == before + 1
+    want = int8_flash_attention_static(q8, k8, v8, scalars, osc, ozp, a_bit, scale=C ** -0.5, plain=True)
+    fig = checks.compare("K10", got, want)
+    assert fig["ok"], fig
+
+
+def test_sampler_refuses_off_width_attention_before_step_0(dev, gen):
+    """A config whose attention sites the CUDA kernels do not take (K3 at C =
+    384) stops in `sample(x)` before any kernel launches, naming the site."""
+    from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
+
+    cfg = UNetConfig(ch=128, ch_mult=(1, 3), num_res_blocks=1, attn_resolutions=(4,), resolution=8, dropout=0.0)
+    params = unet_init(gen, cfg, dev)
+    q = QuantizedUNet.create(cfg, 4, 8)
+    qstates = q.init_state(1, dev)
+    betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device=dev).betas
+    sample = serving_ddim_sampler(q, params, qstates, [0], betas)
+    checks.reset_launches()
+    with pytest.raises(NotImplementedError, match=r"mid\.attn_1 \(L=16, C=384\) -> K3"):
+        sample(_f(gen, (1, 8, 8, 3), dev))
+    assert not any(checks.read_launches().values())
 
 
 @pytest.mark.parametrize("L,C", [(72, 128), (256, 384)])
