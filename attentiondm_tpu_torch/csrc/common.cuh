@@ -168,9 +168,9 @@ __device__ void block_gn_stats(F h_at, int HW, int N, int G, float inv_count, fl
 static inline int gn_threads(int N) { return N >= 1024 ? N : 1024 / N * N; }
 
 // The shared pass GroupNorm -> swish or none -> n_out per-channel int8
-// quantizations of one image, behind K4 (gn_act_quant.cu), K2 (fused_gn.cu),
-// the first launch of K3 (int8_attention.cu) and the first and third
-// launches of K12 (resblock.cu).
+// quantizations of one image, behind K4 (gn_act_quant.cu), the first launch
+// of K3 (int8_attention.cu) and the first and third launches of K12
+// (resblock.cu).  K2 and K6 have their own design (gn_epilogue.cuh).
 struct GnQuantArgs {
   const float* gn_scale;  // [N]
   const float* gn_bias;   // [N]
@@ -259,8 +259,9 @@ static cudaError_t launch_gn_act_quant(const Tin* x, const GnQuantArgs& a, int B
   return launch_gn_image_kernel(gn_act_quant_kernel<Tin, false>, B, a.N, s, x, a);
 }
 
-// K2's kernel: h = x * inv_ws + zcbias + temb (x the conv's int32
-// accumulator, or bf16 / f32 already dequantized), then the shared pass
+// K12's third launch (resblock.cu): h = x * inv_ws + zcbias + temb (x the
+// conv's int32 accumulator, or bf16 / f32 already dequantized), then the
+// shared pass into a halo'd buffer
 template <typename Tin, bool HALO>
 __global__ void __launch_bounds__(1024)
 epi_gn_swish_quant_kernel(const Tin* __restrict__ x, const float* __restrict__ inv_ws,

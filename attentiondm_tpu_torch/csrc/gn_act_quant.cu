@@ -5,13 +5,13 @@
 // Replaces the TPU kernel attentiondm_tpu/ops/fused_gn.py gn_act_quant
 // (_gn_quant_kernel), which held a block of whole images in VMEM and read x
 // once.  A 32*32*128 bf16 image is 256 KB, over a Hopper block's 227 KB of
-// shared memory, so, like K2, this kernel keeps only the statistics on
+// shared memory, so this kernel keeps only the statistics on
 // chip: one block per image, a first pass for the per-channel f32 sums and
 // sums of squares (the fixed windowed order of common.cuh; var = E[x^2] -
 // mu^2 clamped at 0, as _gn_normalize), a second pass that normalizes,
 // applies the activation and writes the n_out int8 outputs.  The pass is
-// gn_act_quant_image in common.cuh, shared with K2, K3's first launch and
-// K12.
+// gn_act_quant_image in common.cuh, shared with K3's first launch and
+// K12 (K2 and K6 spread an image over several blocks: gn_epilogue.cuh).
 // What bounds it on the H100: device-memory bytes, 2 B (bf16) or 4 B in and
 // n_out B out per element; the second read mostly hits the 50 MB L2.  One
 // block per image leaves most SMs idle at batch 32; scalar loads.  Several

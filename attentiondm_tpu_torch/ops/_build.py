@@ -45,10 +45,11 @@ SIGNATURES = {
     # xp, gqt, inv_ws, zcbias, out, B, Hp, Wp, Cp, Ho, Wo, Np, ksize, stride, mode, bm, cols, rows, imgs, stream
     "adm_int8_conv": [_P] * 5 + [_I] * 14 + [_P],
     # x, x_is_int32, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp, out,
-    # B, HW, N, groups, n_levels, inv_count, stream
-    "adm_epilogue_gn_swish_quant": [_P, _I] + [_P] * 8 + [_I] * 5 + [_F, _P],
-    # the same with the f32 scratch `partial` [B, nchunk, 2, groups] before out
-    "adm_epilogue_gn_swish_quant_blocked": [_P, _I] + [_P] * 9 + [_I] * 5 + [_F, _P],
+    # B, HW, N, groups, n_levels, inv_count, the plan (cluster, wpb, threads, smem, held), stream
+    "adm_epilogue_gn_swish_quant": [_P, _I] + [_P] * 8 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # x ... act_zp as above, scratch `partial` [B, nchunk, 2, groups] f32 and `flags` [B + 1] int32 zeroed,
+    # out, B, HW, N, groups, n_levels, inv_count, the plan (threads, smem), stream
+    "adm_epilogue_gn_swish_quant_blocked": [_P, _I] + [_P] * 10 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     # x, gn (2,C), sqkv (6,C), n_q, n_k, n_v, wq, wk, wv, eqkv (6,C), sqo (4,C), n_o, wo,
     # scratch q8 k8 v8 qf kf vf o8, amax [B, 2] zeroed (the int8 core) or null (the f32 core), out,
     # B, L, C, groups, inv_count, scale, bm, cols (the projections' M tiling), the core's plan (bq, vk, smem),

@@ -14,10 +14,11 @@ K2 and K6: one pass from conv1's output (bf16 already dequantized, or the int32
 accumulator with `inv_ws` / `zcbias`) to conv2's int8 input; the float32
 intermediate never reaches device memory.  `epilogue_gn_swish_quant`
 routes by JAX's own predicate: images within the TPU kernel's whole-image
-budget take K2 (`epilogue_gn_swish_quant_whole`, csrc/fused_gn.cu, one
-block per image), larger ones on the 128-channel grid take K6
-(`epilogue_gn_swish_quant_blocked`, csrc/fused_gn_blocked.cu, two passes
-over chunks of 1024 rows), and the rest raise.
+budget take K2 (`epilogue_gn_swish_quant_whole`, csrc/fused_gn.cu, a
+cluster of blocks per image), larger ones on the 128-channel grid take K6
+(`epilogue_gn_swish_quant_blocked`, csrc/fused_gn_blocked.cu, one launch
+over chunks of 1024 rows), and the rest raise.  Both launch as
+`epilogue_plan` says (csrc/gn_epilogue.cuh).
 
 GroupNorm statistics follow the TPU kernel's `_gn_normalize`: per-group
 sum and sum of squares in float32, variance E[x^2] - mu^2 clamped at 0
@@ -27,6 +28,8 @@ give the same bits (csrc/common.cuh).  Swish is written
 `h * (1 / (1 + exp(-h)))`, the kernel's formula.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -146,6 +149,114 @@ def epilogue_route(shape, dtype) -> str:
         f"kernel's grid (N % 128, HW % 8), where JAX runs its XLA reference; not ported ({_ROADMAP})")
 
 
+# The launch plan of K2 and K6 (csrc/gn_epilogue.cuh), computed here and
+# handed to the C entry points, which refuse any other.
+SMS = 132  # the H100 SXM's streaming multiprocessors
+SMEM_MAX = 232448  # dynamic shared memory a Hopper block can have
+# a wave: 16 warps on 128 of the SMs.  K2 is bound by its f32 work (~45 instructions an element), so more
+# blocks than that only add per-block cost (PERF.md)
+WAVE_THREADS = 128 * 512
+HOLD_MAX = 64 * 1024  # a larger held slab leaves too few warps on its SM (PERF.md)
+CLUSTERS = (1, 2, 4, 8, 16)  # 16 is a non-portable cluster size; the H100 takes it
+VEC = 8  # channels a thread owns: 16 bytes of bf16, two 16-byte loads of int32
+MAX_THREADS = 512  # the kernels' launch bound (up to 128 registers: 8 channels' constants)
+K6_THREADS = 128  # four K6 blocks an SM: one's apply pass runs beside the others' first reads
+
+
+def _k2_smem(wpb: int, N: int, itemsize: int, threads: int, held: bool) -> int:
+    """csrc/gn_epilogue.cuh k2_layout: the held slab, the published sums
+    (one [2, N] node per window, or per chunk when a block owns whole
+    chunks), the round buffer and chunk sums of chunk mode, the image's
+    channel totals and one mbarrier per held window."""
+    chunks = wpb >= WIN
+    slab = wpb * WIN * N * itemsize if held else 0
+    nodes = wpb // WIN if chunks else wpb
+    rounds = 4 * 2 * N * (threads // (N // VEC) + 1) if chunks else 0
+    return slab + 4 * 2 * N * nodes + rounds + 4 * 2 * N + (8 * wpb if held else 0)
+
+
+@functools.lru_cache(maxsize=None)  # the wrappers ask once a call; a plan is a few dozen Python operations
+def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str) -> dict:
+    """How K2 ("K2") or K6 ("K6") spreads one call over the card.
+
+    K2: a thread-block cluster of `cluster` blocks per image, each owning
+    `wpb` consecutive 32-row windows (`rows` = 32 * wpb rows; the image's last
+    block may own fewer).  Below 32 windows a block publishes each window's
+    channel sums, from 32 up it owns whole 1024-row chunks and publishes their
+    sums; each block of the cluster adds up a share of the channels in
+    `window_sum`'s order and hands the totals to every block.  `held`:
+    the block copies its slab into shared memory once and the apply pass reads
+    it there (one HBM read); otherwise the apply pass re-reads it from L2.
+    The cluster size is the smallest whose blocks hold WAVE_THREADS threads
+    in all (else the largest the image's windows allow); the slab is held
+    where it takes at most HOLD_MAX bytes.
+
+    K6: a persistent grid of resident blocks that take (image, chunk) items
+    of CHUNK rows in image-major order (`blocks_per_image` = chunks per
+    image); an image's chunks must all be in flight at once, so it takes at
+    most `SMS` chunks.
+
+    Raises NotImplementedError for a shape the kernels do not take."""
+    if dtype not in (torch.bfloat16, torch.int32):
+        raise NotImplementedError(f"epilogue_plan: {dtype} (K2 and K6 take bf16 or int32)")
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    g = min(GROUPS, N)
+    V = N // VEC
+    if N % VEC or N % g or N > 1024 or HW < 1:
+        raise NotImplementedError(f"epilogue_plan: N={N}, HW={HW} (N a multiple of {VEC} and of its groups, "
+                                  f"up to 1024)")
+    if kind == "K6":
+        nchunk = -(-HW // CHUNK)
+        if N % 128 or nchunk > SMS:
+            raise NotImplementedError(f"epilogue_plan: K6 at N={N}, HW={HW} (N a multiple of 128, at most "
+                                      f"{SMS} chunks of {CHUNK} rows an image)")
+        threads = min(WIN, K6_THREADS // V) * V
+        return dict(kind="K6", blocks_per_image=nchunk, rows=CHUNK, threads=threads,
+                    smem=4 * 2 * N * (threads // V + 1))
+    if kind != "K2":
+        raise ValueError(f"epilogue_plan: kind={kind!r}")
+    plans = k2_plans(HW, N, itemsize)
+    if not plans:
+        raise NotImplementedError(f"epilogue_plan: K2 at HW={HW}, N={N} (at most {WIN * WIN * CHUNK} rows, "
+                                  f"and what a block's shared memory holds)")
+
+    def rank(p):  # a wave of threads, then the fewest blocks (else the most), then a held slab up to HOLD_MAX
+        wave = B * p["cluster"] * p["threads"] >= WAVE_THREADS
+        held = p["held"] and p["wpb"] * WIN * N * itemsize <= HOLD_MAX
+        return (not wave, p["cluster"] if wave else -p["cluster"], not held, p["held"])
+
+    return min(plans, key=rank)
+
+
+def k2_plans(HW: int, N: int, itemsize: int) -> list:
+    """Every K2 launch plan for an image of HW rows and N channels of
+    `itemsize` bytes that the kernel takes: per cluster size, a block's
+    windows and threads, with the slab held in shared memory and without
+    (where each fits)."""
+    if HW > WIN * WIN * CHUNK or N % VEC or N > 1024:
+        return []
+    V = N // VEC
+    nwin = -(-HW // WIN)
+    plans = []
+    for cl in CLUSTERS:
+        wpb = -(-nwin // cl)
+        if wpb > WIN:
+            wpb = -(-wpb // WIN) * WIN
+        cl = -(-nwin // wpb)
+        if any(p["cluster"] == cl for p in plans):
+            continue
+        if wpb >= WIN:
+            threads = min(WIN, MAX_THREADS // V) * V
+        else:
+            threads = max(V, min(MAX_THREADS, max(256, V * wpb)) // V * V)
+        for held in ((True, False) if wpb < WIN else (False,)):
+            smem = _k2_smem(wpb, N, itemsize, threads, held)
+            if smem <= SMEM_MAX:
+                plans.append(dict(kind="K2", cluster=cl, wpb=wpb, rows=wpb * WIN, threads=threads, smem=smem,
+                                  held=held))
+    return plans
+
+
 def _vectors(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp):
     vecs = [v.to(torch.float32).contiguous() for v in (inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp)]
     dot = dot.contiguous()
@@ -167,27 +278,26 @@ def epilogue_gn_swish_quant(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_sc
 
 def epilogue_gn_swish_quant_whole(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp,
                                   a_bit: int, *, plain: bool = False):
-    """K2: `epilogue_gn_swish_quant`, one block per image, at any shape it
-    takes (N up to 1024, HW up to 32 * 32 * CHUNK rows).  The serving path
-    reaches it through the router; called directly it also runs at K6's
-    shapes, for comparing the two.  `plain=True` runs the plain version on
-    any device."""
+    """K2: `epilogue_gn_swish_quant`, a cluster of blocks per image
+    (`epilogue_plan(..., "K2")`), at any shape the plan takes (N a multiple of
+    8 up to 1024, HW up to 32 * 32 * CHUNK rows as shared memory allows).
+    The serving path reaches it through the router; called directly it also
+    runs at K6's shapes, for comparing the two.  `plain=True` runs the plain
+    version on any device."""
     args = (dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp, a_bit)
     if plain or dot.device.type == "cpu":
         return epilogue_gn_swish_quant_ref(*args)
     B, N = dot.shape[0], dot.shape[-1]
     HW = dot.numel() // (B * N)
     g = min(GROUPS, N)
-    if dot.dtype not in (torch.bfloat16, torch.int32) or N % g or N > 1024 or HW > WIN * WIN * CHUNK:
-        raise NotImplementedError(
-            f"epilogue_gn_swish_quant_whole: {dot.dtype}, N={N}, HW={HW} (K2 takes bf16 or int32, N up "
-            f"to 1024 and HW <= {WIN * WIN * CHUNK})")
+    plan = epilogue_plan(B, HW, N, dot.dtype, "K2")
     dot, vecs = _vectors(*args[:-1])
     _build.require_cuda("epilogue_gn_swish_quant_whole", dot, *vecs)
     out = torch.empty(dot.shape, dtype=torch.int8, device=dot.device)
     err = _build.kernels().adm_epilogue_gn_swish_quant(
         dot.data_ptr(), int(dot.dtype == torch.int32), *(v.data_ptr() for v in vecs), out.data_ptr(),
-        B, HW, N, g, 2 ** (a_bit - 1), 1.0 / (HW * (N // g)), _build.stream_ptr(dot.device))
+        B, HW, N, g, 2 ** (a_bit - 1), 1.0 / (HW * (N // g)),
+        *(int(plan[k]) for k in ("cluster", "wpb", "threads", "smem", "held")), _build.stream_ptr(dot.device))
     _build.check(err, "adm_epilogue_gn_swish_quant")
     epilogue_gn_swish_quant_whole.launches += 1
     return out
@@ -199,26 +309,25 @@ epilogue_gn_swish_quant_whole.launches = 0
 def epilogue_gn_swish_quant_blocked(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp,
                                     a_bit: int, *, plain: bool = False):
     """K6: `epilogue_gn_swish_quant` for images over the whole-image budget
-    (N a multiple of 128): a statistics pass and an apply pass over chunks
-    of CHUNK rows, one launch count per call.  `plain=True` runs the plain
-    version on any device."""
+    (N a multiple of 128): one launch of resident blocks over (image, chunk
+    of CHUNK rows) items (`epilogue_plan(..., "K6")`).  `plain=True` runs the
+    plain version on any device."""
     if plain or dot.device.type == "cpu":
         return epilogue_gn_swish_quant_blocked_ref(dot, inv_ws, zcbias, temb, gn_scale, gn_bias,
                                                    act_scale, act_zp, a_bit)
     B, N = dot.shape[0], dot.shape[-1]
     HW = dot.numel() // (B * N)
-    if dot.dtype not in (torch.bfloat16, torch.int32) or N % 128 or N > 1024:
-        raise NotImplementedError(
-            f"epilogue_gn_swish_quant_blocked: {dot.dtype}, N={N} (K6 takes bf16 or int32, N a "
-            f"multiple of 128 up to 1024)")
+    plan = epilogue_plan(B, HW, N, dot.dtype, "K6")
     g = min(GROUPS, N)
     dot, vecs = _vectors(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp)
     _build.require_cuda("epilogue_gn_swish_quant_blocked", dot, *vecs)
-    partial = torch.empty((B, -(-HW // CHUNK), 2, g), dtype=torch.float32, device=dot.device)
+    partial = torch.empty((B, plan["blocks_per_image"], 2, g), dtype=torch.float32, device=dot.device)
+    flags = torch.zeros(B + 1, dtype=torch.int32, device=dot.device)  # the item counter, then each image's arrivals
     out = torch.empty(dot.shape, dtype=torch.int8, device=dot.device)
     err = _build.kernels().adm_epilogue_gn_swish_quant_blocked(
         dot.data_ptr(), int(dot.dtype == torch.int32), *(v.data_ptr() for v in vecs), partial.data_ptr(),
-        out.data_ptr(), B, HW, N, g, 2 ** (a_bit - 1), 1.0 / (HW * (N // g)), _build.stream_ptr(dot.device))
+        flags.data_ptr(), out.data_ptr(), B, HW, N, g, 2 ** (a_bit - 1), 1.0 / (HW * (N // g)), plan["threads"],
+        plan["smem"], _build.stream_ptr(dot.device))
     _build.check(err, "adm_epilogue_gn_swish_quant_blocked")
     epilogue_gn_swish_quant_blocked.launches += 1
     return out

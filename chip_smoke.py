@@ -17,9 +17,11 @@ kernel for one run of each sampler.)
       with times (CUDA events, median of 20 launches, 10 for the plain
       version): K1 at every int8 conv shape (its int32 mode at the 3x3
       shapes is K13's check, its 1x1 mode at the shortcut shapes K5's), K2
-      and K6 at every resblock epilogue shape as the router sends them, K3
-      at every attention shape.  At K6's shapes K2 is also run and timed
-      against K6.  K4, K7 and K12 at every shape a serving step launches
+      and K6 at every resblock epilogue shape as the router sends them
+      (`epilogue_phase`: bit-equal to the plain version, the launch plan and
+      the share of the bound printed; at K6's shapes K2 is also run and
+      timed against K6; one int32-input check a kernel), K3 at every
+      attention shape.  K4, K7 and K12 at every shape a serving step launches
       under the three levers together or one alone (`ops.checks.lever_plan`).
       A kernel's `ms` / `device_ms` / `plain_ms` / `bound_ms` in the JSON
       line is the sum over one serving step's launches of it (the step with
@@ -62,7 +64,8 @@ kernel for one run of each sampler.)
    kernel:
    a. kernels: K10, K9, K8, K11 and K3 with its int8 core against their plain
       versions at every shape a serving step gives them under the three
-      attention settings (`ops.checks.attention_plan`), timed as above; K11
+      attention settings (`ops.checks.attention_plan`), timed as above, and
+      K2 at every epilogue shape as in 3a; K11
       also beside `F.scaled_dot_product_attention`, the library call for its
       function (`library_ms`; K8, K9 and K10 have none: no PyTorch call takes
       int8 q and k and returns an int8 requantized output);
@@ -279,16 +282,95 @@ def _held(kind, label, got, want):
     return f
 
 
-def kernel_phase(cfg, batch, gen, dev, report):
+def epilogue_phase(cfg, batch, gen, dev, report):
+    """K2 and K6 at every resblock epilogue shape of a serving step, as the
+    router sends the bf16 conv1 output (identity epilogue; the first channel
+    group at a large offset, mean 40, where float32 E[x^2] - mu^2 cancels):
+    the launch plan, equality to the bit with the plain version, times, the
+    bound and the share of it the device time reaches.  At K6's shapes K2 runs
+    too, for its time.  Then one int32-input check a kernel (the conv's
+    accumulator with inv_ws / zcbias) at the kernel's largest shape."""
     import torch
 
     from attentiondm_tpu_torch.ops import checks
     from attentiondm_tpu_torch.ops.fused_gn import (
         epilogue_gn_swish_quant,
+        epilogue_gn_swish_quant_blocked,
         epilogue_gn_swish_quant_whole,
-        epilogue_residual_gn_stats,
-        gn_act_quant,
+        epilogue_plan,
     )
+
+    _k1, k2, k6, _k3, _composed = checks.conv_plan(cfg)
+
+    def randf(shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+
+    def args_of(HW, N, x_dtype):
+        H = int(HW ** 0.5)
+        if x_dtype == torch.int32:
+            dot = torch.randint(-20000, 20000, (batch, H, H, N), generator=gen, dtype=torch.int32).to(dev)
+            inv_ws, zcbias = randf((N,), 2e-5, 1e-4).abs(), randf((N,))
+        else:
+            dot = randf((batch, H, H, N), 2.0, 0.3).to(torch.bfloat16)
+            inv_ws, zcbias = torch.ones(N, device=dev), torch.zeros(N, device=dev)
+        zcbias[:N // 32] += 40.0
+        return (dot, inv_ws, zcbias, randf((batch, N)), randf((N,), 0.1, 1.0), randf((N,), 0.1),
+                torch.full((N,), 255 / 4.5, device=dev), torch.full((N,), round(255 / 4.5 * -0.5) + 128.0, device=dev),
+                8)
+
+    def equal(kind, label, got, want):
+        f = _held(kind, label, got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kind} {label}: not bit-equal to its plain version ({f})")
+        return f
+
+    def plan_fig(kind, HW, N, x_dtype):
+        p = epilogue_plan(batch, HW, N, x_dtype, kind)
+        if kind == "K6":
+            return f"plan: {p['blocks_per_image']} chunk items an image, {p['threads']} threads, one launch"
+        return (f"plan: {p['cluster']} blocks an image ({batch * p['cluster']} blocks), {p['rows']} rows a block, "
+                f"{p['threads']} threads, slab {'held in shared memory' if p['held'] else 're-read from L2'}")
+
+    for kind, shapes in (("K2", k2), ("K6", k6)):
+        for (HW, N), n in sorted(collections.Counter(shapes).items()):
+            args = args_of(HW, N, torch.bfloat16)
+            f = equal(kind, f"HW={HW} N={N}", epilogue_gn_swish_quant(*args), epilogue_gn_swish_quant(*args, plain=True))
+            ms = time_ms(lambda: epilogue_gn_swish_quant(*args))
+            dms = device_ms(lambda: epilogue_gn_swish_quant(*args))
+            pms = time_ms(lambda: epilogue_gn_swish_quant(*args, plain=True), reps=10)
+            # 18 f32 operations per element: the TPU kernel's own cost estimate
+            b = bound(nbytes(*args[:8]) + args[0].numel(), f32_flops=18 * args[0].numel())
+            report.add(kind, f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
+            print(f"[kernels] {kind} epilogue_gn_swish_quant B={batch} HW={HW} N={N} x{n}/step: {_fig(f)}, bit-equal; "
+                  f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}, device at "
+                  f"{max(b) / dms:.1%} of it; {plan_fig(kind, HW, N, torch.bfloat16)}")
+            if kind == "K6":
+                f2 = equal("K2", f"HW={HW} N={N} (at K6's shape)", epilogue_gn_swish_quant_whole(*args),
+                           epilogue_gn_swish_quant_whole(*args, plain=True))
+                ms2 = time_ms(lambda: epilogue_gn_swish_quant_whole(*args))
+                dms2 = device_ms(lambda: epilogue_gn_swish_quant_whole(*args))
+                print(f"[kernels] K6 vs K2 B={batch} HW={HW} N={N}: K6 {ms:.4f} ms (device {dms:.4f}), K2 {ms2:.4f} ms "
+                      f"(device {dms2:.4f}; {_fig(f2)}; {plan_fig('K2', HW, N, torch.bfloat16)}), K6's plain version "
+                      f"{pms:.4f} ms")
+            del args
+        if shapes:  # the int32 input mode (the conv's accumulator), at the kernel's largest shape on this path
+            HW, N = max(shapes)
+            args = args_of(HW, N, torch.int32)
+            fn = epilogue_gn_swish_quant_whole if kind == "K2" else epilogue_gn_swish_quant_blocked
+            f = equal(kind, f"HW={HW} N={N} int32", fn(*args), fn(*args, plain=True))
+            dms = device_ms(lambda: fn(*args))
+            b = bound(nbytes(*args[:8]) + args[0].numel(), f32_flops=18 * args[0].numel())
+            print(f"[kernels] {kind} int32 input B={batch} HW={HW} N={N}: {_fig(f)}, bit-equal; device {dms:.4f} ms "
+                  f"{_bound_fig(b)}, device at {max(b) / dms:.1%} of it; {plan_fig(kind, HW, N, torch.int32)}")
+            del args
+    torch.cuda.empty_cache()
+
+
+def kernel_phase(cfg, batch, gen, dev, report):
+    import torch
+
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.ops.fused_gn import epilogue_residual_gn_stats, gn_act_quant
     import torch.nn.functional as F
 
     from attentiondm_tpu_torch.ops.int8_attention import attention_core, fused_attention_block
@@ -296,7 +378,7 @@ def kernel_phase(cfg, batch, gen, dev, report):
     from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
     from attentiondm_tpu_torch.ops.precision import exact_f32
 
-    k1, k2, k6, k3, _composed = checks.conv_plan(cfg)
+    k1, _k2, _k6, k3, _composed = checks.conv_plan(cfg)
 
     def randint8(shape, lo, hi):
         return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8).to(dev)
@@ -353,35 +435,7 @@ def kernel_phase(cfg, batch, gen, dev, report):
               f"{lib_fig} {_bound_fig(b)}")
         del xp, gq, args, out
 
-    # K2 and K6: bf16 conv1 output (identity epilogue) at every resblock shape, as
-    # the router sends it; the first channel group sits at a large offset (mean 40),
-    # where float32 E[x^2] - mu^2 cancels.  At K6's shapes K2 runs too, for its time.
-    for kind, shapes in (("K2", k2), ("K6", k6)):
-        for (HW, N), n in sorted(collections.Counter(shapes).items()):
-            H = int(HW ** 0.5)
-            dot = randf((batch, H, H, N), 2.0, 0.3).to(torch.bfloat16)
-            zcbias = torch.zeros(N, device=dev)
-            zcbias[:N // 32] = 40.0
-            args = (dot, torch.ones(N, device=dev), zcbias, randf((batch, N)), randf((N,), 0.1, 1.0),
-                    randf((N,), 0.1), torch.full((N,), 255 / 4.5, device=dev),
-                    torch.full((N,), round(255 / 4.5 * -0.5) + 128.0, device=dev), 8)
-            f = _held(kind, f"HW={HW} N={N}", epilogue_gn_swish_quant(*args),
-                      epilogue_gn_swish_quant(*args, plain=True))
-            ms = time_ms(lambda: epilogue_gn_swish_quant(*args))
-            dms = device_ms(lambda: epilogue_gn_swish_quant(*args))
-            pms = time_ms(lambda: epilogue_gn_swish_quant(*args, plain=True), reps=10)
-            # 18 f32 operations per element: the TPU kernel's own cost estimate
-            b = bound(nbytes(*args[:8]) + dot.numel(), f32_flops=18 * dot.numel())
-            report.add(kind, f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
-            print(f"[kernels] {kind} epilogue_gn_swish_quant B={batch} HW={HW} N={N} x{n}/step: {_fig(f)}; "
-                  f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
-            if kind == "K6":
-                f2 = _held("K2", f"HW={HW} N={N} (at K6's shape)", epilogue_gn_swish_quant_whole(*args),
-                           epilogue_gn_swish_quant_whole(*args, plain=True))
-                ms2 = time_ms(lambda: epilogue_gn_swish_quant_whole(*args))
-                print(f"[kernels] K6 vs K2 B={batch} HW={HW} N={N}: K6 {ms:.4f} ms, K2 {ms2:.4f} ms "
-                      f"({_fig(f2)}), K6's plain version {pms:.4f} ms")
-            del dot, args
+    epilogue_phase(cfg, batch, gen, dev, report)
 
     # K3: every attention shape (the k projection at a_bit 6, as the W4A8 policy)
     for (L, C), n in sorted(collections.Counter(k3).items()):
@@ -857,8 +911,10 @@ def main(argv=None):
         report = Report()
         if path == "celeba-wide":
             attention_kernel_phase(cfg, BATCH[path], gen, dev, report)
+            epilogue_phase(cfg, BATCH[path], gen, dev, report)
             counts, ctx = slice_phase(cfg, sched, label, steps, BATCH[path], gen, dev, args.profile, ATTN_SETTINGS)
-            launches_of = {key: counts[run][key] for key, run in ATTN_RUN.items()}
+            launches_of = {**{key: counts[run][key] for key, run in ATTN_RUN.items()},
+                           "K2": counts["static int8"]["K2"]}
         else:
             kernel_phase(cfg, BATCH[path], gen, dev, report)
             counts, ctx = slice_phase(cfg, sched, label, steps, BATCH[path], gen, dev, args.profile)

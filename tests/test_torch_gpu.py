@@ -19,7 +19,7 @@ import torch
 import numpy as np
 
 from attentiondm_tpu_torch.models.unet import UNetConfig, from_jax_params, unet_init
-from attentiondm_tpu_torch.ops import checks
+from attentiondm_tpu_torch.ops import checks, fused_gn
 from attentiondm_tpu_torch.ops.fused_gn import (
     epilogue_gn_swish_quant,
     epilogue_gn_swish_quant_blocked,
@@ -127,33 +127,83 @@ def _epilogue_args(gen, dev, B, H, N, x_dtype):
             torch.full((N,), 255 / 4.0, device=dev), torch.full((N,), -4.0, device=dev), 8)
 
 
+# every (HW, N) that a serving step of CIFAR-10, LSUN church or celeba-wide gives K2, and K2 called directly at
+# K6's 256^2 shape (chunk mode, three levels of sums)
+K2_PATH_SHAPES = [(16, 256), (64, 256), (256, 256), (1024, 128), (64, 512), (256, 512), (1024, 256), (4096, 256),
+                  (16, 512), (4096, 128), (65536, 128)]
+
+
+def _offset_group(args):
+    """One channel group at a large offset (mean 40): E[x^2] - mu^2 cancels there."""
+    args = list(args)
+    args[2] = args[2].clone()
+    args[2][:args[0].shape[-1] // 32] += 40.0
+    return args
+
+
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.int32])
-@pytest.mark.parametrize("HW,N", [(1024, 128), (16, 256), (65536, 128)])
+@pytest.mark.parametrize("HW,N", K2_PATH_SHAPES)
 def test_k2_kernel_matches_plain(dev, gen, HW, N, x_dtype):
-    """K2 at CIFAR shapes through the router, and called directly at K6's
-    256^2 shape (where the path takes K6; the smoke times the two there)."""
-    args = _epilogue_args(gen, dev, 4, int(HW ** 0.5), N, x_dtype)
-    fn = epilogue_gn_swish_quant if HW <= 1024 else epilogue_gn_swish_quant_whole
+    """K2 at every path shape through the router, and called directly at
+    K6's 256^2 shape and wherever int32 input is over the router's budget
+    (where the path takes K6; the smoke times the two there): the same bits
+    as the plain version, one launch a call."""
+    args = _offset_group(_epilogue_args(gen, dev, 2, int(HW ** 0.5), N, x_dtype))
+    routed = fused_gn.epilogue_route(args[0].shape, x_dtype) == "K2"
+    fn = epilogue_gn_swish_quant if routed else epilogue_gn_swish_quant_whole
     before = epilogue_gn_swish_quant_whole.launches
     got = fn(*args)
     assert epilogue_gn_swish_quant_whole.launches == before + 1
-    fig = checks.compare("K2", got, fn(*args, plain=True))
-    assert fig["ok"], fig
+    assert torch.equal(got, fn(*args, plain=True))
 
 
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.int32])
 @pytest.mark.parametrize("H", [256, 128])
 def test_k6_kernel_matches_plain(dev, gen, H, x_dtype):
     """K6 at the church shapes (N = 128), one channel group at a large
-    offset (mean 40): E[x^2] - mu^2 cancels there."""
-    args = list(_epilogue_args(gen, dev, 2, H, 128, x_dtype))
-    args[2] = args[2].clone()
-    args[2][:4] += 40.0
+    offset: the same bits as the plain version, one launch a call."""
+    args = _offset_group(_epilogue_args(gen, dev, 2, H, 128, x_dtype))
     before = (epilogue_gn_swish_quant_whole.launches, epilogue_gn_swish_quant_blocked.launches)
     got = epilogue_gn_swish_quant(*args)
     assert (epilogue_gn_swish_quant_whole.launches, epilogue_gn_swish_quant_blocked.launches) == (before[0], before[1] + 1)
-    fig = checks.compare("K6", got, epilogue_gn_swish_quant_blocked(*args, plain=True))
-    assert fig["ok"], fig
+    assert torch.equal(got, epilogue_gn_swish_quant_blocked(*args, plain=True))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("H,N,kind", [(64, 256, "K2"), (256, 128, "K6")])
+def test_epilogue_at_church_batch(dev, gen, H, N, kind, x_dtype):
+    """Church's batch of 32 at its largest K2 and K6 shapes (the plans the
+    serving path launches there for bf16): bit-equal to the plain versions."""
+    args = _offset_group(_epilogue_args(gen, dev, 32, H, N, x_dtype))
+    fn = epilogue_gn_swish_quant_whole if kind == "K2" else epilogue_gn_swish_quant_blocked
+    assert torch.equal(fn(*args), fn(*args, plain=True))
+
+
+# (B, HW, N): a 32-window image, a ragged 40 x 40 map (50 windows, the last a part), 2048 windows in three levels
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("B,HW,N", [(3, 1024, 128), (2, 1600, 256), (1, 65536, 128), (2, 64, 1024)])
+def test_k2_every_plan_matches_plain(dev, gen, monkeypatch, B, HW, N, x_dtype):
+    """K2 under every plan `k2_plans` offers at the shape (each cluster size,
+    the slab held and re-read, window and chunk mode), not only the one
+    `epilogue_plan` picks: the same bits as the plain version each time."""
+    args = _offset_group(_epilogue_args(gen, dev, B, int(HW ** 0.5), N, x_dtype))
+    want = epilogue_gn_swish_quant_whole(*args, plain=True)
+    plans = fused_gn.k2_plans(HW, N, 2 if x_dtype == torch.bfloat16 else 4)
+    assert plans
+    for plan in plans:
+        monkeypatch.setattr(fused_gn, "epilogue_plan", lambda *a, plan=plan: plan)
+        assert torch.equal(epilogue_gn_swish_quant_whole(*args), want), plan
+
+
+def test_epilogue_plan_refused_by_the_launcher(dev, gen, monkeypatch):
+    """A plan other than the launcher's own (shared memory off its layout)
+    is refused with an error, not launched."""
+    args = _epilogue_args(gen, dev, 2, 32, 128, torch.bfloat16)
+    plan = dict(fused_gn.epilogue_plan(2, 1024, 128, torch.bfloat16, "K2"))
+    plan["smem"] += 16
+    monkeypatch.setattr(fused_gn, "epilogue_plan", lambda *a: plan)
+    with pytest.raises(RuntimeError):
+        epilogue_gn_swish_quant_whole(*args)
 
 
 def test_k6_raises_off_its_grid(dev):
