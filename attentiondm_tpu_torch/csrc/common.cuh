@@ -20,11 +20,6 @@ static __device__ __forceinline__ int8_t quant_i8(float x, float s, float z, int
   return (int8_t)__float2int_rn(q);
 }
 
-// x * sigmoid(x), sigmoid as 1 / (1 + exp(-x))
-static __device__ __forceinline__ float swishf(float x) {
-  return x * (1.0f / (1.0f + expf(-x)));
-}
-
 static __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 static __device__ __forceinline__ float to_f32(int32_t v) { return __int2float_rn(v); }
 static __device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
@@ -103,10 +98,10 @@ static __device__ __forceinline__ void gn_finalize(float S, float S2, float inv_
 }
 
 // Group sums from the per-channel sums in red[0:N] (S) and red[N:2N] (S2):
-// thread g < G adds its group's channels in sequence.
-static __device__ __forceinline__ void gn_group_sums(const float* red, int N, int G, float* sg,
+// group g < G adds its channels in sequence.
+static __device__ __forceinline__ void gn_group_sums(const float* red, int N, int G, int g, float* sg,
                                                      float* s2g) {
-  const int g = threadIdx.x, cg = N / G;
+  const int cg = N / G;
   float a = 0.f, a2 = 0.f;
   for (int cc = g * cg; cc < (g + 1) * cg; ++cc) {
     a += red[cc];
@@ -145,100 +140,18 @@ __device__ void block_gn_sums(F h_at, int HW, int N, int G, float* smem, float& 
   __syncthreads();
   sg = 0.f;
   s2g = 0.f;
-  if ((int)threadIdx.x < G) gn_group_sums(red, N, G, &sg, &s2g);
+  if ((int)threadIdx.x < G) gn_group_sums(red, N, G, threadIdx.x, &sg, &s2g);
   __syncthreads();
 }
 
-// GroupNorm statistics of one image: block_gn_sums, finalized into
-// mean_g[G] and rstd_g[G].
-template <typename F>
-__device__ void block_gn_stats(F h_at, int HW, int N, int G, float inv_count, float* smem,
-                               float* mean_g, float* rstd_g) {
-  float sg, s2g;
-  block_gn_sums(h_at, HW, N, G, smem, sg, s2g);
-  if ((int)threadIdx.x < G) gn_finalize(sg, s2g, inv_count, &mean_g[threadIdx.x], &rstd_g[threadIdx.x]);
-  __syncthreads();
-}
-
+// The one-block-per-image GroupNorm pass, K7's (epilogue_residual_gn_stats.cu);
+// the other GroupNorm kernels run on gn_epilogue.cuh.
 // Threads of a one-block-per-image GroupNorm kernel over N channels: thread
 // t owns channel t % N, so the block is a multiple of N, the largest up to
 // 1024 threads (N <= 1024).  The pass waits on memory, one scalar load a
 // thread at a time, so the loads in flight count: on the H100, 1024 threads
-// a block nearly halved K2's device time against 512 (PERF.md).
+// a block nearly halved the pass's device time against 512 (PERF.md).
 static inline int gn_threads(int N) { return N >= 1024 ? N : 1024 / N * N; }
-
-// The shared pass GroupNorm -> swish or none -> n_out per-channel int8
-// quantizations of one image, behind K4 (gn_act_quant.cu), the first launch
-// of K3 (int8_attention.cu) and the first and third launches of K12
-// (resblock.cu).  K2 and K6 have their own design (gn_epilogue.cuh).
-struct GnQuantArgs {
-  const float* gn_scale;  // [N]
-  const float* gn_bias;   // [N]
-  const float* scale[3];  // [N] activation quant scale of output i
-  const float* zp[3];     // [N] its zero point
-  int8_t* out[3];         // [B, HW, N], or [B, H + 2, W + 2, N] with a halo
-  int n_levels[3];        // 2^(a_bit - 1)
-  int n_out, swish;
-  int HW, N, G;
-  float inv_count;
-  int halo_w;  // 0: dense rows; W > 0: rows are (y, x) of an H x W image and
-               // land at (y + 1, x + 1) of a halo'd image whose border this
-               // pass fills with each channel's quantized zero
-};
-
-template <bool HALO, typename F>
-__device__ void gn_act_quant_image(F h_at, const GnQuantArgs& a, int b, float* smem, float* mean_g,
-                                   float* rstd_g) {
-  const int N = a.N, HW = a.HW;
-  block_gn_stats(h_at, HW, N, a.G, a.inv_count, smem, mean_g, rstd_g);
-
-  const int c = threadIdx.x % N, r0 = threadIdx.x / N, R = blockDim.x / N;
-  const int grp = c / (N / a.G);
-  const float mu = mean_g[grp], rs = rstd_g[grp], gs = a.gn_scale[c], gb = a.gn_bias[c];
-  const int W = HALO ? a.halo_w : 1, Wp = W + 2, Hp = HW / W + 2;
-  const long long base = HALO ? (long long)b * Hp * Wp * N : (long long)b * HW * N;
-  float s[3], z[3];  // loops over the outputs unroll fully: every index is static
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    if (i < a.n_out) {
-      s[i] = a.scale[i][c];
-      z[i] = a.zp[i][c];
-    }
-  for (int p = r0; p < HW; p += R) {
-    float h = (h_at(p, c) - mu) * rs * gs + gb;
-    if (a.swish) h = swishf(h);
-    const long long o = base + (HALO ? (long long)((p / W + 1) * Wp + p % W + 1) * N : (long long)p * N) + c;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      if (i < a.n_out) a.out[i][o] = quant_i8(h, s[i], z[i], a.n_levels[i]);
-  }
-  if (HALO)  // halo: clip(round(-zp), -n, n - 1), the code that decodes to 0.0
-    for (int q = r0; q < Hp * Wp; q += R) {
-      const int y = q / Wp, x = q - y * Wp;
-      if (y == 0 || y == Hp - 1 || x == 0 || x == Wp - 1) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-          if (i < a.n_out) {
-            const float n = (float)a.n_levels[i];
-            a.out[i][base + (long long)q * N + c] =
-                (int8_t)__float2int_rn(fminf(fmaxf(rintf(-z[i]), -n), n - 1.f));
-          }
-      }
-    }
-}
-
-// GroupNorm -> act -> quant of a float image x [B, HW, N] (K4's kernel).
-// The launch bound is 1024 threads (64 registers a thread) at every width:
-// bounded at 512 threads where N <= 512, the same kernels ran slower on the
-// H100 (PERF.md).
-template <typename Tin, bool HALO>
-__global__ void __launch_bounds__(1024) gn_act_quant_kernel(const Tin* __restrict__ x, GnQuantArgs a) {
-  extern __shared__ float smem[];
-  __shared__ float mean_g[32], rstd_g[32];
-  const long long base = (long long)blockIdx.x * a.HW * a.N;
-  auto h_at = [&](int p, int c) { return to_f32(x[base + (long long)p * a.N + c]); };
-  gn_act_quant_image<HALO>(h_at, a, blockIdx.x, smem, mean_g, rstd_g);
-}
 
 template <typename K, typename... Args>
 static cudaError_t launch_gn_image_kernel(K kernel, int B, int N, cudaStream_t s, Args... args) {
@@ -248,44 +161,6 @@ static cudaError_t launch_gn_image_kernel(K kernel, int B, int N, cudaStream_t s
   if (err != cudaSuccess) return err;
   kernel<<<B, threads, smem, s>>>(args...);
   return cudaGetLastError();
-}
-
-template <typename Tin>
-static cudaError_t launch_gn_act_quant(const Tin* x, const GnQuantArgs& a, int B, cudaStream_t s) {
-  if (a.N > 1024 || a.G > 32 || a.N % a.G != 0 || a.n_out < 1 || a.n_out > 3 ||
-      a.HW > GN_WIN * GN_WIN * GN_CHUNK || (a.halo_w && a.HW % a.halo_w != 0))
-    return cudaErrorInvalidValue;
-  if (a.halo_w) return launch_gn_image_kernel(gn_act_quant_kernel<Tin, true>, B, a.N, s, x, a);
-  return launch_gn_image_kernel(gn_act_quant_kernel<Tin, false>, B, a.N, s, x, a);
-}
-
-// K12's third launch (resblock.cu): h = x * inv_ws + zcbias + temb (x the
-// conv's int32 accumulator, or bf16 / f32 already dequantized), then the
-// shared pass into a halo'd buffer
-template <typename Tin, bool HALO>
-__global__ void __launch_bounds__(1024)
-epi_gn_swish_quant_kernel(const Tin* __restrict__ x, const float* __restrict__ inv_ws,
-                          const float* __restrict__ zcbias, const float* __restrict__ temb,
-                          GnQuantArgs a) {
-  extern __shared__ float smem[];
-  __shared__ float mean_g[32], rstd_g[32];
-  const int b = blockIdx.x, c = threadIdx.x % a.N;
-  const long long base = (long long)b * a.HW * a.N;
-  const float iw = inv_ws[c], zc = zcbias[c], te = temb[(long long)b * a.N + c];
-  auto h_at = [&](int p, int cc) { return to_f32(x[base + (long long)p * a.N + cc]) * iw + zc + te; };
-  gn_act_quant_image<HALO>(h_at, a, b, smem, mean_g, rstd_g);
-}
-
-template <typename Tin>
-static cudaError_t launch_epi_gn_swish_quant(const Tin* x, const float* inv_ws, const float* zcbias,
-                                             const float* temb, const GnQuantArgs& a, int B,
-                                             cudaStream_t s) {
-  if (a.N > 1024 || a.G > 32 || a.N % a.G != 0 || a.n_out != 1 || a.HW > GN_WIN * GN_WIN * GN_CHUNK ||
-      (a.halo_w && a.HW % a.halo_w != 0))
-    return cudaErrorInvalidValue;
-  if (a.halo_w)
-    return launch_gn_image_kernel(epi_gn_swish_quant_kernel<Tin, true>, B, a.N, s, x, inv_ws, zcbias, temb, a);
-  return launch_gn_image_kernel(epi_gn_swish_quant_kernel<Tin, false>, B, a.N, s, x, inv_ws, zcbias, temb, a);
 }
 
 }  // namespace adm

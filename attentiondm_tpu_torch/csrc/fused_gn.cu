@@ -7,7 +7,7 @@
 // epilogue_gn_swish_quant (_epi_gn_quant_kernel), which held whole images
 // in VMEM.  A Hopper block holds 227 KB, and one block per image fills only
 // B of the 132 SMs, so the image is spread over a thread-block cluster
-// (epi_gn_cluster_kernel in gn_epilogue.cuh, launched as
+// (the cluster form of gn_epilogue.cuh, launched as
 // ops/fused_gn.epilogue_plan says):
 //   each block owns whole 32-row windows and sums them per channel, 8
 //   channels a thread with 16-byte loads, in the fixed windowed order of
@@ -41,11 +41,13 @@ extern "C" int adm_epilogue_gn_swish_quant(const void* x, int x_is_int32, const 
   a.temb = static_cast<const float*>(temb);
   a.gn_scale = static_cast<const float*>(gn_scale);
   a.gn_bias = static_cast<const float*>(gn_bias);
-  a.act_scale = static_cast<const float*>(act_scale);
-  a.act_zp = static_cast<const float*>(act_zp);
-  a.out = static_cast<int8_t*>(out);
-  a.B = B; a.HW = HW; a.N = N; a.G = groups; a.n_levels = n_levels; a.wpb = wpb; a.inv_count = inv_count;
+  a.act_scale[0] = static_cast<const float*>(act_scale);
+  a.act_zp[0] = static_cast<const float*>(act_zp);
+  a.out[0] = static_cast<int8_t*>(out);
+  a.n_levels[0] = n_levels;
+  a.B = B; a.HW = HW; a.N = N; a.G = groups; a.swish = 1; a.inv_count = inv_count;
+  const GnPlan p = {0, cluster, wpb, threads, smem, held};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_int32) return (int)launch_k2<int32_t>(a, cluster, threads, smem, held, s);
-  return (int)launch_k2<__nv_bfloat16>(a, cluster, threads, smem, held, s);
+  if (x_is_int32) return (int)launch_gn<int32_t, true, 1, false>(a, p, s);
+  return (int)launch_gn<__nv_bfloat16, true, 1, false>(a, p, s);
 }

@@ -42,12 +42,14 @@ extern "C" int adm_epilogue_gn_swish_quant_blocked(const void* x, int x_is_int32
   a.temb = static_cast<const float*>(temb);
   a.gn_scale = static_cast<const float*>(gn_scale);
   a.gn_bias = static_cast<const float*>(gn_bias);
-  a.act_scale = static_cast<const float*>(act_scale);
-  a.act_zp = static_cast<const float*>(act_zp);
-  a.out = static_cast<int8_t*>(out);
+  a.act_scale[0] = static_cast<const float*>(act_scale);
+  a.act_zp[0] = static_cast<const float*>(act_zp);
+  a.out[0] = static_cast<int8_t*>(out);
+  a.n_levels[0] = n_levels;
+  a.swish = 1;
   a.partial = static_cast<float*>(partial);
   a.flags = static_cast<int*>(flags);
-  a.B = B; a.HW = HW; a.N = N; a.G = groups; a.n_levels = n_levels; a.inv_count = inv_count;
+  a.B = B; a.HW = HW; a.N = N; a.G = groups; a.inv_count = inv_count;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_int32) return (int)launch_k6<int32_t>(a, threads, smem, s);
   return (int)launch_k6<__nv_bfloat16>(a, threads, smem, s);

@@ -6,10 +6,10 @@
 // L = 256) exceed a Hopper block's shared memory, so here the block is a
 // chain of four launches behind one C entry point, in the TPU kernel's
 // order of operations:
-//   1. the K4 pass (common.cuh gn_act_quant_kernel, no activation):
-//      GroupNorm statistics and normalize of the bf16 residual, one block
-//      per image, written as three int8 tensors at the q / k / v input
-//      quant scales;
+//   1. K4's kernel (gn_epilogue.cuh, no activation, three outputs, in the
+//      plan ops/fused_gn.epilogue_plan(..., "K4") gives): GroupNorm
+//      statistics and normalize of the bf16 residual, written as three int8
+//      tensors at the q / k / v input quant scales;
 //   2. the q / k / v 1x1 projections: the int8 GEMM of K1 (igemm.cuh: wgmma
 //      from a TMA-fed ring, weights K-major) with an f32 dequant epilogue;
 //   3. attn_core (below): logits, softmax and p.v for a block of queries,
@@ -51,6 +51,7 @@
 #include <type_traits>
 
 #include "attn_common.cuh"
+#include "gn_epilogue.cuh"
 #include "igemm.cuh"
 
 using namespace adm;
@@ -367,22 +368,24 @@ extern "C" int adm_fused_attention_block(const void* x, const void* gn, const vo
                                          void* q8, void* k8, void* v8, void* qf, void* kf, void* vf,
                                          void* o8, void* amax, void* out, int B, int L, int C, int groups,
                                          float inv_count, float scale, int bm, int cols, int bq, int vk,
-                                         int smem, void* stream) {
+                                         int smem, const int* gn_plan, void* stream) {
   if (!core_plan_ok(L, C, bq, vk, smem) || groups > 32 || C % groups != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GnQuantArgs ga = {};
+  EpiArgs ga = {};
+  ga.x = x;
   ga.gn_scale = static_cast<const float*>(gn);
   ga.gn_bias = ga.gn_scale + C;
   void* q8s[3] = {q8, k8, v8};
   const int ns[3] = {nq, nk, nv};
   for (int i = 0; i < 3; ++i) {
-    ga.scale[i] = static_cast<const float*>(sqkv) + 2 * i * C;
-    ga.zp[i] = ga.scale[i] + C;
+    ga.act_scale[i] = static_cast<const float*>(sqkv) + 2 * i * C;
+    ga.act_zp[i] = ga.act_scale[i] + C;
     ga.out[i] = static_cast<int8_t*>(q8s[i]);
     ga.n_levels[i] = ns[i];
   }
-  ga.n_out = 3; ga.swish = 0; ga.HW = L; ga.N = C; ga.G = groups; ga.inv_count = inv_count; ga.halo_w = 0;
-  cudaError_t err = launch_gn_act_quant(static_cast<const __nv_bfloat16*>(x), ga, B, s);
+  ga.B = B; ga.HW = L; ga.N = C; ga.G = groups; ga.swish = 0; ga.inv_count = inv_count;
+  const GnPlan gp = {gn_plan[0], gn_plan[1], gn_plan[2], gn_plan[3], gn_plan[4], gn_plan[5]};
+  cudaError_t err = launch_gn<__nv_bfloat16, false, 3, false>(ga, gp, s);
   if (err != cudaSuccess) return (int)err;
 
   const float* e = static_cast<const float*>(eqkv);

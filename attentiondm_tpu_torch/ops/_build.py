@@ -39,6 +39,7 @@ VEC6 = ctypes.c_void_p * 6  # an array of six device pointers, read by the launc
 _VEC6 = ctypes.POINTER(ctypes.c_void_p)
 TILE = ctypes.c_int * 4  # a GEMM's M tiling (bm, cols, rows, imgs), read by the launcher on the host
 _TILE = ctypes.POINTER(ctypes.c_int)
+GNPLAN = ctypes.c_int * 6  # a GroupNorm launch plan (ops/fused_gn.plan_args), read by the launcher on the host
 
 # C entry points: name -> argtypes (every launcher returns cudaGetLastError())
 SIGNATURES = {
@@ -53,9 +54,9 @@ SIGNATURES = {
     # x, gn (2,C), sqkv (6,C), n_q, n_k, n_v, wq, wk, wv, eqkv (6,C), sqo (4,C), n_o, wo,
     # scratch q8 k8 v8 qf kf vf o8, amax [B, 2] zeroed (the int8 core) or null (the f32 core), out,
     # B, L, C, groups, inv_count, scale, bm, cols (the projections' M tiling), the core's plan (bq, vk, smem),
-    # stream; the weights K-major
+    # the GroupNorm launch's plan, stream; the weights K-major
     "adm_fused_attention_block": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
-    + [_P] * 9 + [_I] * 4 + [_F, _F] + [_I] * 5 + [_P],
+    + [_P] * 9 + [_I] * 4 + [_F, _F] + [_I] * 5 + [_TILE, _P],
     # K3's core alone: q, k, v (f32), scratch q8, k8, amax (int8 core) or nulls, sqo (2, C), n_levels, out,
     # logits or null, B, L, C, plan (bq, vk, smem), scale, stream
     "adm_attention_core": [_P] * 7 + [_I, _P, _P] + [_I] * 6 + [_F, _P],
@@ -68,14 +69,14 @@ SIGNATURES = {
     # q, k, v, out (f32), B, L, D, block_k, scale, stream
     "adm_flash_attention": [_P] * 4 + [_I] * 4 + [_F, _P],
     # x, x_is_f32, gn_scale, gn_bias, (scale, zp) x3, n_out, n_levels x3, out x3, swish,
-    # B, HW, N, groups, inv_count, stream
-    "adm_gn_act_quant": [_P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 3 + [_I] * 5 + [_F, _P],
+    # B, HW, N, groups, inv_count, plan, stream
+    "adm_gn_act_quant": [_P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 3 + [_I] * 5 + [_F, _TILE, _P],
     # dot, dot_is_int32, inv_ws, zcbias, x_res, res_is_f32, out, out_is_f32, sums, B, HW, N, groups, stream
     "adm_epilogue_residual_gn_stats": [_P, _I, _P, _P, _P, _I, _P, _I, _P] + [_I] * 4 + [_P],
     # r, tproj, v1 (six vector pointers: gn scale, gn bias, act scale, act zp, inv_ws, zcbias), n1, g1,
-    # v2, n2, g2, scratch pad1 acc pad2, out, B, H, W, C, groups, inv_count, tile (bm, cols, rows, imgs), stream;
-    # g1, g2 K-major
-    "adm_resblock": [_P, _P, _VEC6, _I, _P, _VEC6, _I, _P] + [_P] * 4 + [_I] * 5 + [_F, _TILE, _P],
+    # v2, n2, g2, scratch pad1 acc pad2, out, B, H, W, C, groups, inv_count, tile (bm, cols, rows, imgs),
+    # the two GroupNorm launches' plans, stream; g1, g2 K-major
+    "adm_resblock": [_P, _P, _VEC6, _I, _P, _VEC6, _I, _P] + [_P] * 4 + [_I] * 5 + [_F, _TILE, _TILE, _TILE, _P],
 }
 
 

@@ -294,6 +294,60 @@ def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, re
     return plan
 
 
+def gn_refused(cfg, batch: int, **levers) -> list:
+    """(site, HW, C, kernel) of every GroupNorm or resblock kernel call of one
+    serving step at `batch` and the levers given (`lever_plan`'s keywords)
+    whose CUDA kernel would refuse its shape: a resblock epilogue off K2's and
+    K6's plans (or over the whole-image budget and off K6's grid, where JAX
+    runs its XLA reference; kernel "K2/K6"), a K4 entry without a plan
+    (`gn_act_quant_takes`: N above 1024, off the 8-channel grid), a K7 exit
+    off `epilogue_residual_gn_stats_takes` (N above 1024, HW past WIN * WIN *
+    CHUNK), a K12 block off `resblock_pallas_takes`.  On the card
+    `serving_ddim_sampler` raises with them before its first step
+    (`require_gn_kernels`)."""
+    from ..models.unet import iter_conv_layers
+    from ..quant.int8_runtime import _eligible
+    from .pallas_resblock import resblock_pallas_takes
+
+    plan = lever_plan(cfg, batch, **levers)
+    whole = {site for site, _H, _C in plan["K12"]}
+    levels = len(cfg.ch_mult)
+    refused = []
+    for name, cin, k in iter_conv_layers(cfg):  # the conv1 epilogues of the blocks K12 does not take
+        parts = name.split(".")
+        block = name.rsplit(".", 1)[0]
+        if parts[-1] != "conv1" or block in whole or not _eligible((k, k, cin, 0)):
+            continue
+        lvl = levels - 1 if parts[0] == "mid" else int(parts[1])
+        H, N = cfg.resolution >> lvl, cin if parts[0] == "mid" else cfg.ch * cfg.ch_mult[lvl]
+        try:
+            kind = fused_gn.epilogue_route((batch, H, H, N), torch.bfloat16)
+            fused_gn.epilogue_plan(batch, H * H, N, torch.bfloat16, kind)
+        except NotImplementedError:
+            refused.append((block, H * H, N, "K2/K6"))
+    refused += [(site, HW, C, "K4") for site, HW, C in plan["K4"]
+                if not fused_gn.gn_act_quant_takes(batch, HW, C)]
+    refused += [(site, HW, N, "K7") for site, HW, N in plan["K7"]
+                if not fused_gn.epilogue_residual_gn_stats_takes(HW, N)]
+    refused += [(site, H * H, C, "K12") for site, H, C in plan["K12"] if not resblock_pallas_takes(batch, H, H, C)]
+    return refused
+
+
+def require_gn_kernels(cfg, device, batch: int, **levers):
+    """Raise NotImplementedError, naming every site, where a serving step on
+    `device` at `batch` and these levers would reach a GroupNorm or resblock
+    kernel that refuses its shape (`gn_refused`); CPU tensors take the plain
+    versions, which take any shape."""
+    if torch.device(device).type != "cuda":
+        return
+    refused = gn_refused(cfg, batch, **levers)
+    if refused:
+        raise NotImplementedError(
+            "GroupNorm / resblock sites off the CUDA kernels' shapes (N or C a multiple of 8 up to 1024, K6's "
+            "grid past the whole-image budget, HW up to 2^20 rows): "
+            + ", ".join(f"{site} (HW={HW}, C={C}) -> {kind}" for site, HW, C, kind in refused))
+
+
 def expected_launches(cfg, steps: int = 1, batch: int = 1, *, attn_int8=True, attn_ranges=None,
                       **levers) -> dict:
     """Launch counts of `steps` serving steps, per kernel (K13 and K5 are

@@ -5,7 +5,9 @@ GroupNorm -> swish -> int8 quant) and K7 `epilogue_residual_gn_stats` (the
 exit plus the next entry's statistics).
 
 K4 (csrc/gn_act_quant.cu): GroupNorm -> swish or none -> one to three int8
-quantizations of the same normalized tensor, one block per image.  K7
+quantizations of the same normalized tensor, on K2's kernels
+(csrc/gn_epilogue.cuh) with x as the producer, launched as
+`epilogue_plan(..., "K4")` says.  K7
 (csrc/epilogue_residual_gn_stats.cu): residual' = x_res + dequant(dot) and
 the per-(image, group) sums [B, 2, G] of the f32 residual', which
 `gn_finalize_sums` turns into the next GroupNorm's mean and rstd.
@@ -30,6 +32,7 @@ give the same bits (csrc/common.cuh).  Swish is written
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -161,6 +164,15 @@ CLUSTERS = (1, 2, 4, 8, 16)  # 16 is a non-portable cluster size; the H100 takes
 VEC = 8  # channels a thread owns: 16 bytes of bf16, two 16-byte loads of int32
 MAX_THREADS = 512  # the kernels' launch bound (up to 128 registers: 8 channels' constants)
 K6_THREADS = 128  # four K6 blocks an SM: one's apply pass runs beside the others' first reads
+IMAGE_ROWS = (1, 2, 4, 8, 16, 32)  # row groups of threads an image (or slice) the image form may take
+
+
+def max_threads(n_out: int) -> int:
+    """The launch bound of the GroupNorm kernels with `n_out` int8 outputs
+    (csrc/gn_epilogue.cuh GNE_BOUND): 2 or 3 outputs add 16 floats of
+    constants a channel vector, so they are bounded at 256 threads (up to
+    255 registers) instead of 512."""
+    return MAX_THREADS if n_out == 1 else MAX_THREADS // 2
 
 
 def _k2_smem(wpb: int, N: int, itemsize: int, threads: int, held: bool) -> int:
@@ -176,8 +188,9 @@ def _k2_smem(wpb: int, N: int, itemsize: int, threads: int, held: bool) -> int:
 
 
 @functools.lru_cache(maxsize=None)  # the wrappers ask once a call; a plan is a few dozen Python operations
-def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str) -> dict:
-    """How K2 ("K2") or K6 ("K6") spreads one call over the card.
+def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str, n_out: int = 1) -> dict:
+    """How K2 ("K2"), K6 ("K6") or K4's kernel ("K4", with `n_out` int8
+    outputs) spreads one call over the card.
 
     K2: a thread-block cluster of `cluster` blocks per image, each owning
     `wpb` consecutive 32-row windows (`rows` = 32 * wpb rows; the image's last
@@ -196,7 +209,20 @@ def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str) -> dict:
     image); an image's chunks must all be in flight at once, so it takes at
     most `SMS` chunks.
 
+    K4 (also K3's first launch, three outputs, and K12's two GroupNorm
+    launches, on bf16 and on conv1's int32 accumulator): images of at most
+    32 windows take the image form (`image_plans`: one block per image, or
+    per slice of whole groups, no cluster), at least one row group a window
+    where a plan has that many, and of those the one whose threads come
+    nearest a wave (WAVE_THREADS; by ratio, ties to the more threads);
+    larger images take the cluster form, ranked as K2's, bounded at
+    `max_threads(n_out)`.  On the H100 the image form beat the cluster form
+    at every K4 shape of up to 1024 rows, and this rule came within 8% of the
+    best plan at each (`tools/gn_shapes.py --plans`, PERF.md).
+
     Raises NotImplementedError for a shape the kernels do not take."""
+    if kind == "K4":
+        return _k4_plan(B, HW, N, dtype, n_out)
     if dtype not in (torch.bfloat16, torch.int32):
         raise NotImplementedError(f"epilogue_plan: {dtype} (K2 and K6 take bf16 or int32)")
     itemsize = 2 if dtype == torch.bfloat16 else 4
@@ -220,19 +246,99 @@ def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str) -> dict:
         raise NotImplementedError(f"epilogue_plan: K2 at HW={HW}, N={N} (at most {WIN * WIN * CHUNK} rows, "
                                   f"and what a block's shared memory holds)")
 
-    def rank(p):  # a wave of threads, then the fewest blocks (else the most), then a held slab up to HOLD_MAX
-        wave = B * p["cluster"] * p["threads"] >= WAVE_THREADS
-        held = p["held"] and p["wpb"] * WIN * N * itemsize <= HOLD_MAX
-        return (not wave, p["cluster"] if wave else -p["cluster"], not held, p["held"])
-
-    return min(plans, key=rank)
+    return min(plans, key=lambda p: _cluster_rank(p, B, N, itemsize))
 
 
-def k2_plans(HW: int, N: int, itemsize: int) -> list:
-    """Every K2 launch plan for an image of HW rows and N channels of
-    `itemsize` bytes that the kernel takes: per cluster size, a block's
-    windows and threads, with the slab held in shared memory and without
-    (where each fits)."""
+def _cluster_rank(p, B: int, N: int, itemsize: int):
+    """A wave of threads, then the fewest blocks (else the most), then a held slab up to HOLD_MAX."""
+    wave = B * p["cluster"] * p["threads"] >= WAVE_THREADS
+    held = p["held"] and p["wpb"] * WIN * N * itemsize <= HOLD_MAX
+    return (not wave, p["cluster"] if wave else -p["cluster"], not held, p["held"])
+
+
+_ITEMSIZE = {torch.bfloat16: 2, torch.float32: 4, torch.int32: 4}
+
+
+def _k4_plan(B: int, HW: int, N: int, dtype, n_out: int) -> dict:
+    if dtype not in _ITEMSIZE or not 1 <= n_out <= 3:
+        raise NotImplementedError(f"epilogue_plan: K4 with {dtype} and {n_out} outputs (bf16, f32 or int32 in, "
+                                  f"1 to 3 outputs)")
+    g = min(GROUPS, N)
+    if N % VEC or N % g or N > 1024 or HW < 1 or HW > WIN * WIN * CHUNK:
+        raise NotImplementedError(f"epilogue_plan: K4 at HW={HW}, N={N} (N a multiple of {VEC} and of its groups, "
+                                  f"up to 1024; HW up to {WIN * WIN * CHUNK})")
+    itemsize = _ITEMSIZE[dtype]
+    image = image_plans(B, HW, N, n_out)
+    if image:  # a row group for each window where the block allows it, then the nearest a wave
+        V, nwin = N // VEC, -(-HW // WIN)
+        image = [p for p in image if p["row_groups"] >= nwin] or image
+        return min(image, key=lambda p: (abs(math.log2(B * V * p["row_groups"] / WAVE_THREADS)), -p["row_groups"]))
+    plans = k2_plans(HW, N, itemsize, max_threads(n_out), kind="K4")
+    if not plans:
+        raise NotImplementedError(f"epilogue_plan: K4 at HW={HW}, N={N} (what a block's shared memory holds)")
+    return min(plans, key=lambda p: _cluster_rank(p, B, N, itemsize))
+
+
+def _image_smem(nwin: int, Ns: int) -> int:
+    """csrc/gn_epilogue.cuh image_smem: the window sums [nwin, 2, Ns],
+    channel sums [2, Ns] and mean / rstd [2, 32] of a block's slice."""
+    return 4 * ((nwin + 1) * 2 * Ns + 2 * WIN)
+
+
+def image_plans(B: int, HW: int, N: int, n_out: int = 1) -> list:
+    """Every image-form plan of K4's kernel for B images of HW rows (at most
+    32 windows) and N channels: per number of row groups R (IMAGE_ROWS, at
+    most HW), the fewest channel slices of whole groups (`slices`, a power of
+    two) whose R x (N / slices / 8) threads fit `max_threads(n_out)`; a
+    block a slice.  A block sums its windows (row group r taking windows r,
+    r + R, ...), adds them in order, and applies its rows."""
+    g = min(GROUPS, N)
+    nwin = -(-HW // WIN)
+    if N % VEC or N % g or N > 1024 or HW < 1 or nwin > WIN:
+        return []
+    cg, mt = N // g, max_threads(n_out)
+    plans = []
+    for R in IMAGE_ROWS:
+        if R > HW:
+            break
+        ns = 1
+        while (N // ns) // VEC * R > mt and N % (2 * ns) == 0 and (N // (2 * ns)) % VEC == 0 \
+                and (N // (2 * ns)) % cg == 0:
+            ns *= 2
+        T = (N // ns) // VEC * R
+        if T > mt:
+            continue
+        smem = _image_smem(nwin, N // ns)
+        if smem <= SMEM_MAX:
+            plans.append(dict(kind="K4", form="image", slices=ns, row_groups=R, threads=T, smem=smem))
+    return plans
+
+
+def k4_plans(B: int, HW: int, N: int, itemsize: int, n_out: int = 1) -> list:
+    """Every plan K4's kernel takes for this shape: the image form's and the
+    cluster form's (`k2_plans` at `max_threads(n_out)`)."""
+    return image_plans(B, HW, N, n_out) + k2_plans(HW, N, itemsize, max_threads(n_out), kind="K4")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(vals: tuple):
+    return _build.GNPLAN(*vals)
+
+
+def plan_args(plan: dict):
+    """The six ints a GroupNorm launcher reads (csrc/gn_epilogue.cuh GnPlan):
+    form, blocks an image or channel slices, windows a block (0 in the image
+    form), threads, shared bytes, held."""
+    if plan["form"] == "image":
+        return _plan_ints((1, plan["slices"], 0, plan["threads"], plan["smem"], 0))
+    return _plan_ints((0, plan["cluster"], plan["wpb"], plan["threads"], plan["smem"], int(plan["held"])))
+
+
+def k2_plans(HW: int, N: int, itemsize: int, max_thr: int = MAX_THREADS, kind: str = "K2") -> list:
+    """Every cluster-form launch plan for an image of HW rows and N
+    channels of `itemsize` bytes that the kernel takes: per cluster size, a
+    block's windows and threads (at most `max_thr`), with the slab held in
+    shared memory and without (where each fits)."""
     if HW > WIN * WIN * CHUNK or N % VEC or N > 1024:
         return []
     V = N // VEC
@@ -246,14 +352,16 @@ def k2_plans(HW: int, N: int, itemsize: int) -> list:
         if any(p["cluster"] == cl for p in plans):
             continue
         if wpb >= WIN:
-            threads = min(WIN, MAX_THREADS // V) * V
+            threads = min(WIN, max_thr // V) * V
         else:
-            threads = max(V, min(MAX_THREADS, max(256, V * wpb)) // V * V)
+            threads = max(V, min(max_thr, max(256, V * wpb)) // V * V)
+        if threads > max_thr:
+            continue
         for held in ((True, False) if wpb < WIN else (False,)):
             smem = _k2_smem(wpb, N, itemsize, threads, held)
             if smem <= SMEM_MAX:
-                plans.append(dict(kind="K2", cluster=cl, wpb=wpb, rows=wpb * WIN, threads=threads, smem=smem,
-                                  held=held))
+                plans.append(dict(kind=kind, form="cluster", cluster=cl, wpb=wpb, rows=wpb * WIN, threads=threads,
+                                  smem=smem, held=held))
     return plans
 
 
@@ -357,12 +465,26 @@ def gn_act_quant_ref(x, gn_scale, gn_bias, quant_params, *, act: str = "swish"):
     return tuple(quant_i8(h, s, z, b).reshape(x.shape) for (s, z, b) in quant_params)
 
 
+def gn_act_quant_takes(B: int, HW: int, C: int, dtype=torch.bfloat16, n_out: int = 1) -> bool:
+    """Whether K4's CUDA kernel takes a [B, HW, C] input of `dtype` with
+    `n_out` outputs: bf16 or f32, and a launch plan (`epilogue_plan(...,
+    "K4")`: C a multiple of 8 and of its groups, up to 1024)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        return False
+    try:
+        epilogue_plan(B, HW, C, dtype, "K4", n_out)
+    except NotImplementedError:
+        return False
+    return True
+
+
 def gn_act_quant(x, gn_scale, gn_bias, quant_params, *, groups: int = GROUPS, act: str = "swish",
                  plain: bool = False):
     """K4: x [B, H, W, C] or [B, HW, C] (bf16 or f32) -> a tuple of int8
     tensors of x's shape, one per (act_scale [C], act_zp [C], a_bit) of
     `quant_params` (1 to 3), each the quantized GroupNorm(x) after `act`
-    ("swish" or "none").  `plain=True` runs the plain version on any device."""
+    ("swish" or "none").  Launched as `epilogue_plan(..., "K4", n_out)`
+    says.  `plain=True` runs the plain version on any device."""
     if act not in ("swish", "none"):
         raise ValueError(f"gn_act_quant: act={act!r}")
     if groups != GROUPS:
@@ -373,11 +495,10 @@ def gn_act_quant(x, gn_scale, gn_bias, quant_params, *, groups: int = GROUPS, ac
     HW = x.numel() // (B * C)
     g = min(GROUPS, C)
     n_out = len(quant_params)
-    if (x.dtype not in (torch.bfloat16, torch.float32) or C % g or C > 1024 or not 1 <= n_out <= 3
-            or HW > WIN * WIN * CHUNK):
-        raise NotImplementedError(
-            f"gn_act_quant: {x.dtype}, C={C}, HW={HW}, {n_out} outputs (K4 takes bf16 or f32, C up to "
-            f"1024, HW <= {WIN * WIN * CHUNK}, 1 to 3 outputs)")
+    if x.dtype not in (torch.bfloat16, torch.float32) or not 1 <= n_out <= 3:
+        raise NotImplementedError(f"gn_act_quant: {x.dtype}, {n_out} outputs (K4 takes bf16 or f32, 1 to 3 "
+                                  f"outputs)")
+    plan = epilogue_plan(B, HW, C, x.dtype, "K4", n_out)
     x = x.contiguous()
     vecs = [_build.f32c(v, x.device) for v in (gn_scale, gn_bias)]
     vecs += [_build.f32c(v, x.device) for (s, z, _b) in quant_params for v in (s, z)]
@@ -389,7 +510,7 @@ def gn_act_quant(x, gn_scale, gn_bias, quant_params, *, groups: int = GROUPS, ac
     err = _build.kernels().adm_gn_act_quant(
         x.data_ptr(), int(x.dtype == torch.float32), *(v.data_ptr() for v in vecs), *pad, *pad, n_out,
         *(2 ** (b - 1) for (_s, _z, b) in quant_params), *pad, *(o.data_ptr() for o in outs), *pad,
-        int(act == "swish"), B, HW, C, g, 1.0 / (HW * (C // g)), _build.stream_ptr(x.device))
+        int(act == "swish"), B, HW, C, g, 1.0 / (HW * (C // g)), plan_args(plan), _build.stream_ptr(x.device))
     _build.check(err, "adm_gn_act_quant")
     gn_act_quant.launches += 1
     return tuple(outs)
@@ -407,6 +528,13 @@ def epilogue_residual_gn_stats_fits(HW: int, N: int, res_b: int = 4, out_b: int 
     """JAX's predicate for the fused exit (whole image in the TPU kernel's
     4 MiB block, N on the 128 grid, HW on the 8 grid)."""
     return HW * N * (4 + res_b + out_b + 4) <= WHOLE_IMAGE_BYTES and N % 128 == 0 and HW % 8 == 0
+
+
+def epilogue_residual_gn_stats_takes(HW: int, N: int) -> bool:
+    """Whether K7's CUDA kernel takes an image of HW rows and N channels (one
+    block an image, a channel a thread: N up to 1024, a multiple of its
+    groups, HW up to WIN * WIN * CHUNK rows)."""
+    return N <= 1024 and N % min(GROUPS, N) == 0 and HW <= WIN * WIN * CHUNK
 
 
 def gn_finalize_sums(sums, HW: int, cg: int):
@@ -441,7 +569,7 @@ def epilogue_residual_gn_stats(dot, inv_ws, zcbias, x_res, *, out_dtype=torch.fl
     g = min(GROUPS, N)
     if (dot.dtype not in (torch.bfloat16, torch.int32) or x_res.dtype not in (torch.float32, torch.bfloat16)
             or out_dtype not in (torch.float32, torch.bfloat16) or x_res.shape != dot.shape
-            or N % g or N > 1024 or HW > WIN * WIN * CHUNK):
+            or not epilogue_residual_gn_stats_takes(HW, N)):
         raise NotImplementedError(
             f"epilogue_residual_gn_stats: dot {dot.dtype} {tuple(dot.shape)}, x_res {x_res.dtype} "
             f"{tuple(x_res.shape)}, out {out_dtype} (K7 takes bf16 or int32 dot, f32 or bf16 x_res and out of "

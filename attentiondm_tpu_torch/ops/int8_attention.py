@@ -52,7 +52,7 @@ import torch
 
 from . import _build
 from .attention import NEG_INF
-from .fused_gn import GROUPS, gn_normalize, quant_i8
+from .fused_gn import GROUPS, epilogue_plan, gn_normalize, plan_args, quant_i8
 from .pallas_conv import conv_tiles, k_major
 from .precision import exact_f32
 from .quant_conv import int8_matmul_ref
@@ -446,7 +446,8 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
         2 ** (bo - 1), wo.data_ptr(),
         *(t.data_ptr() for t in scratch8[:3]), *(t.data_ptr() for t in scratchf), scratch8[3].data_ptr(),
         None if amax is None else amax.data_ptr(), out.data_ptr(), B, L, C, g, 1.0 / (L * (C // g)), float(scale),
-        tiles.BM, tiles.cols, plan.bq, plan.vk, plan.smem, _build.stream_ptr(x.device))
+        tiles.BM, tiles.cols, plan.bq, plan.vk, plan.smem,
+        plan_args(epilogue_plan(B, L, C, torch.bfloat16, "K4", 3)), _build.stream_ptr(x.device))
     _build.check(err, "adm_fused_attention_block")
     fused_attention_block.launches += 1
     fused_attention_block.int8_core_launches += bool(int8_core)

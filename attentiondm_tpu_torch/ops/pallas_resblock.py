@@ -7,11 +7,13 @@
 On the TPU one program held a batch block's whole working set in VMEM.  One
 32 x 32 x 128 image is 256 KB in bf16 alone, over a Hopper block's shared
 memory, so the CUDA version (csrc/resblock.cu) is a chain of four launches
-behind this one wrapper, counted as one launch: the K4 pass into a halo'd
+behind this one wrapper, counted as one launch: K4's kernel into a halo'd
 int8 buffer, K1's implicit GEMM (wgmma, reading the folds K-major) to int32,
-the K2 pass on that accumulator (float32 between conv1 and GroupNorm 2, as
-the TPU kernel) into a second halo'd buffer, and the GEMM with a dequant +
-residual-add epilogue.  The
+the same GroupNorm kernel with K2's producer on that accumulator (float32
+between conv1 and GroupNorm 2, as the TPU kernel) into a second halo'd
+buffer, and the GEMM with a dequant + residual-add epilogue.  The two
+GroupNorm launches take `epilogue_plan(..., "K4")`'s plans for bf16 and
+int32 input, and write the halos' borders themselves.  The
 plain version composes the plain versions of the same stages, so its
 float32 sums run in the same order and the two agree to the bit.
 
@@ -24,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fused_gn import GROUPS, epilogue_gn_swish_quant_ref, gn_act_quant_ref
+from .fused_gn import GROUPS, epilogue_gn_swish_quant_ref, epilogue_plan, gn_act_quant_ref, plan_args
 from .pallas_conv import conv_tiles, int8_conv_ref, k_major, pad_qzero
 
 VMEM_BUDGET = 10 << 20  # the TPU kernel's plan
@@ -50,6 +52,19 @@ def resblock_pallas_fits(B: int, H: int, W: int, C: int) -> bool:
     bt = _block_bt(B, H, W, C)
     per = H * W * C * (2 + 4 + 1) + 2 * (H + 2) * (W + 2) * C + H * W * C * 4
     return bt >= 1 and 2 * 9 * C * C + bt * per <= VMEM_BUDGET
+
+
+def resblock_pallas_takes(B: int, H: int, W: int, C: int) -> bool:
+    """Whether K12's CUDA chain takes a [B, H, W, C] block: C a multiple of
+    128 up to 1024, and launch plans for both GroupNorm launches."""
+    if C % 128 or C > 1024:
+        return False
+    try:
+        for dtype in (torch.bfloat16, torch.int32):
+            epilogue_plan(B, H * W, C, dtype, "K4")
+    except NotImplementedError:
+        return False
+    return True
 
 
 def resblock_pallas_ref(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, gn2_bias, q2, g2_flat,
@@ -81,7 +96,7 @@ def resblock_pallas(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, 
     if plain or r.device.type == "cpu":
         return resblock_pallas_ref(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, gn2_bias, q2,
                                    g2_flat, sb2, a_bit1=a_bit1, a_bit2=a_bit2, out_dtype=out_dtype)
-    if (r.dtype != torch.bfloat16 or out_dtype != torch.bfloat16 or C % 128 or C > 1024
+    if (r.dtype != torch.bfloat16 or out_dtype != torch.bfloat16 or not resblock_pallas_takes(B, H, W, C)
             or g1_flat.dtype != torch.int8 or g2_flat.dtype != torch.int8):
         raise NotImplementedError(
             f"resblock_pallas on CUDA: bf16 residual in and out, int8 folds, C a multiple of 128 up to 1024; "
@@ -101,11 +116,12 @@ def resblock_pallas(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, 
     out = torch.empty_like(r)
     g = min(GROUPS, C)
     t = conv_tiles(B, H, W, 3, 1, C)
+    plan1, plan3 = (plan_args(epilogue_plan(B, H * W, C, dtype, "K4")) for dtype in (torch.bfloat16, torch.int32))
     err = _build.kernels().adm_resblock(
         r.data_ptr(), tproj.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half1)), 2 ** (a_bit1 - 1),
         g1_t.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half2)), 2 ** (a_bit2 - 1), g2_t.data_ptr(),
         pad1.data_ptr(), acc.data_ptr(), pad2.data_ptr(), out.data_ptr(),
-        B, H, W, C, g, 1.0 / (H * W * (C // g)), _build.TILE(t.BM, t.cols, t.rows, t.imgs),
+        B, H, W, C, g, 1.0 / (H * W * (C // g)), _build.TILE(t.BM, t.cols, t.rows, t.imgs), plan1, plan3,
         _build.stream_ptr(r.device))
     _build.check(err, "adm_resblock")
     resblock_pallas.launches += 1

@@ -64,7 +64,7 @@ from ..ops.fused_gn import (
     quant_i8 as _quant_i8,
 )
 from ..ops.attention import spatial_attention
-from ..ops.checks import require_attention_kernels
+from ..ops.checks import require_attention_kernels, require_gn_kernels
 from ..ops.int8_attention import (
     fused_attention_block,
     fused_attention_block_fits,
@@ -129,14 +129,19 @@ def _require(**flags):
 class ServingLayer:
     """Per-step folded weights + epilogue constants for one conv.
 
-    gq        [S, kh*kw*Cp, Np] int8   scale-folded quantized weights
-    gqt       [S, Np, kh*kw*Cp] int8   the same K-major: what the kernels' GEMMs
-                                       read (made at fold time; `gq` stays the
-                                       layout of JAX's fold and the plain versions)
+    gqt       [S, Np, kh*kw*Cp] int8   scale-folded quantized weights, K-major:
+                                       what the kernels' GEMMs read, the one
+                                       copy of the fold held
+    gq        [S, kh*kw*Cp, Np] int8   the layout of JAX's fold, which the plain
+                                       versions read: a view of `gqt`
+                                       (`gqt.transpose(-1, -2)`), never a copy
     inv_ws    [S, Np]                  1 / per-out-channel weight scale
     zcbias    [S, Np]                  zero-point correction + conv bias
     act_scale [S, C]                   input activation quant scale
     act_zp    [S, C]                   input activation zero point
+
+    Made from `gq` (transposed once into `gqt`, and `gq` dropped for the
+    view) or from `gqt` alone (`gq=None`).
     """
 
     gq: torch.Tensor
@@ -149,6 +154,7 @@ class ServingLayer:
     def __post_init__(self):
         if self.gqt is None:
             self.gqt = k_major(self.gq)
+        self.gq = self.gqt.transpose(-1, -2)
 
 
 def prepare_serving_runtime(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState],
@@ -174,16 +180,22 @@ def prepare_serving_runtime(qunet: QuantizedUNet, params, qstates: Dict[str, Act
 
 
 def gather_step(runtime: Dict[str, ServingLayer], step_idx: int) -> Dict[str, ServingLayer]:
-    """One sampler step's runtime (views)."""
+    """One sampler step's runtime (views; `gq` a view of the step's `gqt`)."""
     return {
-        k: ServingLayer(*(a[step_idx] for a in (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp, v.gqt)))
+        k: ServingLayer(None, *(a[step_idx] for a in (v.inv_ws, v.zcbias, v.act_scale, v.act_zp)),
+                        gqt=v.gqt[step_idx])
         for k, v in runtime.items()
     }
 
 
 def runtime_nbytes(runtime: Dict[str, ServingLayer]) -> int:
-    return sum(a.numel() * a.element_size() for v in runtime.values()
-               for a in (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp, v.gqt))
+    """Device bytes of a runtime, each storage counted once (`gq` is a view of `gqt`)."""
+    storages = {}
+    for v in runtime.values():
+        for a in (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp, v.gqt):
+            st = a.untyped_storage()
+            storages[(st.device, st.data_ptr())] = st.nbytes()
+    return sum(storages.values())
 
 
 # ---------------------------------------------------------------------------
@@ -554,6 +566,8 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
                                           weight_extras=weight_extras, pack_int4=pack_int4, rank1=rank1)
 
     def sample(x):
+        require_gn_kernels(qunet.cfg, x.device, x.shape[0], entry_pallas=entry_pallas,
+                           boundary_fusion=boundary_fusion, resblock_pallas=resblock_pallas)
         require_attention_kernels(qunet.cfg, x.device, attn_int8=attn_int8, attn_ranges=attn_ranges)
         n = x.shape[0]
         for i in range(t_rev.shape[0]):

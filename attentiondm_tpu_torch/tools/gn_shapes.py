@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""Device time of K2 and K6 (`ops.fused_gn.epilogue_gn_swish_quant`) at every
-resblock epilogue shape of the CIFAR-10 (batch 128), LSUN church (32) and
-celeba-wide (64) serving steps.
+"""Device time of the GroupNorm kernels at every shape of the CIFAR-10 (batch
+128), LSUN church (32) and celeba-wide (64) serving steps: K2 and K6
+(`ops.fused_gn.epilogue_gn_swish_quant`) at every resblock epilogue, and on
+CIFAR-10 and church with the three levers K4 (`gn_act_quant`) at every entry,
+K12 (`resblock_pallas`) at every whole block, and K3
+(`fused_attention_block`, whose first launch is K4's kernel) at every
+attention block.
 
-    python3 attentiondm_tpu_torch/tools/gn_shapes.py [--out FILE.json] [--plans]
+    python3 attentiondm_tpu_torch/tools/gn_shapes.py [--out FILE.json] [--plans] [--only K2,K4,...]
 
 The port is imported from the current directory, not from beside this file,
 so one script measures two trees on the same card, one after the other (run
 it from the root of each; it needs `epilogue_gn_swish_quant(..., plain=)`,
-`ops.checks.conv_plan` and `chip_smoke.device_ms`, and prints the launch
-plan where the tree has `ops.fused_gn.epilogue_plan`).  Per shape, on bf16
-conv1 output as the serving path gives it: the call's device time
-(`chip_smoke.device_ms`: CUDA events around 20 calls queued behind a busy
-card), whether the output equals the plain version's, and the least time
-the card could take (bytes, each input read once and the int8 output
-written once, over 3.35 TB/s, or 18 f32 operations an element over 67
-TFLOP/s) with the share of it the call reaches.  Prints one line a shape,
-the per-step sums, and the card's name and power limit.  `--plans` also
-times, at every shape, each K2 plan `ops.fused_gn.k2_plans` offers and K6 at
-128, 256 and 512 threads a block (the plan `epilogue_plan` picks is marked
-`*`), each checked against the plain version.
+`gn_act_quant`, `resblock_pallas`, `fused_attention_block`,
+`ops.checks.conv_plan` / `lever_plan` and `chip_smoke.device_ms`, and prints
+the launch plan where the tree has `ops.fused_gn.epilogue_plan` for the
+kind).  Per shape, on inputs as the serving path gives them: the call's
+device time (`chip_smoke.device_ms`: CUDA events around 20 calls queued
+behind a busy card), whether the output equals the plain version's, and
+the least time the card could take (bytes, each input read once and each
+output written once, over 3.35 TB/s, or the operations over their peak; K12
+also counts its two int8 GEMMs, K3 its four and its f32 core) with the share
+of it the call reaches.  Prints one line a shape, the per-step sums, and the
+card's name and power limit.  `--plans` also times, at every shape, each K2
+plan `ops.fused_gn.k2_plans` offers, K6 at 128, 256 and 512 threads a block,
+and each K4 plan `ops.fused_gn.k4_plans` offers (the plan `epilogue_plan`
+picks is marked `*`), each checked against the plain version.
 """
 import argparse
 import collections
@@ -83,29 +89,161 @@ def sweep(kind, B, HW, N, a, chosen):
         fused_gn.epilogue_plan = plan_of
 
 
+def entry_args(B, HW, C, gen, dev, n_out=1):
+    """A bf16 residual (one channel group at offset 40) and n_out 8-bit quantizations, as chip_smoke's K4 check."""
+    def randf(shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+
+    x = randf((B, HW, C), 2.0, 0.3)
+    x[..., :C // 32] += 40.0
+    sc = 255 / 4.5
+    qp = [(torch.full((C,), sc, device=dev), torch.full((C,), round(sc * -0.5) + 128.0, device=dev), 8)] * n_out
+    return (x.to(torch.bfloat16), randf((C,), 0.1, 1.0), randf((C,), 0.1), qp)
+
+
+def resblock_args(B, H, C, gen, dev):
+    def randf(shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+
+    def quant(lo, hi):
+        sc = 255 / (hi - lo)
+        return torch.full((C,), sc, device=dev), torch.full((C,), round(sc * lo) + 128.0, device=dev)
+
+    def fold():
+        g = torch.randint(-8, 8, (9 * C, C), generator=gen, dtype=torch.int8).to(dev)
+        return g, (randf((C,), 2e-5, 2e-4).abs(), randf((C,), 0.1))
+
+    (g1, sb1), (g2, sb2) = fold(), fold()
+    args = (randf((B, H, H, C), 1.5, 0.2).to(torch.bfloat16), randf((B, C)), randf((C,), 0.1, 1.0),
+            randf((C,), 0.1), quant(-0.5, 4.0), g1, sb1, randf((C,), 0.1, 1.0), randf((C,), 0.1),
+            quant(-0.5, 3.0), g2, sb2)
+    return args, dict(g1_t=g1.t().contiguous(), g2_t=g2.t().contiguous())
+
+
+def attention_args(B, L, C, gen, dev):
+    def randf(shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+
+    def weights(lo, hi):
+        g = torch.randint(-8, 8, (C, C), generator=gen, dtype=torch.int8).to(dev)
+        return g, randf((C,), lo, hi).abs(), randf((C,), 0.1), g.t().contiguous()
+
+    qkv_quant = [(torch.full((C,), 255 / 8.0, device=dev), torch.zeros(C, device=dev), b) for b in (8, 6, 8)]
+    o_quant = (torch.full((C,), 255 / 4.0, device=dev), torch.zeros(C, device=dev), 8)
+    return (randf((B, L, C)).to(torch.bfloat16), randf((C,), 0.1, 1.0), randf((C,), 0.1), qkv_quant,
+            [weights(1e-5, 2e-4) for _ in range(3)], o_quant, weights(1e-5, 1e-3))
+
+
+def plan_of(B, HW, N, dtype, kind, n_out=1):
+    """The tree's launch plan, where it has one for the kind (None on a tree without)."""
+    try:
+        return fused_gn.epilogue_plan(B, HW, N, dtype, kind, *([n_out] if n_out != 1 else []))
+    except (AttributeError, TypeError, ValueError, NotImplementedError):
+        return None
+
+
+def sweep_k4(B, HW, C, a, chosen):
+    """Device time of K4 under each plan `k4_plans` offers at the shape."""
+    want = fused_gn.gn_act_quant(*a, plain=True)
+    plan_of_ = fused_gn.epilogue_plan
+    try:
+        for plan in fused_gn.k4_plans(B, HW, C, 2, 1):
+            fused_gn.epilogue_plan = lambda *_, plan=plan: plan
+            equal = all(torch.equal(g, w) for g, w in zip(fused_gn.gn_act_quant(*a), want))
+            ms = chip_smoke.device_ms(lambda: fused_gn.gn_act_quant(*a))
+            print(f"  {'*' if plan == chosen else ' '} K4 B={B} HW={HW} C={C} "
+                  + " ".join(f"{k}={v}" for k, v in plan.items() if k != "kind")
+                  + f": device {ms * 1e3:.1f} us, equal: {equal}")
+    finally:
+        fused_gn.epilogue_plan = plan_of_
+
+
+def lever_rows(path, cfg, B, gen, dev, args, rows, only):
+    """K4, K12 and K3 at every shape of a serving step with the three levers."""
+    from attentiondm_tpu_torch.ops.int8_attention import fused_attention_block
+    from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
+
+    plan = checks.lever_plan(cfg, B, entry_pallas=True, boundary_fusion=True, resblock_pallas="all")
+    totals = collections.defaultdict(lambda: [0.0, 0.0])
+
+    def row(kind, shape, n, ms, b, equal, plan):
+        totals[kind][0] += n * ms
+        totals[kind][1] += n * b
+        rows.append(dict(path=path, kind=kind, B=B, shape=shape, per_step=n, device_ms=ms, bound_ms=b, share=b / ms,
+                         equal=equal, plan=plan))
+        print(f"{path} {kind} B={B} {shape} x{n}/step: device {ms:.4f} ms, bound {b:.4f} ms ({b / ms:.1%}), equal to "
+              f"the plain version: {equal}" + (f"; plan {plan}" if plan else ""))
+
+    if "K4" in only:
+        for (HW, C), n in sorted(collections.Counter((HW, C) for _s, HW, C in plan["K4"]).items()):
+            a = entry_args(B, HW, C, gen, dev)
+            got = fused_gn.gn_act_quant(*a)
+            equal = all(torch.equal(g, w) for g, w in zip(got, fused_gn.gn_act_quant(*a, plain=True)))
+            ms = chip_smoke.device_ms(lambda: fused_gn.gn_act_quant(*a))
+            b = max(chip_smoke.bound(chip_smoke.nbytes(a[0]) + a[0].numel() + 4 * 4 * C,
+                                     f32_flops=16 * a[0].numel()))
+            chosen = plan_of(B, HW, C, torch.bfloat16, "K4")
+            row("K4", f"HW={HW} C={C}", n, ms, b, equal, chosen)
+            if args.plans and hasattr(fused_gn, "k4_plans"):
+                sweep_k4(B, HW, C, a, chosen)
+            del a, got
+    if "K12" in only:
+        for (H, C), n in sorted(collections.Counter((H, C) for _s, H, C in plan["K12"]).items()):
+            a, kt = resblock_args(B, H, C, gen, dev)
+            equal = torch.equal(resblock_pallas(*a, **kt), resblock_pallas(*a, plain=True))
+            ms = chip_smoke.device_ms(lambda: resblock_pallas(*a, **kt))
+            r = a[0]
+            b = max(chip_smoke.bound(2 * chip_smoke.nbytes(r) + chip_smoke.nbytes(a[5], a[10]) + 4 * B * C + 48 * C,
+                                     int8_ops=2 * 2 * r.numel() * 9 * C, f32_flops=(16 + 18 + 3) * r.numel()))
+            plans = [plan_of(B, H * H, C, dt, "K4") for dt in (torch.bfloat16, torch.int32)]
+            row("K12", f"H={H} C={C}", n, ms, b, equal, plans if plans[0] else None)
+            del a, kt
+    if "K3" in only:
+        _k1, _k2, _k6, k3, _c = checks.conv_plan(cfg)
+        for (L, C), n in sorted(collections.Counter(k3).items()):
+            a = attention_args(B, L, C, gen, dev)
+            for core in (False, True):
+                fn = lambda: fused_attention_block(*a, scale=C ** -0.5, int8_core=core)  # noqa: E731
+                got = fn()
+                want = fused_attention_block(*a, scale=C ** -0.5, int8_core=core, plain=True)
+                ok = checks.compare("K3", got, want)["ok"]
+                ms = chip_smoke.device_ms(fn)
+                b = max(chip_smoke.bound(2 * chip_smoke.nbytes(a[0]) + 4 * C * C + 16 * 4 * C,
+                                         int8_ops=4 * 2 * B * L * C * C + (2 * B * L * L * C if core else 0),
+                                         tf32x3_flops=(1 if core else 2) * 2 * B * L * L * C,
+                                         f32_flops=30 * a[0].numel() + 5 * B * L * L))
+                row("K3.int8_core" if core else "K3", f"L={L} C={C}", n, ms, b, f"within tolerance: {ok}",
+                    plan_of(B, L, C, torch.bfloat16, "K4", 3))
+            del a
+    return totals
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the rows to this JSON file")
     ap.add_argument("--plans", action="store_true", help="also time every launch plan at each shape")
+    ap.add_argument("--only", default="K2,K6,K4,K12,K3", help="the kernels to time (comma-separated)")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("gn_shapes: no CUDA device")
     card = chip_smoke.nvidia_smi_line()
     dev, gen = torch.device("cuda", 0), torch.Generator().manual_seed(0)
-    plan_of = getattr(fused_gn, "epilogue_plan", None)
     rows = []
     for path, cfg in configs().items():
         B = BATCH[path]
         _k1, k2, k6, _k3, _c = checks.conv_plan(cfg)
         totals = collections.defaultdict(lambda: [0.0, 0.0])
         for kind, shapes in (("K2", k2), ("K6", k6)):
+            if kind not in only:
+                continue
             for (HW, N), n in sorted(collections.Counter(shapes).items()):
                 a = epilogue_args(B, HW, N, gen, dev)
                 got = fused_gn.epilogue_gn_swish_quant(*a)
                 equal = torch.equal(got, fused_gn.epilogue_gn_swish_quant(*a, plain=True))
                 ms = chip_smoke.device_ms(lambda: fused_gn.epilogue_gn_swish_quant(*a))
                 b = max(chip_smoke.bound(chip_smoke.nbytes(*a[:8]) + got.numel(), f32_flops=18 * got.numel()))
-                plan = plan_of(B, HW, N, torch.bfloat16, kind) if plan_of else None
+                plan = plan_of(B, HW, N, torch.bfloat16, kind)
                 totals[kind][0] += n * ms
                 totals[kind][1] += n * b
                 rows.append(dict(path=path, kind=kind, B=B, HW=HW, N=N, per_step=n, device_ms=ms, bound_ms=b,
@@ -116,6 +254,8 @@ def main():
                 if args.plans:
                     sweep(kind, B, HW, N, a, plan)
                 del a, got
+        if path != "celeba-wide":
+            totals.update(lever_rows(path, cfg, B, gen, dev, args, rows, only))
         for kind, (ms, b) in totals.items():
             print(f"== {path}: {kind} device time per serving step {ms:.4f} ms, bound {b:.4f} ms ({b / ms:.1%})")
     print(card)

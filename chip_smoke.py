@@ -22,7 +22,9 @@ kernel for one run of each sampler.)
       the share of the bound printed; at K6's shapes K2 is also run and
       timed against K6; one int32-input check a kernel), K3 at every
       attention shape.  K4, K7 and K12 at every shape a serving step launches
-      under the three levers together or one alone (`ops.checks.lever_plan`).
+      under the three levers together or one alone (`ops.checks.lever_plan`);
+      K4 and K12 bit-equal to their plain versions, with their GroupNorm
+      launch plans (`ops.fused_gn.epilogue_plan(..., "K4")`).
       A kernel's `ms` / `device_ms` / `plain_ms` / `bound_ms` in the JSON
       line is the sum over one serving step's launches of it (the step with
       all three levers for K4, K7 and K12).  `ms` includes the Python
@@ -282,6 +284,17 @@ def _held(kind, label, got, want):
     return f
 
 
+def _bit_equal(kind, label, got, want):
+    """`_held`, and the output (or each of a tuple of outputs) equal to the plain version's bits."""
+    import torch
+
+    f = _held(kind, label, got, want)
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    if not all(torch.equal(g, w) for g, w in pairs):
+        raise AssertionError(f"{kind} {label}: not bit-equal to its plain version ({f})")
+    return f
+
+
 def epilogue_phase(cfg, batch, gen, dev, report):
     """K2 and K6 at every resblock epilogue shape of a serving step, as the
     router sends the bf16 conv1 output (identity epilogue; the first channel
@@ -318,12 +331,6 @@ def epilogue_phase(cfg, batch, gen, dev, report):
                 torch.full((N,), 255 / 4.5, device=dev), torch.full((N,), round(255 / 4.5 * -0.5) + 128.0, device=dev),
                 8)
 
-    def equal(kind, label, got, want):
-        f = _held(kind, label, got, want)
-        if not torch.equal(got, want):
-            raise AssertionError(f"{kind} {label}: not bit-equal to its plain version ({f})")
-        return f
-
     def plan_fig(kind, HW, N, x_dtype):
         p = epilogue_plan(batch, HW, N, x_dtype, kind)
         if kind == "K6":
@@ -334,7 +341,8 @@ def epilogue_phase(cfg, batch, gen, dev, report):
     for kind, shapes in (("K2", k2), ("K6", k6)):
         for (HW, N), n in sorted(collections.Counter(shapes).items()):
             args = args_of(HW, N, torch.bfloat16)
-            f = equal(kind, f"HW={HW} N={N}", epilogue_gn_swish_quant(*args), epilogue_gn_swish_quant(*args, plain=True))
+            f = _bit_equal(kind, f"HW={HW} N={N}", epilogue_gn_swish_quant(*args),
+                           epilogue_gn_swish_quant(*args, plain=True))
             ms = time_ms(lambda: epilogue_gn_swish_quant(*args))
             dms = device_ms(lambda: epilogue_gn_swish_quant(*args))
             pms = time_ms(lambda: epilogue_gn_swish_quant(*args, plain=True), reps=10)
@@ -345,7 +353,7 @@ def epilogue_phase(cfg, batch, gen, dev, report):
                   f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}, device at "
                   f"{max(b) / dms:.1%} of it; {plan_fig(kind, HW, N, torch.bfloat16)}")
             if kind == "K6":
-                f2 = equal("K2", f"HW={HW} N={N} (at K6's shape)", epilogue_gn_swish_quant_whole(*args),
+                f2 = _bit_equal("K2", f"HW={HW} N={N} (at K6's shape)", epilogue_gn_swish_quant_whole(*args),
                            epilogue_gn_swish_quant_whole(*args, plain=True))
                 ms2 = time_ms(lambda: epilogue_gn_swish_quant_whole(*args))
                 dms2 = device_ms(lambda: epilogue_gn_swish_quant_whole(*args))
@@ -357,7 +365,7 @@ def epilogue_phase(cfg, batch, gen, dev, report):
             HW, N = max(shapes)
             args = args_of(HW, N, torch.int32)
             fn = epilogue_gn_swish_quant_whole if kind == "K2" else epilogue_gn_swish_quant_blocked
-            f = equal(kind, f"HW={HW} N={N} int32", fn(*args), fn(*args, plain=True))
+            f = _bit_equal(kind, f"HW={HW} N={N} int32", fn(*args), fn(*args, plain=True))
             dms = device_ms(lambda: fn(*args))
             b = bound(nbytes(*args[:8]) + args[0].numel(), f32_flops=18 * args[0].numel())
             print(f"[kernels] {kind} int32 input B={batch} HW={HW} N={N}: {_fig(f)}, bit-equal; device {dms:.4f} ms "
@@ -370,7 +378,7 @@ def kernel_phase(cfg, batch, gen, dev, report):
     import torch
 
     from attentiondm_tpu_torch.ops import checks
-    from attentiondm_tpu_torch.ops.fused_gn import epilogue_residual_gn_stats, gn_act_quant
+    from attentiondm_tpu_torch.ops.fused_gn import epilogue_plan, epilogue_residual_gn_stats, gn_act_quant
     import torch.nn.functional as F
 
     from attentiondm_tpu_torch.ops.int8_attention import attention_core, fused_attention_block
@@ -495,19 +503,28 @@ def kernel_phase(cfg, batch, gen, dev, report):
         sc = 255 / (hi - lo)
         return torch.full((C,), sc, device=dev), torch.full((C,), round(sc * lo) + 128.0, device=dev)
 
+    def plan_fig(HW, C, dtype):
+        p = epilogue_plan(batch, HW, C, dtype, "K4")
+        if p["form"] == "image":
+            return (f"image form, {p['slices']} channel slice(s) an image, a block a slice, "
+                    f"{p['row_groups']} row groups, {p['threads']} threads")
+        return (f"cluster form, {p['cluster']} blocks an image, {p['rows']} rows a block, {p['threads']} threads, "
+                f"slab {'held in shared memory' if p['held'] else 're-read from L2'}")
+
     for (HW, C), n, m in shapes("K4"):  # bf16 residual, one output, swish; one group at offset 40
         x = randf((batch, HW, C), 2.0, 0.3)
         x[..., :C // 32] += 40.0
         x = x.to(torch.bfloat16)
         args = (x, randf((C,), 0.1, 1.0), randf((C,), 0.1), [(*quant(C, -0.5, 4.0), 8)])
-        f = _held("K4", f"HW={HW} C={C}", gn_act_quant(*args), gn_act_quant(*args, plain=True))
+        f = _bit_equal("K4", f"HW={HW} C={C}", gn_act_quant(*args), gn_act_quant(*args, plain=True))
         ms = time_ms(lambda: gn_act_quant(*args))
         dms = device_ms(lambda: gn_act_quant(*args))
         pms = time_ms(lambda: gn_act_quant(*args, plain=True), reps=10)
         b = bound(nbytes(x) + x.numel() + 4 * 4 * C, f32_flops=16 * x.numel())  # 12 + 4 per output, as the TPU estimate
         report.add("K4", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
-        print(f"[kernels] K4 gn_act_quant B={batch} HW={HW} C={C} x{n}/step (entry_pallas alone x{m}): {_fig(f)}; "
-              f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+        print(f"[kernels] K4 gn_act_quant B={batch} HW={HW} C={C} x{n}/step (entry_pallas alone x{m}): {_fig(f)}, "
+              f"bit-equal; kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}, device at "
+              f"{max(b) / dms:.1%} of it; plan: {plan_fig(HW, C, torch.bfloat16)}")
         del x, args
 
     for (HW, N), n, m in shapes("K7"):  # bf16 conv2 output (identity dequant), f32 shortcut branch, bf16 out
@@ -535,7 +552,7 @@ def kernel_phase(cfg, batch, gen, dev, report):
         args = (r, randf((batch, C)), randf((C,), 0.1, 1.0), randf((C,), 0.1), quant(C, -0.5, 4.0), g1, sb1,
                 randf((C,), 0.1, 1.0), randf((C,), 0.1), quant(C, -0.5, 3.0), g2, sb2)
         kt = dict(g1_t=k_major(g1), g2_t=k_major(g2))  # as the serving path calls it
-        f = _held("K12", f"H={H} C={C}", resblock_pallas(*args, **kt), resblock_pallas(*args, plain=True))
+        f = _bit_equal("K12", f"H={H} C={C}", resblock_pallas(*args, **kt), resblock_pallas(*args, plain=True))
         ms = time_ms(lambda: resblock_pallas(*args, **kt))
         dms = device_ms(lambda: resblock_pallas(*args, **kt))
         pms = time_ms(lambda: resblock_pallas(*args, plain=True), reps=10)
@@ -544,7 +561,9 @@ def kernel_phase(cfg, batch, gen, dev, report):
                   int8_ops=2 * 2 * r.numel() * 9 * C, f32_flops=(16 + 18 + 3) * r.numel())
         report.add("K12", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
         print(f"[kernels] K12 resblock_pallas B={batch} H={H} C={C} x{n}/step (resblock_pallas=all alone x{m}): "
-              f"{_fig(f)}; kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+              f"{_fig(f)}, bit-equal; kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}, "
+              f"device at {max(b) / dms:.1%} of it; GroupNorm plans: {plan_fig(H * H, C, torch.bfloat16)} (GN1); "
+              f"{plan_fig(H * H, C, torch.int32)} (GN2)")
         del r, args, g1, g2, kt
     torch.cuda.empty_cache()
 
@@ -729,9 +748,10 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False, settin
         qunet, params, qunet.init_state(steps, dev), xs_in, seq, return_attn_ranges=True))
     del traj, xs_in
     runtime = clock("per-step fold", lambda: prepare_serving_runtime(qunet, params, qstates))
-    kmajor = sum(lay.gqt.numel() for lay in runtime.values())
-    print(f"[slice] fold size: {runtime_nbytes(runtime) / 1e9:.3f} GB for {steps} steps, {kmajor / 1e9:.3f} GB of it "
-          f"the weights' K-major copies; attention ranges of {len(attn_ranges)} projections")
+    weights = sum(lay.gqt.numel() for lay in runtime.values())
+    print(f"[slice] fold size: {runtime_nbytes(runtime) / 1e9:.3f} GB for {steps} steps, {weights / 1e9:.3f} GB of it "
+          f"the int8 weights, held once (K-major; the fold layout is a view); attention ranges of "
+          f"{len(attn_ranges)} projections")
     x = torch.randn(shape, generator=gen).to(dev)
     ctx = dict(cfg=cfg, params=params, qunet=qunet, qstates=qstates, runtime=runtime, seq=seq, betas=betas,
                x=x, steps=steps, batch=batch, dev=dev)

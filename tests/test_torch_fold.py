@@ -19,7 +19,7 @@ from attentiondm_tpu.quant.state import ActQuantState as JActQuantState
 from attentiondm_tpu_torch.models.unet import UNetConfig, from_jax_params
 from attentiondm_tpu_torch.ops import quant_conv as qc
 from attentiondm_tpu_torch.quant.int8_runtime import _fold_all_steps
-from attentiondm_tpu_torch.quant.int8_serving import gather_step, prepare_serving_runtime
+from attentiondm_tpu_torch.quant.int8_serving import ServingLayer, gather_step, prepare_serving_runtime, runtime_nbytes
 from attentiondm_tpu_torch.quant.qunet import QuantizedUNet
 from attentiondm_tpu_torch.quant.state import from_jax_qstates
 
@@ -165,6 +165,37 @@ def test_gather_step_slices_one_step(toy_fold):
         for name, lay in one.items():
             assert torch.equal(lay.gq, rt[name].gq[i]) and torch.equal(lay.zcbias, rt[name].zcbias[i])
             assert lay.gq.dtype == torch.int8 and lay.gq.shape[0] % 128 == 0 and lay.gq.shape[1] % 128 == 0
+
+
+def test_gq_is_a_view_of_the_one_copy(toy_fold):
+    """The fold is held once, K-major (`gqt`): `gq` is a view of its storage,
+    equal to JAX's fold layout, in the runtime and in every step's slice."""
+    jrt, rt = toy_fold
+    for name, lay in rt.items():
+        assert lay.gq.untyped_storage().data_ptr() == lay.gqt.untyped_storage().data_ptr(), name
+        assert lay.gqt.is_contiguous() and not lay.gq.is_contiguous(), name
+        np.testing.assert_array_equal(lay.gq.numpy(), np.asarray(jrt[name].gq), err_msg=name)
+    for i in (0, 1):
+        for name, lay in gather_step(rt, i).items():
+            assert lay.gq.untyped_storage().data_ptr() == rt[name].gqt.untyped_storage().data_ptr(), name
+            np.testing.assert_array_equal(lay.gq.numpy(), np.asarray(jrt[name].gq)[i], err_msg=name)
+
+
+def test_runtime_nbytes_counts_the_fold_once(toy_fold):
+    """`runtime_nbytes` counts each storage once: the weights' bytes once
+    (where a second layout beside them doubled them), and the vectors."""
+    _, rt = toy_fold
+    weights = sum(lay.gqt.numel() for lay in rt.values())
+    vectors = sum(a.numel() * a.element_size() for lay in rt.values()
+                  for a in (lay.inv_ws, lay.zcbias, lay.act_scale, lay.act_zp))
+    held = runtime_nbytes(rt)
+    assert held == weights + vectors
+    two_copies = 2 * weights + vectors
+    assert held < 0.51 * two_copies + vectors  # about half: the weights are most of the fold
+    # a layer made from `gq` keeps no copy of it
+    gq = rt[next(iter(rt))].gq.contiguous()
+    lay = ServingLayer(gq, *(torch.zeros(gq.shape[0], gq.shape[-1]) for _ in range(4)))
+    assert torch.equal(lay.gq, gq) and lay.gq.untyped_storage().data_ptr() == lay.gqt.untyped_storage().data_ptr()
 
 
 @pytest.mark.parametrize("kw", [dict(symmetric=False), dict(rank1=True), dict(pack_int4=True),

@@ -475,6 +475,127 @@ def test_k4_kernel_matches_plain(dev, gen, HW, C, n_out, act, x_dtype):
     assert fig["ok"], fig
 
 
+# every (B, HW, C) K4 takes in a CIFAR-10 (batch 128) or church (batch 32) serving step with the three levers
+K4_PATH = [(128, HW, C) for HW, C in [(1024, 128), (256, 128), (64, 256), (16, 256), (16, 512), (64, 512),
+                                       (256, 512), (256, 384), (1024, 384), (1024, 256)]]
+K4_PATH += [(32, HW, C) for HW, C in [(4096, 128), (1024, 256), (256, 256), (64, 512), (64, 1024), (256, 1024),
+                                       (256, 768), (1024, 768), (1024, 512)]]
+
+
+def _k4_args(gen, dev, B, HW, C, n_out, x_dtype=torch.bfloat16):
+    x = _f(gen, (B, HW, C), dev, 2.0, 0.3)
+    x[..., :C // 32] += 40.0
+    qp = [_quant(dev, C, b, -1.0, 4.0) for b in (8, 6, 8)[:n_out]]
+    return (x.to(x_dtype), _f(gen, (C,), dev, 0.1, 1.0), _f(gen, (C,), dev, 0.1), qp)
+
+
+def _bit_equal(got, want):
+    return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("B,HW,C", K4_PATH, ids=str)
+def test_k4_path_shapes_bit_equal(dev, gen, B, HW, C):
+    """K4 at every serving shape and batch of the two models (bf16, swish,
+    one output, in the plan the path launches): the plain version's bits."""
+    args = _k4_args(gen, dev, B, HW, C, 1)
+    before = gn_act_quant.launches
+    got = gn_act_quant(*args)
+    assert gn_act_quant.launches == before + 1
+    assert _bit_equal(got, gn_act_quant(*args, plain=True))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_out,act", [(1, "none"), (2, "swish"), (3, "none"), (3, "swish")])
+@pytest.mark.parametrize("B,HW,C", [(3, 16, 512), (32, 64, 1024), (3, 256, 768), (3, 1024, 384), (2, 4096, 128),
+                                    (5, 48, 96)], ids=str)
+def test_k4_outputs_and_inputs_bit_equal(dev, gen, B, HW, C, n_out, act, x_dtype):
+    """K4 with one to three outputs, swish or none, bf16 or f32 input, in
+    both forms (up to 1024 rows: the image form, channel slices at church's
+    batch; larger: the cluster form): the plain version's bits."""
+    args = _k4_args(gen, dev, B, HW, C, n_out, x_dtype)
+    assert _bit_equal(gn_act_quant(*args, act=act), gn_act_quant(*args, act=act, plain=True))
+
+
+@pytest.mark.parametrize("n_out", [1, 3])
+@pytest.mark.parametrize("B,HW,C", [(128, 16, 256), (32, 64, 1024), (32, 256, 768), (128, 1024, 384), (5, 48, 96),
+                                    (2, 1600, 256)], ids=str)
+def test_k4_every_plan_bit_equal(dev, gen, monkeypatch, B, HW, C, n_out):
+    """K4 under every plan `k4_plans` offers at the shape (each row-group
+    count and slicing of the image form, each cluster plan), not only the one
+    `epilogue_plan` picks."""
+    args = _k4_args(gen, dev, B, HW, C, n_out)
+    want = gn_act_quant(*args, act="none", plain=True)
+    plans = fused_gn.k4_plans(B, HW, C, 2, n_out)
+    assert plans
+    for plan in plans:
+        monkeypatch.setattr(fused_gn, "epilogue_plan", lambda *a, plan=plan: plan)
+        assert _bit_equal(gn_act_quant(*args, act="none"), want), plan
+
+
+def test_k4_plan_refused_by_the_launcher(dev, gen, monkeypatch):
+    """A plan off the launcher's own (shared memory, or threads over the
+    three-output bound) is refused with an error, not launched."""
+    args = _k4_args(gen, dev, 2, 16, 256, 3)
+    plan = dict(fused_gn.epilogue_plan(2, 16, 256, torch.bfloat16, "K4", 3))
+    bad = [{**plan, "smem": plan["smem"] + 16}, {**plan, "threads": 512, "row_groups": 2 * plan["row_groups"]}]
+    for p in bad:
+        monkeypatch.setattr(fused_gn, "epilogue_plan", lambda *a, p=p: p)
+        with pytest.raises(RuntimeError):
+            gn_act_quant(*args)
+
+
+@pytest.mark.parametrize("B,H,C", [(128, 16, 256), (128, 4, 256), (32, 16, 512), (32, 8, 512)])
+def test_k12_path_shapes_bit_equal(dev, gen, B, H, C):
+    """K12 at the serving shapes and batches of the two models (its GroupNorm
+    launches in the image form, channel slices at church's batch, both
+    writing their halo'd borders): the plain version's bits."""
+    args = _k12_args(gen, dev, B, H, C)
+    got = resblock_pallas(*args, g1_t=k_major(args[5]), g2_t=k_major(args[10]))
+    assert torch.equal(got, resblock_pallas(*args, plain=True))
+
+
+@pytest.mark.parametrize("B,H,C", [(3, 16, 256), (2, 8, 512), (2, 64, 128)])
+def test_k12_every_plan_bit_equal(dev, gen, monkeypatch, B, H, C):
+    """K12 with its two GroupNorm launches under every plan `k4_plans`
+    offers for their input types (the image form's row groups and slices,
+    the cluster form with the slab held and re-read), each writing the
+    halo'd rows and the border: the plain version's bits."""
+    args = _k12_args(gen, dev, B, H, C)
+    want = resblock_pallas(*args, plain=True)
+    plans = {dt: fused_gn.k4_plans(B, H * H, C, size) for dt, size in ((torch.bfloat16, 2), (torch.int32, 4))}
+    for i in range(max(map(len, plans.values()))):
+        monkeypatch.setattr(fused_gn, "epilogue_plan",
+                            lambda B_, HW, N, dtype, kind, n_out=1, i=i: plans[dtype][i % len(plans[dtype])])
+        from attentiondm_tpu_torch.ops import pallas_resblock
+
+        monkeypatch.setattr(pallas_resblock, "epilogue_plan", fused_gn.epilogue_plan)
+        assert torch.equal(resblock_pallas(*args), want), (plans[torch.bfloat16][i % len(plans[torch.bfloat16])],
+                                                            plans[torch.int32][i % len(plans[torch.int32])])
+
+
+def test_sampler_refuses_gn_sites_before_step_0(dev, gen):
+    """A config whose decoder concat (1536 channels) no K4 plan takes stops in
+    `sample(x)` with `entry_pallas` before any kernel launches, naming the
+    sites; without the lever no GroupNorm site is named."""
+    from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
+
+    cfg = UNetConfig(ch=128, ch_mult=(1, 6), num_res_blocks=1, attn_resolutions=(), resolution=8, dropout=0.0)
+    params = unet_init(gen, cfg, dev)
+    q = QuantizedUNet.create(cfg, 4, 8)
+    qstates = q.init_state(1, dev)
+    betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device=dev).betas
+    x = _f(gen, (2, 8, 8, 3), dev)
+    checks.reset_launches()
+    with pytest.raises(NotImplementedError, match=r"up\.1\.block\.0 \(HW=16, C=1536\) -> K4"):
+        serving_ddim_sampler(q, params, qstates, [0], betas, entry_pallas=True)(x)
+    # without the lever the GroupNorm sites pass, and the attention check names its own (K3 at C = 768)
+    with pytest.raises(NotImplementedError, match=r"mid\.attn_1 \(L=16, C=768\) -> K3") as refused:
+        serving_ddim_sampler(q, params, qstates, [0], betas)(x)
+    assert "HW=" not in str(refused.value)
+    assert not any(checks.read_launches().values())
+
+
 @pytest.mark.parametrize("dot_dtype,res_dtype,out_dtype", [
     (torch.bfloat16, torch.float32, torch.bfloat16), (torch.int32, torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.bfloat16, torch.float32), (torch.int32, torch.float32, torch.float32)])

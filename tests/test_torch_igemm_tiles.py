@@ -163,9 +163,9 @@ def test_prepare_serving_runtime_stores_the_k_major_copy(toy_runtime):
         S, K, Np = lay.gq.shape
         assert tuple(lay.gqt.shape) == (S, Np, K) and lay.gqt.is_contiguous(), name
         assert torch.equal(lay.gqt.transpose(1, 2), lay.gq), name
-    with_copy = runtime_nbytes(toy_runtime)
+    held = runtime_nbytes(toy_runtime)
     weights = sum(lay.gq.numel() for lay in toy_runtime.values())
-    assert with_copy > 2 * weights  # both layouts are counted in the fold's size
+    assert weights < held < 2 * weights  # one layout held: `gq` is a view of `gqt`
 
 
 def test_gather_step_carries_the_k_major_copy(toy_runtime):

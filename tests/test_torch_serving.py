@@ -210,3 +210,35 @@ def test_attention_flags_are_taken(chain, flag):
     else:
         ranges = {f"mid.attn_1.{k}": torch.ones(len(SEQ)) for k in ("q", "k", "v")}
         assert torch.equal(default, step(attn_ranges=ranges)) and torch.equal(default, step(attn_ranges={}))
+
+
+# the decoder's first block concatenates 768 + 768 channels at 4x4: no K4 plan takes C = 1536
+WIDE = dict(ch=128, ch_mult=(1, 6), num_res_blocks=1, attn_resolutions=(), resolution=8, dropout=0.0)
+
+
+def test_sampler_names_refused_gn_sites_before_step_0(monkeypatch):
+    """`serving_ddim_sampler`'s sample checks the GroupNorm and resblock sites
+    of its levers against the kernels' plans before it runs a step: with the
+    check held to a CUDA device, a config whose deepest concat exceeds 1024
+    channels stops before the first UNet call with `entry_pallas`, naming
+    the site, and runs without it."""
+    from attentiondm_tpu_torch.models.unet import unet_init
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.quant import int8_serving as srv
+
+    cfg = UNetConfig(**WIDE)
+    gen = torch.Generator().manual_seed(0)
+    params = unet_init(gen, cfg, "cpu")
+    q = QuantizedUNet.create(cfg, 4, 8)
+    qstates = q.init_state(1, "cpu")
+    betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu").betas
+    check = checks.require_gn_kernels
+    monkeypatch.setattr(srv, "require_gn_kernels", lambda cfg, device, batch, **kw: check(cfg, "cuda", batch, **kw))
+    step = srv.serving_unet_apply
+    steps = []
+    monkeypatch.setattr(srv, "serving_unet_apply", lambda *a, **kw: steps.append(1) or step(*a, **kw))
+    x = torch.randn(2, 8, 8, 3, generator=gen)
+    with pytest.raises(NotImplementedError, match=r"up\.1\.block\.0 \(HW=16, C=1536\) -> K4"):
+        srv.serving_ddim_sampler(q, params, qstates, [0], betas, entry_pallas=True)(x)
+    assert not steps
+    assert srv.serving_ddim_sampler(q, params, qstates, [0], betas)(x).shape == x.shape and steps
