@@ -71,8 +71,9 @@ SIGNATURES = {
     # x, x_is_f32, gn_scale, gn_bias, (scale, zp) x3, n_out, n_levels x3, out x3, swish,
     # B, HW, N, groups, inv_count, plan, stream
     "adm_gn_act_quant": [_P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 3 + [_I] * 5 + [_F, _TILE, _P],
-    # dot, dot_is_int32, inv_ws, zcbias, x_res, res_is_f32, out, out_is_f32, sums, B, HW, N, groups, stream
-    "adm_epilogue_residual_gn_stats": [_P, _I, _P, _P, _P, _I, _P, _I, _P] + [_I] * 4 + [_P],
+    # dot, dot_is_int32, inv_ws, zcbias, x_res, res_is_f32, out, out_is_f32, sums, B, HW, N, groups, plan,
+    # channels a thread, stream
+    "adm_epilogue_residual_gn_stats": [_P, _I, _P, _P, _P, _I, _P, _I, _P] + [_I] * 4 + [_TILE, _I, _P],
     # r, tproj, v1 (six vector pointers: gn scale, gn bias, act scale, act zp, inv_ws, zcbias), n1, g1,
     # v2, n2, g2, scratch pad1 acc pad2, out, B, H, W, C, groups, inv_count, tile (bm, cols, rows, imgs),
     # the two GroupNorm launches' plans, stream; g1, g2 K-major

@@ -30,6 +30,15 @@ def takes_flash(L: int, D: int) -> bool:
     return L >= FLASH_THRESHOLD and L % 256 == 0 and D % 128 == 0
 
 
+def flash_takes(L: int, D: int, block_k: int = 512) -> bool:
+    """Whether K11's CUDA kernel takes an (L, D) map with key blocks of
+    `block_k` (at most L): D of 128 or 256, L and the key block multiples of
+    64, the key block at most 512.  `flash_attention` launches on it and
+    `ops.checks.attention_plan` names the sites it refuses before step 0."""
+    bk = min(block_k, L)
+    return D in (128, 256) and L % 64 == 0 and bk % 64 == 0 and bk <= 512
+
+
 def _blocks(L: int, block_q: int, block_k: int):
     block_q, block_k = min(block_q, L), min(block_k, L)
     if L % block_q or L % block_k:
@@ -79,7 +88,7 @@ def flash_attention(q, k, v, *, scale=None, block_q: int = 256, block_k: int = 5
     _, bk = _blocks(L, block_q, block_k)
     if plain or q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale=scale, block_q=block_q, block_k=block_k)
-    if D not in (128, 256) or L % 64 or bk % 64 or bk > 512:
+    if not flash_takes(L, D, bk):
         raise NotImplementedError(
             f"flash_attention on CUDA: D in (128, 256), L and block_k multiples of 64, block_k <= 512; got "
             f"D={D}, L={L}, block_k={bk}")

@@ -34,7 +34,7 @@ import contextlib
 import torch
 
 from . import fused_gn
-from .attention import takes_flash
+from .attention import flash_takes, takes_flash
 
 
 # int8 outputs: the share of codes that may differ (by at most 1 LSB) from the plain version's
@@ -202,8 +202,9 @@ def attention_plan(cfg, *, attn_int8=True, attn_ranges=None) -> dict:
     kernel)]}.  `attn_ranges`: the calibrated ranges' dict (or any container
     of projection names), or True for every site.  "refused" names the sites
     whose CUDA kernel would refuse the map (K3 off `k3_takes`, K8 / K9 / K10
-    off `int8_core_takes`): on the card `serving_ddim_sampler` raises with
-    them before its first step (`require_attention_kernels`).  The int8 core
+    off `int8_core_takes`, K11 off `flash_takes` at `spatial_attention`'s key
+    block): on the card `serving_ddim_sampler` raises with them before its
+    first step (`require_attention_kernels`).  The int8 core
     of a composed site needs its projections unpadded (C % 128 == 0);
     otherwise the site takes the f32 branch, as `_attn_fused` does."""
     from . import int8_attention as ia
@@ -219,6 +220,8 @@ def attention_plan(cfg, *, attn_int8=True, attn_ranges=None) -> dict:
         if not attn_int8 or C % 128:
             if takes_flash(L, C):
                 plan["K11"].append((L, C))
+                if not flash_takes(L, C):
+                    plan["refused"].append((site, L, C, "K11"))
             continue
         static = attn_ranges is True or (
             attn_ranges is not None and all(f"{site}.{k}" in attn_ranges for k in ("q", "k", "v")))
@@ -239,7 +242,7 @@ def require_attention_kernels(cfg, device, *, attn_int8=True, attn_ranges=None):
     if refused:
         raise NotImplementedError(
             "attention sites off the CUDA kernels' shapes (K3: C in (128, 256, 512), L <= 1024; K8 / K9 / K10: "
-            "C in (128, 256, 512), L % 64 == 0): "
+            "C in (128, 256, 512), L % 64 == 0; K11: C in (128, 256), L % 64 == 0): "
             + ", ".join(f"{site} (L={L}, C={C}) -> {kind}" for site, L, C, kind in refused))
 
 
@@ -301,8 +304,9 @@ def gn_refused(cfg, batch: int, **levers) -> list:
     K6's plans (or over the whole-image budget and off K6's grid, where JAX
     runs its XLA reference; kernel "K2/K6"), a K4 entry without a plan
     (`gn_act_quant_takes`: N above 1024, off the 8-channel grid), a K7 exit
-    off `epilogue_residual_gn_stats_takes` (N above 1024, HW past WIN * WIN *
-    CHUNK), a K12 block off `resblock_pallas_takes`.  On the card
+    without a launch plan (`epilogue_residual_gn_stats_takes`: N above 1024,
+    off the 8-channel grid, past 32 * 32 windows), a K12 block off
+    `resblock_pallas_takes`.  On the card
     `serving_ddim_sampler` raises with them before its first step
     (`require_gn_kernels`)."""
     from ..models.unet import iter_conv_layers

@@ -10,7 +10,9 @@ quantizations of the same normalized tensor, on K2's kernels
 `epilogue_plan(..., "K4")` says.  K7
 (csrc/epilogue_residual_gn_stats.cu): residual' = x_res + dequant(dot) and
 the per-(image, group) sums [B, 2, G] of the f32 residual', which
-`gn_finalize_sums` turns into the next GroupNorm's mean and rstd.
+`gn_finalize_sums` turns into the next GroupNorm's mean and rstd; on the
+same kernels' image form with the exit as producer and the sums as
+consumer, launched as `epilogue_plan(..., "K7")` says.
 
 K2 and K6: one pass from conv1's output (bf16 already dequantized, or the int32
 accumulator with `inv_ws` / `zcbias`) to conv2's int8 input; the float32
@@ -165,6 +167,9 @@ VEC = 8  # channels a thread owns: 16 bytes of bf16, two 16-byte loads of int32
 MAX_THREADS = 512  # the kernels' launch bound (up to 128 registers: 8 channels' constants)
 K6_THREADS = 128  # four K6 blocks an SM: one's apply pass runs beside the others' first reads
 IMAGE_ROWS = (1, 2, 4, 8, 16, 32)  # row groups of threads an image (or slice) the image form may take
+K7_MAX_THREADS = 256  # K7's launch bound (csrc/gn_epilogue.cuh GNE_K7_THREADS; up to 255 registers: a batch of rows)
+K7_BLOCK = 128  # the threads a K7 block aims at, where its row groups and slices allow (PERF.md)
+K7_VECS = (8, 4, 2, 1)  # the channels a K7 thread may take
 
 
 def max_threads(n_out: int) -> int:
@@ -220,9 +225,22 @@ def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str, n_out: int = 1) -> 
     at every K4 shape of up to 1024 rows, and this rule came within 8% of the
     best plan at each (`tools/gn_shapes.py --plans`, PERF.md).
 
+    K7: the image form (`k7_plans`), the fewest row groups that give every
+    window its own (more would idle: K7 has no apply pass to share among
+    them; 32 at most, each then taking two or more windows); of the
+    channels a thread those plans offer, the most whose threads in all make
+    half a wave (a thread adds its window's rows in sequence, so where a
+    step has few windows, fewer channels a thread shorten that; else the
+    fewest); of those plans the one whose blocks come nearest K7_BLOCK
+    threads (by ratio, ties to the more threads).  On the H100 this came
+    within 7% of the best plan at every K7 shape of the CIFAR-10 and church
+    steps (`tools/gn_shapes.py --plans`, PERF.md).
+
     Raises NotImplementedError for a shape the kernels do not take."""
     if kind == "K4":
         return _k4_plan(B, HW, N, dtype, n_out)
+    if kind == "K7":
+        return _k7_plan(B, HW, N, dtype)
     if dtype not in (torch.bfloat16, torch.int32):
         raise NotImplementedError(f"epilogue_plan: {dtype} (K2 and K6 take bf16 or int32)")
     itemsize = 2 if dtype == torch.bfloat16 else 4
@@ -312,6 +330,58 @@ def image_plans(B: int, HW: int, N: int, n_out: int = 1) -> list:
         if smem <= SMEM_MAX:
             plans.append(dict(kind="K4", form="image", slices=ns, row_groups=R, threads=T, smem=smem))
     return plans
+
+
+def k7_plans(HW: int, N: int) -> list:
+    """Every plan K7's kernel takes for an image of HW rows (up to 32 * 32
+    windows, the two levels of `window_sum` the kernel adds) and N channels:
+    the image form, per number of channels a thread (`vec`, K7_VECS), of row
+    groups R (IMAGE_ROWS, up to the first that gives every window its own)
+    and of channel slices of whole groups and whole 8-channel vectors (a
+    power of two) whose block of R x (N / slices / vec) threads fits
+    K7_MAX_THREADS and holds a warp (or the whole image), with the shared
+    memory of its window sums.  Row group r sums and writes windows r, r +
+    R, ... of its slice, so no window has two owners."""
+    g = min(GROUPS, N)
+    nwin = -(-HW // WIN)
+    if N % VEC or N % g or N > 1024 or HW < 1 or nwin > WIN * WIN:
+        return []
+    cg = N // g
+    plans = []
+    for vec in K7_VECS:
+        for R in IMAGE_ROWS:
+            if R > HW:
+                break
+            ns = 1
+            while True:
+                T = (N // ns) // vec * R
+                smem = _image_smem(nwin, N // ns)
+                if T <= K7_MAX_THREADS and smem <= SMEM_MAX:
+                    plans.append(dict(kind="K7", form="image", vec=vec, slices=ns, row_groups=R, threads=T,
+                                      smem=smem))
+                Ns = N // (2 * ns)
+                if N % (2 * ns) or Ns % VEC or Ns % cg or T // 2 < 32:
+                    break
+                ns *= 2
+            if R >= nwin:
+                break
+    return plans
+
+
+def _k7_plan(B: int, HW: int, N: int, dtype) -> dict:
+    if dtype not in (torch.bfloat16, torch.int32):
+        raise NotImplementedError(f"epilogue_plan: K7 with {dtype} (bf16 or int32 conv2 output)")
+    plans = k7_plans(HW, N)
+    if not plans:
+        raise NotImplementedError(f"epilogue_plan: K7 at HW={HW}, N={N} (N a multiple of {VEC} and of its groups, "
+                                  f"up to 1024; HW up to {WIN * WIN * WIN})")
+    nwin = -(-HW // WIN)
+    R = min((p["row_groups"] for p in plans if p["row_groups"] >= nwin),
+            default=max(p["row_groups"] for p in plans))
+    vecs = sorted({p["vec"] for p in plans if p["row_groups"] == R}, reverse=True)
+    vec = next((v for v in vecs if B * N // v * R >= WAVE_THREADS // 2), vecs[-1])
+    return min((p for p in plans if p["row_groups"] == R and p["vec"] == vec),
+               key=lambda p: (abs(math.log2(p["threads"] / K7_BLOCK)), -p["threads"]))
 
 
 def k4_plans(B: int, HW: int, N: int, itemsize: int, n_out: int = 1) -> list:
@@ -531,10 +601,12 @@ def epilogue_residual_gn_stats_fits(HW: int, N: int, res_b: int = 4, out_b: int 
 
 
 def epilogue_residual_gn_stats_takes(HW: int, N: int) -> bool:
-    """Whether K7's CUDA kernel takes an image of HW rows and N channels (one
-    block an image, a channel a thread: N up to 1024, a multiple of its
-    groups, HW up to WIN * WIN * CHUNK rows)."""
-    return N <= 1024 and N % min(GROUPS, N) == 0 and HW <= WIN * WIN * CHUNK
+    """Whether K7's CUDA kernel takes an image of HW rows and N channels: a
+    launch plan exists (`k7_plans`: N a multiple of 8 and of its groups, up
+    to 1024; HW up to 32 * 32 windows, within a block's shared memory).  It
+    covers every shape `epilogue_residual_gn_stats_fits` admits up to
+    N = 1024."""
+    return bool(k7_plans(HW, N))
 
 
 def gn_finalize_sums(sums, HW: int, cg: int):
@@ -558,8 +630,9 @@ def epilogue_residual_gn_stats(dot, inv_ws, zcbias, x_res, *, out_dtype=torch.fl
     dequantized with inv_ws = 1, zcbias = 0) and the shortcut branch x_res
     (f32 or bf16) -> (residual' = x_res + dot * inv_ws + zcbias at
     `out_dtype`, sums [B, 2, G] f32 of the f32 residual' per image and
-    group, before the rounding to `out_dtype`).  `plain=True` runs the plain
-    version on any device."""
+    group, before the rounding to `out_dtype`).  Launched as
+    `epilogue_plan(..., "K7")` says; dot and x_res 16-byte aligned.
+    `plain=True` runs the plain version on any device."""
     if groups != GROUPS:
         raise NotImplementedError(f"epilogue_residual_gn_stats: groups={groups}")
     if plain or dot.device.type == "cpu":
@@ -573,18 +646,21 @@ def epilogue_residual_gn_stats(dot, inv_ws, zcbias, x_res, *, out_dtype=torch.fl
         raise NotImplementedError(
             f"epilogue_residual_gn_stats: dot {dot.dtype} {tuple(dot.shape)}, x_res {x_res.dtype} "
             f"{tuple(x_res.shape)}, out {out_dtype} (K7 takes bf16 or int32 dot, f32 or bf16 x_res and out of "
-            f"one shape, N up to 1024, HW <= {WIN * WIN * CHUNK})")
+            f"one shape, N a multiple of 8 up to 1024, HW up to {WIN * WIN * WIN})")
+    plan = epilogue_plan(B, HW, N, dot.dtype, "K7")
     dot, x_res = dot.contiguous(), x_res.contiguous()
     iw, zc = _build.f32c(inv_ws, dot.device), _build.f32c(zcbias, dot.device)
     _build.require_cuda("epilogue_residual_gn_stats", dot, x_res, iw, zc)
     if iw.numel() != N or zc.numel() != N:
         raise ValueError(f"epilogue_residual_gn_stats: inv_ws and zcbias must hold {N} values")
+    if any(t.data_ptr() % 16 for t in (dot, x_res, iw, zc)):
+        raise ValueError("epilogue_residual_gn_stats: dot, x_res, inv_ws and zcbias must be 16-byte aligned")
     out = torch.empty(dot.shape, dtype=out_dtype, device=dot.device)
     sums = torch.empty((B, 2, g), dtype=torch.float32, device=dot.device)
     err = _build.kernels().adm_epilogue_residual_gn_stats(
         dot.data_ptr(), int(dot.dtype == torch.int32), iw.data_ptr(), zc.data_ptr(), x_res.data_ptr(),
         int(x_res.dtype == torch.float32), out.data_ptr(), int(out_dtype == torch.float32), sums.data_ptr(),
-        B, HW, N, g, _build.stream_ptr(dot.device))
+        B, HW, N, g, plan_args(plan), plan["vec"], _build.stream_ptr(dot.device))
     _build.check(err, "adm_epilogue_residual_gn_stats")
     epilogue_residual_gn_stats.launches += 1
     return out, sums

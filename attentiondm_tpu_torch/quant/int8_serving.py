@@ -37,6 +37,7 @@ slice that ports it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import torch
@@ -304,6 +305,17 @@ def _uncovered(name):
         f"channels off the 128 grid) take the unfused serving branch, not ported yet (ROADMAP {_FLAGS})")
 
 
+@functools.lru_cache(maxsize=None)
+def _identity_dequant(n: int, dtype, device):
+    """(ones [n], zeros [n]): the inv_ws / zcbias handed to K2 and K7 for a
+    conv output that already carries its dequant, made once a width."""
+    return torch.ones(n, dtype=dtype, device=device), torch.zeros(n, dtype=dtype, device=device)
+
+
+def _identity_of(v):
+    return _identity_dequant(v.shape[-1], v.dtype, v.device)
+
+
 def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, entry_sums=None,
                     want_exit_stats=False, entry_pallas=False, resblock_pallas=False, plain=False):
     """norm1 -> swish -> conv1 -> (+temb) -> norm2 -> swish -> conv2 (+shortcut),
@@ -338,27 +350,27 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, entry_s
                             entry_pallas=entry_pallas, plain=plain)
     hq2 = epilogue_gn_swish_quant(
         _conv3_bf16(hq, c1.act_zp, a1.a_bit, c1, plain=plain),
-        torch.ones_like(c1.inv_ws), torch.zeros_like(c1.zcbias), tproj,
+        *_identity_of(c1.inv_ws), tproj,
         p["norm2"]["scale"], p["norm2"]["bias"], c2.act_scale, c2.act_zp, a2.a_bit, plain=plain,
     )
     dot2 = _conv3_bf16(hq2, c2.act_zp, a2.a_bit, c2, plain=plain)
 
-    hf = h_res.to(torch.float32)
     if "nin_shortcut" in p:
         sname = f"{name}.nin_shortcut"
         lay = rt_i.get(sname)
         if lay is None:
             raise _uncovered(sname)
-        xq = _quant_i8(hf, lay.act_scale, lay.act_zp, qunet.policy[sname].a_bit)
+        xq = _quant_i8(h_res.to(torch.float32), lay.act_scale, lay.act_zp, qunet.policy[sname].a_bit)
         x_sc = _epilogue(int8_conv(xq, lay.gq, 1, gqt=lay.gqt, plain=plain), lay, p["nin_shortcut"]["kernel"].shape[3])
     else:
-        x_sc = hf
+        # the identity shortcut in the stream's dtype: K7 reads it as it is (its f32 conversion is exact, so
+        # these are the bits of an f32 copy, without the copy)
+        x_sc = h_res
     # identity dequant below: dot2 already carries inv_ws + zcbias
     B, Np = dot2.shape[0], dot2.shape[-1]
     if want_exit_stats and Np == co2 and epilogue_residual_gn_stats_fits(dot2.numel() // (B * Np), Np):
-        return epilogue_residual_gn_stats(dot2, torch.ones_like(c2.inv_ws), torch.zeros_like(c2.zcbias), x_sc,
-                                          out_dtype=res_dtype, plain=plain)
-    return (x_sc + dot2.to(torch.float32)[..., :co2]).to(res_dtype), None
+        return epilogue_residual_gn_stats(dot2, *_identity_of(c2.inv_ws), x_sc, out_dtype=res_dtype, plain=plain)
+    return (x_sc.to(torch.float32) + dot2.to(torch.float32)[..., :co2]).to(res_dtype), None
 
 
 def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=None, plain=False):

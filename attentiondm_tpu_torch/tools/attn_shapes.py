@@ -3,7 +3,7 @@
 CIFAR-10, LSUN church and celeba-wide configurations give them: K3
 (`fused_attention_block`, f32 core and int8 core), K8, K9 and K10.
 
-    python3 attentiondm_tpu_torch/tools/attn_shapes.py [--out FILE.json]
+    python3 attentiondm_tpu_torch/tools/attn_shapes.py [--out FILE.json] [--sdpa ROUNDS]
 
 The port is imported from the current directory, not from beside this file,
 so one script measures two trees on the same card, one after the other (run
@@ -17,6 +17,13 @@ over 3.35 TB/s or operations over the peak of their type: 1,979 TOP/s int8,
 f32 elsewhere), and whether the output meets the kernel's tolerance against
 its plain version.  Prints one line a shape, the per-step sums, and the
 card's name and power limit.
+
+`--sdpa ROUNDS` times instead K3's f32 core alone (`attention_core`, its own
+C entry point) beside `F.scaled_dot_product_attention` under `exact_f32()`
+on the same f32 q, k, v, at every K3 shape of CIFAR-10 and church: both by
+`chip_smoke.device_ms` (the wrapper's host time left out), in turns core,
+library, library, core, ROUNDS times; it prints every reading, so the
+spread between readings stands beside the difference between the two.
 """
 import argparse
 import collections
@@ -69,15 +76,52 @@ def bound_us(nbytes, int8=0.0, bf16=0.0, tf32x3=0.0, f32=0.0):
     return max(nbytes / HBM, int8 / INT8 + bf16 / BF16 + tf32x3 / TF32X3 + f32 / F32) * 1e6
 
 
+def sdpa_turns(rounds, dev, gen, card):
+    """K3's f32 core alone against F.scaled_dot_product_attention (see --sdpa)."""
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from attentiondm_tpu_torch.ops.precision import exact_f32
+
+    for path in ("cifar10", "church"):
+        B, step = BATCH[path], {"core": 0.0, "library": 0.0}
+        for (L, C), n in sorted(collections.Counter(checks.conv_plan(configs()[path])[3]).items()):
+            q, k, v = ((torch.randn((B, L, C), generator=gen)).to(dev) for _ in range(3))
+            so, zo = torch.full((C,), 255 / 4.0, device=dev), (torch.randn((C,), generator=gen) * 3.0).round().to(dev)
+            fns = {"core": lambda: ia.attention_core(q, k, v, so, zo, 8, scale=C ** -0.5),
+                   "library": lambda: F.scaled_dot_product_attention(q, k, v, scale=C ** -0.5)}
+            ms = {"core": [], "library": []}
+            with exact_f32():
+                for _ in range(rounds):
+                    for name in ("core", "library", "library", "core"):
+                        ms[name].append(chip_smoke.device_ms(fns[name]))
+            med = {name: sorted(t)[len(t) // 2] for name, t in ms.items()}
+            for name in ms:
+                step[name] += n * med[name]
+            print(f"{path} K3.core B={B} L={L} C={C} x{n}/step: device ms, core "
+                  + " ".join(f"{t:.4f}" for t in ms["core"]) + "; F.scaled_dot_product_attention "
+                  + " ".join(f"{t:.4f}" for t in ms["library"])
+                  + f"; medians {med['core']:.4f} / {med['library']:.4f}")
+            del q, k, v
+        print(f"== {path}: per serving step (medians) K3.core {step['core']:.4f} ms, "
+              f"F.scaled_dot_product_attention {step['library']:.4f} ms")
+    print(card)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the rows to this JSON file")
+    ap.add_argument("--sdpa", type=int, default=0, metavar="ROUNDS",
+                    help="time K3's core alone beside F.scaled_dot_product_attention instead, in ROUNDS turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("attn_shapes: no CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev, gen = torch.device("cuda", 0), torch.Generator().manual_seed(0)
+    if args.sdpa:
+        sdpa_turns(args.sdpa, dev, gen, card)
+        return
 
     def i8(shape, lo=-127, hi=127):
         return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8).to(dev)

@@ -3,11 +3,11 @@
 128), LSUN church (32) and celeba-wide (64) serving steps: K2 and K6
 (`ops.fused_gn.epilogue_gn_swish_quant`) at every resblock epilogue, and on
 CIFAR-10 and church with the three levers K4 (`gn_act_quant`) at every entry,
-K12 (`resblock_pallas`) at every whole block, and K3
-(`fused_attention_block`, whose first launch is K4's kernel) at every
-attention block.
+K7 (`epilogue_residual_gn_stats`) at every fused exit, K12
+(`resblock_pallas`) at every whole block, and K3 (`fused_attention_block`,
+whose first launch is K4's kernel) at every attention block.
 
-    python3 attentiondm_tpu_torch/tools/gn_shapes.py [--out FILE.json] [--plans] [--only K2,K4,...]
+    python3 attentiondm_tpu_torch/tools/gn_shapes.py [--out FILE.json] [--plans] [--only K2,K4,K7,...]
 
 The port is imported from the current directory, not from beside this file,
 so one script measures two trees on the same card, one after the other (run
@@ -25,7 +25,13 @@ of it the call reaches.  Prints one line a shape, the per-step sums, and the
 card's name and power limit.  `--plans` also times, at every shape, each K2
 plan `ops.fused_gn.k2_plans` offers, K6 at 128, 256 and 512 threads a block,
 and each K4 plan `ops.fused_gn.k4_plans` offers (the plan `epilogue_plan`
-picks is marked `*`), each checked against the plain version.
+picks is marked `*`), each checked against the plain version; K7 under
+each plan `ops.fused_gn.k7_plans` offers, each checked to the bit.
+
+K7 rows: `K7` on the serving path's inputs at an identity-shortcut exit
+(bf16 conv2 output, bf16 residual, bf16 out), `K7.f32_res` on the same
+values with the residual handed over as an f32 copy (what the serving path
+once passed), and `copy`, that copy alone (`h_res.to(torch.float32)`).
 """
 import argparse
 import collections
@@ -158,8 +164,36 @@ def sweep_k4(B, HW, C, a, chosen):
         fused_gn.epilogue_plan = plan_of_
 
 
+def exit_args(B, HW, N, gen, dev):
+    """K7's inputs at an identity-shortcut exit, as chip_smoke's check: bf16 conv2 output with the identity
+    dequant and the bf16 residual stream, one channel group at offset 40."""
+    def randf(shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+
+    x = randf((B, HW, N), 2.0, 0.5)
+    x[..., :N // 32] += 40.0
+    return (randf((B, HW, N), 1.5, 0.2).to(torch.bfloat16), torch.ones(N, device=dev), torch.zeros(N, device=dev),
+            x.to(torch.bfloat16))
+
+
+def sweep_k7(B, HW, N, a, want, chosen):
+    """Device time of K7 under each plan `k7_plans` offers at the shape."""
+    fn = fused_gn.epilogue_residual_gn_stats
+    plan_of_ = fused_gn.epilogue_plan
+    try:
+        for plan in fused_gn.k7_plans(HW, N):
+            fused_gn.epilogue_plan = lambda *_, plan=plan: plan
+            equal = all(torch.equal(g, w) for g, w in zip(fn(*a, out_dtype=torch.bfloat16), want))
+            ms = chip_smoke.device_ms(lambda: fn(*a, out_dtype=torch.bfloat16))
+            print(f"  {'*' if plan == chosen else ' '} K7 B={B} HW={HW} N={N} "
+                  + " ".join(f"{k}={v}" for k, v in plan.items() if k != "kind")
+                  + f": device {ms * 1e3:.1f} us, equal: {equal}")
+    finally:
+        fused_gn.epilogue_plan = plan_of_
+
+
 def lever_rows(path, cfg, B, gen, dev, args, rows, only):
-    """K4, K12 and K3 at every shape of a serving step with the three levers."""
+    """K4, K7, K12 and K3 at every shape of a serving step with the three levers."""
     from attentiondm_tpu_torch.ops.int8_attention import fused_attention_block
     from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
 
@@ -187,6 +221,26 @@ def lever_rows(path, cfg, B, gen, dev, args, rows, only):
             if args.plans and hasattr(fused_gn, "k4_plans"):
                 sweep_k4(B, HW, C, a, chosen)
             del a, got
+    if "K7" in only:
+        k7 = fused_gn.epilogue_residual_gn_stats
+        for (HW, N), n in sorted(collections.Counter((HW, N) for _s, HW, N in plan["K7"]).items()):
+            a = exit_args(B, HW, N, gen, dev)
+            want = k7(*a, out_dtype=torch.bfloat16, plain=True)
+            for kind, x_res in (("K7", a[3]), ("K7.f32_res", a[3].to(torch.float32))):
+                ak = (*a[:3], x_res)
+                got = k7(*ak, out_dtype=torch.bfloat16)
+                equal = all(torch.equal(g, w) for g, w in zip(got, want))
+                ms = chip_smoke.device_ms(lambda: k7(*ak, out_dtype=torch.bfloat16))
+                b = max(chip_smoke.bound(chip_smoke.nbytes(*ak, *got), f32_flops=8 * a[0].numel()))
+                row(kind, f"HW={HW} N={N}", n, ms, b, equal,
+                    plan_of(B, HW, N, torch.bfloat16, "K7") if kind == "K7" else None)
+                del ak, got
+            ms = chip_smoke.device_ms(lambda: a[3].to(torch.float32))
+            b = max(chip_smoke.bound(3 * chip_smoke.nbytes(a[3])))  # 2 B read, 4 B written an element
+            row("copy", f"HW={HW} N={N} h_res.to(float32)", n, ms, b, True, None)
+            if args.plans and hasattr(fused_gn, "k7_plans"):
+                sweep_k7(B, HW, N, a, want, plan_of(B, HW, N, torch.bfloat16, "K7"))
+            del a, want
     if "K12" in only:
         for (H, C), n in sorted(collections.Counter((H, C) for _s, H, C in plan["K12"]).items()):
             a, kt = resblock_args(B, H, C, gen, dev)
@@ -222,7 +276,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the rows to this JSON file")
     ap.add_argument("--plans", action="store_true", help="also time every launch plan at each shape")
-    ap.add_argument("--only", default="K2,K6,K4,K12,K3", help="the kernels to time (comma-separated)")
+    ap.add_argument("--only", default="K2,K6,K4,K7,K12,K3", help="the kernels to time (comma-separated)")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():

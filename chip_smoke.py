@@ -23,8 +23,9 @@ kernel for one run of each sampler.)
       timed against K6; one int32-input check a kernel), K3 at every
       attention shape.  K4, K7 and K12 at every shape a serving step launches
       under the three levers together or one alone (`ops.checks.lever_plan`);
-      K4 and K12 bit-equal to their plain versions, with their GroupNorm
-      launch plans (`ops.fused_gn.epilogue_plan(..., "K4")`).
+      K4, K7 and K12 bit-equal to their plain versions, with their GroupNorm
+      launch plans (`ops.fused_gn.epilogue_plan(..., "K4")`, `"K7"`; K7 on
+      the serving path's inputs: bf16 conv2 output and residual).
       A kernel's `ms` / `device_ms` / `plain_ms` / `bound_ms` in the JSON
       line is the sum over one serving step's launches of it (the step with
       all three levers for K4, K7 and K12).  `ms` includes the Python
@@ -527,21 +528,29 @@ def kernel_phase(cfg, batch, gen, dev, report):
               f"{max(b) / dms:.1%} of it; plan: {plan_fig(HW, C, torch.bfloat16)}")
         del x, args
 
-    for (HW, N), n, m in shapes("K7"):  # bf16 conv2 output (identity dequant), f32 shortcut branch, bf16 out
+    # K7 as the serving path calls it at an identity-shortcut exit: bf16 conv2 output (identity dequant), the
+    # bf16 residual stream (one channel group at offset 40), bf16 out
+    for (HW, N), n, m in shapes("K7"):
         H = int(HW ** 0.5)
         dot = randf((batch, H, H, N), 1.5, 0.2).to(torch.bfloat16)
-        args = (dot, torch.ones(N, device=dev), torch.zeros(N, device=dev), randf((batch, H, H, N), 2.0, 0.5))
+        x_res = randf((batch, H, H, N), 2.0, 0.5)
+        x_res[..., :N // 32] += 40.0
+        args = (dot, torch.ones(N, device=dev), torch.zeros(N, device=dev), x_res.to(torch.bfloat16))
         kw = dict(out_dtype=torch.bfloat16)
         got = epilogue_residual_gn_stats(*args, **kw)
-        f = _held("K7", f"HW={HW} N={N}", got, epilogue_residual_gn_stats(*args, **kw, plain=True))
+        f = _bit_equal("K7", f"HW={HW} N={N}", got, epilogue_residual_gn_stats(*args, **kw, plain=True))
         ms = time_ms(lambda: epilogue_residual_gn_stats(*args, **kw))
         dms = device_ms(lambda: epilogue_residual_gn_stats(*args, **kw))
         pms = time_ms(lambda: epilogue_residual_gn_stats(*args, **kw, plain=True), reps=10)
         b = bound(nbytes(*args, *got), f32_flops=8 * dot.numel())
         report.add("K7", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
+        p = epilogue_plan(batch, HW, N, torch.bfloat16, "K7")
         print(f"[kernels] K7 epilogue_residual_gn_stats B={batch} HW={HW} N={N} x{n}/step (boundary_fusion alone "
-              f"x{m}): {_fig(f)}; kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
-        del dot, args, got
+              f"x{m}): {_fig(f)}, bit-equal; kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms "
+              f"{_bound_fig(b)}, device at {max(b) / dms:.1%} of it; plan: image form, {p['slices']} channel "
+              f"slice(s) an image, a block a slice, {p['row_groups']} row groups, {p['threads']} threads, "
+              f"{p['vec']} channels a thread")
+        del dot, x_res, args, got
 
     for (H, C), n, m in shapes("K12"):
         def fold():

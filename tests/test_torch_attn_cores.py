@@ -304,8 +304,15 @@ OFF_K3 = UNetConfig(ch=128, ch_mult=(1, 3), num_res_blocks=1, attn_resolutions=(
 OFF_INT8 = UNetConfig(ch=128, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(36,), resolution=36, dropout=0.0)
 
 
+# the 32x32 sites (L = 1024) with C = 512: composed (over K3's budget), so the f32 core is K11, off its head widths
+OFF_K11 = UNetConfig(ch=128, ch_mult=(1, 4), num_res_blocks=1, attn_resolutions=(32,), resolution=64, dropout=0.0)
+# the same at C = 256: K11's width
+ON_K11 = UNetConfig(ch=128, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(32,), resolution=64, dropout=0.0)
+
+
 K3_OFF = [(site, 16, 384, "K3") for site in ("down.1.attn.0", "mid.attn_1", "up.1.attn.0", "up.1.attn.1")]
 INT8_OFF = [(site, 1296, 128) for site in ("down.0.attn.0", "up.0.attn.0", "up.0.attn.1")]
+K11_OFF = [(site, 1024, 512, "K11") for site in ("down.1.attn.0", "mid.attn_1", "up.1.attn.0", "up.1.attn.1")]
 
 
 @pytest.mark.parametrize("cfg,flags,refused", [
@@ -315,7 +322,10 @@ INT8_OFF = [(site, 1296, 128) for site in ("down.0.attn.0", "up.0.attn.0", "up.0
     (OFF_INT8, dict(attn_ranges=True), [(*s, "K9") for s in INT8_OFF]),
     (OFF_INT8, dict(attn_int8=False), []),
     (UNetConfig(), {}, []),
-], ids=["k3", "k3_f32", "k8", "k9", "k11", "cifar10"])
+    (OFF_K11, dict(attn_int8=False), K11_OFF),
+    (OFF_K11, {}, []),
+    (ON_K11, dict(attn_int8=False), []),
+], ids=["k3", "k3_f32", "k8", "k9", "k11", "cifar10", "k11_c512", "k11_c512_int8", "k11_c256"])
 def test_attention_plan_names_refused_sites(cfg, flags, refused):
     """`attention_plan` names each site whose CUDA kernel would refuse its
     map, and `require_attention_kernels` raises with them for a CUDA device
@@ -329,6 +339,8 @@ def test_attention_plan_names_refused_sites(cfg, flags, refused):
     else:
         checks.require_attention_kernels(cfg, "cuda", **flags)
     assert "refused" not in checks.expected_launches(cfg, **flags)
+    if cfg in (OFF_K11, ON_K11) and not flags.get("attn_int8", True):  # the sites are K11's either way
+        assert len(checks.attention_plan(cfg, **flags)["K11"]) == 4
 
 
 def test_sampler_checks_the_sites_before_step_0(monkeypatch):

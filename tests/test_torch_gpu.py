@@ -410,6 +410,25 @@ def test_sampler_refuses_off_width_attention_before_step_0(dev, gen):
     assert not any(checks.read_launches().values())
 
 
+def test_sampler_refuses_off_width_flash_attention_before_step_0(dev, gen):
+    """With the f32 core, attention at 32x32 and C = 512 is composed (over
+    K3's budget) and reaches K11, which takes heads of 128 or 256: `sample(x)`
+    stops before any kernel launches, naming the sites."""
+    from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
+
+    cfg = UNetConfig(ch=128, ch_mult=(1, 4), num_res_blocks=1, attn_resolutions=(32,), resolution=64, dropout=0.0)
+    params = unet_init(gen, cfg, dev)
+    q = QuantizedUNet.create(cfg, 4, 8)
+    qstates = q.init_state(1, dev)
+    betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device=dev).betas
+    sample = serving_ddim_sampler(q, params, qstates, [0], betas, attn_int8=False)
+    checks.reset_launches()
+    with pytest.raises(NotImplementedError, match=r"down\.1\.attn\.0 \(L=1024, C=512\) -> K11, mid\.attn_1"):
+        sample(_f(gen, (1, 64, 64, 3), dev))
+    assert not any(checks.read_launches().values())
+
+
 @pytest.mark.parametrize("L,C", [(72, 128), (256, 384)])
 def test_composed_cores_raise_off_their_shapes(dev, gen, L, C):
     """On the card a core launches or raises: no shape gives way to the plain
@@ -598,24 +617,58 @@ def test_sampler_refuses_gn_sites_before_step_0(dev, gen):
 
 @pytest.mark.parametrize("dot_dtype,res_dtype,out_dtype", [
     (torch.bfloat16, torch.float32, torch.bfloat16), (torch.int32, torch.bfloat16, torch.bfloat16),
-    (torch.bfloat16, torch.bfloat16, torch.float32), (torch.int32, torch.float32, torch.float32)])
-@pytest.mark.parametrize("HW,N", [(1024, 128), (64, 256), (16, 512)])
-def test_k7_kernel_matches_plain(dev, gen, HW, N, dot_dtype, res_dtype, out_dtype):
-    B, H = 3, int(HW ** 0.5)
+    (torch.bfloat16, torch.bfloat16, torch.float32), (torch.int32, torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("HW,N", [(1024, 128), (64, 256), (16, 512), (16, 256), (1024, 256), (64, 512),
+                                  (2048, 128), (1032, 128)])
+def test_k7_kernel_matches_plain(dev, gen, monkeypatch, HW, N, dot_dtype, res_dtype, out_dtype):
+    """K7 under its own plan and under every plan `k7_plans` offers, at the
+    serving steps' shapes (CIFAR-10's and church's lever steps; bf16 conv2
+    output and residual is the serving path's) and past 32 windows: the
+    plain version's bits, residual' and sums."""
+    B = 3
     if dot_dtype == torch.int32:
-        dot = torch.randint(-20000, 20000, (B, H, H, N), generator=gen, dtype=torch.int32).to(dev)
+        dot = torch.randint(-20000, 20000, (B, HW, N), generator=gen, dtype=torch.int32).to(dev)
         inv_ws, zcbias = _f(gen, (N,), dev, 2e-5, 1e-4).abs(), _f(gen, (N,), dev)
     else:
-        dot = _f(gen, (B, H, H, N), dev, 1.5, 0.2).to(torch.bfloat16)
+        dot = _f(gen, (B, HW, N), dev, 1.5, 0.2).to(torch.bfloat16)
         inv_ws, zcbias = torch.ones(N, device=dev), torch.zeros(N, device=dev)
-    x_res = _f(gen, (B, H, H, N), dev, 2.0, 0.5).to(res_dtype)
+    x_res = _f(gen, (B, HW, N), dev, 2.0, 0.5)
+    x_res[..., :N // 32] += 40.0
+    x_res = x_res.to(res_dtype)
     before = epilogue_residual_gn_stats.launches
     got = epilogue_residual_gn_stats(dot, inv_ws, zcbias, x_res, out_dtype=out_dtype)
     assert epilogue_residual_gn_stats.launches == before + 1
     assert got[0].dtype == out_dtype and tuple(got[1].shape) == (B, 2, 32)
-    fig = checks.compare("K7", got, epilogue_residual_gn_stats(dot, inv_ws, zcbias, x_res, out_dtype=out_dtype,
-                                                                plain=True))
+    want = epilogue_residual_gn_stats(dot, inv_ws, zcbias, x_res, out_dtype=out_dtype, plain=True)
+    fig = checks.compare("K7", got, want)
     assert fig["ok"], fig
+    for plan in fused_gn.k7_plans(HW, N):
+        monkeypatch.setattr(fused_gn, "epilogue_plan", lambda *_a, plan=plan: plan)
+        got = epilogue_residual_gn_stats(dot, inv_ws, zcbias, x_res, out_dtype=out_dtype)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), plan
+
+
+def test_k7_plan_refused_by_the_launcher(dev, gen, monkeypatch):
+    """A plan off K7's launcher (shared memory off its layout, threads over
+    K7's bound, a slice narrower than a thread's channels, the cluster form,
+    more than 32 row groups, channels a thread other than 8, 4, 2 or 1) is
+    refused with an error, not launched."""
+    B, HW, N = 2, 1024, 256
+    dot = _f(gen, (B, HW, N), dev).to(torch.bfloat16)
+    args = (dot, torch.ones(N, device=dev), torch.zeros(N, device=dev), _f(gen, (B, HW, N), dev).to(torch.bfloat16))
+    plan = next(p for p in fused_gn.k7_plans(HW, N) if (p["vec"], p["row_groups"], p["threads"]) == (8, 32, 128))
+    bad = [{**plan, "smem": plan["smem"] + 16}, {**plan, "slices": 2, "threads": 512},
+           {**plan, "slices": 64, "threads": 32, "smem": fused_gn._image_smem(32, 4)},
+           {**plan, "form": "cluster", "cluster": 2, "wpb": 16, "held": False},
+           {**plan, "slices": 32, "threads": 64, "smem": fused_gn._image_smem(32, 8)},
+           {**plan, "vec": 3}, {**plan, "vec": 16, "threads": 64}]
+    before = epilogue_residual_gn_stats.launches
+    for p in bad:
+        monkeypatch.setattr(fused_gn, "epilogue_plan", lambda *a, p=p: p)
+        with pytest.raises(RuntimeError):
+            epilogue_residual_gn_stats(*args, out_dtype=torch.bfloat16)
+    assert epilogue_residual_gn_stats.launches == before
 
 
 def _k12_args(gen, dev, B, H, C):

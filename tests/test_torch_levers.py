@@ -254,6 +254,36 @@ def _visited(deep, levers):
     return sorted(seen)
 
 
+def test_k7_reads_the_bf16_residual(deep):
+    """At identity-shortcut exits K7 takes the bf16 residual stream itself,
+    not an f32 copy of it, and the step gives the bits it gave with the f32
+    copy (the bf16 -> f32 conversion is exact)."""
+    got = []
+    k7 = srv.epilogue_residual_gn_stats
+
+    def spy(dot, inv_ws, zcbias, x_res, **kw):
+        got.append(x_res.dtype)
+        return k7(dot, inv_ws, zcbias, x_res, **kw)
+
+    def with_f32_copy(dot, inv_ws, zcbias, x_res, **kw):
+        return k7(dot, inv_ws, zcbias, x_res.to(torch.float32), **kw)
+
+    def step():
+        return serving_unet_apply(deep["params"], deep["cfg"], deep["q"], deep["runtime"], deep["qstates"],
+                                  deep["x"], torch.full((B,), 500.0), 0, attn_int8=False, boundary_fusion=True)
+
+    try:
+        srv.epilogue_residual_gn_stats = spy
+        eps = step()
+        srv.epilogue_residual_gn_stats = with_f32_copy
+        before = step()
+    finally:
+        srv.epilogue_residual_gn_stats = k7
+    # the deep toy's three K7 exits all have an identity shortcut
+    assert got == [torch.bfloat16] * 3
+    assert torch.equal(eps, before)
+
+
 PLAN_LEVERS = {"off": {}, **LEVERS, "resblock_pallas_gated": dict(resblock_pallas=True)}
 
 
