@@ -10,7 +10,9 @@
 // as the producer (no epilogue) and 1 to 3 int8 outputs as the consumer, in
 // the form ops/fused_gn.epilogue_plan(..., "K4") picks:
 //   images of up to 32 windows (1024 rows): the image form, one block per
-//   image or per slice of whole groups, no cluster and no bulk copy;
+//   image or per slice of whole groups, no cluster and no bulk copy; up to
+//   2048 channels (imagenet64's 1536- and 2048-channel decoder entries),
+//   sliced so that a block stays within the launch bound;
 //   larger images (church's 64^2 entry): the cluster form, a thread-block
 //   cluster per image whose blocks own whole 32-row windows and add each
 //   other's window sums through distributed shared memory.

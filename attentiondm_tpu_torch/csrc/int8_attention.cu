@@ -39,9 +39,12 @@
 //     channels over the keys below L (a warp holds 64 channels of p v, 32
 //     accumulators; wider C loops over channel passes, re-reading v from
 //     L2).  Every copy is asynchronous and overlaps the products of the
-//     tiles before it; one barrier a tile.  The ring has as many stages (2
-//     to 4) as leave two blocks an SM: 2 at L = 256 (101 KB a block), 4 at
-//     L <= 64, where a tile's few products cannot hide a load's latency.
+//     tiles before it; one barrier a tile.  No stage holds a [BQ, C] tile,
+//     so the shared memory does not grow with C: C = 1024 (imagenet64's
+//     8^2 block) runs the plans of C = 512 / 256 with twice the chunks and
+//     passes.  The ring has as many stages (2 to 4) as leave two blocks an
+//     SM: 2 at L = 256 (101 KB a block), 4 at L <= 64, where a tile's few
+//     products cannot hide a load's latency.
 // The launch geometry (BQ, VK, stages, shared bytes) is computed in Python
 // (ops/int8_attention.core_plan, held by CPU tests) and passed in; the
 // launcher checks it against its own (at_* below).  The softmax
@@ -298,7 +301,7 @@ static cudaError_t launch_core_bq(const AttnCoreArgs& a, int B, int bq, cudaStre
 // (bq, vk, smem) is the Python plan (ops/int8_attention.core_plan); a plan that differs from this file's
 // is refused before anything launches
 static bool core_plan_ok(int L, int C, int bq, int vk, int smem) {
-  return (C == 128 || C == 256 || C == 512) && L >= 1 && L <= GN_CHUNK && bq == at_bq(L) &&
+  return (C == 128 || C == 256 || C == 512 || C == 1024) && L >= 1 && L <= GN_CHUNK && bq == at_bq(L) &&
          vk == at_vk(at_cp(C, bq)) && smem == at_smem_bytes(L, C, bq);
 }
 
@@ -313,11 +316,13 @@ static cudaError_t launch_core(AttnCoreArgs a, int8_t* q8, int8_t* k8, int B, in
     a.k8 = k8;
     if (C == 128) return launch_core_bq<128, true>(a, B, bq, s);
     if (C == 256) return launch_core_bq<256, true>(a, B, bq, s);
-    return launch_core_bq<512, true>(a, B, bq, s);
+    if (C == 512) return launch_core_bq<512, true>(a, B, bq, s);
+    return launch_core_bq<1024, true>(a, B, bq, s);
   }
   if (C == 128) return launch_core_bq<128, false>(a, B, bq, s);
   if (C == 256) return launch_core_bq<256, false>(a, B, bq, s);
-  return launch_core_bq<512, false>(a, B, bq, s);
+  if (C == 512) return launch_core_bq<512, false>(a, B, bq, s);
+  return launch_core_bq<1024, false>(a, B, bq, s);
 }
 
 static AttnCoreArgs core_args(const void* qf, const void* kf, const void* vf, const void* amax, const void* sqo,

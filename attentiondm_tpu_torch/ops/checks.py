@@ -241,7 +241,7 @@ def require_attention_kernels(cfg, device, *, attn_int8=True, attn_ranges=None):
     refused = attention_plan(cfg, attn_int8=attn_int8, attn_ranges=attn_ranges)["refused"]
     if refused:
         raise NotImplementedError(
-            "attention sites off the CUDA kernels' shapes (K3: C in (128, 256, 512), L <= 1024; K8 / K9 / K10: "
+            "attention sites off the CUDA kernels' shapes (K3: C in (128, 256, 512, 1024), L <= 1024; K8 / K9 / K10: "
             "C in (128, 256, 512), L % 64 == 0; K11: C in (128, 256), L % 64 == 0): "
             + ", ".join(f"{site} (L={L}, C={C}) -> {kind}" for site, L, C, kind in refused))
 
@@ -303,7 +303,8 @@ def gn_refused(cfg, batch: int, **levers) -> list:
     whose CUDA kernel would refuse its shape: a resblock epilogue off K2's and
     K6's plans (or over the whole-image budget and off K6's grid, where JAX
     runs its XLA reference; kernel "K2/K6"), a K4 entry without a plan
-    (`gn_act_quant_takes`: N above 1024, off the 8-channel grid), a K7 exit
+    (`gn_act_quant_takes`: N above 2048, or above 1024 past 1024 rows, off
+    the 8-channel grid), a K7 exit
     without a launch plan (`epilogue_residual_gn_stats_takes`: N above 1024,
     off the 8-channel grid, past 32 * 32 windows), a K12 block off
     `resblock_pallas_takes`.  On the card
@@ -347,7 +348,8 @@ def require_gn_kernels(cfg, device, batch: int, **levers):
     refused = gn_refused(cfg, batch, **levers)
     if refused:
         raise NotImplementedError(
-            "GroupNorm / resblock sites off the CUDA kernels' shapes (N or C a multiple of 8 up to 1024, K6's "
+            "GroupNorm / resblock sites off the CUDA kernels' shapes (N or C a multiple of 8 up to 1024, K4 up to 2048 "
+            "within 1024 rows, K6's "
             "grid past the whole-image budget, HW up to 2^20 rows): "
             + ", ".join(f"{site} (HW={HW}, C={C}) -> {kind}" for site, HW, C, kind in refused))
 

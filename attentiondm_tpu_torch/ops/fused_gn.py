@@ -164,6 +164,8 @@ WAVE_THREADS = 128 * 512
 HOLD_MAX = 64 * 1024  # a larger held slab leaves too few warps on its SM (PERF.md)
 CLUSTERS = (1, 2, 4, 8, 16)  # 16 is a non-portable cluster size; the H100 takes it
 VEC = 8  # channels a thread owns: 16 bytes of bf16, two 16-byte loads of int32
+MAX_N = 1024  # the widest channel count of K2, K6, K7 and the cluster form
+IMAGE_MAX_N = 2048  # the image form's (K4 entries up to imagenet64's 2048-channel concats; GNE_IMAGE_MAX_N)
 MAX_THREADS = 512  # the kernels' launch bound (up to 128 registers: 8 channels' constants)
 K6_THREADS = 128  # four K6 blocks an SM: one's apply pass runs beside the others' first reads
 IMAGE_ROWS = (1, 2, 4, 8, 16, 32)  # row groups of threads an image (or slice) the image form may take
@@ -221,7 +223,13 @@ def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str, n_out: int = 1) -> 
     where a plan has that many, and of those the one whose threads come
     nearest a wave (WAVE_THREADS; by ratio, ties to the more threads);
     larger images take the cluster form, ranked as K2's, bounded at
-    `max_threads(n_out)`.  On the H100 the image form beat the cluster form
+    `max_threads(n_out)`.  The image form takes N up to IMAGE_MAX_N: past
+    1024 channels a row group of 8-channel threads outgrows the block, so
+    the plan slices the image into more blocks of whole groups (a thread
+    keeps its 8 channels and its registers), and the wave rule above picks
+    between fewer row groups a block and more slices; the cluster form
+    stops at MAX_N (JAX's one-pass budget admits no wider image past 32
+    windows).  On the H100 the image form beat the cluster form
     at every K4 shape of up to 1024 rows, and this rule came within 8% of the
     best plan at each (`tools/gn_shapes.py --plans`, PERF.md).
 
@@ -246,9 +254,9 @@ def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str, n_out: int = 1) -> 
     itemsize = 2 if dtype == torch.bfloat16 else 4
     g = min(GROUPS, N)
     V = N // VEC
-    if N % VEC or N % g or N > 1024 or HW < 1:
+    if N % VEC or N % g or N > MAX_N or HW < 1:
         raise NotImplementedError(f"epilogue_plan: N={N}, HW={HW} (N a multiple of {VEC} and of its groups, "
-                                  f"up to 1024)")
+                                  f"up to {MAX_N})")
     if kind == "K6":
         nchunk = -(-HW // CHUNK)
         if N % 128 or nchunk > SMS:
@@ -282,9 +290,9 @@ def _k4_plan(B: int, HW: int, N: int, dtype, n_out: int) -> dict:
         raise NotImplementedError(f"epilogue_plan: K4 with {dtype} and {n_out} outputs (bf16, f32 or int32 in, "
                                   f"1 to 3 outputs)")
     g = min(GROUPS, N)
-    if N % VEC or N % g or N > 1024 or HW < 1 or HW > WIN * WIN * CHUNK:
+    if N % VEC or N % g or N > IMAGE_MAX_N or HW < 1 or HW > WIN * WIN * CHUNK:
         raise NotImplementedError(f"epilogue_plan: K4 at HW={HW}, N={N} (N a multiple of {VEC} and of its groups, "
-                                  f"up to 1024; HW up to {WIN * WIN * CHUNK})")
+                                  f"up to {IMAGE_MAX_N}; HW up to {WIN * WIN * CHUNK})")
     itemsize = _ITEMSIZE[dtype]
     image = image_plans(B, HW, N, n_out)
     if image:  # a row group for each window where the block allows it, then the nearest a wave
@@ -293,7 +301,8 @@ def _k4_plan(B: int, HW: int, N: int, dtype, n_out: int) -> dict:
         return min(image, key=lambda p: (abs(math.log2(B * V * p["row_groups"] / WAVE_THREADS)), -p["row_groups"]))
     plans = k2_plans(HW, N, itemsize, max_threads(n_out), kind="K4")
     if not plans:
-        raise NotImplementedError(f"epilogue_plan: K4 at HW={HW}, N={N} (what a block's shared memory holds)")
+        raise NotImplementedError(f"epilogue_plan: K4 at HW={HW}, N={N} (what a block's shared memory holds; "
+                                  f"past {WIN} windows N up to {MAX_N})")
     return min(plans, key=lambda p: _cluster_rank(p, B, N, itemsize))
 
 
@@ -305,14 +314,15 @@ def _image_smem(nwin: int, Ns: int) -> int:
 
 def image_plans(B: int, HW: int, N: int, n_out: int = 1) -> list:
     """Every image-form plan of K4's kernel for B images of HW rows (at most
-    32 windows) and N channels: per number of row groups R (IMAGE_ROWS, at
-    most HW), the fewest channel slices of whole groups (`slices`, a power of
-    two) whose R x (N / slices / 8) threads fit `max_threads(n_out)`; a
+    32 windows) and N channels (up to IMAGE_MAX_N): per number of row groups
+    R (IMAGE_ROWS, at most HW), the fewest channel slices of whole groups
+    (`slices`, a power of two) whose R x (N / slices / 8) threads fit
+    `max_threads(n_out)`, where its window sums fit the shared memory; a
     block a slice.  A block sums its windows (row group r taking windows r,
     r + R, ...), adds them in order, and applies its rows."""
     g = min(GROUPS, N)
     nwin = -(-HW // WIN)
-    if N % VEC or N % g or N > 1024 or HW < 1 or nwin > WIN:
+    if N % VEC or N % g or N > IMAGE_MAX_N or HW < 1 or nwin > WIN:
         return []
     cg, mt = N // g, max_threads(n_out)
     plans = []
@@ -344,7 +354,7 @@ def k7_plans(HW: int, N: int) -> list:
     R, ... of its slice, so no window has two owners."""
     g = min(GROUPS, N)
     nwin = -(-HW // WIN)
-    if N % VEC or N % g or N > 1024 or HW < 1 or nwin > WIN * WIN:
+    if N % VEC or N % g or N > MAX_N or HW < 1 or nwin > WIN * WIN:
         return []
     cg = N // g
     plans = []
@@ -374,7 +384,7 @@ def _k7_plan(B: int, HW: int, N: int, dtype) -> dict:
     plans = k7_plans(HW, N)
     if not plans:
         raise NotImplementedError(f"epilogue_plan: K7 at HW={HW}, N={N} (N a multiple of {VEC} and of its groups, "
-                                  f"up to 1024; HW up to {WIN * WIN * WIN})")
+                                  f"up to {MAX_N}; HW up to {WIN * WIN * WIN})")
     nwin = -(-HW // WIN)
     R = min((p["row_groups"] for p in plans if p["row_groups"] >= nwin),
             default=max(p["row_groups"] for p in plans))
@@ -409,7 +419,7 @@ def k2_plans(HW: int, N: int, itemsize: int, max_thr: int = MAX_THREADS, kind: s
     channels of `itemsize` bytes that the kernel takes: per cluster size, a
     block's windows and threads (at most `max_thr`), with the slab held in
     shared memory and without (where each fits)."""
-    if HW > WIN * WIN * CHUNK or N % VEC or N > 1024:
+    if HW > WIN * WIN * CHUNK or N % VEC or N > MAX_N:
         return []
     V = N // VEC
     nwin = -(-HW // WIN)
@@ -538,7 +548,8 @@ def gn_act_quant_ref(x, gn_scale, gn_bias, quant_params, *, act: str = "swish"):
 def gn_act_quant_takes(B: int, HW: int, C: int, dtype=torch.bfloat16, n_out: int = 1) -> bool:
     """Whether K4's CUDA kernel takes a [B, HW, C] input of `dtype` with
     `n_out` outputs: bf16 or f32, and a launch plan (`epilogue_plan(...,
-    "K4")`: C a multiple of 8 and of its groups, up to 1024)."""
+    "K4")`: C a multiple of 8 and of its groups, up to 2048 in the image
+    form, 1024 past 32 windows)."""
     if dtype not in (torch.bfloat16, torch.float32):
         return False
     try:

@@ -62,7 +62,8 @@ FLASH_BLOCK_K = 512  # the key block of K10's online softmax, part of its result
 _REF_LOGIT_BYTES = 1 << 29  # the plain versions hold at most this many bytes of L x L logits at once
 
 SMEM_PER_BLOCK = 232448  # the dynamic shared memory one block can have on an H100 (227 KB)
-CORE_WIDTHS = (128, 256, 512)  # the channel counts both CUDA cores are built for
+CORE_WIDTHS = (128, 256, 512)  # the channel counts the K8 / K9 / K10 core is built for
+K3_WIDTHS = (128, 256, 512, 1024)  # the channel counts K3's core is built for (1024: imagenet64's 8^2 block)
 K3_MAX_L = 1024  # K3's longest map: its GroupNorm pass holds one 1024-row chunk
 
 
@@ -88,7 +89,11 @@ def core_plan(L: int, C: int, int8_core: bool = False) -> CorePlan:
     """K3's core at an (L, C) map: 64 queries a block, 32 above L = 512 so
     that the logits fit; a warp holds 64 channels of p.v; as many ring
     stages (2 to 4) as leave room for two blocks an SM, so that short maps,
-    whose few products cannot hide a load, keep more loads in flight."""
+    whose few products cannot hide a load, keep more loads in flight.  No
+    stage holds a [bq, C] tile: q / k stream in 128-byte chunks of a row and
+    p.v runs in passes of `cp` channels, so the shared memory does not grow
+    with C (at C = 1024 it is the plan of C = 512 or 256, with more
+    chunks and passes)."""
     lp = -(-L // 64) * 64
     bq = 64 if lp <= 512 else 32
     cp = min(C, 8 // (bq // 16) * 64)
@@ -124,7 +129,7 @@ def int8_core_plan(C: int) -> Int8CorePlan:
 
 def k3_takes(L: int, C: int) -> bool:
     """Whether K3's CUDA chain takes an (L, C) map (with a bf16 residual)."""
-    return C in CORE_WIDTHS and 1 <= L <= K3_MAX_L
+    return C in K3_WIDTHS and 1 <= L <= K3_MAX_L and core_plan(L, C).smem <= SMEM_PER_BLOCK
 
 
 def int8_core_takes(L: int, C: int) -> bool:
@@ -358,7 +363,7 @@ def attention_core(q, k, v, out_scale, out_zp, a_bit: int, *, scale: float, int8
         return attention_core_ref(q, k, v, out_scale, out_zp, a_bit, scale=scale, int8_core=int8_core,
                                   logits=logits)
     if not k3_takes(L, C):
-        raise NotImplementedError(f"attention_core on CUDA: C in {CORE_WIDTHS}, L <= {K3_MAX_L}; got C={C}, L={L}")
+        raise NotImplementedError(f"attention_core on CUDA: C in {K3_WIDTHS}, L <= {K3_MAX_L}; got C={C}, L={L}")
     q, k, v = (_build.f32c(a) for a in (q, k, v))
     sqo = torch.stack([out_scale, out_zp]).to(dtype=torch.float32, device=q.device)
     _build.require_cuda("attention_core", q, k, v, sqo)
@@ -420,7 +425,7 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
                                          weights[3][:3], scale=scale, int8_core=int8_core)
     if x.dtype != torch.bfloat16 or not k3_takes(L, C):
         raise NotImplementedError(
-            f"fused_attention_block on CUDA: bf16 residual, C in {CORE_WIDTHS}, L <= {K3_MAX_L}; got "
+            f"fused_attention_block on CUDA: bf16 residual, C in {K3_WIDTHS}, L <= {K3_MAX_L}; got "
             f"{x.dtype}, C={C}, L={L} (larger maps fail `fused_attention_block_fits` and take the composed "
             f"branch of `_attn_fused`)")
     g = min(GROUPS, C)

@@ -27,12 +27,18 @@ proj_out's K1 GEMM.  The stride-2 downsample, the int8-domain nearest
 upsample and `conv_out` are K1 in int32 mode with a plain-torch dequant.
 `conv_in` (3 input channels) stays on the fake-quant float conv.
 
+The fold (`prepare_serving_runtime`) holds every step's int8 weights, or
+with `pack_int4` their 4-bit codes two to a byte (one step unpacked in plain
+torch before its convs), or with `rank1` one copy shared by every step
+(quant/rank1.py).  `serving_ddim_sampler(step_chunk=k)` folds k steps at a
+time, and `micro_batch=m` runs each chunk over the batch m images at a time.
+
 The port takes the serving path's flag values: bf16 residual stream,
-`dot_bf16`, symmetric weights, DDIM update, no step chunking; every value of
-`attn_int8` / `attn_ranges`; and JAX's three fusion levers `entry_pallas`,
-`boundary_fusion` and `resblock_pallas` (True or "all"), routed by JAX's
-predicates.  Every other value raises NotImplementedError naming the ROADMAP
-slice that ports it.
+`dot_bf16`, symmetric weights, DDIM update; every value of `attn_int8` /
+`attn_ranges`, `step_chunk`, `micro_batch`, `pack_int4` and `rank1`; and
+JAX's three fusion levers `entry_pallas`, `boundary_fusion` and
+`resblock_pallas` (True or "all"), routed by JAX's predicates.  Every other
+value raises NotImplementedError naming the ROADMAP slice that ports it.
 """
 from __future__ import annotations
 
@@ -80,18 +86,14 @@ from ..ops.pallas_conv import (
     qzero as _qzero,
 )
 from ..ops.pallas_resblock import resblock_pallas as _rb_kernel, resblock_pallas_fits
+from ..ops.quant_conv import _round_up
 from .int8_runtime import _eligible, _fold_all_steps
 from .primitives import div
 from .qunet import QuantizedUNet
 from .state import ActQuantState, quantize_activation
 
-_CHUNK = "Queue 1, 'chunking and int4 packing'"
 _FLAGS = "Queue 1, 'the enhanced variant and the remaining serving flags'"
 _SLICE = {
-    "step_chunk": _CHUNK,
-    "micro_batch": _CHUNK,
-    "pack_int4": _CHUNK,
-    "rank1": _CHUNK,
     "weight_extras": "Queue 1, 'stage 2/3 calibration and GPTQ/AdaRound'",
     "resblock_pallas": _FLAGS + " (the (H, Cp, Np) shape-list form)",
     "conv_pallas": _FLAGS,
@@ -114,8 +116,7 @@ def _require(**flags):
             if value is False or value is True or (isinstance(value, str) and value == "all"):
                 continue
         else:
-            want = {**_SERVING_FLAGS, "step_chunk": None, "micro_batch": None, "pack_int4": False,
-                    "rank1": False, "weight_extras": None, "symmetric": True, "update": "ddim"}[name]
+            want = {**_SERVING_FLAGS, "weight_extras": None, "symmetric": True, "update": "ddim"}[name]
             if value is want or value == want:
                 continue
         raise NotImplementedError(f"{name}={value!r} is not ported yet; it comes with ROADMAP {_SLICE[name]}")
@@ -158,44 +159,143 @@ class ServingLayer:
         self.gq = self.gqt.transpose(-1, -2)
 
 
+# ---------------------------------------------------------------------------
+# int4 nibble packing (half the fold's bytes, bit-exact)
+# ---------------------------------------------------------------------------
+
+
+def pack_int4(gqt):
+    """Pack int8 codes of 4-bit weights ([-8, 7]) along the last axis, the K
+    of the K-major fold: int8 [..., Np, K] -> uint8 [..., Np, K / 2], codes
+    (2j, 2j + 1) in the (low, high) nibbles of byte j.  These are the bytes of
+    JAX's `pack_int4` of the [K, Np] fold, transposed.  K is even (the fold
+    pads channels to 128)."""
+    K = gqt.shape[-1]
+    if K % 2:
+        raise ValueError(f"pack_int4: K={K} is odd")
+    r = gqt.reshape(*gqt.shape[:-1], K // 2, 2).to(torch.int16)
+    return ((r[..., 0] & 0x0F) | ((r[..., 1] & 0x0F) << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed, out=None):
+    """Inverse of `pack_int4`: uint8 [..., Kh] -> int8 [..., 2 Kh], the low
+    nibble first, each sign-extended ((x << 4) >> 4 and x >> 4 on int8).  Three
+    elementwise passes over the buffer, written into `out` (int8, 2 Kh
+    elements a row) where it is given."""
+    p = packed.view(torch.int8)
+    if out is None:
+        out = torch.empty((*p.shape[:-1], 2 * p.shape[-1]), dtype=torch.int8, device=p.device)
+    pairs = out.view(*p.shape, 2)
+    torch.bitwise_left_shift(p, 4, out=pairs[..., 0])
+    pairs[..., 1].copy_(p)
+    out.bitwise_right_shift_(4)
+    return out
+
+
+_pack_int4 = pack_int4  # `prepare_serving_runtime` has a keyword of that name
+
+
+class ServingRuntime(dict):
+    """{conv name: ServingLayer}: a fold.  With `pack_int4` it also holds
+    `packed`, uint8 [S, T]: every packed layer's K-major 4-bit codes, a step
+    a row (`offsets` {name: first byte of its layer in a row}; the layer's
+    `gqt` is a view of it), and `unpacked`, int8 [2 T]: one step's codes,
+    into which `gather_step` unpacks the row of its step in one pass."""
+
+    def __init__(self, layers=(), packed=None, offsets=None):
+        super().__init__(layers)
+        self.packed = packed
+        self.offsets = offsets or {}
+        self.unpacked = None if packed is None else torch.empty(2 * packed.shape[1], dtype=torch.int8,
+                                                                device=packed.device)
+
+
+def _fold_shape(kernel_shape):
+    """(K, Np) of a conv's fold: rows kh * kw * Cp and columns on the 128 grid."""
+    kh, kw, ci, co = kernel_shape
+    return kh * kw * _round_up(ci, 128), _round_up(co, 128)
+
+
 def prepare_serving_runtime(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState],
                             symmetric: bool = True, steps=None, weight_extras=None,
-                            pack_int4: bool = False, rank1: bool = False) -> Dict[str, ServingLayer]:
-    """Fold weights for every eligible conv into serving form."""
-    _require(symmetric=symmetric, step_chunk=steps, weight_extras=weight_extras,
-             pack_int4=pack_int4, rank1=rank1)
-    runtime: Dict[str, ServingLayer] = {}
+                            pack_int4: bool = False, rank1: bool = False) -> ServingRuntime:
+    """Fold weights for every eligible conv into serving form.
+
+    `steps` (a slice of the schedule) folds those steps only, the chunk of
+    `serving_ddim_sampler(step_chunk=)`.  `pack_int4` holds each layer of at
+    most 4 weight bits as two codes a byte (`pack_int4`), all of them in one
+    buffer (`ServingRuntime.packed`): half the fold's bytes, bit-exact.
+    `rank1` folds the weights once for every step on rank-1 activation
+    scales (quant/rank1.py); it needs the whole schedule, so it refuses
+    `steps`."""
+    _require(symmetric=symmetric, weight_extras=weight_extras)
+    if rank1 and steps is not None:
+        raise ValueError("rank1 shared folds are whole-schedule by construction; drop step_chunk (the shared "
+                         "fold is params-sized, chunking buys nothing)")
+    layers = []
     for name, _cin, _k in iter_conv_layers(qunet.cfg):
         node = lookup(params, name)
+        if _eligible(node["kernel"].shape):
+            layers.append((name, node))
+    offsets, total = {}, 0  # a packed layer's first byte in a row of the one buffer, a step a row
+    if pack_int4:
+        for name, node in layers:
+            if qunet.policy[name].w_bit <= 4:
+                K, Np = _fold_shape(node["kernel"].shape)
+                offsets[name], total = total, total + K * Np // 2
+    folded, packed = {}, None
+    for name, node in layers:
         kernel = node["kernel"]
-        if not _eligible(kernel.shape):
-            continue
         st, pol = qstates[name], qunet.policy[name]
-        gq, ws, _wzp, zc, scale, zp = _fold_all_steps(kernel, st.group_ranges, st.alpha_logits,
-                                                      pol.a_bit, pol.w_bit)
-        Np, co = gq.shape[-1], kernel.shape[3]
-        bias = F.pad(node["bias"].to(torch.float32), (0, Np - co))
-        runtime[name] = ServingLayer(gq=gq, inv_ws=div(1.0, ws), zcbias=zc + bias[None, :],
-                                     act_scale=scale, act_zp=zp)
-    return runtime
+        gq, ws, _wzp, zc, scale, zp = _fold_all_steps(kernel, st.group_ranges, st.alpha_logits, pol.a_bit,
+                                                      pol.w_bit, rank1=rank1, steps=steps)
+        S, K, Np = gq.shape
+        bias = F.pad(node["bias"].to(torch.float32), (0, Np - kernel.shape[3]))
+        gqt = k_major(gq)
+        del gq
+        if name in offsets:
+            if packed is None:
+                packed = torch.empty((S, total), dtype=torch.uint8, device=gqt.device)
+            view = packed[:, offsets[name]:offsets[name] + Np * K // 2].view(S, Np, K // 2)
+            view.copy_(_pack_int4(gqt))
+            gqt = view
+        folded[name] = ServingLayer(gq=None, inv_ws=div(1.0, ws), zcbias=zc + bias[None, :], act_scale=scale,
+                                    act_zp=zp, gqt=gqt)
+    return ServingRuntime(folded, packed=packed, offsets=offsets)
 
 
 def gather_step(runtime: Dict[str, ServingLayer], step_idx: int) -> Dict[str, ServingLayer]:
-    """One sampler step's runtime (views; `gq` a view of the step's `gqt`)."""
-    return {
-        k: ServingLayer(None, *(a[step_idx] for a in (v.inv_ws, v.zcbias, v.act_scale, v.act_zp)),
-                        gqt=v.gqt[step_idx])
-        for k, v in runtime.items()
-    }
+    """One sampler step's runtime (views; `gq` a view of the step's `gqt`).
+    A tensor with a singleton step axis (the rank-1 fold's `gqt`) is shared
+    by every step and gives its index 0.  A packed fold's step is first
+    unpacked, every layer in one pass, into the runtime's `unpacked` buffer,
+    of which the step's int8 `gqt` are views."""
+    def at(a):
+        return a[0] if a.shape[0] == 1 else a[step_idx]
+
+    packed = getattr(runtime, "packed", None)
+    if packed is not None:
+        unpack_int4(at(packed), out=runtime.unpacked)
+    step = {}
+    for k, v in runtime.items():
+        gqt = at(v.gqt)
+        if packed is not None and k in runtime.offsets:
+            Np, Kh = gqt.shape
+            o = 2 * runtime.offsets[k]
+            gqt = runtime.unpacked[o:o + 2 * Np * Kh].view(Np, 2 * Kh)
+        step[k] = ServingLayer(None, *(at(a) for a in (v.inv_ws, v.zcbias, v.act_scale, v.act_zp)), gqt=gqt)
+    return step
 
 
 def runtime_nbytes(runtime: Dict[str, ServingLayer]) -> int:
-    """Device bytes of a runtime, each storage counted once (`gq` is a view of `gqt`)."""
+    """Device bytes of a runtime, each storage counted once (`gq` is a view
+    of `gqt`; a packed fold's layers are views of its one buffer, and its
+    step buffer counts too)."""
     storages = {}
-    for v in runtime.values():
-        for a in (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp, v.gqt):
-            st = a.untyped_storage()
-            storages[(st.device, st.data_ptr())] = st.nbytes()
+    extra = [t for t in (getattr(runtime, "packed", None), getattr(runtime, "unpacked", None)) if t is not None]
+    for a in extra + [a for v in runtime.values() for a in (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp, v.gqt)]:
+        st = a.untyped_storage()
+        storages[(st.device, st.data_ptr())] = st.nbytes()
     return sum(storages.values())
 
 
@@ -330,7 +430,8 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, entry_s
     co1, co2 = p["conv1"]["kernel"].shape[3], p["conv2"]["kernel"].shape[3]
     if c1 is None or c2 is None or c1.zcbias.shape[-1] != co1:
         raise _uncovered(name)
-    tproj = dense(swish(temb_act), p["temb_proj"]).to(torch.float32)  # [B, co1]
+    # [B, co1]; from a shared timestep's one row (serving_unet_apply), expanded over the batch
+    tproj = dense(swish(temb_act), p["temb_proj"]).to(torch.float32).expand(h_res.shape[0], -1)
 
     # K12: identity-residual blocks outside boundary fusion run whole, gated
     # per shape by JAX's conv policy unless "all"
@@ -461,8 +562,9 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     on larger maps, or K9 / K10 where `attn_ranges` ({proj_name: [S]} from
     `calibrate_ranges(return_attn_ranges=True)`) has the site's q, k and v.
 
-    `plain=True` runs the kernels' plain versions instead, on any device
-    (for comparisons)."""
+    `t` [B]: the batch's timesteps; one timestep expanded over the batch
+    (stride 0) computes its embedding once.  `plain=True` runs the kernels'
+    plain versions instead, on any device (for comparisons)."""
     _require(residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
              resblock_pallas=resblock_pallas, mp_states=mp_states)
     check_ported(cfg)
@@ -473,7 +575,11 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     res = residual_dtype
     levers = dict(entry_pallas=bool(entry_pallas), resblock_pallas=resblock_pallas, plain=plain)
 
-    temb = get_timestep_embedding(t, cfg.ch)
+    # a timestep shared by the batch (a stride-0 t, as the sampler passes it) takes the time embedding and
+    # the resblocks' projections of its one row: the same bits at any batch size (a [B, C] matmul's rounding
+    # depends on B), so micro-batches give the whole batch's output
+    t1 = t[:1] if t.ndim == 1 and t.shape[0] > 1 and t.stride(0) == 0 else t
+    temb = get_timestep_embedding(t1, cfg.ch)
     temb = dense(swish(dense(temb, params["temb"]["dense0"])), params["temb"]["dense1"])
 
     hs = [_conv_any("conv_in", x.to(torch.float32), params["conv_in"], rt_i, qunet, qstates,
@@ -551,6 +657,11 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
 # ---------------------------------------------------------------------------
 
 
+def _slice_states(qstates: Dict[str, ActQuantState], sl: slice) -> Dict[str, ActQuantState]:
+    return {k: ActQuantState(**{f.name: getattr(v, f.name)[sl] for f in dataclasses.fields(v)})
+            for k, v in qstates.items()}
+
+
 def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState], seq,
                          betas: torch.Tensor, *, eta: float = 0.0, step_chunk=None,
                          micro_batch=None, residual_dtype=torch.bfloat16, symmetric: bool = True,
@@ -560,35 +671,70 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
                          pack_int4: bool = False, rank1: bool = False, update: str = "ddim",
                          mp_states=None, runtime=None):
     """Deterministic (eta = 0) DDIM sampler over the fused int8 serving
-    path, unchunked: folds every step's weights once (or reuses a prebuilt
-    `runtime`), then returns ``sample(x) -> x_final``.
+    path: folds every step's weights once (or reuses a prebuilt `runtime`),
+    then returns ``sample(x) -> x_final``.
 
     `runtime`: a prebuilt `prepare_serving_runtime` tree to reuse; samplers
     that differ only in compute-path flags (`attn_int8`, `attn_ranges`,
     `entry_pallas`, `boundary_fusion`, `resblock_pallas`; see
-    `serving_unet_apply`) share
-    one fold instead of holding a copy each."""
-    check_eta(eta)
-    _require(step_chunk=step_chunk, micro_batch=micro_batch, update=update,
-             residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
-             resblock_pallas=resblock_pallas, mp_states=mp_states)
-    t_rev, _, at, at_next = _seq_alphas(betas, seq)
-    if runtime is None:
-        runtime = prepare_serving_runtime(qunet, params, qstates, symmetric=symmetric,
-                                          weight_extras=weight_extras, pack_int4=pack_int4, rank1=rank1)
+    `serving_unet_apply`) share one fold instead of holding a copy each.
 
-    def sample(x):
-        require_gn_kernels(qunet.cfg, x.device, x.shape[0], entry_pallas=entry_pallas,
-                           boundary_fusion=boundary_fusion, resblock_pallas=resblock_pallas)
-        require_attention_kernels(qunet.cfg, x.device, attn_int8=attn_int8, attn_ranges=attn_ranges)
+    `pack_int4` / `rank1`: the fold's forms (`prepare_serving_runtime`).
+    `step_chunk=k` folds k steps at a time inside `sample`, so the fold holds
+    k steps instead of all; `micro_batch=m` then advances the batch through
+    each chunk m images at a time, so one chunk's fold serves the whole
+    batch.  Both give the unchunked sampler's output to the bit (the fold's
+    shrink is the whole schedule's, `_fold_all_steps`).  As in JAX, `rank1`
+    and a prebuilt `runtime` refuse `step_chunk`; unlike JAX, which ignores
+    it there, `micro_batch` without `step_chunk` raises too."""
+    check_eta(eta)
+    _require(update=update, residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
+             resblock_pallas=resblock_pallas, mp_states=mp_states)
+    if runtime is not None and step_chunk is not None:
+        raise ValueError("a prebuilt runtime holds all steps' folds: incompatible with step_chunk's per-chunk folds")
+    if rank1 and step_chunk is not None:
+        raise ValueError("rank1 shared folds make step_chunk unnecessary (the fold is params-sized at any "
+                         "schedule length): drop one of the two")
+    if micro_batch is not None and step_chunk is None:
+        raise ValueError("micro_batch advances the batch through each chunk of step_chunk: it needs step_chunk")
+    t_rev, _, at, at_next = _seq_alphas(betas, seq)
+    S = t_rev.shape[0]
+
+    def fold(steps=None):
+        return prepare_serving_runtime(qunet, params, qstates, symmetric=symmetric, steps=steps,
+                                       weight_extras=weight_extras, pack_int4=pack_int4, rank1=rank1)
+
+    if runtime is None and step_chunk is None:
+        runtime = fold()
+    flags = dict(attn_int8=attn_int8, boundary_fusion=boundary_fusion, entry_pallas=entry_pallas,
+                 resblock_pallas=resblock_pallas)
+
+    def run(x, rt, qs, ar, lo, hi):
+        """Steps lo .. hi - 1 of the schedule, with the fold `rt` and states `qs` of those steps."""
         n = x.shape[0]
-        for i in range(t_rev.shape[0]):
-            et = serving_unet_apply(params, qunet.cfg, qunet, runtime, qstates, x,
-                                    t_rev[i].to(torch.float32).expand(n), i, attn_int8=attn_int8,
-                                    attn_ranges=attn_ranges, boundary_fusion=boundary_fusion,
-                                    entry_pallas=entry_pallas, resblock_pallas=resblock_pallas)
+        for i in range(lo, hi):
+            et = serving_unet_apply(params, qunet.cfg, qunet, rt, qs, x, t_rev[i].to(torch.float32).expand(n),
+                                    i - lo, attn_ranges=ar, **flags)
             x, _ = ddim_step(x, et, at[i], at_next[i], 0.0, torch.zeros_like(x))
         return x
+
+    def sample(x):
+        xs = list(x.split(micro_batch or x.shape[0]))
+        for n in sorted({xi.shape[0] for xi in xs}):
+            require_gn_kernels(qunet.cfg, x.device, n, entry_pallas=entry_pallas, boundary_fusion=boundary_fusion,
+                               resblock_pallas=resblock_pallas)
+        require_attention_kernels(qunet.cfg, x.device, attn_int8=attn_int8, attn_ranges=attn_ranges)
+        if step_chunk is None:
+            return run(x, runtime, qstates, attn_ranges, 0, S)
+        for c0 in range(0, S, step_chunk):
+            sl = slice(c0, min(c0 + step_chunk, S))
+            rt = fold(sl)
+            qs = _slice_states(qstates, sl)
+            ar = None if attn_ranges is None else {k: a[sl] for k, a in attn_ranges.items()}
+            for j, xj in enumerate(xs):
+                xs[j] = run(xj, rt, qs, ar, sl.start, sl.stop)
+            del rt
+        return torch.cat(xs)
 
     sample.runtime = runtime
     return sample

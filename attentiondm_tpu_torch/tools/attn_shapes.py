@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Device time of the attention cores at every shape the serving steps of the
-CIFAR-10, LSUN church and celeba-wide configurations give them: K3
-(`fused_attention_block`, f32 core and int8 core), K8, K9 and K10.
+CIFAR-10, LSUN church, celeba-wide and ImageNet-64 configurations give them:
+K3 (`fused_attention_block`, f32 core and int8 core), K8, K9 and K10.
 
-    python3 attentiondm_tpu_torch/tools/attn_shapes.py [--out FILE.json] [--sdpa ROUNDS]
+    python3 attentiondm_tpu_torch/tools/attn_shapes.py [--out FILE.json] [--sdpa ROUNDS] [--paths a,b]
 
 The port is imported from the current directory, not from beside this file,
 so one script measures two trees on the same card, one after the other (run
@@ -20,7 +20,8 @@ card's name and power limit.
 
 `--sdpa ROUNDS` times instead K3's f32 core alone (`attention_core`, its own
 C entry point) beside `F.scaled_dot_product_attention` under `exact_f32()`
-on the same f32 q, k, v, at every K3 shape of CIFAR-10 and church: both by
+on the same f32 q, k, v, at every K3 shape of CIFAR-10, church and
+ImageNet-64 (`--paths`: those of them named): both by
 `chip_smoke.device_ms` (the wrapper's host time left out), in turns core,
 library, library, core, ROUNDS times; it prints every reading, so the
 spread between readings stands beside the difference between the two.
@@ -44,13 +45,14 @@ from attentiondm_tpu_torch.models.unet import UNetConfig  # noqa: E402
 from attentiondm_tpu_torch.ops import checks  # noqa: E402
 from attentiondm_tpu_torch.ops import int8_attention as ia  # noqa: E402
 
-BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64}
+BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32}
 HBM, INT8, BF16, TF32X3, F32 = 3.35e12, 1979e12, 989e12, 495e12 / 3, 67e12
 
 
 def configs():
     celeba = dataclasses.replace(UNetConfig.from_config(load_config("celeba.yml")), attn_resolutions=(64, 32, 16))
-    return {"cifar10": UNetConfig(), "church": UNetConfig.from_config(load_config("church.yml")), "celeba-wide": celeba}
+    return {"cifar10": UNetConfig(), "church": UNetConfig.from_config(load_config("church.yml")), "celeba-wide": celeba,
+            "imagenet64": UNetConfig.from_config(load_config("imagenet64.yml"))}
 
 
 def device_us(fn, core, reps=5, tries=10):
@@ -76,14 +78,16 @@ def bound_us(nbytes, int8=0.0, bf16=0.0, tf32x3=0.0, f32=0.0):
     return max(nbytes / HBM, int8 / INT8 + bf16 / BF16 + tf32x3 / TF32X3 + f32 / F32) * 1e6
 
 
-def sdpa_turns(rounds, dev, gen, card):
+def sdpa_turns(rounds, dev, gen, card, paths):
     """K3's f32 core alone against F.scaled_dot_product_attention (see --sdpa)."""
     import torch.nn.functional as F
 
     import chip_smoke
     from attentiondm_tpu_torch.ops.precision import exact_f32
 
-    for path in ("cifar10", "church"):
+    for path in ("cifar10", "church", "imagenet64"):
+        if path not in paths:
+            continue
         B, step = BATCH[path], {"core": 0.0, "library": 0.0}
         for (L, C), n in sorted(collections.Counter(checks.conv_plan(configs()[path])[3]).items()):
             q, k, v = ((torch.randn((B, L, C), generator=gen)).to(dev) for _ in range(3))
@@ -111,6 +115,7 @@ def sdpa_turns(rounds, dev, gen, card):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the rows to this JSON file")
+    ap.add_argument("--paths", default=",".join(BATCH), help="the configurations to measure (comma-separated)")
     ap.add_argument("--sdpa", type=int, default=0, metavar="ROUNDS",
                     help="time K3's core alone beside F.scaled_dot_product_attention instead, in ROUNDS turns")
     args = ap.parse_args()
@@ -120,7 +125,7 @@ def main():
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev, gen = torch.device("cuda", 0), torch.Generator().manual_seed(0)
     if args.sdpa:
-        sdpa_turns(args.sdpa, dev, gen, card)
+        sdpa_turns(args.sdpa, dev, gen, card, args.paths.split(","))
         return
 
     def i8(shape, lo=-127, hi=127):
@@ -142,10 +147,12 @@ def main():
         return n * call, n * own, n * bound
 
     for path, cfg in configs().items():
+        if path not in args.paths.split(","):
+            continue
         B = BATCH[path]
         sums = collections.defaultdict(lambda: [0.0, 0.0, 0.0])
         k3 = collections.Counter(checks.conv_plan(cfg)[3])
-        modes = [False, True] if path == "celeba-wide" else [False]
+        modes = [False, True] if path in ("celeba-wide", "imagenet64") else [False]
         for (L, C), n in sorted(k3.items()):
             x = f((B, L, C)).to(torch.bfloat16)
             qkv_quant = [(torch.full((C,), 255 / 8.0, device=dev), torch.zeros(C, device=dev), b) for b in (8, 6, 8)]

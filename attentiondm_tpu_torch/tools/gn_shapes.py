@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Device time of the GroupNorm kernels at every shape of the CIFAR-10 (batch
-128), LSUN church (32) and celeba-wide (64) serving steps: K2 and K6
-(`ops.fused_gn.epilogue_gn_swish_quant`) at every resblock epilogue, and on
-CIFAR-10 and church with the three levers K4 (`gn_act_quant`) at every entry,
+128), LSUN church (32), celeba-wide (64) and ImageNet-64 (32) serving steps:
+K2 and K6 (`ops.fused_gn.epilogue_gn_swish_quant`) at every resblock
+epilogue, and on CIFAR-10, church and ImageNet-64 with the three levers K4
+(`gn_act_quant`) at every entry,
 K7 (`epilogue_residual_gn_stats`) at every fused exit, K12
 (`resblock_pallas`) at every whole block, and K3 (`fused_attention_block`,
 whose first launch is K4's kernel) at every attention block.
 
-    python3 attentiondm_tpu_torch/tools/gn_shapes.py [--out FILE.json] [--plans] [--only K2,K4,K7,...]
+    python3 attentiondm_tpu_torch/tools/gn_shapes.py [--out FILE.json] [--plans] [--only K2,K4,K7,...] [--paths a,b]
 
 The port is imported from the current directory, not from beside this file,
 so one script measures two trees on the same card, one after the other (run
@@ -49,12 +50,13 @@ from attentiondm_tpu_torch.config import load_config  # noqa: E402
 from attentiondm_tpu_torch.models.unet import UNetConfig  # noqa: E402
 from attentiondm_tpu_torch.ops import checks, fused_gn  # noqa: E402
 
-BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64}
+BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32}
 
 
 def configs():
     celeba = dataclasses.replace(UNetConfig.from_config(load_config("celeba.yml")), attn_resolutions=(64, 32, 16))
-    return {"cifar10": UNetConfig(), "church": UNetConfig.from_config(load_config("church.yml")), "celeba-wide": celeba}
+    return {"cifar10": UNetConfig(), "church": UNetConfig.from_config(load_config("church.yml")), "celeba-wide": celeba,
+            "imagenet64": UNetConfig.from_config(load_config("imagenet64.yml"))}
 
 
 def epilogue_args(B, HW, N, gen, dev):
@@ -275,6 +277,7 @@ def lever_rows(path, cfg, B, gen, dev, args, rows, only):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the rows to this JSON file")
+    ap.add_argument("--paths", default=",".join(BATCH), help="the configurations to measure (comma-separated)")
     ap.add_argument("--plans", action="store_true", help="also time every launch plan at each shape")
     ap.add_argument("--only", default="K2,K6,K4,K7,K12,K3", help="the kernels to time (comma-separated)")
     args = ap.parse_args()
@@ -285,6 +288,8 @@ def main():
     dev, gen = torch.device("cuda", 0), torch.Generator().manual_seed(0)
     rows = []
     for path, cfg in configs().items():
+        if path not in args.paths.split(","):
+            continue
         B = BATCH[path]
         _k1, k2, k6, _k3, _c = checks.conv_plan(cfg)
         totals = collections.defaultdict(lambda: [0.0, 0.0])

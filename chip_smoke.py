@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (`attentiondm_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--steps 10] [--seed 0] [--profile]
+    python3 chip_smoke.py [--steps 10] [--seed 0] [--profile] [--paths cifar10,church,celeba-wide,imagenet64]
 
 (`--profile` adds, after the last phase, torch.profiler's device time per
-kernel for one run of each sampler.)
+kernel for one run of each sampler; `--paths` runs only the paths named,
+all four by default.)
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
@@ -80,6 +81,16 @@ kernel for one run of each sampler.)
       and K3's f32 core); launch counts, shape and finiteness, the per-site
       step and the chained step for each, and (information only) how far the
       two int8-core samples lie from the f32-core sample.
+5. imagenet64: `configs/imagenet64.yml` (64^2, ch 128, ch_mult 1-2-4-8, 3
+   res blocks, attention at 16^2, the cosine schedule), batch 32, full depth,
+   at most 4 steps, the f32 attention core (bench.py's flags), as 3a to 3c
+   (K3 also at (64, 1024) with the int8 core, checked, not counted: the path
+   runs the f32 core; K4 at the 1536- and 2048-channel entries of the lever
+   step), then
+   d. folds: the same sampler with `step_chunk=2, micro_batch=16`, with
+      `pack_int4=True` and with both, each held bit-equal to the unchunked,
+      unpacked output (launch counts checked), and with `rank1=True`, held by
+      the per-site and chained step on its fold; each fold's size.
 Prints a JSON line of per-kernel results, then {"ok": true, "device": ...}
 as the last line.  Any failure raises (nonzero exit, no result line); so
 does a machine without a CUDA device.
@@ -94,8 +105,8 @@ import sys
 import time
 
 CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative error (gross faults only)
-BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64}
-MAX_STEPS = {"church": 4}  # a shallower schedule where the path is long and an earlier phase
+BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32}
+MAX_STEPS = {"church": 4, "imagenet64": 4}  # a shallower schedule where the path is long
 LEVER_ROUNDS = 3  # timed runs per lever setting, taken in turns
 F32_CORE = dict(attn_int8=False)  # the attention flag of the CIFAR-10 and church paths (bench.py's)
 # the three attention settings of the celeba-wide path; attn_ranges=True stands for the calibrated ranges
@@ -170,8 +181,9 @@ def nvidia_smi_line() -> str:
 
 def path_config(path):
     """(UNetConfig, DiffusionSchedule, label) of a path: CIFAR-10's default
-    config, the church model loaded from the repository's church.yml, or
-    CelebA's from celeba.yml with attention at 64^2, 32^2 and 16^2."""
+    config, the church model loaded from the repository's church.yml, CelebA's
+    from celeba.yml with attention at 64^2, 32^2 and 16^2, or ImageNet-64's
+    from imagenet64.yml (its cosine schedule)."""
     import dataclasses
 
     from attentiondm_tpu_torch.config import load_config
@@ -184,6 +196,9 @@ def path_config(path):
         config = load_config("celeba.yml")
         cfg = dataclasses.replace(UNetConfig.from_config(config), attn_resolutions=(64, 32, 16))
         return cfg, DiffusionSchedule.from_config(config), "celeba.yml CelebA with attn_resolutions=(64, 32, 16)"
+    if path == "imagenet64":
+        config = load_config("imagenet64.yml")
+        return UNetConfig.from_config(config), DiffusionSchedule.from_config(config), "imagenet64.yml ImageNet-64"
     config = load_config("church.yml")
     return (UNetConfig.from_config(config), DiffusionSchedule.from_config(config),
             "church.yml LSUN church_outdoor")
@@ -375,7 +390,11 @@ def epilogue_phase(cfg, batch, gen, dev, report):
     torch.cuda.empty_cache()
 
 
-def kernel_phase(cfg, batch, gen, dev, report):
+def kernel_phase(cfg, batch, gen, dev, report, both_cores=False):
+    """Every kernel of the path's serving step (and of its lever steps) against
+    its plain version at the step's shapes, timed; `both_cores` also holds
+    K3's int8 core at each K3 shape (printed, not counted: the path runs the
+    f32 core)."""
     import torch
 
     from attentiondm_tpu_torch.ops import checks
@@ -467,6 +486,17 @@ def kernel_phase(cfg, batch, gen, dev, report):
         report.add("K3", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
         print(f"[kernels] K3 fused_attention_block B={batch} L={L} C={C} x{n}/step: {_fig(f)}; "
               f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+        if both_cores:
+            def k3_int8(plain=False):
+                return fused_attention_block(*args, scale=C ** -0.5, int8_core=True, plain=plain)
+
+            f8 = _held("K3", f"L={L} C={C} int8 core", k3_int8(), k3_int8(plain=True))
+            ms8, dms8 = time_ms(k3_int8), device_ms(k3_int8)
+            b8 = bound(2 * nbytes(x) + 4 * C * C + 16 * 4 * C,
+                       int8_ops=4 * 2 * batch * L * C * C + 2 * batch * L * L * C,
+                       tf32x3_flops=2 * batch * L * L * C, f32_flops=30 * x.numel() + 5 * batch * L * L)
+            print(f"[kernels] K3 fused_attention_block(int8_core) B={batch} L={L} C={C} (checked, not on this path's "
+                  f"count): {_fig(f8)}; kernel {ms8:.4f} ms device {dms8:.4f} ms {_bound_fig(b8)}")
         del x, args
 
         # K3's core alone on f32 q, k, v of a few units; F.scaled_dot_product_attention computes its function
@@ -780,7 +810,7 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False, settin
             raise AssertionError(f"{name}: launch counts {counts[name]} != expected {expected}")
         if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"sampler output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
-        outs[name] = out
+        outs[name] = ctx["out"] = out
 
         best = min(time_ms(lambda: sample(x), reps=1) for _ in range(2))
         print(f"[slice] serving sampler, {name}: {best:.1f} ms for {steps} steps at batch {batch} = "
@@ -907,13 +937,96 @@ def levers_phase(ctx, timed, profile=False):
     return counts
 
 
+def fold_forms_phase(ctx):
+    """The sampler's fold forms on the path's params, calibration and input:
+    `step_chunk=2` with half-batch micro-batches, `pack_int4`, and both,
+    each launch-counted and held bit-equal to the unchunked, unpacked
+    sampler's output; then `rank1`, held by the per-site and chained step on
+    its own fold.  Prints each fold's size (a chunk's for the chunked forms)."""
+    import torch
+
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.quant.int8_serving import (
+        prepare_serving_runtime,
+        runtime_nbytes,
+        serving_ddim_sampler,
+    )
+
+    cfg, steps, batch, x, ref = ctx["cfg"], ctx["steps"], ctx["batch"], ctx["x"], ctx["out"]
+    args = (ctx["qunet"], ctx["params"], ctx["qstates"], ctx["seq"], ctx["betas"])
+    full = runtime_nbytes(ctx["runtime"])
+    print(f"[folds] unchunked, unpacked fold: {full / 1e9:.3f} GB for {steps} steps "
+          f"({full / steps * 100 / 1e9:.2f} GB at 100 steps)")
+    mb = batch // 2
+    forms = {f"step_chunk=2, micro_batch={mb}": dict(step_chunk=2, micro_batch=mb), "pack_int4": dict(pack_int4=True),
+             f"step_chunk=2, micro_batch={mb}, pack_int4": dict(step_chunk=2, micro_batch=mb, pack_int4=True)}
+    for name, kw in forms.items():
+        sample = serving_ddim_sampler(*args, **F32_CORE, **kw)
+        if "step_chunk" in kw:  # one chunk's fold, the most a chunked run holds at once
+            chunk = prepare_serving_runtime(*args[:3], steps=slice(0, 2), pack_int4=kw.get("pack_int4", False))
+            nb = runtime_nbytes(chunk)
+            del chunk
+            size = f"{nb / 1e9:.3f} GB a chunk of 2 steps (at most {nb / 1e9:.3f} GB at any schedule length)"
+        else:  # the packed codes grow with the steps, the one unpacked step does not
+            nb, buf = runtime_nbytes(sample.runtime), nbytes(sample.runtime.unpacked)
+            size = (f"{nb / 1e9:.3f} GB for {steps} steps, {buf / 1e9:.3f} GB of it one unpacked step "
+                    f"({((nb - buf) / steps * 100 + buf) / 1e9:.2f} GB at 100 steps)")
+        torch.cuda.reset_peak_memory_stats()
+        per_call = kw.get("micro_batch", batch)  # each micro-batch runs every step
+        expected = checks.expected_launches(cfg, steps * batch // per_call, per_call, **F32_CORE)
+        checks.reset_launches()
+        out = clock(f"serving sampler, {name} ({steps} steps, batch {batch})", lambda: sample(x), "folds")
+        counts = checks.read_launches()
+        if counts != expected:
+            raise AssertionError(f"{name}: launch counts {counts} != expected {expected}")
+        diff = (out - ref).abs()
+        print(f"[folds] {name}: fold {size}; launches as expected; bit-equal to the unchunked, unpacked sampler: "
+              f"{torch.equal(out, ref)} (max abs difference {diff.max().item():.3e}, {int((diff > 0).sum())} of "
+              f"{diff.numel()} values differ); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        if not torch.equal(out, ref):
+            per_image = (diff.reshape(batch, -1) > 0).any(dim=1).nonzero().flatten().tolist()
+            raise AssertionError(f"{name}: the sampler's output differs from the unchunked one (images {per_image})")
+        del sample, out
+
+    sample = serving_ddim_sampler(*args, **F32_CORE, rank1=True)
+    nb = runtime_nbytes(sample.runtime)
+    expected = checks.expected_launches(cfg, steps, batch, **F32_CORE)
+    checks.reset_launches()
+    out = clock(f"serving sampler, rank1 ({steps} steps, batch {batch})", lambda: sample(x), "folds")
+    counts = checks.read_launches()
+    if counts != expected:
+        raise AssertionError(f"rank1: launch counts {counts} != expected {expected}")
+    if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"rank1 sampler output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
+    rel = ((out - ref).abs().mean() / ref.abs().mean()).item()
+    print(f"[folds] rank1: fold {nb / 1e9:.3f} GB for {steps} steps (the int8 weights held once: about the same at "
+          f"100 steps); launches as expected; mean rel difference from the per-step fold's sample {rel:.3e} "
+          f"(information only: rank-1 scales are another quantization)")
+    step_checks({**ctx, "runtime": sample.runtime}, F32_CORE, "folds")
+    del sample, out
+    torch.cuda.empty_cache()
+
+
+def phase(path, name, fn, *args, **kwargs):
+    """fn(*args, **kwargs), and its host-clock seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[phase] {path} {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also print torch.profiler's device time per kernel for one sampler run")
+    ap.add_argument("--paths", default=",".join(BATCH),
+                    help=f"the paths to run, comma-separated (default: all of {', '.join(BATCH)})")
     args = ap.parse_args(argv)
+    paths = args.paths.split(",")
+    if not paths or any(p not in BATCH for p in paths):
+        raise SystemExit(f"chip_smoke: --paths takes names among {', '.join(BATCH)}, got {args.paths!r}")
 
     import torch
 
@@ -932,22 +1045,26 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(args.seed)
     kernels = []
-    for path in BATCH:
+    for path in paths:
         t0 = time.perf_counter()
         cfg, sched, label = path_config(path)
         steps = min(args.steps, MAX_STEPS.get(path, args.steps))
         print(f"== {path}: {label}, batch {BATCH[path]}")
         report = Report()
         if path == "celeba-wide":
-            attention_kernel_phase(cfg, BATCH[path], gen, dev, report)
-            epilogue_phase(cfg, BATCH[path], gen, dev, report)
-            counts, ctx = slice_phase(cfg, sched, label, steps, BATCH[path], gen, dev, args.profile, ATTN_SETTINGS)
+            phase(path, "attention kernels", attention_kernel_phase, cfg, BATCH[path], gen, dev, report)
+            phase(path, "epilogue kernels", epilogue_phase, cfg, BATCH[path], gen, dev, report)
+            counts, ctx = phase(path, "slice", slice_phase, cfg, sched, label, steps, BATCH[path], gen, dev,
+                                args.profile, ATTN_SETTINGS)
             launches_of = {**{key: counts[run][key] for key, run in ATTN_RUN.items()},
                            "K2": counts["static int8"]["K2"]}
         else:
-            kernel_phase(cfg, BATCH[path], gen, dev, report)
-            counts, ctx = slice_phase(cfg, sched, label, steps, BATCH[path], gen, dev, args.profile)
-            lever_counts = levers_phase(ctx, timed=path == "cifar10", profile=args.profile)
+            phase(path, "kernels", kernel_phase, cfg, BATCH[path], gen, dev, report, both_cores=path == "imagenet64")
+            counts, ctx = phase(path, "slice", slice_phase, cfg, sched, label, steps, BATCH[path], gen, dev,
+                                args.profile)
+            lever_counts = phase(path, "levers", levers_phase, ctx, timed=path == "cifar10", profile=args.profile)
+            if path == "imagenet64":
+                phase(path, "folds", fold_forms_phase, ctx)
             launches_of = {**counts["f32 core"], **{key: lever_counts[key] for key in ("K4", "K7", "K12")},
                            "K3.core": counts["f32 core"]["K3"]}
         del ctx

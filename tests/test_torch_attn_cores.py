@@ -219,7 +219,7 @@ def _configs():
 CONFIG_SITES = {path: checks.attention_sites(cfg) for path, cfg in _configs().items()}
 K3_SHAPES = sorted({(L, C) for sites in CONFIG_SITES.values() for _s, L, C in sites
                     if ia.fused_attention_block_fits(L, C)}
-                   | {(L, C) for L in (1, 16, 63, 64, 65, 512, 513, 1000, 1024) for C in ia.CORE_WIDTHS})
+                   | {(L, C) for L in (1, 16, 63, 64, 65, 512, 513, 1000, 1024) for C in ia.K3_WIDTHS})
 INT8_SHAPES = sorted({(L, C) for sites in CONFIG_SITES.values() for _s, L, C in sites
                       if not ia.fused_attention_block_fits(L, C)}
                      | {(L, C) for L in (64, 1024, 2304, 4096) for C in ia.CORE_WIDTHS})

@@ -97,9 +97,11 @@ def test_church_config_is_the_served_one():
 
 
 def test_unported_var_type_raises():
+    """A variance neither package has ("learned") raises; fixedlarge and
+    fixedsmall are ported (tests/test_torch_imagenet64.py)."""
     cfg = load_config("church.yml")
-    cfg.model.var_type = "fixedsmall"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.model.var_type = "learned"
+    with pytest.raises(NotImplementedError, match="var_type='learned'"):
         DiffusionSchedule.from_config(cfg, device="cpu")
 
 

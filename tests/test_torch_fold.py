@@ -198,9 +198,8 @@ def test_runtime_nbytes_counts_the_fold_once(toy_fold):
     assert torch.equal(lay.gq, gq) and lay.gq.untyped_storage().data_ptr() == lay.gqt.untyped_storage().data_ptr()
 
 
-@pytest.mark.parametrize("kw", [dict(symmetric=False), dict(rank1=True), dict(pack_int4=True),
-                                dict(steps=slice(0, 1)), dict(weight_extras={})],
-                         ids=["asymmetric", "rank1", "pack_int4", "step_chunk", "weight_extras"])
+# rank1, pack_int4 and steps (step_chunk's fold) are ported: tests/test_torch_imagenet64.py
+@pytest.mark.parametrize("kw", [dict(symmetric=False), dict(weight_extras={})], ids=["asymmetric", "weight_extras"])
 def test_unported_fold_options_raise(kw):
     q = QuantizedUNet.create(UNetConfig(**TOY), 4, 8)
     with pytest.raises(NotImplementedError):

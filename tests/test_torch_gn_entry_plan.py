@@ -2,8 +2,9 @@
 csrc/gn_epilogue.cuh), which also runs K3's first launch and K12's two
 GroupNorm launches, held on the CPU with torch alone.
 
-- At every K4 and K12 shape of the CIFAR-10 (batch 128) and LSUN church
-  (batch 32) serving steps with the three levers, and at toy shapes, for 1 to
+- At every K4 and K12 shape of the CIFAR-10 (batch 128), LSUN church and
+  ImageNet-64 (batch 32) serving steps with the three levers (K4 up to 2048
+  channels), and at toy shapes, for 1 to
   3 outputs and bf16, f32 (and K12's int32) input: the plan and every other
   plan `k4_plans` offers cover every (row, channel) of an image exactly once,
   in whole 32-row windows, whole groups and whole 8-channel vectors, within a
@@ -41,16 +42,21 @@ def _one_torch_thread():
 
 
 LEVERS = dict(entry_pallas=True, boundary_fusion=True, resblock_pallas="all")
-BATCH = {"cifar10": 128, "church": 32}
+BATCH = {"cifar10": 128, "church": 32, "imagenet64": 32}
 # (HW, C) -> K4 launches a serving step with the three levers (`checks.lever_plan`)
 K4_SHAPES = {
     "cifar10": {(1024, 128): 2, (256, 128): 1, (64, 256): 1, (16, 256): 1, (16, 512): 3, (64, 512): 3,
                 (256, 512): 2, (256, 384): 1, (1024, 384): 1, (1024, 256): 2},
     "church": {(4096, 128): 1, (1024, 256): 1, (256, 256): 1, (64, 512): 1, (64, 1024): 3, (256, 1024): 2,
                (256, 768): 1, (1024, 768): 1, (1024, 512): 2},
+    # the decoder's entries past 1024 channels: (64, 2048), (64, 1536), (256, 1536)
+    "imagenet64": {(4096, 128): 3, (1024, 128): 1, (256, 256): 1, (64, 512): 1, (64, 1024): 1, (64, 2048): 3,
+                   (64, 1536): 1, (256, 1536): 1, (256, 1024): 2, (256, 768): 1, (1024, 768): 1, (1024, 512): 2,
+                   (1024, 384): 1},
 }
 # (H, C) of the K12 blocks
-K12_SHAPES = {"cifar10": [(16, 256), (4, 256)], "church": [(16, 512), (8, 512)]}
+K12_SHAPES = {"cifar10": [(16, 256), (4, 256)], "church": [(16, 512), (8, 512)],
+              "imagenet64": [(64, 128), (16, 512), (16, 512)]}
 TOY = [(1, 16, 128), (3, 16, 256), (2, 32, 64), (5, 48, 96), (2, 64, 1024), (1, 100, 256), (4, 1024, 128),
        (2, 1600, 256)]
 DTYPES = {torch.bfloat16: 2, torch.float32: 4, torch.int32: 4}
@@ -60,7 +66,7 @@ K12_CASES = [(B, H * H, C) for path, B in BATCH.items() for (H, C) in K12_SHAPES
 
 
 def _config(path):
-    return UNetConfig() if path == "cifar10" else UNetConfig.from_config(load_config("church.yml"))
+    return UNetConfig() if path == "cifar10" else UNetConfig.from_config(load_config(f"{path}.yml"))
 
 
 @pytest.mark.parametrize("path", list(BATCH))
@@ -153,7 +159,7 @@ def test_k3_launch_is_bounded_for_three_outputs():
 
 
 @pytest.mark.parametrize("HW,N,dtype,n_out", [
-    (16, 2048, torch.bfloat16, 1), (16, 12, torch.bfloat16, 1), (32 * 32 * 1024 + 1, 128, torch.bfloat16, 1),
+    (16, 2304, torch.bfloat16, 1), (16, 12, torch.bfloat16, 1), (32 * 32 * 1024 + 1, 128, torch.bfloat16, 1),
     (16, 128, torch.float16, 1), (16, 128, torch.bfloat16, 4), (16, 128, torch.bfloat16, 0), (0, 128, torch.float32, 1),
     (1024, 1032, torch.float32, 2)])
 def test_epilogue_plan_k4_raises_off_the_kernel(HW, N, dtype, n_out):
@@ -320,19 +326,21 @@ def test_halo_map_and_border_equal_pad_qzero(B, HW, N, dtype):
 # ---------------------------------------------------------------------------
 
 
-# a decoder concat of 1536 channels at 4^2: K4 has no plan above 1024
+# a decoder concat of 1536 channels at 4^2: K4 takes it (up to 2048)
 WIDE = UNetConfig(ch=128, ch_mult=(1, 6), num_res_blocks=1, attn_resolutions=(), resolution=8, dropout=0.0)
+# 1152 channels at the deepest level, concats of 2304: no K2 / K6 epilogue plan, no K4 plan above 2048
+WIDER = UNetConfig(ch=128, ch_mult=(1, 9), num_res_blocks=1, attn_resolutions=(), resolution=8, dropout=0.0)
 
 
 @pytest.mark.parametrize("cfg,levers,kinds", [
     (UNetConfig(), LEVERS, set()), (_config("church"), LEVERS, set()), (_config("church"), {}, set()),
-    (WIDE, {}, set()), (WIDE, dict(entry_pallas=True), {"K4"}), (WIDE, LEVERS, {"K4"}),
+    (WIDE, {}, set()), (WIDE, dict(entry_pallas=True), set()), (WIDER, LEVERS, {"K2/K6", "K4", "K7"}),
 ], ids=["cifar10", "church", "church_off", "wide_off", "wide_entry", "wide_levers"])
 def test_gn_refused_names_the_sites(cfg, levers, kinds):
     refused = checks.gn_refused(cfg, 4, **levers)
     assert {kind for *_site, kind in refused} == kinds
     for site, HW, C, kind in refused:
-        assert C > 1024 and kind == "K4" and site.startswith("up.1.block")
+        assert (C > 2048 and site.startswith("up.1.block")) if kind == "K4" else C > 1024
     checks.require_gn_kernels(cfg, "cpu", 4, **levers)
     if refused:
         site, HW, C, kind = refused[0]

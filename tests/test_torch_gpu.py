@@ -231,7 +231,7 @@ def _k3_args(gen, dev, B, L, C):
             [weights() for _ in range(3)], quant(8, 3), weights())
 
 
-@pytest.mark.parametrize("L,C", [(256, 256), (16, 256), (64, 128), (256, 512), (64, 512)])
+@pytest.mark.parametrize("L,C", [(256, 256), (16, 256), (64, 128), (256, 512), (64, 512), (64, 1024)])
 def test_k3_kernel_matches_plain(dev, gen, L, C):
     args = _k3_args(gen, dev, 4, L, C)
     before = fused_attention_block.launches
@@ -271,12 +271,13 @@ def test_k3_int8_core_matches_plain(dev, gen, L, C):
 
 @pytest.mark.parametrize("int8_core", [False, True], ids=["f32", "int8"])
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("C", [128, 256, 512])
+@pytest.mark.parametrize("C", [128, 256, 512, 1024])
 @pytest.mark.parametrize("L", [16, 64, 256, 1024])
 def test_k3_tensor_core_cores_match_plain(dev, gen, L, C, B, int8_core):
     """K3's redesigned core (3xTF32 f32 mode; s8 logits in the int8 mode) at
-    every width, from a map shorter than a key tile to the longest K3 takes
-    (L = 1024: 32 queries a block), at batch 1 and 3."""
+    every width (C = 1024: imagenet64's 8^2 block), from a map shorter than a
+    key tile to the longest K3 takes (L = 1024: 32 queries a block), at batch
+    1 and 3."""
     args = _k3_args(gen, dev, B, L, C)
     before = fused_attention_block.launches
     got = fused_attention_block(*args, scale=C ** -0.5, int8_core=int8_core)
@@ -285,7 +286,8 @@ def test_k3_tensor_core_cores_match_plain(dev, gen, L, C, B, int8_core):
     assert fig["ok"], fig
 
 
-@pytest.mark.parametrize("B,L,C", [(3, 256, 256), (1, 1024, 512), (2, 72, 128), (3, 16, 512), (1, 576, 256)])
+@pytest.mark.parametrize("B,L,C", [(3, 256, 256), (1, 1024, 512), (2, 72, 128), (3, 16, 512), (1, 576, 256),
+                                   (2, 64, 1024)])
 def test_k3_int8_core_logits_are_exact(dev, gen, B, L, C):
     """The int8 mode's logits (s8 mma) equal float(q8 . k8) * ls of the plain
     version to the bit, and the core's codes meet K3.core's tolerance."""
@@ -300,7 +302,7 @@ def test_k3_int8_core_logits_are_exact(dev, gen, B, L, C):
     assert fig["ok"], fig
 
 
-@pytest.mark.parametrize("B,L,C", [(128, 256, 256), (32, 64, 512), (3, 1024, 128), (2, 100, 256)])
+@pytest.mark.parametrize("B,L,C", [(128, 256, 256), (32, 64, 512), (3, 1024, 128), (2, 100, 256), (32, 64, 1024)])
 def test_k3_f32_core_alone_matches_plain(dev, gen, B, L, C):
     """K3's f32 core through its own entry point: proj_out's input codes
     within K3.core's tolerance (CIFAR's and church's shapes among them)."""
@@ -494,11 +496,14 @@ def test_k4_kernel_matches_plain(dev, gen, HW, C, n_out, act, x_dtype):
     assert fig["ok"], fig
 
 
-# every (B, HW, C) K4 takes in a CIFAR-10 (batch 128) or church (batch 32) serving step with the three levers
+# every (B, HW, C) K4 takes in a CIFAR-10 (batch 128), church or imagenet64 (batch 32) serving step with the
+# three levers
 K4_PATH = [(128, HW, C) for HW, C in [(1024, 128), (256, 128), (64, 256), (16, 256), (16, 512), (64, 512),
                                        (256, 512), (256, 384), (1024, 384), (1024, 256)]]
 K4_PATH += [(32, HW, C) for HW, C in [(4096, 128), (1024, 256), (256, 256), (64, 512), (64, 1024), (256, 1024),
                                        (256, 768), (1024, 768), (1024, 512)]]
+# and those imagenet64's (batch 32) adds: the decoder's entries past 1024 channels, its 32^2 entries
+K4_PATH += [(32, HW, C) for HW, C in [(64, 2048), (64, 1536), (256, 1536), (1024, 128), (1024, 384)]]
 
 
 def _k4_args(gen, dev, B, HW, C, n_out, x_dtype=torch.bfloat16):
@@ -537,7 +542,7 @@ def test_k4_outputs_and_inputs_bit_equal(dev, gen, B, HW, C, n_out, act, x_dtype
 
 @pytest.mark.parametrize("n_out", [1, 3])
 @pytest.mark.parametrize("B,HW,C", [(128, 16, 256), (32, 64, 1024), (32, 256, 768), (128, 1024, 384), (5, 48, 96),
-                                    (2, 1600, 256)], ids=str)
+                                    (2, 1600, 256), (32, 64, 2048), (32, 256, 1536), (3, 400, 1152)], ids=str)
 def test_k4_every_plan_bit_equal(dev, gen, monkeypatch, B, HW, C, n_out):
     """K4 under every plan `k4_plans` offers at the shape (each row-group
     count and slicing of the image form, each cluster plan), not only the one
@@ -593,25 +598,25 @@ def test_k12_every_plan_bit_equal(dev, gen, monkeypatch, B, H, C):
 
 
 def test_sampler_refuses_gn_sites_before_step_0(dev, gen):
-    """A config whose decoder concat (1536 channels) no K4 plan takes stops in
+    """A config whose decoder concat (2304 channels) no K4 plan takes stops in
     `sample(x)` with `entry_pallas` before any kernel launches, naming the
-    sites; without the lever no GroupNorm site is named."""
+    site; without the lever its resblock epilogues (1152 channels, past K2's
+    1024) are named, and no K4 site."""
     from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
     from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
 
-    cfg = UNetConfig(ch=128, ch_mult=(1, 6), num_res_blocks=1, attn_resolutions=(), resolution=8, dropout=0.0)
+    cfg = UNetConfig(ch=128, ch_mult=(1, 9), num_res_blocks=1, attn_resolutions=(), resolution=8, dropout=0.0)
     params = unet_init(gen, cfg, dev)
     q = QuantizedUNet.create(cfg, 4, 8)
     qstates = q.init_state(1, dev)
     betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device=dev).betas
     x = _f(gen, (2, 8, 8, 3), dev)
     checks.reset_launches()
-    with pytest.raises(NotImplementedError, match=r"up\.1\.block\.0 \(HW=16, C=1536\) -> K4"):
-        serving_ddim_sampler(q, params, qstates, [0], betas, entry_pallas=True)(x)
-    # without the lever the GroupNorm sites pass, and the attention check names its own (K3 at C = 768)
-    with pytest.raises(NotImplementedError, match=r"mid\.attn_1 \(L=16, C=768\) -> K3") as refused:
-        serving_ddim_sampler(q, params, qstates, [0], betas)(x)
-    assert "HW=" not in str(refused.value)
+    with pytest.raises(NotImplementedError, match=r"up\.1\.block\.0 \(HW=16, C=2304\) -> K4"):
+        serving_ddim_sampler(q, params, qstates, [0], betas, runtime={}, entry_pallas=True)(x)
+    with pytest.raises(NotImplementedError, match=r"mid\.block_1 \(HW=16, C=1152\) -> K2/K6") as refused:
+        serving_ddim_sampler(q, params, qstates, [0], betas, runtime={})(x)
+    assert "-> K4" not in str(refused.value)
     assert not any(checks.read_launches().values())
 
 
@@ -797,3 +802,25 @@ def test_serving_step_kernels_match_plain(dev, gen, toy, levers):
         assert {r[0] for r in records} == {"K1", "K2", "K6", "K3"}
     if toy == "levers" and len(levers) == 3:
         assert {"K4", "K7", "K12"} <= {r[0] for r in records}
+
+
+def test_fold_forms_equal_the_plain_sampler(dev, gen):
+    """On the card, `step_chunk` with micro-batches (uneven ones too),
+    `pack_int4` and both give the plain sampler's bits: every kernel sums in
+    an order that does not depend on the batch, and a timestep shared by the
+    batch takes its time embedding from one row at any batch size."""
+    from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
+
+    cfg = UNetConfig(**TOY)
+    params = unet_init(gen, cfg, dev)
+    q = QuantizedUNet.create(cfg, 4, 8)
+    qstates = q.init_state(4, dev)
+    for st in qstates.values():  # ranges as calibration leaves them: [-1, 4] per group
+        st.group_ranges[..., 0], st.group_ranges[..., 1] = -1.0, 4.0
+    betas = DiffusionSchedule.create("cosine", 1e-4, 0.02, 1000, device=dev).betas
+    seq, x = [0, 300, 600, 900], _f(gen, (4, 8, 8, 3), dev)
+    ref = serving_ddim_sampler(q, params, qstates, seq, betas, attn_int8=False)(x)
+    for kw in (dict(step_chunk=2, micro_batch=2), dict(pack_int4=True),
+               dict(step_chunk=3, micro_batch=3, pack_int4=True)):
+        assert torch.equal(serving_ddim_sampler(q, params, qstates, seq, betas, attn_int8=False, **kw)(x), ref), kw

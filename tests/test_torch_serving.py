@@ -172,8 +172,7 @@ FLAGS = [
     ("mp_states", {}),
 ]
 SAMPLER_FLAGS = FLAGS + [
-    ("step_chunk", 1), ("micro_batch", 1), ("symmetric", False), ("weight_extras", {}),
-    ("pack_int4", True), ("rank1", True), ("update", "ddpm"), ("eta", 0.5),
+    ("symmetric", False), ("weight_extras", {}), ("update", "ddpm"), ("eta", 0.5),
 ]
 
 
@@ -212,33 +211,38 @@ def test_attention_flags_are_taken(chain, flag):
         assert torch.equal(default, step(attn_ranges=ranges)) and torch.equal(default, step(attn_ranges={}))
 
 
-# the decoder's first block concatenates 768 + 768 channels at 4x4: no K4 plan takes C = 1536
-WIDE = dict(ch=128, ch_mult=(1, 6), num_res_blocks=1, attn_resolutions=(), resolution=8, dropout=0.0)
+# the deepest level holds 1152 channels at 4x4: no K2 / K6 plan takes the resblock epilogue there
+WIDE = dict(ch=128, ch_mult=(1, 9), num_res_blocks=1, attn_resolutions=(), resolution=8, dropout=0.0)
+# the decoder's first block concatenates 768 + 768 channels at 4x4: K4 takes C = 1536 (up to 2048)
+WIDE_ENTRY = dict(ch=128, ch_mult=(1, 6), num_res_blocks=1, attn_resolutions=(), resolution=8, dropout=0.0)
 
 
 def test_sampler_names_refused_gn_sites_before_step_0(monkeypatch):
     """`serving_ddim_sampler`'s sample checks the GroupNorm and resblock sites
     of its levers against the kernels' plans before it runs a step: with the
-    check held to a CUDA device, a config whose deepest concat exceeds 1024
-    channels stops before the first UNet call with `entry_pallas`, naming
-    the site, and runs without it."""
+    check held to a CUDA device, a config whose deepest level exceeds 1024
+    channels stops before the first UNet call, naming the site, and one whose
+    widest concat is 1536 channels runs with `entry_pallas` (K4 takes it)."""
     from attentiondm_tpu_torch.models.unet import unet_init
     from attentiondm_tpu_torch.ops import checks
     from attentiondm_tpu_torch.quant import int8_serving as srv
 
-    cfg = UNetConfig(**WIDE)
-    gen = torch.Generator().manual_seed(0)
-    params = unet_init(gen, cfg, "cpu")
-    q = QuantizedUNet.create(cfg, 4, 8)
-    qstates = q.init_state(1, "cpu")
     betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu").betas
     check = checks.require_gn_kernels
     monkeypatch.setattr(srv, "require_gn_kernels", lambda cfg, device, batch, **kw: check(cfg, "cuda", batch, **kw))
     step = srv.serving_unet_apply
     steps = []
     monkeypatch.setattr(srv, "serving_unet_apply", lambda *a, **kw: steps.append(1) or step(*a, **kw))
+    gen = torch.Generator().manual_seed(0)
     x = torch.randn(2, 8, 8, 3, generator=gen)
-    with pytest.raises(NotImplementedError, match=r"up\.1\.block\.0 \(HW=16, C=1536\) -> K4"):
-        srv.serving_ddim_sampler(q, params, qstates, [0], betas, entry_pallas=True)(x)
+    q = QuantizedUNet.create(UNetConfig(**WIDE), 4, 8)
+    for levers in ({}, dict(entry_pallas=True)):
+        with pytest.raises(NotImplementedError, match=r"mid\.block_1 \(HW=16, C=1152\) -> K2/K6"):
+            # a prebuilt (empty) fold: nothing of the model is read before the check
+            srv.serving_ddim_sampler(q, None, None, [0], betas, runtime={}, **levers)(x)
     assert not steps
-    assert srv.serving_ddim_sampler(q, params, qstates, [0], betas)(x).shape == x.shape and steps
+    cfg = UNetConfig(**WIDE_ENTRY)
+    params = unet_init(gen, cfg, "cpu")
+    q = QuantizedUNet.create(cfg, 4, 8)
+    qstates = q.init_state(1, "cpu")
+    assert srv.serving_ddim_sampler(q, params, qstates, [0], betas, entry_pallas=True)(x).shape == x.shape and steps

@@ -158,7 +158,7 @@ def test_unported_fp_options_raise(call):
         return
     with pytest.raises(NotImplementedError):
         if call == "schedule":
-            DiffusionSchedule.create("cosine", 1e-4, 0.02, 1000, device="cpu")
+            DiffusionSchedule.create("warmup", 1e-4, 0.02, 1000, device="cpu")  # a schedule no package has
         elif call == "enhanced":
             list(iter_conv_layers(UNetConfig(attn_variant="enhanced")))
         else:
