@@ -254,6 +254,11 @@ def from_jax_params(tree, device=None) -> Params:
     return map_tree(lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device), tree)
 
 
+def cast_params(params: Params, dtype) -> Params:
+    """Cast every param leaf to `dtype`."""
+    return map_tree(lambda a: a.to(dtype), params)
+
+
 def count_params(params: Params) -> int:
     n = []
     map_tree(lambda a: n.append(a.numel()), params)

@@ -31,14 +31,18 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def grid_absmax(g, shrink=1.0):
+    """The symmetric grid's per-output-channel range: max |g| (at least 1e-8) times the shrink."""
+    return torch.clamp(g.abs().amax(dim=tuple(range(g.ndim - 1))), min=1e-8) * shrink
+
+
 def weight_grid(g, w_bit: int, symmetric: bool, shrink=1.0):
     """Per-output-channel grid (ws, wzp) of scale-folded weights `g` (last
     axis = out channels; every other axis reduces)."""
     axes = tuple(range(g.ndim - 1))
     n = 2 ** (w_bit - 1)
     if symmetric:
-        am = torch.clamp(g.abs().amax(dim=axes), min=1e-8) * shrink
-        ws = div(n - 1, am)
+        ws = div(n - 1, grid_absmax(g, shrink))
         return ws, torch.zeros_like(ws)
     g_min = torch.clamp(g.amin(dim=axes), max=0.0) * shrink
     g_max = torch.clamp(g.amax(dim=axes), min=1e-8) * shrink
@@ -61,9 +65,13 @@ def fold_shrink_search(kernel, act_scale, w_bit: int, symmetric: bool):
     return ks[torch.argmin(torch.stack(errs), dim=0)]
 
 
-def fold_weights_int8(kernel, act_scale, w_bit: int, symmetric: bool = False, shrink=None):
+def fold_weights_int8(kernel, act_scale, w_bit: int, symmetric: bool = False, shrink=None, round_offset=None):
     """Fold per-input-channel activation scales into the HWIO kernel and
     quantize per output channel at w_bit.
+
+    `round_offset` [kh, kw, ci, co] (int16: GPTQ's offsets are signed and can
+    be several levels; AdaRound's are 0 / 1) replaces round-to-nearest:
+    q = clip(floor(ws*g - wzp) + round_offset).
 
     Returns (gq int8 [kh*kw*Cp, Np], ws [Np], wzp [Np], g_hat f32
     [kh*kw*Cp, Np]), K and N zero-padded to multiples of 128 (ws pads with 1)."""
@@ -73,7 +81,10 @@ def fold_weights_int8(kernel, act_scale, w_bit: int, symmetric: bool = False, sh
     if shrink is None:
         shrink = 1.0
     ws, wzp = weight_grid(g, w_bit, symmetric, shrink)
-    gq = torch.clamp(torch.round(ws * g - wzp), -n, n - 1)
+    if round_offset is None:
+        gq = torch.clamp(torch.round(ws * g - wzp), -n, n - 1)
+    else:
+        gq = torch.clamp(torch.floor(ws * g - wzp) + round_offset.to(g.dtype), -n, n - 1)
     g_hat = (gq + wzp) / ws
     Cp, Np = _round_up(ci, 128), _round_up(co, 128)
     pad = (0, Np - co, 0, Cp - ci)

@@ -35,10 +35,13 @@ time, and `micro_batch=m` runs each chunk over the batch m images at a time.
 
 The port takes the serving path's flag values: bf16 residual stream,
 `dot_bf16`, symmetric weights, DDIM update; every value of `attn_int8` /
-`attn_ranges`, `step_chunk`, `micro_batch`, `pack_int4` and `rank1`; and
-JAX's three fusion levers `entry_pallas`, `boundary_fusion` and
-`resblock_pallas` (True or "all"), routed by JAX's predicates.  Every other
-value raises NotImplementedError naming the ROADMAP slice that ports it.
+`attn_ranges`, `step_chunk`, `micro_batch`, `pack_int4`, `rank1` and
+`weight_extras`; and JAX's three fusion levers `entry_pallas`,
+`boundary_fusion` and `resblock_pallas` (True or "all"), routed by JAX's
+predicates.  Every other value raises NotImplementedError naming the
+ROADMAP slice that ports it.  `residual_dtype` defaults to float32, as in
+JAX, and that value raises until the float32 stream is ported: callers pass
+`residual_dtype=torch.bfloat16`, as bench.py does.
 """
 from __future__ import annotations
 
@@ -94,12 +97,12 @@ from .state import ActQuantState, quantize_activation
 
 _FLAGS = "Queue 1, 'the enhanced variant and the remaining serving flags'"
 _SLICE = {
-    "weight_extras": "Queue 1, 'stage 2/3 calibration and GPTQ/AdaRound'",
     "resblock_pallas": _FLAGS + " (the (H, Cp, Np) shape-list form)",
     "conv_pallas": _FLAGS,
     "mp_states": _FLAGS,
     "symmetric": _FLAGS,
-    "residual_dtype": _FLAGS,
+    "residual_dtype": "Queue 1 item 5 (the float32 residual stream); pass residual_dtype=torch.bfloat16, as "
+                      "bench.py does",
     "dot_bf16": _FLAGS,
     "update": "Queue 1, 'runner/CLI, eval, data, parallel and tools' (the ddpm update)",
 }
@@ -116,7 +119,7 @@ def _require(**flags):
             if value is False or value is True or (isinstance(value, str) and value == "all"):
                 continue
         else:
-            want = {**_SERVING_FLAGS, "weight_extras": None, "symmetric": True, "update": "ddim"}[name]
+            want = {**_SERVING_FLAGS, "symmetric": True, "update": "ddim"}[name]
             if value is want or value == want:
                 continue
         raise NotImplementedError(f"{name}={value!r} is not ported yet; it comes with ROADMAP {_SLICE[name]}")
@@ -227,8 +230,12 @@ def prepare_serving_runtime(qunet: QuantizedUNet, params, qstates: Dict[str, Act
     buffer (`ServingRuntime.packed`): half the fold's bytes, bit-exact.
     `rank1` folds the weights once for every step on rank-1 activation
     scales (quant/rank1.py); it needs the whole schedule, so it refuses
-    `steps`."""
-    _require(symmetric=symmetric, weight_extras=weight_extras)
+    `steps`.
+
+    `weight_extras` {name: quant.adaround.WeightExtras} (AdaRound or GPTQ
+    offsets, bias-correction means, pinned shrinks, refinements) change the
+    fold only; the kernels are the same.  An empty dict is no extras."""
+    _require(symmetric=symmetric)
     if rank1 and steps is not None:
         raise ValueError("rank1 shared folds are whole-schedule by construction; drop step_chunk (the shared "
                          "fold is params-sized, chunking buys nothing)")
@@ -247,8 +254,11 @@ def prepare_serving_runtime(qunet: QuantizedUNet, params, qstates: Dict[str, Act
     for name, node in layers:
         kernel = node["kernel"]
         st, pol = qstates[name], qunet.policy[name]
+        ex = weight_extras.get(name) if weight_extras else None
+        extras = {} if ex is None else dict(round_offset=ex.round_offset, input_mu=ex.mu, shrink=ex.shrink,
+                                            out_mult=ex.out_mult, bias_delta=ex.bias_delta)
         gq, ws, _wzp, zc, scale, zp = _fold_all_steps(kernel, st.group_ranges, st.alpha_logits, pol.a_bit,
-                                                      pol.w_bit, rank1=rank1, steps=steps)
+                                                      pol.w_bit, rank1=rank1, steps=steps, **extras)
         S, K, Np = gq.shape
         bias = F.pad(node["bias"].to(torch.float32), (0, Np - kernel.shape[3]))
         gqt = k_major(gq)
@@ -543,7 +553,7 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
 def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                        runtime: Dict[str, ServingLayer], qstates: Dict[str, ActQuantState],
                        x: torch.Tensor, t: torch.Tensor, step_idx: int, *,
-                       residual_dtype=torch.bfloat16, attn_int8: bool = True, attn_ranges=None,
+                       residual_dtype=torch.float32, attn_int8: bool = True, attn_ranges=None,
                        boundary_fusion: bool = False, dot_bf16: bool = True,
                        entry_pallas: bool = False, conv_pallas=False, resblock_pallas=False,
                        mp_states=None, plain=False) -> torch.Tensor:
@@ -664,7 +674,7 @@ def _slice_states(qstates: Dict[str, ActQuantState], sl: slice) -> Dict[str, Act
 
 def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState], seq,
                          betas: torch.Tensor, *, eta: float = 0.0, step_chunk=None,
-                         micro_batch=None, residual_dtype=torch.bfloat16, symmetric: bool = True,
+                         micro_batch=None, residual_dtype=torch.float32, symmetric: bool = True,
                          attn_int8: bool = True, attn_ranges=None, weight_extras=None,
                          boundary_fusion: bool = False, dot_bf16: bool = True,
                          entry_pallas: bool = False, conv_pallas=False, resblock_pallas=False,
@@ -686,7 +696,10 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
     batch.  Both give the unchunked sampler's output to the bit (the fold's
     shrink is the whole schedule's, `_fold_all_steps`).  As in JAX, `rank1`
     and a prebuilt `runtime` refuse `step_chunk`; unlike JAX, which ignores
-    it there, `micro_batch` without `step_chunk` raises too."""
+    it there, `micro_batch` without `step_chunk` raises too.
+
+    `weight_extras` {name: quant.adaround.WeightExtras} go into every fold,
+    a chunk's too (its [S, co] refinements' rows of the chunk)."""
     check_eta(eta)
     _require(update=update, residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
              resblock_pallas=resblock_pallas, mp_states=mp_states)
@@ -706,8 +719,8 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
 
     if runtime is None and step_chunk is None:
         runtime = fold()
-    flags = dict(attn_int8=attn_int8, boundary_fusion=boundary_fusion, entry_pallas=entry_pallas,
-                 resblock_pallas=resblock_pallas)
+    flags = dict(residual_dtype=residual_dtype, attn_int8=attn_int8, boundary_fusion=boundary_fusion,
+                 entry_pallas=entry_pallas, resblock_pallas=resblock_pallas)
 
     def run(x, rt, qs, ar, lo, hi):
         """Steps lo .. hi - 1 of the schedule, with the fold `rt` and states `qs` of those steps."""

@@ -1,4 +1,9 @@
-"""Quantized UNet assembly (port of `attentiondm_tpu/quant/qunet.py`).
+"""Quantized UNet assembly (port of `attentiondm_tpu/quant/qunet.py`): the
+W4A8 fake-quant model, the reference every int8 serving sample is held to.
+
+The FP UNet graph is unchanged; a `conv_apply` interceptor looks up each
+conv's quantization state by name.  Weights are fake-quantized once, per
+output channel at w_bit with the MSE range shrink (`prepare_params`).
 
 Bit policy, the reference's attention-aware rules:
   - every conv defaults to (w_bit, a_bit, 8 groups);
@@ -11,8 +16,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from ..models.unet import UNetConfig, iter_conv_layers
-from .state import ActQuantConfig, ActQuantState, init_act_quant_state
+from ..models.unet import UNetConfig, conv2d, iter_conv_layers, lookup, map_tree, unet_apply
+from .state import (
+    ActQuantConfig,
+    ActQuantState,
+    WeightQuantState,
+    init_act_quant_state,
+    make_weight_quant_state,
+    quantize_activation,
+    quantize_activation_mixture,
+    quantize_weight_per_channel,
+)
+
+
+def _require_compute_dtype(compute_dtype):
+    if compute_dtype is not None:
+        raise NotImplementedError(f"compute_dtype={compute_dtype!r} is not ported yet; it comes with ROADMAP "
+                                  "Queue 1 item 6 (the runner's bf16 path)")
 
 
 def make_bit_policy(cfg: UNetConfig, bitwidth: int, a_bitwidth: int | None = None,
@@ -46,9 +66,68 @@ def init_qunet_state(cfg: UNetConfig, num_steps: int, policy: Dict[str, ActQuant
             for name, cin, _k in iter_conv_layers(cfg)}
 
 
+def make_weight_states(params, cfg: UNetConfig,
+                       policy: Dict[str, ActQuantConfig] | None = None) -> Dict[str, WeightQuantState]:
+    """Per-output-channel weight ranges of every conv; with `policy`,
+    MSE-shrink-searched at each layer's w_bit (`make_weight_quant_state`)."""
+    return {name: make_weight_quant_state(lookup(params, name)["kernel"], policy[name].w_bit if policy else None)
+            for name, _cin, _k in iter_conv_layers(cfg)}
+
+
+def quantize_params(params, wstates: Dict[str, WeightQuantState], policy: Dict[str, ActQuantConfig],
+                    cfg: UNetConfig):
+    """A copy of the param tree with every conv kernel fake-quantized per
+    output channel (the other leaves shared)."""
+    params = map_tree(lambda a: a, params)
+    for name, _cin, _k in iter_conv_layers(cfg):
+        node = lookup(params, name)
+        node["kernel"] = quantize_weight_per_channel(node["kernel"], wstates[name], policy[name].w_bit)
+    return params
+
+
+def make_quant_conv_apply(qstates: Dict[str, ActQuantState], policy: Dict[str, ActQuantConfig], step_idx,
+                          mode: str = "infer", collect: dict | None = None):
+    """The conv interceptor for `unet_apply`.
+
+    Modes:
+      infer   - per-channel fake-quant of the input at the softmax-mixed
+                group ranges of step `step_idx`;
+      mixture - the calibration path: the G group ranges each quantize the
+                input and softmax(alpha_logits) mixes the G outputs, so
+                gradients reach the logits;
+      collect - no quantization; each conv's per-channel input (min, max)
+                into `collect[name]`;
+      off     - the plain float conv.
+    Mode "int8" (true int8 convs through the interception runtime) comes
+    with ROADMAP Queue 1 item 5 and raises."""
+    if mode == "int8":
+        raise NotImplementedError("mode='int8' (the interception runtime) is not ported yet; it comes with ROADMAP "
+                                  "Queue 1 item 5")
+
+    def conv_apply(name, x, p, *, stride=1, padding="SAME"):
+        if mode == "collect" and collect is not None:
+            axes = tuple(range(x.ndim - 1))
+            collect[name] = (x.amin(dim=axes), x.amax(dim=axes))
+            return conv2d(x, p, stride=stride, padding=padding)
+        if mode == "off" or name not in qstates:
+            return conv2d(x, p, stride=stride, padding=padding)
+        st, bits = qstates[name], policy[name].a_bit
+        xf = x.float()
+        if mode == "infer":
+            xq = quantize_activation(xf, st, step_idx, bits)
+        elif mode == "mixture":
+            xq = quantize_activation_mixture(xf, st.group_ranges[step_idx], st.alpha_logits[step_idx], bits)
+        else:
+            raise ValueError(mode)
+        return conv2d(xq.to(p["kernel"].dtype), p, stride=stride, padding=padding)
+
+    return conv_apply
+
+
 @dataclasses.dataclass
 class QuantizedUNet:
-    """The static pieces of the quantized model: config and bit policy."""
+    """The static pieces of the quantized model (config and bit policy);
+    params and states are passed to `apply` explicitly."""
 
     cfg: UNetConfig
     policy: Dict[str, ActQuantConfig]
@@ -60,3 +139,24 @@ class QuantizedUNet:
 
     def init_state(self, num_steps: int, device) -> Dict[str, ActQuantState]:
         return init_qunet_state(self.cfg, num_steps, self.policy, device)
+
+    def prepare_params(self, params, compute_dtype=None):
+        """Quantize the weights once: (quantized params, weight states).
+        `compute_dtype` (the runner's bf16 path) takes None only for now."""
+        _require_compute_dtype(compute_dtype)
+        ws = make_weight_states(params, self.cfg, self.policy)
+        return quantize_params(params, ws, self.policy, self.cfg), ws
+
+    def apply(self, qparams, qstates, x, t, step_idx, mode="infer", compute_dtype=None):
+        _require_compute_dtype(compute_dtype)
+        ca = make_quant_conv_apply(qstates, self.policy, step_idx, mode=mode)
+        return unet_apply(qparams, self.cfg, x, t, conv_apply=ca)
+
+    def model_fn(self, qparams, qstates, mode="infer", compute_dtype=None):
+        """Sampler-compatible `(x, t, step_idx) -> eps` closure."""
+        _require_compute_dtype(compute_dtype)
+
+        def fn(x, t, step_idx):
+            return self.apply(qparams, qstates, x, t, step_idx, mode=mode)
+
+        return fn

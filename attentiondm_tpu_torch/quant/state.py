@@ -1,10 +1,14 @@
-"""Per-layer activation quantization state (port of `attentiondm_tpu/quant/state.py`).
+"""Per-layer quantization state (port of `attentiondm_tpu/quant/state.py`).
 
-State layout per quantized conv (S sampler steps, C in channels, G groups):
+Activation state per quantized conv (S sampler steps, C in channels, G groups):
   init_range    [S, 2]      LAPQ-searched base range floor (init -4 / +6)
   act_min/max   [S, C]      group-snapped per-channel calibrated ranges
   group_ranges  [S, G, 2]   per-group (min, max) thresholds
   alpha_logits  [S, G, C]   group-selection logits (init 0.01)
+
+Weights: per-output-channel asymmetric ranges (`WeightQuantState`), each
+optionally shrunk by the factor that minimizes the channel's reconstruction
+error at w_bit.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ import numpy as np
 import torch
 
 from .. import default_device
-from .primitives import fake_quant
+from ..ops.quant_conv import WEIGHT_MSE_SHRINKS
+from .primitives import div, fake_quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +58,48 @@ def init_act_quant_state(num_steps: int, in_channels: int, cfg: ActQuantConfig, 
         group_ranges=torch.zeros((S, G, 2), **f32),
         alpha_logits=torch.full((S, G, C), 0.01, **f32),
     )
+
+
+@dataclasses.dataclass
+class WeightQuantState:
+    w_min: torch.Tensor  # [C_out]
+    w_max: torch.Tensor  # [C_out]
+
+
+def make_weight_quant_state(w, w_bit: int | None = None) -> WeightQuantState:
+    """Per-output-channel ranges of an HWIO kernel (reduced over every axis
+    but the last), clamped so that zero is representable and min < max.
+
+    With `w_bit`, each channel's range is shrunk by the factor of
+    WEIGHT_MSE_SHRINKS (first minimum wins) that minimizes its weight
+    reconstruction error at `w_bit`."""
+    axes = tuple(range(w.ndim - 1))
+    w_min = torch.clamp(w.amin(dim=axes), max=0.0)
+    w_max = torch.clamp(w.amax(dim=axes), min=1e-8)
+    if w_bit is None:
+        return WeightQuantState(w_min=w_min, w_max=w_max)
+    wn = w.to(torch.float32).reshape(-1, w.shape[-1])  # [M, O]
+    mn, mx = w_min.to(torch.float32), w_max.to(torch.float32)
+    half = 2.0 ** (w_bit - 1)
+    best_err, best_k = None, torch.ones_like(mn)
+    for k in WEIGHT_MSE_SHRINKS:
+        scale = div(2.0 ** w_bit - 1.0, (mx - mn) * k)
+        zp = torch.round(scale * mn * k) + half
+        q = torch.clamp(torch.round(wn * scale - zp), -half, half - 1)
+        err = torch.square((q + zp) / scale - wn).sum(dim=0)  # [O]
+        if best_err is None:
+            best_err = err
+        else:
+            better = err < best_err
+            best_err = torch.where(better, err, best_err)
+            best_k = torch.where(better, torch.full_like(best_k, k), best_k)
+    best = best_k.to(w.dtype)
+    return WeightQuantState(w_min=w_min * best, w_max=w_max * best)
+
+
+def quantize_weight_per_channel(w, wq: WeightQuantState, w_bit: int):
+    """Fake-quantize HWIO weights per output channel at w_bit."""
+    return fake_quant(w, w_bit, wq.w_min, wq.w_max, ste=False)
 
 
 def from_jax_qstates(tree, device=None) -> dict:

@@ -60,7 +60,19 @@ all four by default.)
       K1 / K2 counts against `expected_launches`), the per-site step and the
       chained step under the levers, and timed runs in turns of levers off,
       all three, and each lever alone (the median of each is printed).  Church: one per-site step with the
-      three levers, launch counts checked.
+      three levers, launch counts checked;
+   d. weights (CIFAR-10): the W4 weight-quality pass on the same params,
+      calibration and input, on the card (`weights_phase`): the Gram
+      collection, AdaRound (1000 Adam steps), GPTQ and bias correction, timed,
+      with the Gram objectives of the offsets against round-to-nearest's
+      (each sum must be below it); `refine_weight_extras` shared and per step
+      (never worse than its init); every set of extras folded and served
+      through the kernels with the levers off and all three on (launch
+      counts, every site of a step, finite output; the per-step refined
+      extras chunked bit-equal to the unchunked sampler); the surrogate's
+      convs against the served fold's on the same inputs (< 1e-4) and its
+      whole step against the serving step; the fake-quant model's sample, and
+      how far each served sample lies from it and from the FP teacher's.
 4. celeba-wide: CelebA's UNet (`configs/celeba.yml`: 64^2, ch 128, ch_mult
    1-2-2-2-4, batch 64) at full width and depth with `attn_resolutions` set
    to (64, 32, 16), so that it attends at L = 4096 (C = 128), 1024 (C = 256),
@@ -785,21 +797,22 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False, settin
     qunet = QuantizedUNet.create(cfg, 4, 8)
     qstates, attn_ranges = clock("stage-1 calibration", lambda: calibrate_ranges(
         qunet, params, qunet.init_state(steps, dev), xs_in, seq, return_attn_ranges=True))
-    del traj, xs_in
+    del traj
     runtime = clock("per-step fold", lambda: prepare_serving_runtime(qunet, params, qstates))
     weights = sum(lay.gqt.numel() for lay in runtime.values())
     print(f"[slice] fold size: {runtime_nbytes(runtime) / 1e9:.3f} GB for {steps} steps, {weights / 1e9:.3f} GB of it "
           f"the int8 weights, held once (K-major; the fold layout is a view); attention ranges of "
           f"{len(attn_ranges)} projections")
     x = torch.randn(shape, generator=gen).to(dev)
+    # xs_in, the calibration trajectory's model inputs, is the weights phase's calibration set
     ctx = dict(cfg=cfg, params=params, qunet=qunet, qstates=qstates, runtime=runtime, seq=seq, betas=betas,
-               x=x, steps=steps, batch=batch, dev=dev)
+               xs_in=xs_in, x=x, steps=steps, batch=batch, dev=dev)
 
     counts, outs = {}, {}
     for name, flags in settings.items():
         if flags.get("attn_ranges"):
             flags = {**flags, "attn_ranges": attn_ranges}
-        sample = serving_ddim_sampler(qunet, params, qstates, seq, betas, runtime=runtime, **flags)
+        sample = serving_ddim_sampler(qunet, params, qstates, seq, betas, runtime=runtime, residual_dtype=torch.bfloat16, **flags)
         # the main path, counted
         expected = checks.expected_launches(cfg, steps, batch, **flags)
         checks.reset_launches()
@@ -841,7 +854,7 @@ def step_checks(ctx, levers, tag="slice"):
 
     def step(plain):
         return serving_unet_apply(ctx["params"], ctx["cfg"], ctx["qunet"], ctx["runtime"], ctx["qstates"],
-                                  ctx["x"], t0, 0, plain=plain, **levers)
+                                  ctx["x"], t0, 0, plain=plain, residual_dtype=torch.bfloat16, **levers)
 
     records = []
     checks.reset_launches()
@@ -894,7 +907,7 @@ def levers_phase(ctx, timed, profile=False):
 
     def sampler(levers):
         return serving_ddim_sampler(ctx["qunet"], ctx["params"], ctx["qstates"], ctx["seq"], ctx["betas"],
-                                    runtime=ctx["runtime"], **F32_CORE, **levers)
+                                    runtime=ctx["runtime"], residual_dtype=torch.bfloat16, **F32_CORE, **levers)
 
     sample = sampler(ALL_LEVERS)
     expected = checks.expected_launches(cfg, steps, batch, **F32_CORE, **ALL_LEVERS)
@@ -961,7 +974,7 @@ def fold_forms_phase(ctx):
     forms = {f"step_chunk=2, micro_batch={mb}": dict(step_chunk=2, micro_batch=mb), "pack_int4": dict(pack_int4=True),
              f"step_chunk=2, micro_batch={mb}, pack_int4": dict(step_chunk=2, micro_batch=mb, pack_int4=True)}
     for name, kw in forms.items():
-        sample = serving_ddim_sampler(*args, **F32_CORE, **kw)
+        sample = serving_ddim_sampler(*args, residual_dtype=torch.bfloat16, **F32_CORE, **kw)
         if "step_chunk" in kw:  # one chunk's fold, the most a chunked run holds at once
             chunk = prepare_serving_runtime(*args[:3], steps=slice(0, 2), pack_int4=kw.get("pack_int4", False))
             nb = runtime_nbytes(chunk)
@@ -988,7 +1001,7 @@ def fold_forms_phase(ctx):
             raise AssertionError(f"{name}: the sampler's output differs from the unchunked one (images {per_image})")
         del sample, out
 
-    sample = serving_ddim_sampler(*args, **F32_CORE, rank1=True)
+    sample = serving_ddim_sampler(*args, residual_dtype=torch.bfloat16, **F32_CORE, rank1=True)
     nb = runtime_nbytes(sample.runtime)
     expected = checks.expected_launches(cfg, steps, batch, **F32_CORE)
     checks.reset_launches()
@@ -1004,6 +1017,201 @@ def fold_forms_phase(ctx):
           f"(information only: rank-1 scales are another quantization)")
     step_checks({**ctx, "runtime": sample.runtime}, F32_CORE, "folds")
     del sample, out
+    torch.cuda.empty_cache()
+
+
+WEIGHT_METHODS = {  # compute_weight_extras' settings of the runner's --weight_opt values
+    "adaround": dict(iters=1000), "gptq": dict(method="gptq"), "biascorr": dict(adaround_max_wbit=0)}
+REFINE_EPOCHS, REFINE_INNER = 2, 4  # the refinement's passes: shared mode epochs, per-step Adam iterations
+# the surrogate's convs against the served fold's on the same inputs (mean relative; float32 order only)
+SURROGATE_SITE_BOUND = 1e-4
+
+
+def weights_phase(ctx):
+    """The W4 weight-quality pass on the path's params, calibration and
+    input, all on the card: the Gram collection over 8 of the calibration
+    trajectory's steps, then AdaRound (1000 Adam steps), GPTQ and bias
+    correction alone (timed; the Gram objectives of AdaRound's and GPTQ's
+    offsets summed over the layers must be below round-to-nearest's), the
+    refinement of AdaRound's extras in the shared mode and per step (each
+    never worse than its init on the surrogate's objective), and each set of
+    extras folded and served through the kernels with the levers off and
+    all three on (launch counts, every site of a step teacher-forced, a
+    finite output; the per-step refined extras chunked by 5 steps bit-equal
+    to the unchunked sampler).  Then the surrogate against the served fold,
+    conv by conv and the whole step, and the fake-quant model's sample (information lines: how far each
+    served sample lies from it and from the FP teacher's)."""
+    import torch
+
+    from attentiondm_tpu_torch.diffusion.sampling import ddim_sample
+    from attentiondm_tpu_torch.models.unet import lookup, unet_apply
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.quant import adaround as ar
+    from attentiondm_tpu_torch.ops.fused_gn import quant_i8
+    from attentiondm_tpu_torch.quant.calibrate import (
+        refine_weight_extras,
+        serving_surrogate_apply,
+        surrogate_conv_apply,
+    )
+    from attentiondm_tpu_torch.quant.int8_runtime import _step_ranges
+    from attentiondm_tpu_torch.quant.int8_serving import (
+        _epilogue,
+        gather_step,
+        int8_conv,
+        int8_conv3_qzero,
+        prepare_serving_runtime,
+        runtime_nbytes,
+        serving_ddim_sampler,
+        serving_unet_apply,
+    )
+
+    cfg, params, qunet, qstates, seq, betas = (ctx[k] for k in ("cfg", "params", "qunet", "qstates", "seq", "betas"))
+    x, xs_in, steps, batch, dev = (ctx[k] for k in ("x", "xs_in", "steps", "batch", "dev"))
+    S = xs_in.shape[0]
+    stats = clock(f"Gram collection: {min(8, S)} of the {S} calibration steps, {xs_in.shape[1]} images",
+                  lambda: ar.collect_weight_stats(qunet, params, qstates, xs_in, seq, max_steps=8), "weights")
+    grams = {n: st for n, st in stats.items() if st.gram.shape[0] > 1}
+    print(f"[weights] Grams of {len(grams)} layers (K {min(st.gram.shape[0] for st in grams.values())} to "
+          f"{max(st.gram.shape[0] for st in grams.values())}): {sum(st.gram.numel() for st in grams.values()) * 4 / 1e9:.3f} "
+          f"GB of float32")
+    extras = {}
+    for method, kw in WEIGHT_METHODS.items():
+        extras[method] = clock(f"{method} ({kw})", lambda: ar.compute_weight_extras(
+            qunet, params, qstates, xs_in, seq, max_steps=8, stats=stats, **kw), "weights")
+    for method, ex in extras.items():
+        off_device = [n for n, e in ex.items() for t in (e.round_offset, e.mu, e.shrink) if t is not None and
+                      t.device != dev]
+        if off_device:
+            raise AssertionError(f"{method}: extras of {off_device[:3]} are not on {dev}")
+
+    # the Gram objective each method lowers, against round-to-nearest on the same grid
+    for method in ("adaround", "gptq"):
+        ratios, total, rtn = [], 0.0, 0.0
+        for n, e in extras[method].items():
+            if e.round_offset is None:
+                continue
+            kernel, st, pol = lookup(params, n)["kernel"], qstates[n], qunet.policy[n]
+            scale = _step_ranges(st.group_ranges, st.alpha_logits, pol.a_bit)[0].mean(dim=0)
+            em = float(ar.gram_objective(kernel, scale, stats[n], pol.w_bit, e.shrink, e.round_offset))
+            er = float(ar.gram_objective(kernel, scale, stats[n], pol.w_bit, e.shrink))
+            total, rtn = total + em, rtn + er
+            ratios.append(em / er)
+        ratios.sort()
+        offs = torch.cat([e.round_offset.flatten() for e in extras[method].values() if e.round_offset is not None])
+        print(f"[weights] {method}: offsets on {len(ratios)} layers (values {int(offs.min())} to {int(offs.max())}); "
+              f"Gram objective / round-to-nearest's per layer min {ratios[0]:.4f} median {ratios[len(ratios) // 2]:.4f} "
+              f"max {ratios[-1]:.4f}; summed over the layers {total:.6g} against {rtn:.6g} ({total / rtn:.4f})")
+        if not total < rtn:
+            raise AssertionError(f"{method}: summed Gram objective {total} not below round-to-nearest's {rtn}")
+    print(f"[weights] biascorr: means of {sum(e.mu is not None for e in extras['biascorr'].values())} layers, "
+          f"no offsets ({sum(e.round_offset is not None for e in extras['biascorr'].values())})")
+
+    # the refinement of AdaRound's extras against the FP teacher's eps on its own trajectory
+    t_rev = [float(t) for t in reversed(list(seq))]
+    with torch.no_grad():
+        eps_ref = torch.stack([unet_apply(params, cfg, xs_in[i], torch.full((xs_in.shape[1],), t_rev[i], device=dev))
+                               for i in range(S)])
+
+    def surrogate_loss(ex):
+        with torch.no_grad():
+            out = [serving_surrogate_apply(qunet, params, qstates, ex, xs_in[i],
+                                           torch.full((xs_in.shape[1],), t_rev[i], device=dev), i) for i in range(S)]
+        return float(torch.stack([torch.mean(torch.square(o - e)) / torch.mean(torch.square(e))
+                                  for o, e in zip(out, eps_ref)]).mean())
+
+    init = surrogate_loss(extras["adaround"])
+    for name, kw in (("shared", dict(epochs=REFINE_EPOCHS)), ("per_step", dict(per_step=True, inner=REFINE_INNER))):
+        refined, trace = clock(f"refine_weight_extras, {name} ({kw})", lambda: refine_weight_extras(
+            qunet, params, qstates, extras["adaround"], xs_in, eps_ref, seq, **kw), "weights")
+        loss = surrogate_loss(refined)
+        print(f"[weights] refined ({name}): surrogate objective {loss:.6g} against the init's {init:.6g}; losses "
+              f"{[round(float(v), 6) for v in torch.as_tensor(trace).flatten()]}")
+        if not loss <= init:
+            raise AssertionError(f"refine ({name}): objective {loss} above the init's {init}")
+        extras[f"refined {name}"] = refined
+
+    # each set of extras folded and served through the kernels
+    t0 = torch.full((batch,), float(seq[-1]), device=dev)
+    outs, runtimes = {}, {}
+    for name, ex in extras.items():
+        rt = runtimes[name] = clock(f"fold with the {name} extras", lambda: prepare_serving_runtime(
+            qunet, params, qstates, weight_extras=ex), "weights")
+        for label, levers in (("levers off", {}), ("three levers", ALL_LEVERS)):
+            sample = serving_ddim_sampler(qunet, params, qstates, seq, betas, runtime=rt,
+                                          residual_dtype=torch.bfloat16, **F32_CORE, **levers)
+            expected = checks.expected_launches(cfg, steps, batch, **F32_CORE, **levers)
+            checks.reset_launches()
+            out = clock(f"serving sampler, {name} extras, {label}", lambda: sample(x), "weights")
+            counts = checks.read_launches()
+            if counts != expected:
+                raise AssertionError(f"{name} extras, {label}: launch counts {counts} != expected {expected}")
+            if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name} extras, {label}: output {tuple(out.shape)}, "
+                                     f"finite={bool(torch.isfinite(out).all())}")
+            step_checks({**ctx, "runtime": rt}, {**F32_CORE, **levers}, "weights")
+            if not levers:
+                outs[name] = out
+        print(f"[weights] {name} extras: fold {runtime_nbytes(rt) / 1e9:.3f} GB; launches as expected with the levers "
+              f"off and all three on; every site within tolerance")
+    chunked = serving_ddim_sampler(qunet, params, qstates, seq, betas, step_chunk=5, weight_extras=extras[
+        "refined per_step"], residual_dtype=torch.bfloat16, **F32_CORE)(x)
+    same = torch.equal(chunked, outs["refined per_step"])
+    print(f"[weights] refined per_step extras, step_chunk=5: bit-equal to the unchunked sampler: {same}")
+    if not same:
+        raise AssertionError("per-step refined extras: the chunked sampler differs from the unchunked one")
+
+    # the surrogate against the served fold, step 0, AdaRound's extras: every stride-1 folded conv of a
+    # surrogate forward given its input, through K1 (int32) and the fold's epilogue; then the whole step
+    rt_0 = gather_step(runtimes["adaround"], 0)
+    sites, n = [], min(8, batch)
+    ca = surrogate_conv_apply(qunet, qstates, extras["adaround"], 0)
+
+    def recording(name, xin, p, *, stride=1, padding="SAME"):
+        out = ca(name, xin, p, stride=stride, padding=padding)
+        if name in rt_0 and stride == 1:
+            sites.append((name, xin, out))
+        return out
+
+    with torch.no_grad():
+        unet_apply(params, cfg, x[:n], t0[:n], conv_apply=recording)
+        worst = (0.0, None)
+        for name, xin, want in sites:
+            lay, a_bit, co = rt_0[name], qunet.policy[name].a_bit, lookup(params, name)["kernel"].shape[3]
+            xq = quant_i8(xin, lay.act_scale, lay.act_zp, a_bit)
+            dot = (int8_conv3_qzero(xq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt) if lookup(params, name)["kernel"]
+                   .shape[0] == 3 else int8_conv(xq, lay.gq, 1, gqt=lay.gqt))
+            rel = ((_epilogue(dot, lay, co) - want).abs().mean() / want.abs().mean()).item()
+            worst = max(worst, (rel, name), key=lambda w: w[0])
+        print(f"[weights] serving_surrogate_apply's convs vs the served fold (K1, int32, and the epilogue) on the "
+              f"surrogate's inputs, step 0, AdaRound's extras, batch {n}: {len(sites)} sites, worst mean rel "
+              f"difference {worst[0]:.3e} at {worst[1]} (bound {SURROGATE_SITE_BOUND})")
+        if not worst[0] < SURROGATE_SITE_BOUND:
+            raise AssertionError(f"surrogate conv {worst[1]} vs the served fold: mean rel difference {worst[0]}")
+        srv = serving_unet_apply(params, cfg, qunet, runtimes["adaround"], qstates, x, t0, 0,
+                                 residual_dtype=torch.bfloat16, **F32_CORE)
+        sur = serving_surrogate_apply(qunet, params, qstates, extras["adaround"], x, t0, 0)
+    rel = ((sur - srv).abs().mean() / srv.abs().mean()).item()
+    # JAX's tests/test_serving_surrogate.py holds this at 0.02 on its one-level 2-step toy; JAX's own pair
+    # measures 0.051 on a two-level 10-step toy (CPU), so at full width it is held to the chained bound
+    print(f"[weights] serving_surrogate_apply vs the serving step (step 0, AdaRound's extras, batch {batch}): mean "
+          f"rel difference {rel:.3e} (gross-fault bound {CHAINED_BOUND}: the site check above is the exact one)")
+    if not rel < CHAINED_BOUND:
+        raise AssertionError(f"surrogate vs serving step: mean rel difference {rel}")
+    del runtimes, srv, sur, sites
+
+    # the fake-quant W4A8 model and the FP teacher on the same x
+    qparams, _ws = qunet.prepare_params(params)
+    fq = clock(f"fake-quant model (QuantizedUNet.model_fn, mode infer), DDIM {steps} steps", lambda: ddim_sample(
+        qunet.model_fn(qparams, qstates), x, seq, betas), "weights")
+    if tuple(fq.shape) != tuple(x.shape) or not bool(torch.isfinite(fq).all()):
+        raise AssertionError(f"fake-quant sample {tuple(fq.shape)}, finite={bool(torch.isfinite(fq).all())}")
+    fp = ddim_sample(lambda xt, t, i: unet_apply(params, cfg, xt, t), x, seq, betas)
+    outs = {"round-to-nearest": ctx["out"], **outs}
+    for name, out in outs.items():
+        print(f"[weights] sample, {name} fold: mean rel difference from the fake-quant sample "
+              f"{((out - fq).abs().mean() / fq.abs().mean()).item():.4e}, from the FP teacher's "
+              f"{((out - fp).abs().mean() / fp.abs().mean()).item():.4e} (information only: random weights)")
+    print(f"[weights] fake-quant sample from the FP teacher's: {((fq - fp).abs().mean() / fp.abs().mean()).item():.4e}")
     torch.cuda.empty_cache()
 
 
@@ -1065,6 +1273,8 @@ def main(argv=None):
             lever_counts = phase(path, "levers", levers_phase, ctx, timed=path == "cifar10", profile=args.profile)
             if path == "imagenet64":
                 phase(path, "folds", fold_forms_phase, ctx)
+            if path == "cifar10":
+                phase(path, "weights", weights_phase, ctx)
             launches_of = {**counts["f32 core"], **{key: lever_counts[key] for key in ("K4", "K7", "K12")},
                            "K3.core": counts["f32 core"]["K3"]}
         del ctx

@@ -352,7 +352,7 @@ def test_sampler_checks_the_sites_before_step_0(monkeypatch):
     q = QuantizedUNet.create(OFF_K3, 4, 8)
     qstates = q.init_state(1, "cpu")
     betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu").betas
-    sample = srv.serving_ddim_sampler(q, params, qstates, [0], betas)
+    sample = srv.serving_ddim_sampler(q, params, qstates, [0], betas, residual_dtype=torch.bfloat16)
     check = checks.require_attention_kernels
     monkeypatch.setattr(srv, "require_attention_kernels", lambda cfg, device, **kw: check(cfg, "cuda", **kw))
 

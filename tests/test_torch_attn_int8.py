@@ -376,7 +376,7 @@ def test_attention_step_matches_jax(chain, setting):
     fold and attention ranges, against JAX's serving forward."""
     cfg, q = _port()
     eps = serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"], torch.from_numpy(chain["x"]),
-                             torch.from_numpy(chain["t"]), 0, **_flags(chain, setting))
+                             torch.from_numpy(chain["t"]), 0, residual_dtype=torch.bfloat16, **_flags(chain, setting))
     assert eps.shape == chain["eps"][setting].shape and torch.isfinite(eps).all()
     rel = _rel(eps.numpy(), chain["eps"][setting])
     assert rel < STEP_BOUND, rel
@@ -434,7 +434,8 @@ def test_ranges_that_miss_a_site_fall_back_to_the_dynamic_core(chain):
         srv.fused_int8_attention = lambda *a, **k: (calls.append("dynamic"), saved[0](*a, **k))[1]
         srv.fused_int8_attention_static = lambda *a, **k: (calls.append("static"), saved[1](*a, **k))[1]
         eps = serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                                 torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, attn_ranges=ranges)
+                                 torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, attn_ranges=ranges,
+                                 residual_dtype=torch.bfloat16)
     finally:
         srv.fused_int8_attention, srv.fused_int8_attention_static = saved
     assert calls == ["static", "dynamic", "static"] and torch.isfinite(eps).all()
@@ -451,7 +452,7 @@ def test_int8_cores_track_the_f32_core_as_in_jax(chain):
     cfg, q = _port()
     out = {s: serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
                                  torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0,
-                                 **_flags(chain, s)).numpy() for s in SETTINGS}
+                                 residual_dtype=torch.bfloat16, **_flags(chain, s)).numpy() for s in SETTINGS}
     for s in ("static", "dynamic"):
         port, ref = _rel(out[s], out["f32"]), _rel(chain["eps"][s], chain["eps"]["f32"])
         assert port > 0 and ref > 0 and 0.2 < port / ref < 5, (s, port, ref)

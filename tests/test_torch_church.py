@@ -192,7 +192,7 @@ def test_kernel_sites_follow_the_plan(chain):
     records = []
     with checks.per_site(records):
         serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                           torch.from_numpy(chain["x"]), torch.full((1,), 500.0), 0, attn_int8=False)
+                           torch.from_numpy(chain["x"]), torch.full((1,), 500.0), 0, residual_dtype=torch.bfloat16, attn_int8=False)
     k1, k2, k6, k3, composed = checks.conv_plan(cfg)
     assert not composed
     kinds = [r[0] for r in records]
@@ -227,7 +227,7 @@ def test_serving_step_matches_jax(chain):
     bound is the gross-fault bound of the chip smoke's chained check."""
     cfg, q, _ = _port()
     eps = serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                             torch.from_numpy(chain["x"]), torch.full((1,), 500.0), 0, attn_int8=False)
+                             torch.from_numpy(chain["x"]), torch.full((1,), 500.0), 0, residual_dtype=torch.bfloat16, attn_int8=False)
     assert eps.shape == chain["eps"].shape and torch.isfinite(eps).all()
     rel = _rel(eps.numpy(), chain["eps"])
     assert rel < 0.1, rel
@@ -237,8 +237,8 @@ def test_serving_sampler_matches_jax(chain):
     """The 2-step serving sampler with JAX's qstates (the port folds them).
     Measured 8.5e-3; bound about 4x."""
     cfg, q, sched = _port()
-    out = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, attn_int8=False)(
-        torch.from_numpy(chain["x"]))
+    out = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, residual_dtype=torch.bfloat16,
+                               attn_int8=False)(torch.from_numpy(chain["x"]))
     assert torch.isfinite(out).all()
     rel = _rel(out.numpy(), chain["sample"])
     assert rel < 3.5e-2, rel

@@ -199,7 +199,8 @@ def test_runtime_nbytes_counts_the_fold_once(toy_fold):
 
 
 # rank1, pack_int4 and steps (step_chunk's fold) are ported: tests/test_torch_imagenet64.py
-@pytest.mark.parametrize("kw", [dict(symmetric=False), dict(weight_extras={})], ids=["asymmetric", "weight_extras"])
+# the weight extras are ported: tests/test_torch_weight_extras.py
+@pytest.mark.parametrize("kw", [dict(symmetric=False)], ids=["asymmetric"])
 def test_unported_fold_options_raise(kw):
     q = QuantizedUNet.create(UNetConfig(**TOY), 4, 8)
     with pytest.raises(NotImplementedError):

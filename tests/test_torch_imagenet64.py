@@ -296,7 +296,8 @@ def _port():
 @pytest.fixture(scope="module")
 def plain_sample(chain):
     q, betas = _port()
-    return serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, betas, attn_int8=False)(_t(chain["x"]))
+    return serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, betas, residual_dtype=torch.bfloat16, attn_int8=False)(
+        _t(chain["x"]))
 
 
 @pytest.mark.parametrize("form", ["chunked", "packed", "chunked_packed"])
@@ -306,8 +307,8 @@ def test_forms_equal_the_plain_sampler_to_the_bit(chain, plain_sample, form):
     packing changes no weight; each image runs alone through the same
     operations)."""
     q, betas = _port()
-    out = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, betas, attn_int8=False,
-                               **FORMS[form])(_t(chain["x"]))
+    out = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, betas, residual_dtype=torch.bfloat16,
+                               attn_int8=False, **FORMS[form])(_t(chain["x"]))
     assert torch.equal(out, plain_sample)
 
 
@@ -318,7 +319,8 @@ def test_forms_match_jax(chain, plain_sample, form):
     qstates differs in zcbias's last bits, ROADMAP Queue 3)."""
     q, betas = _port()
     out = plain_sample if form == "plain" else serving_ddim_sampler(
-        q, chain["params"], chain["qstates"], SEQ, betas, attn_int8=False, **FORMS[form])(_t(chain["x"]))
+        q, chain["params"], chain["qstates"], SEQ, betas, residual_dtype=torch.bfloat16, attn_int8=False,
+        **FORMS[form])(_t(chain["x"]))
     assert torch.isfinite(out).all()
     rel = _rel(out.numpy(), chain["samples"][form])
     assert rel < 1e-2, rel
@@ -328,8 +330,8 @@ def test_rank1_sampler_differs_from_the_per_step_fold(chain, plain_sample):
     """The rank-1 sampler is another quantization: close to the per-step
     fold's sample, not equal to it."""
     q, betas = _port()
-    out = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, betas, attn_int8=False,
-                               rank1=True)(_t(chain["x"]))
+    out = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, betas, residual_dtype=torch.bfloat16,
+                               attn_int8=False, rank1=True)(_t(chain["x"]))
     rel = _rel(out.numpy(), plain_sample.numpy())
     assert 0 < rel < 0.1, rel
 
@@ -413,7 +415,7 @@ def test_sampler_refuses_option_pairs(chain, kw, match):
     which ignores it, micro_batch without step_chunk raises (ROADMAP Queue 3)."""
     q, betas = _port()
     with pytest.raises(ValueError, match=match):
-        serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, betas, **kw)
+        serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, betas, residual_dtype=torch.bfloat16, **kw)
 
 
 def test_rank1_fold_refuses_a_step_slice(chain):

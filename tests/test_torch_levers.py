@@ -123,7 +123,8 @@ def _port():
 def _step(chain, **kw):
     cfg, q, _ = _port()
     return serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                              torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, attn_int8=False, **kw)
+                              torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, residual_dtype=torch.bfloat16, attn_int8=False,
+                              **kw)
 
 
 # One serving step against JAX's, mean relative error.  2e-3 is the levers-off bound of
@@ -197,7 +198,8 @@ def test_lever_sampler_matches_jax(chain, name):
     through `runtime=` as JAX's lever grid does."""
     cfg, q, sched = _port()
     sample = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas,
-                                  runtime=chain["runtime"], attn_int8=False, **LEVERS[name])
+                                  runtime=chain["runtime"], residual_dtype=torch.bfloat16, attn_int8=False,
+                                  **LEVERS[name])
     out = sample(torch.from_numpy(chain["x"]))
     assert torch.isfinite(out).all()
     assert _rel(out.numpy(), chain["sample"][name]) < 1e-2  # the levers-off sampler's bound
@@ -246,7 +248,8 @@ def _visited(deep, levers):
         for kind, n in (("K4", "gn_act_quant"), ("K7", "epilogue_residual_gn_stats"), ("K12", "_rb_kernel")):
             setattr(srv, n, spy(kind, saved[n]))
         eps = serving_unet_apply(deep["params"], deep["cfg"], deep["q"], deep["runtime"], deep["qstates"], deep["x"],
-                                 torch.full((B,), 500.0), 0, attn_int8=False, **levers)
+                                 torch.full((B,), 500.0), 0, residual_dtype=torch.bfloat16, attn_int8=False,
+                                 **levers)
     finally:
         for n, fn in saved.items():
             setattr(srv, n, fn)
@@ -270,7 +273,8 @@ def test_k7_reads_the_bf16_residual(deep):
 
     def step():
         return serving_unet_apply(deep["params"], deep["cfg"], deep["q"], deep["runtime"], deep["qstates"],
-                                  deep["x"], torch.full((B,), 500.0), 0, attn_int8=False, boundary_fusion=True)
+                                  deep["x"], torch.full((B,), 500.0), 0, residual_dtype=torch.bfloat16, attn_int8=False,
+                                  boundary_fusion=True)
 
     try:
         srv.epilogue_residual_gn_stats = spy

@@ -100,7 +100,8 @@ def test_serving_step_matches_jax(chain):
     """One serving_unet_apply with JAX's qstates and fold."""
     cfg, q, _ = _port()
     eps = serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                             torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, attn_int8=False)
+                             torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, residual_dtype=torch.bfloat16,
+                             attn_int8=False)
     assert eps.shape == chain["eps"].shape and torch.isfinite(eps).all()
     rel = _rel(eps.numpy(), chain["eps"])
     # measured 0.0 at this seed.  Not bit-exact by construction: both sum the
@@ -116,7 +117,8 @@ def test_serving_step_matches_jax(chain):
 def test_serving_sampler_matches_jax(chain):
     """The 2-step serving sampler with JAX's qstates (the port folds them)."""
     cfg, q, sched = _port()
-    sample = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, attn_int8=False)
+    sample = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, residual_dtype=torch.bfloat16,
+                                  attn_int8=False)
     out = sample(torch.from_numpy(chain["x"]))
     rel = _rel(out.numpy(), chain["sample"])
     assert torch.isfinite(out).all()
@@ -135,7 +137,8 @@ def test_whole_slice_matches_jax(chain):
                              keep_trajectory=True)
     xs_in = torch.cat([x_small[None], traj[:-1]])
     qstates = calibrate_ranges(q, params, q.init_state(len(SEQ), "cpu"), xs_in, SEQ)
-    out = serving_ddim_sampler(q, params, qstates, SEQ, sched.betas, attn_int8=False)(torch.from_numpy(chain["x"]))
+    out = serving_ddim_sampler(q, params, qstates, SEQ, sched.betas, residual_dtype=torch.bfloat16, attn_int8=False)(
+        torch.from_numpy(chain["x"]))
     assert torch.isfinite(out).all()
     rel = _rel(out.numpy(), chain["sample"])
     assert rel < 2e-2, rel  # measured 9.2e-3: the port's own teacher, calibration and fold
@@ -146,9 +149,10 @@ def test_cpu_path_takes_plain_versions(chain):
     cfg, q, _ = _port()
     before = pallas_conv.int8_conv.launches
     a = serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                           torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 1, attn_int8=False)
+                           torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 1, residual_dtype=torch.bfloat16, attn_int8=False)
     b = serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                           torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 1, attn_int8=False, plain=True)
+                           torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 1, residual_dtype=torch.bfloat16, attn_int8=False,
+                           plain=True)
     assert pallas_conv.int8_conv.launches == before
     assert torch.equal(a, b)
 
@@ -172,8 +176,9 @@ FLAGS = [
     ("mp_states", {}),
 ]
 SAMPLER_FLAGS = FLAGS + [
-    ("symmetric", False), ("weight_extras", {}), ("update", "ddpm"), ("eta", 0.5),
+    ("symmetric", False), ("update", "ddpm"), ("eta", 0.5),
 ]
+BF16 = dict(residual_dtype=torch.bfloat16)  # the ported residual stream; each case sets one flag off the path
 
 
 @pytest.mark.parametrize("flag,value", SAMPLER_FLAGS, ids=[f for f, _ in SAMPLER_FLAGS])
@@ -183,9 +188,23 @@ def test_unported_serving_flags_raise(chain, flag, value):
     with pytest.raises(NotImplementedError):
         if (flag, value) in FLAGS:
             serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                               torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, **{flag: value})
+                               torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, **{**BF16, flag: value})
         else:
-            serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, **{flag: value})
+            serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, **{**BF16, flag: value})
+
+
+@pytest.mark.parametrize("entry", ["serving_unet_apply", "serving_ddim_sampler"])
+def test_residual_dtype_defaults_to_float32_which_raises(chain, entry):
+    """As in JAX, `residual_dtype` defaults to float32; the float32 stream is
+    not ported yet, so a call that passes none raises, naming Queue 1 item 5
+    and the bf16 value to pass."""
+    cfg, q, sched = _port()
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 5.*residual_dtype=torch\.bfloat16"):
+        if entry == "serving_unet_apply":
+            serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
+                               torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, attn_int8=False)
+        else:
+            serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, attn_int8=False)
 
 
 @pytest.mark.parametrize("flag", ["attn_int8", "attn_ranges"])
@@ -198,7 +217,7 @@ def test_attention_flags_are_taken(chain, flag):
 
     def step(**kw):
         return serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                                  torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, **kw)
+                                  torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, residual_dtype=torch.bfloat16, **kw)
 
     default = step()
     assert torch.equal(default, step(attn_int8=True))
@@ -239,10 +258,11 @@ def test_sampler_names_refused_gn_sites_before_step_0(monkeypatch):
     for levers in ({}, dict(entry_pallas=True)):
         with pytest.raises(NotImplementedError, match=r"mid\.block_1 \(HW=16, C=1152\) -> K2/K6"):
             # a prebuilt (empty) fold: nothing of the model is read before the check
-            srv.serving_ddim_sampler(q, None, None, [0], betas, runtime={}, **levers)(x)
+            srv.serving_ddim_sampler(q, None, None, [0], betas, runtime={}, residual_dtype=torch.bfloat16, **levers)(x)
     assert not steps
     cfg = UNetConfig(**WIDE_ENTRY)
     params = unet_init(gen, cfg, "cpu")
     q = QuantizedUNet.create(cfg, 4, 8)
     qstates = q.init_state(1, "cpu")
-    assert srv.serving_ddim_sampler(q, params, qstates, [0], betas, entry_pallas=True)(x).shape == x.shape and steps
+    assert srv.serving_ddim_sampler(q, params, qstates, [0], betas, residual_dtype=torch.bfloat16, entry_pallas=True)(x).shape == x.shape
+    assert steps
