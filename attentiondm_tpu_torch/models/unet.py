@@ -10,8 +10,10 @@ package so the two compare like with like:
 - every conv goes through a `conv_apply(name, x, p, stride=, padding=)`
   chokepoint, which calibration intercepts.
 
-Only the "ddim" attention variant at inference is ported; the "enhanced"
-variant is a later slice (ROADMAP Queue 1) and raises.
+Both attention variants are ported, at inference: "ddim" (the checkpoints'
+single-head block) and "enhanced" (multi-head, per-projection bit-widths, a
+learnable gamma residual; `attn_ctx` collects its logit ranges or swaps its
+core for the stage-3 mixed-precision one, quant/attention_mp.py).
 """
 from __future__ import annotations
 
@@ -65,17 +67,10 @@ class UNetConfig:
         return self.ch * 4
 
 
-def _check_variant(cfg: UNetConfig):
-    if cfg.attn_variant != "ddim":
-        raise NotImplementedError(
-            f"attn_variant={cfg.attn_variant!r}: the enhanced attention variant is ported in a "
-            "later slice (ROADMAP Queue 1, 'the enhanced variant and the remaining serving flags')"
-        )
-
-
 def check_ported(cfg: UNetConfig):
     """Raise for a config the port's forward does not cover."""
-    _check_variant(cfg)
+    if cfg.attn_variant not in ("ddim", "enhanced"):
+        raise ValueError(f"attn_variant must be 'ddim' or 'enhanced', got {cfg.attn_variant!r}")
     if not cfg.resamp_with_conv:
         raise NotImplementedError("resamp_with_conv=False is not on the ported path")
 
@@ -168,7 +163,17 @@ def _init_resblock(gen, cin, cout, temb_ch):
     return p
 
 
-def _init_attn(gen, c):
+def _init_attn(gen, c, variant="ddim"):
+    if variant == "enhanced":
+        ck = c // 8  # key_channels = in_channels // 8
+        return {
+            "query_conv": _init_conv(gen, 1, 1, c, ck),
+            "key_conv": _init_conv(gen, 1, 1, c, ck),
+            "value_conv": _init_conv(gen, 1, 1, c, c),
+            "output_conv": _init_conv(gen, 1, 1, c, c),
+            "gamma": torch.zeros(1),
+            "temperature": torch.ones(1),  # unused, kept for state parity with the reference
+        }
     return {
         "norm": _init_norm(c),
         "q": _init_conv(gen, 1, 1, c, c),
@@ -202,7 +207,7 @@ def unet_init(gen: torch.Generator, cfg: UNetConfig, device) -> Params:
             blocks.append(_init_resblock(gen, block_in, block_out, cfg.temb_ch))
             block_in = block_out
             if curr_res in cfg.attn_resolutions:
-                attns.append(_init_attn(gen, block_in))
+                attns.append(_init_attn(gen, block_in, cfg.attn_variant))
         level: dict = {"block": blocks, "attn": attns}
         if i_level != num_levels - 1:
             level["downsample"] = {"conv": _init_conv(gen, 3, 3, block_in, block_in)}
@@ -211,7 +216,7 @@ def unet_init(gen: torch.Generator, cfg: UNetConfig, device) -> Params:
     params["down"] = down
     params["mid"] = {
         "block_1": _init_resblock(gen, block_in, block_in, cfg.temb_ch),
-        "attn_1": _init_attn(gen, block_in),
+        "attn_1": _init_attn(gen, block_in, cfg.attn_variant),
         "block_2": _init_resblock(gen, block_in, block_in, cfg.temb_ch),
     }
     up = [None] * num_levels
@@ -225,7 +230,7 @@ def unet_init(gen: torch.Generator, cfg: UNetConfig, device) -> Params:
             blocks.append(_init_resblock(gen, block_in + skip_in, block_out, cfg.temb_ch))
             block_in = block_out
             if curr_res in cfg.attn_resolutions:
-                attns.append(_init_attn(gen, block_in))
+                attns.append(_init_attn(gen, block_in, cfg.attn_variant))
         level = {"block": blocks, "attn": attns}
         if i_level != 0:
             level["upsample"] = {"conv": _init_conv(gen, 3, 3, block_in, block_in)}
@@ -307,6 +312,56 @@ def _attn_apply_ddim(name, p, x, conv_apply):
     return x + h
 
 
+def _attn_apply_enhanced(name, p, x, conv_apply, cfg, attn_ctx=None):
+    """The enhanced attention block: 1x1 query / key / value / output
+    projections with key_channels = C // 8, softmax(q k^T / sqrt(Ck)) v over
+    the whole projection, and `gamma * out + x`.
+
+    `attn_ctx` keys: `collect` (a dict: the block's logit (min, max), 0-d
+    tensors, is written under its name), `mp_states` ({name:
+    MPAttentionState}: the mixed-precision core replaces the softmax one, at
+    `base_bits` (default 8), `timestep` (the diffusion timestep, an integer
+    tensor or None) and `head_split` (default "aligned"))."""
+    B, H, W, C = x.shape
+    q = conv_apply(f"{name}.query_conv", x, p["query_conv"])
+    k = conv_apply(f"{name}.key_conv", x, p["key_conv"])
+    v = conv_apply(f"{name}.value_conv", x, p["value_conv"])
+    Ck = q.shape[-1]
+    q = q.reshape(B, H * W, Ck)
+    k = k.reshape(B, H * W, Ck).transpose(1, 2)  # [B, Ck, HW]
+    v = v.reshape(B, H * W, C)
+    ctx = attn_ctx or {}
+    collect = ctx.get("collect")
+    if collect is not None:
+        lg = torch.matmul(q, k) * (Ck ** -0.5)
+        collect[name] = (lg.amin(), lg.amax())
+    out = enhanced_core(name, q, k, v, cfg, ctx).to(x.dtype)
+    out = conv_apply(f"{name}.output_conv", out.reshape(B, H, W, C), p["output_conv"])
+    return p["gamma"].to(x.dtype) * out + x
+
+
+def enhanced_core(name, q, k, v, cfg, attn_ctx=None):
+    """The enhanced block's core on q [B, L, Ck], k [B, Ck, L] and v [B, L,
+    C], float32: softmax(q k / sqrt(Ck)) v, or where `attn_ctx`'s
+    `mp_states` holds the block `name`, the stage-3 mixed-precision core
+    (`mp_attention` at the context's `base_bits`, `timestep` and
+    `head_split`).  The FP, fake-quant and serving forwards all call it."""
+    ctx = attn_ctx or {}
+    mp_state = (ctx.get("mp_states") or {}).get(name)
+    if mp_state is not None:
+        from ..quant.attention_mp import mp_attention
+
+        return mp_attention(q, k, v, mp_state, num_heads=cfg.attn_heads, base_bits=ctx.get("base_bits", 8),
+                            timestep=ctx.get("timestep"), head_split=ctx.get("head_split", "aligned"))
+    return torch.matmul(torch.softmax(torch.matmul(q, k) * (q.shape[-1] ** -0.5), dim=-1), v)
+
+
+def _attn_apply(name, p, x, conv_apply, cfg, attn_ctx):
+    if cfg.attn_variant == "enhanced":
+        return _attn_apply_enhanced(name, p, x, conv_apply, cfg, attn_ctx)
+    return _attn_apply_ddim(name, p, x, conv_apply)
+
+
 def _downsample(name, p, x, conv_apply):
     # asymmetric (0,1,0,1) pad, then a VALID stride-2 conv (the DDPM graph)
     x = F.pad(x, (0, 0, 0, 1, 0, 1))
@@ -320,8 +375,9 @@ def _upsample(name, p, x, conv_apply):
 
 @exact_f32()
 def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor, *,
-               conv_apply: Callable | None = None) -> torch.Tensor:
-    """Predict eps from (x_t [NHWC], t [N]); float32 out, inference only."""
+               conv_apply: Callable | None = None, attn_ctx: dict | None = None) -> torch.Tensor:
+    """Predict eps from (x_t [NHWC], t [N]); float32 out, inference only.
+    `attn_ctx` goes to every enhanced attention block (`_attn_apply_enhanced`)."""
     check_ported(cfg)
     ca = conv_apply or _default_conv_apply
     num_levels = len(cfg.ch_mult)
@@ -335,14 +391,14 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
         for i_block in range(cfg.num_res_blocks):
             h = _resblock_apply(f"down.{i_level}.block.{i_block}", lp["block"][i_block], hs[-1], temb, ca)
             if lp["attn"]:
-                h = _attn_apply_ddim(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca)
+                h = _attn_apply(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx)
             hs.append(h)
         if i_level != num_levels - 1:
             hs.append(_downsample(f"down.{i_level}.downsample", lp["downsample"], hs[-1], ca))
 
     h = hs[-1]
     h = _resblock_apply("mid.block_1", params["mid"]["block_1"], h, temb, ca)
-    h = _attn_apply_ddim("mid.attn_1", params["mid"]["attn_1"], h, ca)
+    h = _attn_apply("mid.attn_1", params["mid"]["attn_1"], h, ca, cfg, attn_ctx)
     h = _resblock_apply("mid.block_2", params["mid"]["block_2"], h, temb, ca)
 
     for i_level in reversed(range(num_levels)):
@@ -351,7 +407,7 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
             h = _resblock_apply(f"up.{i_level}.block.{i_block}", lp["block"][i_block],
                                 torch.cat([h, hs.pop()], dim=-1), temb, ca)
             if lp["attn"]:
-                h = _attn_apply_ddim(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca)
+                h = _attn_apply(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx)
         if i_level != 0:
             h = _upsample(f"up.{i_level}.upsample", lp["upsample"], h, ca)
     assert not hs
@@ -361,16 +417,21 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
     return h.to(torch.float32)
 
 
+# the 1x1 projections of an attention block, in call order
+ATTN_PROJS = {"ddim": ("q", "k", "v", "proj_out"),
+              "enhanced": ("query_conv", "key_conv", "value_conv", "output_conv")}
+
+
 def iter_conv_layers(cfg: UNetConfig):
     """Yield (name, in_channels, kernel_size) for every conv the forward routes
     through `conv_apply`, in call order (lockstep with `unet_apply`)."""
-    _check_variant(cfg)
     num_levels = len(cfg.ch_mult)
     in_ch_mult = (1,) + tuple(cfg.ch_mult)
     curr_res = cfg.resolution
+    projs = ATTN_PROJS[cfg.attn_variant]
 
     def attn_projs(prefix, c):
-        for proj in ("q", "k", "v", "proj_out"):
+        for proj in projs:
             yield (f"{prefix}.{proj}", c, 1)
 
     yield ("conv_in", cfg.in_channels, 3)

@@ -125,13 +125,18 @@ def per_site(records: list):
             setattr(srv, name, fn)
 
 
-def conv_plan(cfg):
+def conv_plan(cfg, widths=False):
     """One serving step's kernel calls, derived from `iter_conv_layers` and
-    the config: K1 launches (name, H_in, Cp, Np, ksize, stride, out dtype),
+    the config: K1 launches (name, H_in, Cp, Np, ksize, stride, out dtype;
+    with `widths`, then the (cin, cout) the conv needs before the padding to
+    128 columns, which a bound on its work counts),
     the K2 and K6 epilogue shapes (HW, N), routed by `epilogue_route` on the
     bf16 conv1 output, the K3 shapes (L, C) of the attention sites that
     `fused_attention_block_fits` lets in, and the other, composed sites
-    (name, L, C), whose four 1x1 projections are K1 launches."""
+    (name, L, C), whose four 1x1 projections are K1 launches.  An enhanced
+    attention site is no K3 and no composed site: its four 1x1 projections
+    (query and key to C / 8 channels, padded to 128 columns) are K1 launches
+    in int32 mode, around a core in plain torch."""
     from ..models.unet import iter_conv_layers
     from ..quant.int8_runtime import _eligible
     from .int8_attention import fused_attention_block_fits
@@ -142,6 +147,10 @@ def conv_plan(cfg):
     levels = len(cfg.ch_mult)
     res = [cfg.resolution >> i for i in range(levels)]
     k1, epi, k3, composed = [], {"K2": [], "K6": []}, [], []
+
+    def launch(name, H, cin, cout, k, stride, mode):
+        k1.append((name, H, rup(cin), rup(cout), k, stride, mode) + ((cin, cout) if widths else ()))
+
     for name, cin, k in iter_conv_layers(cfg):
         parts = name.split(".")
         if not _eligible((k, k, cin, 0)):
@@ -154,13 +163,17 @@ def conv_plan(cfg):
             lvl = int(parts[1])
         H, cout = res[lvl], cfg.ch * cfg.ch_mult[lvl]
         if ".attn" in name or parts[0] == "mid" and parts[1] == "attn_1":
+            if cfg.attn_variant == "enhanced":
+                cout = cin // 8 if parts[-1] in ("query_conv", "key_conv") else cin
+                launch(name, H, cin, cout, 1, 1, torch.int32)
+                continue
             if fused_attention_block_fits(H * H, cin):
                 if parts[-1] == "q":
                     k3.append((H * H, cin))
                 continue
             if parts[-1] == "q":
                 composed.append((name.rsplit(".", 1)[0], H * H, cin))
-            k1.append((name, H, rup(cin), rup(cin), 1, 1, torch.int32))
+            launch(name, H, cin, cin, 1, 1, torch.int32)
             continue
         stride, mode = 1, torch.int32
         if parts[-1] in ("conv1", "conv2"):
@@ -174,21 +187,22 @@ def conv_plan(cfg):
             cout, stride = cin, 2
         elif parts[-2] == "upsample":
             cout, H = cin, 2 * H
-        k1.append((name, H, rup(cin), rup(cout), k, stride, mode))
+        launch(name, H, cin, cout, k, stride, mode)
     return k1, epi["K2"], epi["K6"], k3, composed
 
 
 def attention_sites(cfg) -> list:
     """(site, L, C) of every attention block of a serving step that the int8
-    path covers (q projection eligible), in forward order."""
-    from ..models.unet import iter_conv_layers
+    path covers (q projection eligible), in forward order; either variant."""
+    from ..models.unet import ATTN_PROJS, iter_conv_layers
     from ..quant.int8_runtime import _eligible
 
     levels = len(cfg.ch_mult)
+    first = ATTN_PROJS[cfg.attn_variant][0]
     sites = []
     for name, cin, k in iter_conv_layers(cfg):
         parts = name.split(".")
-        if parts[-1] != "q" or not _eligible((k, k, cin, 0)):
+        if parts[-1] != first or not _eligible((k, k, cin, 0)):
             continue
         H = cfg.resolution >> (levels - 1 if parts[0] == "mid" else int(parts[1]))
         sites.append((name.rsplit(".", 1)[0], H * H, cin))
@@ -206,10 +220,14 @@ def attention_plan(cfg, *, attn_int8=True, attn_ranges=None) -> dict:
     block): on the card `serving_ddim_sampler` raises with them before its
     first step (`require_attention_kernels`).  The int8 core
     of a composed site needs its projections unpadded (C % 128 == 0);
-    otherwise the site takes the f32 branch, as `_attn_fused` does."""
+    otherwise the site takes the f32 branch, as `_attn_fused` does.  The
+    enhanced variant's sites run no attention kernel (their cores are plain
+    torch), so its plan is empty."""
     from . import int8_attention as ia
 
     plan = {k: [] for k in ("K3.int8_core", "K8", "K9", "K10", "K11", "refused")}
+    if cfg.attn_variant == "enhanced":
+        return plan
     for site, L, C in attention_sites(cfg):
         if ia.fused_attention_block_fits(L, C):
             if attn_int8:
@@ -362,7 +380,8 @@ def expected_launches(cfg, steps: int = 1, batch: int = 1, *, attn_int8=True, at
     (`attention_plan`'s keywords, the serving defaults) and the levers given
     (`lever_plan`'s keywords; none: the levers-off path).  A block K12 takes
     launches neither its two K1 convs nor its K2 / K6 epilogue; a composed
-    attention site launches K1 four times."""
+    attention site launches K1 four times, and so does an enhanced one (in
+    1x1 int32 mode: K5), with no K3 and no core kernel."""
     k1, k2, k6, k3, _composed = conv_plan(cfg)
     attn = attention_plan(cfg, attn_int8=attn_int8, attn_ranges=attn_ranges)
     plan = lever_plan(cfg, batch, **levers)

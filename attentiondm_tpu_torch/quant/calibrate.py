@@ -1,14 +1,26 @@
-"""Range calibration and the fold's refinement (port of stage 1,
-`serving_surrogate_apply` and `refine_weight_extras` of
-`attentiondm_tpu/quant/calibrate.py`).
+"""Calibration (port of `attentiondm_tpu/quant/calibrate.py`).
 
-Stage 1, per timestep and per channel: collect each conv's input range,
-search the LAPQ 9-candidate shrink of the base range floor under an L_0.5
-loss, bucket the ranges group-wise, and propagate the QUANTIZED activation
-downstream.  The serving surrogate is a differentiable forward with the
-serving fold's numerics; `refine_weight_extras` trains the fold's free
-per-channel multiplier and bias shift through it.  Stage 2 (differentiable
-group selection, teacher matching) is a later slice (ROADMAP Queue 1 item 4).
+- Stage 1, per timestep and per channel: collect each conv's input range,
+  search the LAPQ 9-candidate shrink of the base range floor under an L_0.5
+  loss, bucket the ranges group-wise, and propagate the QUANTIZED activation
+  downstream (`calibrate_ranges`, optionally seeding each channel's
+  group-selection logits on its own bucket, `assignment_init`).
+- Stage 2: the differentiable group selection along the sampler trajectory
+  with an entropy regularizer (`calibrate_differentiable`), or its
+  teacher-matched variant, which trains the logits and a per-step log range
+  scale against the FP teacher's eps on its own trajectory
+  (`calibrate_teacher_matched`), through the fake-quant model or the serving
+  surrogate.
+- The serving surrogate, a differentiable forward with the serving fold's
+  numerics, and `refine_weight_extras`, which trains the fold's free
+  per-channel multiplier and bias shift through it.
+- The calibration set: `select_calibration_images` in the four t-modes,
+  with the alpha-entropy-driven "diff" selection (`alpha_uncertainty`).
+
+The optimizers are torch's, each over the whole [S, ...] tensors for the
+whole run, as JAX keeps one optax state over them: a step's update also
+moves the slices other steps updated earlier (Adam's moments) and, in
+stage 2's AdamW, decays every slice.
 """
 from __future__ import annotations
 
@@ -17,7 +29,9 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..diffusion.sampling import _seq_alphas, ddim_step
 from ..models.unet import conv2d, exact_f32, lookup, unet_apply
 from ..ops.quant_conv import weight_grid
 from .groupwise import groupwise_ranges
@@ -27,23 +41,38 @@ from .state import ActQuantConfig, ActQuantState, mixed_ranges, quantize_activat
 
 LAPQ_CANDIDATES = 9
 LAPQ_ACCEPT_SCORE = 0.2
+# Assignment-init logit magnitude: the softmax weight on a channel's own bucket is
+# 1/(1+(G-1)e^-K) = 0.9992 at G=8, K=9, about one-hot while staying differentiable for stage 2.
+ASSIGN_LOGIT = 9.0
 
 
-def _calibrate_one_conv(x, st: ActQuantState, cfg: ActQuantConfig, s: int, first: bool):
-    """Calibrate one conv's quant state at step `s` from its input `x`.
+def _assignment_logits(gr, snap_min, snap_max, scale: float = ASSIGN_LOGIT):
+    """[G, C] logits that put each channel on its own bucket (the nearest
+    group range in L1 to its snapped range; the first on a tie), `scale`
+    where it is and 0 elsewhere.  A study lever: the default stage-1 init
+    keeps the reference's uniform logits."""
+    d = (gr[:, 0:1] - snap_min[None, :]).abs() + (gr[:, 1:2] - snap_max[None, :]).abs()
+    own = torch.argmin(d, dim=0)  # [C]
+    return F.one_hot(own, gr.shape[0]).T.to(torch.float32) * scale
+
+
+def _calibrate_one_conv(x, st: ActQuantState, cfg: ActQuantConfig, s: int, first: bool, assignment: bool = False):
+    """Calibrate one conv's quant state at step `s` from its input `x`;
+    `assignment` seeds the logits with each channel's own bucket.
 
     Returns (updated fields, quantized activation to propagate downstream)."""
     axes = tuple(range(x.ndim - 1))
     chan_min = x.amin(dim=axes)
     chan_max = x.amax(dim=axes)
     G = cfg.group_num
-    alpha = st.alpha_logits[s]
 
     def build(base_min, base_max):
         # range floor: every channel covers at least [base_min, base_max]
         snap_min, gmin = groupwise_ranges(torch.minimum(chan_min, base_min), G, "min")
         snap_max, gmax = groupwise_ranges(torch.maximum(chan_max, base_max), G, "max")
-        return snap_min, snap_max, torch.stack([gmin, gmax], dim=1)
+        gr = torch.stack([gmin, gmax], dim=1)
+        alpha = _assignment_logits(gr, snap_min, snap_max) if assignment else st.alpha_logits[s]
+        return snap_min, snap_max, gr, alpha
 
     init_min = st.init_range[s, 0]
     init_max = st.init_range[s, 1]
@@ -51,7 +80,7 @@ def _calibrate_one_conv(x, st: ActQuantState, cfg: ActQuantConfig, s: int, first
         scores = []
         for aa in range(LAPQ_CANDIDATES):
             f = 1.0 - torch.tensor(float(aa), device=x.device) * 0.1
-            _, _, gr = build(init_min * f, init_max * f)
+            _, _, gr, alpha = build(init_min * f, init_max * f)
             xq = quantize_activation_mixture(x, gr, alpha, cfg.a_bit)
             scores.append(lp_loss(xq, x, p=0.5, reduction="all"))
         scores = torch.stack(scores)
@@ -61,7 +90,7 @@ def _calibrate_one_conv(x, st: ActQuantState, cfg: ActQuantConfig, s: int, first
         init_min = torch.where(accept, init_min * shrink, init_min)
         init_max = torch.where(accept, init_max * shrink, init_max)
 
-    snap_min, snap_max, gr = build(init_min, init_max)
+    snap_min, snap_max, gr, alpha = build(init_min, init_max)
     xq = quantize_activation_mixture(x, gr, alpha, cfg.a_bit)
     updates = dict(init_range=torch.stack([init_min, init_max]), act_min=snap_min,
                    act_max=snap_max, group_ranges=gr, alpha_logits=alpha)
@@ -74,7 +103,7 @@ def _is_attn_proj(name: str) -> bool:
 
 
 def calibrate_ranges_step(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState],
-                          x, t, s: int, first: bool, attn_absmax: dict):
+                          x, t, s: int, first: bool, attn_absmax: dict, assignment: bool = False):
     """One calibration forward at step `s`: update every conv's ranges in
     `qstates` (in place, at index s) and return the FP-graph eps.
 
@@ -85,7 +114,7 @@ def calibrate_ranges_step(qunet: QuantizedUNet, params, qstates: Dict[str, ActQu
     def conv_apply(name, xin, p, *, stride=1, padding="SAME"):
         if name not in qstates:
             return conv2d(xin, p, stride=stride, padding=padding)
-        upd, xq = _calibrate_one_conv(xin, qstates[name], qunet.policy[name], s, first)
+        upd, xq = _calibrate_one_conv(xin, qstates[name], qunet.policy[name], s, first, assignment)
         st = qstates[name]
         for field, v in upd.items():
             getattr(st, field)[s] = v
@@ -107,10 +136,12 @@ def calibrate_ranges(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantSt
     t = reversed(seq)[i]).  Returns new states; the inputs are not changed.
 
     With `return_attn_ranges` also returns {proj_name: [S] float32}, the
-    absmax of each attention q/k/v projection's output per step."""
-    if assignment_init:
-        raise NotImplementedError(
-            "assignment_init is a stage-2 study lever; it comes with ROADMAP Queue 1 item 4")
+    absmax of each attention q/k/v projection's output per step.
+
+    `assignment_init` seeds `alpha_logits` with each channel's own bucket
+    (`_assignment_logits`); the default keeps the reference's uniform init,
+    under which the inference mixture is the mean of the group thresholds
+    until stage 2 learns otherwise."""
     t_rev = np.asarray(list(seq))[::-1].astype(np.float32)
     n = xs.shape[1]
     states = {k: v.clone() for k, v in qstates.items()}
@@ -118,10 +149,100 @@ def calibrate_ranges(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantSt
     for s in range(xs.shape[0]):
         t_vec = torch.full((n,), float(t_rev[s]), dtype=torch.float32, device=xs.device)
         per_step.append({})
-        calibrate_ranges_step(qunet, params, states, xs[s], t_vec, s, first, per_step[-1])
+        calibrate_ranges_step(qunet, params, states, xs[s], t_vec, s, first, per_step[-1], assignment_init)
     if not return_attn_ranges:
         return states
     return states, {name: torch.stack([d[name] for d in per_step]) for name in per_step[0]}
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: differentiable group selection along the trajectory
+# ---------------------------------------------------------------------------
+
+
+def _is_attn(name: str) -> bool:
+    return ".attn" in name or name.startswith("mid.attn")
+
+
+def _with_fields(qstates: Dict[str, ActQuantState], alphas=None, group_ranges=None) -> Dict[str, ActQuantState]:
+    """A copy of the state dict whose named layers take the given
+    `alpha_logits` / `group_ranges` ({name: tensor}); the other fields shared."""
+    out = dict(qstates)
+    for name in set(alphas or {}) | set(group_ranges or {}):
+        out[name] = dataclasses.replace(out[name], **{
+            k: v[name] for k, v in (("alpha_logits", alphas), ("group_ranges", group_ranges)) if v and name in v})
+    return out
+
+
+def _alpha_entropy(alpha_logits_s, g: int, c: int):
+    """The reference's (pseudo-)entropy regularizer of one step's [G, C]
+    logits: softmax over the groups, -sum(p log p) over the channels, the
+    mean over the groups, / (G * C)."""
+    p = torch.softmax(alpha_logits_s, dim=0)
+    return -(p * torch.log(p + 1e-12)).sum(dim=-1).mean() / (g * c)
+
+
+def _draw(shape, generator, device):
+    """Standard normals from `generator` (on its own device), moved to `device`."""
+    if generator is None:
+        raise ValueError("pass a torch.Generator (generator=) or the draws themselves")
+    return torch.randn(shape, generator=generator, device=generator.device).to(device)
+
+
+def _stage2_loss(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState], alphas, xt, e, a, t: float, s: int,
+                 diff_loss_weight: float):
+    """Stage 2's loss at step s, and the eps of its forward: x_t noised
+    with `e` at alpha_bar `a` as if it were x0, the mixture-mode model at
+    step s with `alphas` ({name: [S, G, C]}) in place of those layers'
+    logits, ((e - et)^2) summed over H, W, C and averaged over the images,
+    plus `diff_loss_weight` times the sum of the `alphas`' entropies at s."""
+    x_noised = xt * torch.sqrt(a) + e * torch.sqrt(1.0 - a)
+    t_vec = torch.full((xt.shape[0],), t, device=xt.device)
+    et = qunet.apply(params, _with_fields(qstates, alphas), x_noised, t_vec, s, mode="mixture")
+    ent = sum(_alpha_entropy(v[s], v.shape[1], v.shape[2]) for v in alphas.values())
+    return torch.square(e - et).sum(dim=(1, 2, 3)).mean() + diff_loss_weight * ent, et
+
+
+def calibrate_differentiable(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState], x0, seq: Sequence[int],
+                             betas, *, generator: torch.Generator | None = None, noise=None, eta: float = 0.0,
+                             lr: float = 0.05, weight_decay: float = 0.05, diff_loss_weight: float = 1.0,
+                             attention_focus: bool = False, epochs: int = 1):
+    """Stage 2: optimize `alpha_logits` with AdamW along the DDIM trajectory
+    of the calibration images `x0` (NHWC).
+
+    At each step the loss is `_stage2_loss`'s (the eps-MSE of the
+    mixture-mode model on the current x_t noised afresh, plus the entropy
+    term), one optimizer step a sampler step, and x advances by the DDIM
+    update with the loss forward's eps.  `attention_focus` trains the
+    attention projections' logits only.  `epochs` repeats the pass (fresh
+    noise, the same x0, the optimizer state carried over).
+
+    One `torch.optim.AdamW(lr, weight_decay)` over the selected layers' whole
+    [S, G, C] logits: optax's `adamw` and torch's both decouple the decay
+    from the gradient and scale it by `lr`, and both decay every slice at
+    every step.  The noise is `noise` [epochs, S, N, H, W, C] (e.g. JAX's
+    `fold_in(key, ep * S + i)` draws) or drawn from `generator`.  Returns
+    (states', losses [epochs * S] floats)."""
+    sel = [n for n in qstates if not attention_focus or _is_attn(n)]
+    _, _, at_all, at_next_all = _seq_alphas(betas, seq)
+    t_rev = [int(t) for t in reversed(list(seq))]
+    abar = torch.cumprod(1.0 - betas, dim=0)
+    alphas = {k: qstates[k].alpha_logits.detach().clone().requires_grad_(True) for k in sel}
+    opt = torch.optim.AdamW(list(alphas.values()), lr=lr, weight_decay=weight_decay)
+    losses = []
+    with exact_f32():
+        for ep in range(epochs):
+            xt = x0
+            for s, t in enumerate(t_rev):
+                e = noise[ep, s].to(xt.device) if noise is not None else _draw(xt.shape, generator, xt.device)
+                loss, et = _stage2_loss(qunet, params, qstates, alphas, xt, e, abar[t], float(t), s, diff_loss_weight)
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())
+                xt, _ = ddim_step(xt, et.detach(), at_all[s], at_next_all[s], eta, torch.zeros_like(xt))
+    out = _with_fields(qstates, {k: v.detach() for k, v in alphas.items()})
+    return out, torch.stack(losses).tolist() if losses else []
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +323,94 @@ def surrogate_conv_apply(qunet: QuantizedUNet, qstates: Dict[str, ActQuantState]
         return out
 
     return conv_apply
+
+
+# ---------------------------------------------------------------------------
+# Stage 2, teacher-matched
+# ---------------------------------------------------------------------------
+
+
+def _apply_theta(qstates: Dict[str, ActQuantState], theta) -> Dict[str, ActQuantState]:
+    """The states with the teacher-matched parameters: theta["alpha"]
+    ({name: [S, G, C]}) as the logits, group_ranges * exp(theta["rho"][name])
+    ({name: [S]}) as the ranges."""
+    gr = None
+    if "rho" in theta:
+        gr = {k: qstates[k].group_ranges * torch.exp(r)[:, None, None] for k, r in theta["rho"].items()}
+    return _with_fields(qstates, theta.get("alpha"), gr)
+
+
+def _teacher_matched_loss(qunet: QuantizedUNet, forward_params, qstates: Dict[str, ActQuantState], theta, x_s, e_s,
+                          t: float, s: int, *, serving_extras=None, symmetric: bool = True, rank1: bool = False):
+    """The teacher-matched objective at step s: mean((et - e_s)^2) /
+    mean(e_s^2), et the fake-quant model's (mode "infer") eps or, with
+    `serving_extras`, the serving surrogate's, under `_apply_theta(qstates,
+    theta)`."""
+    qs = _apply_theta(qstates, theta)
+    t_vec = torch.full((x_s.shape[0],), t, device=x_s.device)
+    if serving_extras is not None:
+        et = serving_surrogate_apply(qunet, forward_params, qs, serving_extras, x_s, t_vec, s, symmetric=symmetric,
+                                     rank1=rank1)
+    else:
+        et = qunet.apply(forward_params, qs, x_s, t_vec, s, mode="infer")
+    return torch.mean(torch.square(et - e_s)) / torch.mean(torch.square(e_s))
+
+
+def calibrate_teacher_matched(qunet: QuantizedUNet, forward_params, qstates: Dict[str, ActQuantState], xs_in, eps_ref,
+                              seq: Sequence[int], *, lr: float = 0.01, epochs: int = 4, attention_focus: bool = False,
+                              train_alpha: bool = True, train_range_scale: bool = True, serving_extras=None,
+                              symmetric: bool = True, rank1: bool = False):
+    """Distillation-objective stage 2: train the activation quantization
+    against the FP teacher's eps on its own trajectory (`xs_in`, `eps_ref`
+    [S, N, H, W, C]), `_teacher_matched_loss` at each step, one Adam update a
+    step visit, `epochs` passes.  The parameters are `alpha_logits`
+    (`train_alpha`) and a per-layer per-step log range scale rho
+    (`train_range_scale`, init 0), of the attention projections alone with
+    `attention_focus`.
+
+    The loss forward is the fake-quant model on `forward_params`, the
+    weight-quantized params (`prepare_params`), or, with `serving_extras`,
+    `serving_surrogate_apply` on the float params (the serving fold's
+    semantics with the extras' offsets and pinned shrinks; `rank1` its
+    step-shared form).  One `torch.optim.Adam(lr)` over the whole [S, ...]
+    tensors, as JAX's one optax state.
+
+    Per step the best evaluated iterate is kept (the first epoch evaluates
+    the init first), so the result is never worse than stage 1 on the
+    objective at any step.  Returns (states', losses [epochs * S] floats)."""
+    if not symmetric:
+        raise NotImplementedError("symmetric=False (the asymmetric weight fold) comes with ROADMAP Queue 1 item 5")
+    sel = [n for n in qstates if not attention_focus or _is_attn(n)]
+    t_rev = [float(t) for t in reversed(list(seq))]
+    S = xs_in.shape[0]
+    theta = {}
+    if train_alpha:
+        theta["alpha"] = {k: qstates[k].alpha_logits.detach().clone() for k in sel}
+    if train_range_scale:
+        theta["rho"] = {k: torch.zeros(S, dtype=torch.float32, device=xs_in.device) for k in sel}
+    if not theta:
+        return qstates, []
+    leaves = [v.requires_grad_(True) for fields in theta.values() for v in fields.values()]
+    best = {kind: {k: v.detach().clone() for k, v in fields.items()} for kind, fields in theta.items()}
+    best_loss = torch.full((S,), float("inf"), device=xs_in.device)
+    opt = torch.optim.Adam(leaves, lr=lr)
+    losses = []
+    for _ep in range(epochs):
+        for s in range(S):
+            loss = _teacher_matched_loss(qunet, forward_params, qstates, theta, xs_in[s], eps_ref[s], t_rev[s], s,
+                                         serving_extras=serving_extras, symmetric=symmetric, rank1=rank1)
+            opt.zero_grad()
+            loss.backward()
+            with torch.no_grad():
+                # keep the iterate this loss was evaluated at where it is the step's best so far (no host sync)
+                better = loss < best_loss[s]
+                for kind, fields in theta.items():
+                    for k, v in fields.items():
+                        best[kind][k][s] = torch.where(better, v[s], best[kind][k][s])
+                best_loss[s] = torch.minimum(best_loss[s], loss)
+            opt.step()
+            losses.append(loss.detach())
+    return _apply_theta(qstates, best), torch.stack(losses).tolist()
 
 
 # ---------------------------------------------------------------------------
@@ -336,3 +545,65 @@ def refine_weight_extras(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
         if l_ep < best_loss:
             best_loss, best_theta = l_ep, detached(theta)
     return apply_theta(best_theta), losses
+
+
+# ---------------------------------------------------------------------------
+# Calibration-set generation (all four t-modes)
+# ---------------------------------------------------------------------------
+
+
+def alpha_uncertainty(qstates: Dict[str, ActQuantState], num_steps: int):
+    """Per-step alpha entropy summed over every quantized conv, [num_steps]:
+    each layer's -sum(p log p) over the channels of the softmax over the
+    groups, its mean over the groups, / C."""
+    u = None
+    for st in qstates.values():
+        p = torch.softmax(st.alpha_logits, dim=1)  # [S, G, C]
+        ent = -(p * torch.log(p + 1e-12)).sum(dim=-1).mean(dim=1) / st.alpha_logits.shape[-1]
+        u = ent if u is None else u + ent
+    return torch.zeros(num_steps) if u is None else u
+
+
+def select_calibration_images(xs_full, t_mode: str, *, num_steps: int, generator: torch.Generator | None = None,
+                              normals=None, qstates: Dict[str, ActQuantState] | None = None, sample_count=None,
+                              sample_weight: float = 2.0, min_t: int = 30):
+    """Calibration inputs from a teacher trajectory `xs_full` [S+1, N, H, W,
+    C] (x_init, then each step's x_t_next), by t-mode:
+
+    - "real": the last entry;
+    - "range": image i from entry min(i, S);
+    - "random": image i from step clip(int((z_i * 0.4 + 0.4) * S), 0, S - 1),
+      z the [N] `normals` (e.g. JAX's `jax.random.normal(key, (N,))`) or
+      drawn from `generator`;
+    - "diff": the step of the largest alpha uncertainty less `sample_weight`
+      times its `sample_count`, over the steps from `min_t` on (clamped to
+      the schedule: the reference's 30 assumes more steps), the last one of
+      a tie.
+
+    Returns (images [N, H, W, C], the selected step (a 0-d tensor) or None,
+    sample_count updated)."""
+    n = xs_full.shape[1]
+    last = xs_full.shape[0] - 1
+    rows = torch.arange(n, device=xs_full.device)
+    if t_mode == "real":
+        return xs_full[-1], None, sample_count
+    if t_mode == "range":
+        return xs_full[torch.clamp(rows, max=last), rows], None, sample_count
+    if t_mode == "random":
+        z = normals if normals is not None else _draw((n,), generator, xs_full.device)
+        t = torch.clamp(((torch.as_tensor(z, device=xs_full.device) * 0.4 + 0.4) * num_steps).to(torch.int64),
+                        0, num_steps - 1)
+        return xs_full[t, rows], None, sample_count
+    if t_mode == "diff":
+        if qstates is None:
+            raise ValueError("t_mode 'diff' needs the stage-1 qstates")
+        min_t = max(0, min(min_t, num_steps - 1))
+        dev = xs_full.device
+        if sample_count is None:
+            sample_count = torch.zeros(num_steps, device=dev)
+        u = (alpha_uncertainty(qstates, num_steps).to(dev) - sample_weight * sample_count)[min_t:]
+        t_sel = (u.shape[0] - 1 - torch.argmax(u.flip(0))) + min_t  # the last argmax of a tie
+        sample_count = sample_count.index_add(0, t_sel.reshape(1), torch.ones(1, device=dev))
+        x = xs_full.index_select(0, torch.clamp(t_sel, max=last).reshape(1))[0]
+        return x, t_sel, sample_count
+    raise NotImplementedError(t_mode)

@@ -23,7 +23,10 @@ with `int8_core=attn_int8`; a larger one is composed of a plain GroupNorm ->
 three quants, three K1 1x1 GEMMs and a core, K9 or K10 at the calibrated
 `attn_ranges` (static scales), K8 without them (dynamic scales), or with
 `attn_int8=False` the float32 `spatial_attention` (K11 at L >= 1024), then
-proj_out's K1 GEMM.  The stride-2 downsample, the int8-domain nearest
+proj_out's K1 GEMM.  The enhanced variant's block (`_attn_fused_enhanced`)
+has no GroupNorm entry: its four 1x1 projections are K1 GEMMs on the
+quantized residual stream around a float32 (or stage-3 mixed-precision)
+core in plain torch.  The stride-2 downsample, the int8-domain nearest
 upsample and `conv_out` are K1 in int32 mode with a plain-torch dequant.
 `conv_in` (3 input channels) stays on the fake-quant float conv.
 
@@ -35,10 +38,10 @@ time, and `micro_batch=m` runs each chunk over the batch m images at a time.
 
 The port takes the serving path's flag values: bf16 residual stream,
 `dot_bf16`, symmetric weights, DDIM update; every value of `attn_int8` /
-`attn_ranges`, `step_chunk`, `micro_batch`, `pack_int4`, `rank1` and
-`weight_extras`; and JAX's three fusion levers `entry_pallas`,
-`boundary_fusion` and `resblock_pallas` (True or "all"), routed by JAX's
-predicates.  Every other value raises NotImplementedError naming the
+`attn_ranges`, `step_chunk`, `micro_batch`, `pack_int4`, `rank1`,
+`weight_extras` and `mp_states` / `mp_base_bits`; and JAX's three fusion
+levers `entry_pallas`, `boundary_fusion` and `resblock_pallas` (True or
+"all"), routed by JAX's predicates.  Every other value raises NotImplementedError naming the
 ROADMAP slice that ports it.  `residual_dtype` defaults to float32, as in
 JAX, and that value raises until the float32 stream is ported: callers pass
 `residual_dtype=torch.bfloat16`, as bench.py does.
@@ -58,6 +61,7 @@ from ..models.unet import (
     check_ported,
     conv2d,
     dense,
+    enhanced_core,
     exact_f32,
     get_timestep_embedding,
     iter_conv_layers,
@@ -99,7 +103,6 @@ _FLAGS = "Queue 1, 'the enhanced variant and the remaining serving flags'"
 _SLICE = {
     "resblock_pallas": _FLAGS + " (the (H, Cp, Np) shape-list form)",
     "conv_pallas": _FLAGS,
-    "mp_states": _FLAGS,
     "symmetric": _FLAGS,
     "residual_dtype": "Queue 1 item 5 (the float32 residual stream); pass residual_dtype=torch.bfloat16, as "
                       "bench.py does",
@@ -109,8 +112,21 @@ _SLICE = {
 
 # the serving path's values; anything else raises
 _SERVING_FLAGS = dict(
-    residual_dtype=torch.bfloat16, dot_bf16=True, conv_pallas=False, mp_states=None,
+    residual_dtype=torch.bfloat16, dot_bf16=True, conv_pallas=False,
 )
+
+
+def _require_attention_flags(cfg: UNetConfig, attn_int8, attn_ranges, mp_states):
+    """The attention flags that do not apply to the config's variant raise
+    (JAX ignores them): the enhanced block's core is always float32 (or the
+    mixed-precision one), so it takes neither `attn_int8` nor `attn_ranges`;
+    the ddim block has no mixed-precision core, so it takes no `mp_states`."""
+    if cfg.attn_variant == "enhanced" and (attn_int8 or attn_ranges is not None):
+        raise ValueError("the enhanced attention variant's core is float32 (or the stage-3 mixed-precision core): "
+                         f"pass attn_int8=False and no attn_ranges (got attn_int8={attn_int8!r}, "
+                         f"attn_ranges {'given' if attn_ranges is not None else 'None'})")
+    if cfg.attn_variant != "enhanced" and mp_states:
+        raise ValueError("mp_states (the stage-3 mixed-precision core) apply to the enhanced attention variant only")
 
 
 def _require(**flags):
@@ -544,6 +560,30 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
     return (hf + out).to(res_dtype)
 
 
+def _attn_fused_enhanced(name, p, h_res, rt_i, qunet, qstates, step_idx, res_dtype, *, mp_ctx=None, plain=False):
+    """The enhanced attention block on the serving path (models/unet.py
+    `_attn_apply_enhanced`).  No GroupNorm entry: each 1x1 projection
+    quantizes the residual stream at its own policy (the key at
+    max(4, b - 2) bits) and runs on K1's 1x1 mode through `_conv_any`
+    (the query and key projections' C / 8 outputs padded to 128 columns).
+    The core is the FP model's `enhanced_core`: float32 in plain torch, or
+    with `mp_ctx` (`mp_states`, `base_bits`, `timestep`) the stage-3
+    mixed-precision core (quant/attention_mp.py); the exit is
+    `gamma * out + h`."""
+    B, H, W, C = h_res.shape
+    hf = h_res.to(torch.float32)
+
+    def proj(leaf, x):
+        return _conv_any(f"{name}.{leaf}", x, p[leaf], rt_i, qunet, qstates, step_idx, plain=plain)
+
+    q, k, v = (proj(leaf, hf) for leaf in ("query_conv", "key_conv", "value_conv"))
+    Ck = q.shape[-1]
+    q, k, v = q.reshape(B, H * W, Ck), k.reshape(B, H * W, Ck), v.reshape(B, H * W, C)
+    out = enhanced_core(name, q, k.transpose(1, 2), v, qunet.cfg, mp_ctx)
+    out = proj("output_conv", out.reshape(B, H, W, C))
+    return (p["gamma"].to(torch.float32) * out + hf).to(res_dtype)
+
+
 # ---------------------------------------------------------------------------
 # fused forward
 # ---------------------------------------------------------------------------
@@ -556,7 +596,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                        residual_dtype=torch.float32, attn_int8: bool = True, attn_ranges=None,
                        boundary_fusion: bool = False, dot_bf16: bool = True,
                        entry_pallas: bool = False, conv_pallas=False, resblock_pallas=False,
-                       mp_states=None, plain=False) -> torch.Tensor:
+                       mp_states=None, mp_base_bits: int = 8, plain=False) -> torch.Tensor:
     """Fused int8-resident forward (eps, float32).  Mirrors
     models/unet.unet_apply at inference.
 
@@ -572,17 +612,33 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     on larger maps, or K9 / K10 where `attn_ranges` ({proj_name: [S]} from
     `calibrate_ranges(return_attn_ranges=True)`) has the site's q, k and v.
 
+    The enhanced attention variant (`_attn_fused_enhanced`) takes
+    `attn_int8=False` and no `attn_ranges` (its core is float32), and
+    `mp_states` ({layer name: MPAttentionState}, stage 3) swaps its core for
+    the mixed-precision one at `mp_base_bits`, at the timestep `t[0]` (the
+    diffusion timestep, kept on the device).
+
     `t` [B]: the batch's timesteps; one timestep expanded over the batch
     (stride 0) computes its embedding once.  `plain=True` runs the kernels'
     plain versions instead, on any device (for comparisons)."""
     _require(residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
-             resblock_pallas=resblock_pallas, mp_states=mp_states)
+             resblock_pallas=resblock_pallas)
     check_ported(cfg)
+    _require_attention_flags(cfg, attn_int8, attn_ranges, mp_states)
     rt_i = gather_step(runtime, step_idx)
     ar_i = None if attn_ranges is None else {k: a[step_idx] for k, a in attn_ranges.items()}
-    attn = dict(attn_int8=attn_int8, ar_i=ar_i, plain=plain)
-    num_levels = len(cfg.ch_mult)
     res = residual_dtype
+    if cfg.attn_variant == "enhanced":
+        mp_ctx = None
+        if mp_states:
+            mp_ctx = dict(mp_states=mp_states, base_bits=mp_base_bits, timestep=t.reshape(-1)[0].to(torch.int64))
+
+        def attn_site(nm, pp, hh):
+            return _attn_fused_enhanced(nm, pp, hh, rt_i, qunet, qstates, step_idx, res, mp_ctx=mp_ctx, plain=plain)
+    else:
+        def attn_site(nm, pp, hh):
+            return _attn_fused(nm, pp, hh, rt_i, qunet, res, attn_int8=attn_int8, ar_i=ar_i, plain=plain)
+    num_levels = len(cfg.ch_mult)
     levers = dict(entry_pallas=bool(entry_pallas), resblock_pallas=resblock_pallas, plain=plain)
 
     # a timestep shared by the batch (a stride-0 t, as the sampler passes it) takes the time embedding and
@@ -606,8 +662,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
             h, sums = _resblock_fused(f"down.{i_level}.block.{i_block}", lp["block"][i_block], hs[-1],
                                       temb, rt_i, qunet, res, entry_sums=sums, want_exit_stats=want, **levers)
             if lp["attn"]:
-                h = _attn_fused(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, rt_i,
-                                qunet, res, **attn)
+                h = attn_site(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h)
                 sums = None
             hs.append(h)
         if i_level != num_levels - 1:
@@ -625,7 +680,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     h = hs[-1]
     h, _ = _resblock_fused("mid.block_1", params["mid"]["block_1"], h, temb, rt_i, qunet, res,
                            entry_sums=sums, **levers)
-    h = _attn_fused("mid.attn_1", params["mid"]["attn_1"], h, rt_i, qunet, res, **attn)
+    h = attn_site("mid.attn_1", params["mid"]["attn_1"], h)
     h, _ = _resblock_fused("mid.block_2", params["mid"]["block_2"], h, temb, rt_i, qunet, res, **levers)
 
     for i_level in reversed(range(num_levels)):
@@ -634,8 +689,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
             h, _ = _resblock_fused(f"up.{i_level}.block.{i_block}", lp["block"][i_block],
                                    torch.cat([h, hs.pop()], dim=-1), temb, rt_i, qunet, res, **levers)
             if lp["attn"]:
-                h = _attn_fused(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, rt_i,
-                                qunet, res, **attn)
+                h = attn_site(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h)
         if i_level != 0:
             nm = f"up.{i_level}.upsample.conv"
             lay = rt_i.get(nm)
@@ -679,7 +733,7 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
                          boundary_fusion: bool = False, dot_bf16: bool = True,
                          entry_pallas: bool = False, conv_pallas=False, resblock_pallas=False,
                          pack_int4: bool = False, rank1: bool = False, update: str = "ddim",
-                         mp_states=None, runtime=None):
+                         mp_states=None, mp_base_bits: int = 8, runtime=None):
     """Deterministic (eta = 0) DDIM sampler over the fused int8 serving
     path: folds every step's weights once (or reuses a prebuilt `runtime`),
     then returns ``sample(x) -> x_final``.
@@ -699,10 +753,15 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
     it there, `micro_batch` without `step_chunk` raises too.
 
     `weight_extras` {name: quant.adaround.WeightExtras} go into every fold,
-    a chunk's too (its [S, co] refinements' rows of the chunk)."""
+    a chunk's too (its [S, co] refinements' rows of the chunk).
+
+    `mp_states` / `mp_base_bits`: the enhanced variant's stage-3 core
+    (`serving_unet_apply`).  The states are indexed by the diffusion
+    timestep, not the step, so a chunk takes them whole."""
     check_eta(eta)
     _require(update=update, residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
-             resblock_pallas=resblock_pallas, mp_states=mp_states)
+             resblock_pallas=resblock_pallas)
+    _require_attention_flags(qunet.cfg, attn_int8, attn_ranges, mp_states)
     if runtime is not None and step_chunk is not None:
         raise ValueError("a prebuilt runtime holds all steps' folds: incompatible with step_chunk's per-chunk folds")
     if rank1 and step_chunk is not None:
@@ -720,7 +779,8 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
     if runtime is None and step_chunk is None:
         runtime = fold()
     flags = dict(residual_dtype=residual_dtype, attn_int8=attn_int8, boundary_fusion=boundary_fusion,
-                 entry_pallas=entry_pallas, resblock_pallas=resblock_pallas)
+                 entry_pallas=entry_pallas, resblock_pallas=resblock_pallas, mp_states=mp_states,
+                 mp_base_bits=mp_base_bits)
 
     def run(x, rt, qs, ar, lo, hi):
         """Steps lo .. hi - 1 of the schedule, with the fold `rt` and states `qs` of those steps."""

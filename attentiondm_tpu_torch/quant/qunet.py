@@ -9,7 +9,13 @@ Bit policy, the reference's attention-aware rules:
   - every conv defaults to (w_bit, a_bit, 8 groups);
   - attention query / value / output projections keep full bitwidth;
   - the attention key projection gets max(4, bitwidth - 2);
-  - group counts: q/k -> 8, v -> 4, out -> 8.
+  - group counts: q/k -> 8, v -> 4, out -> 8;
+the enhanced variant's query_conv / key_conv / value_conv / output_conv take
+the rules of q / k / v / proj_out.
+
+The enhanced model's stage-3 mixed-precision core is `unet_apply(...,
+conv_apply=make_quant_conv_apply(..., mode="infer"), attn_ctx={"mp_states":
+..., "base_bits": ..., "timestep": ...})`, as the JAX runner builds it.
 """
 from __future__ import annotations
 
@@ -48,11 +54,11 @@ def make_bit_policy(cfg: UNetConfig, bitwidth: int, a_bitwidth: int | None = Non
     for name, _cin, _k in iter_conv_layers(cfg):
         leaf = name.rsplit(".", 1)[-1]
         if ".attn" in name or name.startswith("mid.attn"):
-            if leaf == "k":
+            if leaf in ("k", "key_conv"):
                 policy[name] = ActQuantConfig(w_bit=max(4, wb - 2), a_bit=max(4, ab - 2), group_num=g(8))
-            elif leaf == "v":
+            elif leaf in ("v", "value_conv"):
                 policy[name] = ActQuantConfig(w_bit=wb, a_bit=ab, group_num=g(4))
-            else:
+            else:  # q / query_conv, proj_out / output_conv
                 policy[name] = ActQuantConfig(w_bit=wb, a_bit=ab, group_num=g(8))
         else:
             policy[name] = ActQuantConfig(w_bit=wb, a_bit=ab, group_num=g(8))

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (`attentiondm_tpu_torch`) on one GPU.
 
-    python3 chip_smoke.py [--steps 10] [--seed 0] [--profile] [--paths cifar10,church,celeba-wide,imagenet64]
+    python3 chip_smoke.py [--steps 10] [--seed 0] [--profile]
+                          [--paths cifar10,church,celeba-wide,imagenet64,cifar10-enhanced]
 
 (`--profile` adds, after the last phase, torch.profiler's device time per
 kernel for one run of each sampler; `--paths` runs only the paths named,
-all four by default.)
+all five by default.)
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
@@ -72,7 +73,15 @@ all four by default.)
       extras chunked bit-equal to the unchunked sampler); the surrogate's
       convs against the served fold's on the same inputs (< 1e-4) and its
       whole step against the serving step; the fake-quant model's sample, and
-      how far each served sample lies from it and from the FP teacher's.
+      how far each served sample lies from it and from the FP teacher's;
+   e. stage2 (CIFAR-10): on the same params, trajectory, teacher eps and GPTQ
+      extras, three stage-2 calibrations, timed (`stage2_phase`):
+      `calibrate_differentiable(attention_focus=True)` (1 epoch),
+      `calibrate_teacher_matched` on the `prepare_params` weights and through
+      the serving surrogate with the GPTQ extras (each run's best objective at
+      or below its stage-1 init at every step); each folded and served through
+      the kernels (launch counts, every site of a step, finite output) and
+      its sample's distance from the FP teacher's printed.
 4. celeba-wide: CelebA's UNet (`configs/celeba.yml`: 64^2, ch 128, ch_mult
    1-2-2-2-4, batch 64) at full width and depth with `attn_resolutions` set
    to (64, 32, 16), so that it attends at L = 4096 (C = 128), 1024 (C = 256),
@@ -103,6 +112,25 @@ all four by default.)
       `pack_int4=True` and with both, each held bit-equal to the unchunked,
       unpacked output (launch counts checked), and with `rank1=True`, held by
       the per-site and chained step on its fold; each fold's size.
+6. cifar10-enhanced: CIFAR-10's UNet with the enhanced attention variant
+   (`UNetConfig(attn_variant="enhanced")`: at 16^2, C = 256, Ck = 32, 8
+   heads; gamma seeded nonzero, as JAX's init of 0 makes every block the
+   identity), batch 128, `--steps` quad steps, the runner's
+   `--attn_variant enhanced --calibrate_attention
+   --mixed_precision_attention` flow:
+   a. kernels as 3a: K1 at every int8 conv shape of the step, the four 1x1
+      projection shapes among them (K5), K2 at the epilogue shapes, K4 / K7 /
+      K12 at the lever shapes; no attention kernel (the core is plain torch);
+   b. slice (`enhanced_slice_phase`): FP teacher on 16 images, stage 1, the
+      calibration set by t-mode "diff", `calibrate_differentiable
+      (attention_focus=True)`, stage 3 (`make_logit_collector` +
+      `calibrate_mp_attention` at timesteps 0 / 250 / 500 / 750 / 999), the
+      fold, then the sampler with the stage-3 core at base bits 4 (W4A8's
+      --bitwidth) and without it: launch counts, the sampler's wall and device
+      time, the per-site and chained step each; how far the MP sample lies
+      from the plain one (it must differ) and from the fake-quant MP model's;
+   c. levers: one per-site step of the MP sampler with the three levers,
+      launch-counted.
 Prints a JSON line of per-kernel results, then {"ok": true, "device": ...}
 as the last line.  Any failure raises (nonzero exit, no result line); so
 does a machine without a CUDA device.
@@ -117,7 +145,7 @@ import sys
 import time
 
 CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative error (gross faults only)
-BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32}
+BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32, "cifar10-enhanced": 128}
 MAX_STEPS = {"church": 4, "imagenet64": 4}  # a shallower schedule where the path is long
 LEVER_ROUNDS = 3  # timed runs per lever setting, taken in turns
 F32_CORE = dict(attn_int8=False)  # the attention flag of the CIFAR-10 and church paths (bench.py's)
@@ -204,6 +232,9 @@ def path_config(path):
 
     if path == "cifar10":
         return UNetConfig(), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000), "UNetConfig() CIFAR-10"
+    if path == "cifar10-enhanced":
+        return (UNetConfig(attn_variant="enhanced"), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
+                "UNetConfig(attn_variant=\"enhanced\") CIFAR-10")
     if path == "celeba-wide":
         config = load_config("celeba.yml")
         cfg = dataclasses.replace(UNetConfig.from_config(config), attn_resolutions=(64, 32, 16))
@@ -247,6 +278,35 @@ def device_ms(fn, reps: int = 20) -> float:
             return start.elapsed_time(end) / reps
         cycles *= 4
     raise AssertionError("device_ms: the host could not enqueue the calls while the card was busy")
+
+
+def graph_ms(fn, reps: int = 3):
+    """Device time in ms of one call of a host-bound `fn` (a whole sampler:
+    its ~10,000 launches fill the card's launch queue, so `device_ms` cannot
+    queue them behind a spin kernel): `fn` captured once as a CUDA graph and
+    replayed `reps` times between CUDA events, so the card runs its kernels
+    back to back.  A capture that fails raises: the figure is never left
+    out of a passing run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm-up on the capture stream
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
 
 
 def time_ms(fn, reps: int = 20, warm: bool = True) -> float:
@@ -418,7 +478,7 @@ def kernel_phase(cfg, batch, gen, dev, report, both_cores=False):
     from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
     from attentiondm_tpu_torch.ops.precision import exact_f32
 
-    k1, _k2, _k6, k3, _composed = checks.conv_plan(cfg)
+    k1, _k2, _k6, k3, _composed = checks.conv_plan(cfg, widths=True)
 
     def randint8(shape, lo, hi):
         return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8).to(dev)
@@ -429,7 +489,11 @@ def kernel_phase(cfg, batch, gen, dev, report, both_cores=False):
     # K1: every distinct (H, Cp, Np, ksize, stride, mode) of a step, weighted by its count.
     # K13 (int32 3x3) is checked at every 3x3 stride-1 shape, and weighted by the
     # path's own int32 launches at that shape (0 where the path runs it in bf16 mode).
-    counts = collections.Counter(tuple(shape) for _name, *shape in k1)
+    # The bound counts the widths (cin, cout) each launch's conv needs, not the padded Cp, Np.
+    counts = collections.Counter(tuple(shape) for _name, *shape, _cin, _cout in k1)
+    widths = collections.defaultdict(collections.Counter)  # launch shape -> {(cin, cout): launches}
+    for _name, *shape, cin, cout in k1:
+        widths[tuple(shape)][cin, cout] += 1
     s1_shapes = sorted({(H, Cp, Np) for (H, Cp, Np, k, s, _m) in counts if k == 3 and s == 1})
     print(f"[kernels] K1 int8_conv: {len(counts)} distinct launch shapes per serving step")
     todo = [(shape, n, "K1") for shape, n in sorted(counts.items(), key=str)]
@@ -453,8 +517,16 @@ def kernel_phase(cfg, batch, gen, dev, report, both_cores=False):
         ms = time_ms(lambda: int8_conv(*args, **kw))
         dms = device_ms(lambda: int8_conv(*args, **kw))
         pms = time_ms(lambda: int8_conv(*args, **kw, plain=True), reps=10)
-        b = bound(nbytes(xp, gq, out) + (0 if mode == torch.int32 else nbytes(inv_ws, zcbias)),
-                  int8_ops=2 * out.numel() * gq.shape[0], f32_flops=0 if mode == torch.int32 else 2 * out.numel())
+        rows = out.numel() // Np
+
+        def work_bound(cin, cout):  # the conv's own input, weights and output, at its unpadded widths
+            return bound(batch * H * H * cin + k * k * cin * cout + rows * cout * out.element_size()
+                         + (0 if mode == torch.int32 else 8 * cout),
+                         int8_ops=2 * rows * cout * k * k * cin, f32_flops=0 if mode == torch.int32 else 2 * rows * cout)
+
+        # a K13 shape the path runs only in bf16 mode: the widths of those launches, at weight 0
+        var = widths.get((H, Cp, Np, k, s, mode)) or {w: 0 for w in widths.get((H, Cp, Np, k, s, torch.bfloat16),
+                                                                              {(Cp, Np): 0})}
         lib, lib_fig = None, ""
         if key == "K5":  # the one library call for an int8 product: torch's private cuBLASLt int8 matmul
             a2 = xp.reshape(-1, Cp)
@@ -468,11 +540,15 @@ def kernel_phase(cfg, batch, gen, dev, report, both_cores=False):
                 lib = time_ms(lambda: torch._int_mm(a2, gq))
                 lib_fig = f" torch._int_mm {lib:.4f} ms"
                 del lib_out
-        report.add(key, f["max_abs_err"], ms, pms, b, weight=n, library_ms=lib, dev_ms=dms)
+        bound_figs = []
+        for (cin, cout), m in sorted(var.items()):
+            b = work_bound(cin, cout)
+            report.add(key, f["max_abs_err"], ms, pms, b, weight=m, library_ms=lib, dev_ms=dms)
+            bound_figs.append(f"{cin}->{cout} x{m}: {_bound_fig(b)}, device at {max(b) / dms:.1%} of it")
         print(f"[kernels] {key} int8_conv B={batch} H={H} Cp={Cp} Np={Np} k={k} s={s} "
               f"{str(mode).removeprefix('torch.')} x{n}/step: {_fig(f)}; kernel {ms:.4f} ms device {dms:.4f} ms "
               f"plain {pms:.4f} ms"
-              f"{lib_fig} {_bound_fig(b)}")
+              f"{lib_fig}; {'; '.join(bound_figs)}")
         del xp, gq, args, out
 
     epilogue_phase(cfg, batch, gen, dev, report)
@@ -770,11 +846,7 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False, settin
     from attentiondm_tpu_torch.ops import checks
     from attentiondm_tpu_torch.ops.attention import flash_attention
     from attentiondm_tpu_torch.quant.calibrate import calibrate_ranges
-    from attentiondm_tpu_torch.quant.int8_serving import (
-        prepare_serving_runtime,
-        runtime_nbytes,
-        serving_ddim_sampler,
-    )
+    from attentiondm_tpu_torch.quant.int8_serving import prepare_serving_runtime, runtime_nbytes
     from attentiondm_tpu_torch.quant.qunet import QuantizedUNet
 
     settings = settings or {"f32 core": F32_CORE}
@@ -794,6 +866,7 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False, settin
     if k11_sites:
         print(f"[slice] FP teacher: K11 launched {flash_attention.launches} times ({k11_sites} sites a forward)")
     xs_in = torch.cat([x_small[None], traj[:-1]])
+    xs_full = torch.cat([x_small[None], traj])
     qunet = QuantizedUNet.create(cfg, 4, 8)
     qstates, attn_ranges = clock("stage-1 calibration", lambda: calibrate_ranges(
         qunet, params, qunet.init_state(steps, dev), xs_in, seq, return_attn_ranges=True))
@@ -806,23 +879,13 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False, settin
     x = torch.randn(shape, generator=gen).to(dev)
     # xs_in, the calibration trajectory's model inputs, is the weights phase's calibration set
     ctx = dict(cfg=cfg, params=params, qunet=qunet, qstates=qstates, runtime=runtime, seq=seq, betas=betas,
-               xs_in=xs_in, x=x, steps=steps, batch=batch, dev=dev)
+               xs_in=xs_in, xs_full=xs_full, x=x, steps=steps, batch=batch, dev=dev)
 
     counts, outs = {}, {}
     for name, flags in settings.items():
         if flags.get("attn_ranges"):
             flags = {**flags, "attn_ranges": attn_ranges}
-        sample = serving_ddim_sampler(qunet, params, qstates, seq, betas, runtime=runtime, residual_dtype=torch.bfloat16, **flags)
-        # the main path, counted
-        expected = checks.expected_launches(cfg, steps, batch, **flags)
-        checks.reset_launches()
-        out = clock(f"serving sampler, {name}, first run ({steps} steps, batch {batch})", lambda: sample(x))
-        counts[name] = checks.read_launches()
-        print(f"[slice] {name}: launches {counts[name]}, expected {expected}")
-        if counts[name] != expected:
-            raise AssertionError(f"{name}: launch counts {counts[name]} != expected {expected}")
-        if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"sampler output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
+        sample, out, counts[name] = run_sampler(ctx, name, flags)  # the main path, counted
         outs[name] = ctx["out"] = out
 
         best = min(time_ms(lambda: sample(x), reps=1) for _ in range(2))
@@ -831,7 +894,6 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False, settin
               f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
         if profile:
             DEFERRED_PROFILES.append((f"{label}, {name}", lambda sample=sample: sample(x), best))
-        step_checks(ctx, flags)
     ref = outs.get("f32 core")
     for name, out in outs.items():
         if ref is not None and out is not ref:
@@ -840,8 +902,39 @@ def slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False, settin
     return counts, ctx
 
 
+def run_sampler(ctx, label, flags, tag="slice", **over):
+    """The path's main path under `flags` (attention flags and levers): its
+    serving sampler on the context's fold and states (`over` replaces any
+    of the context's keys, e.g. `runtime`, `qstates`; `ctx["serve"]`'s
+    stage-3 flags go along), run once with every launch count set to 0 just
+    before and read just after, the counts held to `expected_launches` and
+    the output to a finite tensor of the input's shape; then `step_checks`.
+    Returns (sample, out, counts)."""
+    import torch
+
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
+
+    c = {**ctx, **over}
+    steps, batch, x = c["steps"], c["batch"], c["x"]
+    sample = serving_ddim_sampler(c["qunet"], c["params"], c["qstates"], c["seq"], c["betas"], runtime=c["runtime"],
+                                  residual_dtype=torch.bfloat16, **flags, **c.get("serve", {}))
+    expected = checks.expected_launches(c["cfg"], steps, batch, **flags)
+    checks.reset_launches()
+    out = clock(f"serving sampler, {label}, first run ({steps} steps, batch {batch})", lambda: sample(x), tag)
+    counts = checks.read_launches()
+    print(f"[{tag}] {label}: launches {counts}, expected {expected}")
+    if counts != expected:
+        raise AssertionError(f"{label}: launch counts {counts} != expected {expected}")
+    if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: sampler output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
+    step_checks(c, flags, tag)
+    return sample, out, counts
+
+
 def step_checks(ctx, levers, tag="slice"):
-    """One serving step under `levers` (and attention flags): every kernel call held against its
+    """One serving step under `levers` (and attention flags, and `ctx["serve"]`'s
+    stage-3 states where the path has them): every kernel call held against its
     plain version on the same inputs, then the whole step through the kernels
     against the whole step through the plain versions.  Returns the step's
     launch counts."""
@@ -854,7 +947,8 @@ def step_checks(ctx, levers, tag="slice"):
 
     def step(plain):
         return serving_unet_apply(ctx["params"], ctx["cfg"], ctx["qunet"], ctx["runtime"], ctx["qstates"],
-                                  ctx["x"], t0, 0, plain=plain, residual_dtype=torch.bfloat16, **levers)
+                                  ctx["x"], t0, 0, plain=plain, residual_dtype=torch.bfloat16, **levers,
+                                  **ctx.get("serve", {}))
 
     records = []
     checks.reset_launches()
@@ -909,24 +1003,12 @@ def levers_phase(ctx, timed, profile=False):
         return serving_ddim_sampler(ctx["qunet"], ctx["params"], ctx["qstates"], ctx["seq"], ctx["betas"],
                                     runtime=ctx["runtime"], residual_dtype=torch.bfloat16, **F32_CORE, **levers)
 
-    sample = sampler(ALL_LEVERS)
-    expected = checks.expected_launches(cfg, steps, batch, **F32_CORE, **ALL_LEVERS)
-    checks.reset_launches()
-    out = clock(f"serving sampler with the three levers, first run ({steps} steps, batch {batch})",
-                lambda: sample(x), "levers")
-    counts = checks.read_launches()
-    print(f"[levers] launches {counts}, expected {expected}")
-    if counts != expected:
-        raise AssertionError(f"lever launch counts {counts} != expected {expected}")
-    if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"lever sampler output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
+    sample, out, counts = run_sampler(ctx, "the three levers", {**F32_CORE, **ALL_LEVERS}, "levers")
     off = sampler({})(x)
     rel = ((out - off).abs().mean() / off.abs().mean()).item()
     print(f"[levers] sampler output, three levers vs levers off: mean rel err {rel:.3e} (information only: the "
           f"levers change the GroupNorm statistics' formula and where bf16 rounds)")
     del out, off
-
-    step_checks(ctx, {**F32_CORE, **ALL_LEVERS}, "levers")
 
     # timed runs in turns (levers off, all three, each lever alone), LEVER_ROUNDS rounds: the host's ~1000
     # launches a step set these times as much as the card does, and the host's clock varies, so every run is shown
@@ -1045,7 +1127,6 @@ def weights_phase(ctx):
 
     from attentiondm_tpu_torch.diffusion.sampling import ddim_sample
     from attentiondm_tpu_torch.models.unet import lookup, unet_apply
-    from attentiondm_tpu_torch.ops import checks
     from attentiondm_tpu_torch.quant import adaround as ar
     from attentiondm_tpu_torch.ops.fused_gn import quant_i8
     from attentiondm_tpu_torch.quant.calibrate import (
@@ -1111,6 +1192,7 @@ def weights_phase(ctx):
     with torch.no_grad():
         eps_ref = torch.stack([unet_apply(params, cfg, xs_in[i], torch.full((xs_in.shape[1],), t_rev[i], device=dev))
                                for i in range(S)])
+    ctx.update(eps_ref=eps_ref, gptq=extras["gptq"])  # for the stage2 phase
 
     def surrogate_loss(ex):
         with torch.no_grad():
@@ -1137,18 +1219,7 @@ def weights_phase(ctx):
         rt = runtimes[name] = clock(f"fold with the {name} extras", lambda: prepare_serving_runtime(
             qunet, params, qstates, weight_extras=ex), "weights")
         for label, levers in (("levers off", {}), ("three levers", ALL_LEVERS)):
-            sample = serving_ddim_sampler(qunet, params, qstates, seq, betas, runtime=rt,
-                                          residual_dtype=torch.bfloat16, **F32_CORE, **levers)
-            expected = checks.expected_launches(cfg, steps, batch, **F32_CORE, **levers)
-            checks.reset_launches()
-            out = clock(f"serving sampler, {name} extras, {label}", lambda: sample(x), "weights")
-            counts = checks.read_launches()
-            if counts != expected:
-                raise AssertionError(f"{name} extras, {label}: launch counts {counts} != expected {expected}")
-            if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"{name} extras, {label}: output {tuple(out.shape)}, "
-                                     f"finite={bool(torch.isfinite(out).all())}")
-            step_checks({**ctx, "runtime": rt}, {**F32_CORE, **levers}, "weights")
+            _, out, _ = run_sampler(ctx, f"{name} extras, {label}", {**F32_CORE, **levers}, "weights", runtime=rt)
             if not levers:
                 outs[name] = out
         print(f"[weights] {name} extras: fold {runtime_nbytes(rt) / 1e9:.3f} GB; launches as expected with the levers "
@@ -1205,7 +1276,7 @@ def weights_phase(ctx):
         qunet.model_fn(qparams, qstates), x, seq, betas), "weights")
     if tuple(fq.shape) != tuple(x.shape) or not bool(torch.isfinite(fq).all()):
         raise AssertionError(f"fake-quant sample {tuple(fq.shape)}, finite={bool(torch.isfinite(fq).all())}")
-    fp = ddim_sample(lambda xt, t, i: unet_apply(params, cfg, xt, t), x, seq, betas)
+    fp = ctx["fp"] = ddim_sample(lambda xt, t, i: unet_apply(params, cfg, xt, t), x, seq, betas)
     outs = {"round-to-nearest": ctx["out"], **outs}
     for name, out in outs.items():
         print(f"[weights] sample, {name} fold: mean rel difference from the fake-quant sample "
@@ -1213,6 +1284,196 @@ def weights_phase(ctx):
               f"{((out - fp).abs().mean() / fp.abs().mean()).item():.4e} (information only: random weights)")
     print(f"[weights] fake-quant sample from the FP teacher's: {((fq - fp).abs().mean() / fp.abs().mean()).item():.4e}")
     torch.cuda.empty_cache()
+
+
+STAGE2_LR, STAGE2_EPOCHS = 0.02, 4  # the runner's --stage2_lr and teacher-matched passes (calib_epochs * 4)
+ATTN_LOSS_WEIGHT = 0.5  # the runner's --attention_loss_weight, the attention-focused stage 2's entropy weight
+BEST_ITERATE_SLACK = 1e-6  # a re-evaluated objective may differ from the run's in the last bits
+
+
+def served(ctx, qstates, label, tag, weight_extras=None):
+    """`qstates` (and `weight_extras`) folded and served through the kernels
+    with the levers off (`run_sampler`).  Returns the sample."""
+    from attentiondm_tpu_torch.quant.int8_serving import prepare_serving_runtime
+
+    rt = clock("fold", lambda: prepare_serving_runtime(ctx["qunet"], ctx["params"], qstates,
+                                                       weight_extras=weight_extras), tag)
+    return run_sampler(ctx, label, F32_CORE, tag, runtime=rt, qstates=qstates)[1]
+
+
+def stage2_phase(ctx):
+    """Stage 2 on the CIFAR-10 path's params, calibration, trajectory, FP
+    teacher eps and GPTQ extras (`weights_phase`), on the card: the
+    attention-focused differentiable group selection (one epoch, fresh noise
+    from a seeded generator, on the "real" calibration images), and the
+    teacher-matched stage 2 on the weight-quantized params and through the
+    serving surrogate with the GPTQ extras.  Each run's seconds and first /
+    last losses; each teacher-matched run's objective re-evaluated on its
+    result at every step, which must be at or below the stage-1 init's (the
+    first pass's loss at that step); each result folded and served through
+    the kernels (`served`), its sample's distance from the FP teacher's."""
+    import torch
+
+    from attentiondm_tpu_torch.quant.calibrate import (
+        _teacher_matched_loss,
+        calibrate_differentiable,
+        calibrate_teacher_matched,
+        select_calibration_images,
+    )
+
+    params, qunet, qstates, seq, betas = (ctx[k] for k in ("params", "qunet", "qstates", "seq", "betas"))
+    xs_in, eps_ref, dev, fp = ctx["xs_in"], ctx["eps_ref"], ctx["dev"], ctx["fp"]
+    S = xs_in.shape[0]
+    t_rev = [float(t) for t in reversed(list(seq))]
+    imgs, _, _ = select_calibration_images(ctx["xs_full"], "real", num_steps=S)
+    gen = torch.Generator(device=dev).manual_seed(99)
+    results = {}
+    qs, losses = clock(f"calibrate_differentiable (attention_focus, 1 epoch, {imgs.shape[0]} images, {S} steps)",
+                       lambda: calibrate_differentiable(qunet, params, qstates, imgs, seq, betas, generator=gen,
+                                                        diff_loss_weight=ATTN_LOSS_WEIGHT, attention_focus=True),
+                       "stage2")
+    print(f"[stage2] differentiable: {len(losses)} optimizer steps, loss at the first / last step {losses[0]:.4f} / "
+          f"{losses[-1]:.4f} (per-step losses are not comparable across timesteps)")
+    results["differentiable"] = (qs, None)
+    qparams, _ = qunet.prepare_params(params)
+    for name, fwd, extras in (("teacher-matched", qparams, None), ("teacher-matched, GPTQ surrogate", params,
+                                                                    ctx["gptq"])):
+        qs, losses = clock(f"calibrate_teacher_matched ({name}, lr {STAGE2_LR}, {STAGE2_EPOCHS} passes, "
+                           f"{xs_in.shape[1]} images, {S} steps)", lambda: calibrate_teacher_matched(
+                               qunet, fwd, qstates, xs_in, eps_ref, seq, lr=STAGE2_LR, epochs=STAGE2_EPOCHS,
+                               serving_extras=extras), "stage2")
+        init = losses[:S]
+        with torch.no_grad():
+            best = [float(_teacher_matched_loss(qunet, fwd, qs, {}, xs_in[s], eps_ref[s], t_rev[s], s,
+                                                serving_extras=extras)) for s in range(S)]
+        run_min = [min(losses[s::S]) for s in range(S)]
+        print(f"[stage2] {name}: rel-eps objective, init (stage 1) mean {sum(init) / S:.6g}, best mean "
+              f"{sum(best) / S:.6g}; per step init {[round(v, 6) for v in init]} best {[round(v, 6) for v in best]}; "
+              f"first / last loss {losses[0]:.6g} / {losses[-1]:.6g}")
+        worse = [s for s in range(S) if not best[s] <= init[s] * (1 + BEST_ITERATE_SLACK)]
+        off = [s for s in range(S) if abs(best[s] - run_min[s]) > BEST_ITERATE_SLACK * run_min[s]]
+        if worse or off:
+            raise AssertionError(f"{name}: steps {worse} above their stage-1 init, steps {off} not the run's best")
+        results[name] = (qs, extras)
+    for name, (qs, extras) in results.items():
+        out = served(ctx, qs, name, "stage2", weight_extras=extras)
+        print(f"[stage2] {name}: served through the kernels, launches as expected, every site within tolerance; "
+              f"sample's mean rel difference from the FP teacher's {((out - fp).abs().mean() / fp.abs().mean()).item():.4e} "
+              f"(round-to-nearest stage 1: {((ctx['out'] - fp).abs().mean() / fp.abs().mean()).item():.4e}; "
+              f"information only: random weights)")
+    torch.cuda.empty_cache()
+
+
+CAL_IMAGES = 16  # the runner's calibration set (generate_calibrate_set: min(num_calibrate_set, 16))
+MP_BASE_BITS = 4  # W4A8's --bitwidth: effective bits 4 + 2 sigmoid(0.5) = 5.25, so the logits quantize at 5 bits
+MP_PROBES = (0, 250, 500, 750, 999)  # the runner's stage-3 probe timesteps
+
+
+def enhanced_slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=False):
+    """The enhanced path's calibration and sampler (the runner's
+    `--attn_variant enhanced --calibrate_attention --mixed_precision_attention`
+    flow) on the card: FP teacher on `CAL_IMAGES` images, stage 1, the
+    calibration set by t-mode "diff", the attention-focused stage 2, stage 3,
+    the fold, then the sampler with the stage-3 core and without it.
+    Returns the launch counts of each, and the context (its `serve` the MP
+    core's flags)."""
+    import torch
+
+    from attentiondm_tpu_torch.diffusion.sampling import ddim_sample, make_timestep_seq
+    from attentiondm_tpu_torch.models.unet import count_params, lookup, unet_apply, unet_init
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.quant.attention_mp import (
+        calibrate_mp_attention,
+        init_mp_attention_state,
+        make_logit_collector,
+    )
+    from attentiondm_tpu_torch.quant.calibrate import (
+        calibrate_differentiable,
+        calibrate_ranges,
+        select_calibration_images,
+    )
+    from attentiondm_tpu_torch.quant.int8_serving import prepare_serving_runtime
+    from attentiondm_tpu_torch.quant.qunet import QuantizedUNet, make_quant_conv_apply
+
+    R, shape = cfg.resolution, (batch, cfg.resolution, cfg.resolution, cfg.out_ch)
+    params = unet_init(gen, cfg, dev)
+    sites = [site for site, _L, _C in checks.attention_sites(cfg)]
+    for site in sites:  # JAX's init of 0 makes every block the identity
+        lookup(params, site)["gamma"].fill_(0.5 + float(torch.rand(1, generator=gen)))
+    print(f"[slice] {label}: {R}^2, {count_params(params) / 1e6:.2f}M params, W4A8, {steps} quad steps, batch {batch}; "
+          f"enhanced attention at {len(sites)} sites (C = {checks.attention_sites(cfg)[0][2]}, Ck = "
+          f"{lookup(params, sites[0])['query_conv']['kernel'].shape[3]}, {cfg.attn_heads} heads), gammas "
+          f"{[round(float(lookup(params, s)['gamma']), 3) for s in sites]}")
+    betas = sched.betas.to(dev)
+    seq = make_timestep_seq(1000, steps, "quad")
+    x_cal = torch.randn((CAL_IMAGES, R, R, cfg.in_channels), generator=gen).to(dev)
+    checks.reset_launches()
+    _, traj, _ = clock(f"FP teacher trajectory ({CAL_IMAGES} images)", lambda: ddim_sample(
+        lambda xt, t, i: unet_apply(params, cfg, xt, t), x_cal, seq, betas, keep_trajectory=True))
+    if any(checks.read_launches().values()):
+        raise AssertionError(f"FP teacher of the enhanced model launched kernels: {checks.read_launches()}")
+    xs_full = torch.cat([x_cal[None], traj])
+    xs_in = xs_full[:-1]
+    qunet = QuantizedUNet.create(cfg, 4, 8)
+    qstates = clock("stage-1 calibration", lambda: calibrate_ranges(qunet, params, qunet.init_state(steps, dev), xs_in,
+                                                                     seq))
+    imgs, t_sel, _count = select_calibration_images(xs_full, "diff", num_steps=steps, qstates=qstates)
+    print(f"[slice] calibration set by t-mode \"diff\": step {int(t_sel)} of {steps} (the last argmax of the alpha "
+          f"uncertainty from min_t {min(30, steps - 1)} on), {imgs.shape[0]} images")
+    qstates, losses = clock(f"stage 2: calibrate_differentiable (attention_focus, 1 epoch, {imgs.shape[0]} images)",
+                            lambda: calibrate_differentiable(qunet, params, qstates, imgs, seq, betas,
+                                                             generator=torch.Generator(device=dev).manual_seed(99),
+                                                             diff_loss_weight=ATTN_LOSS_WEIGHT, attention_focus=True))
+    print(f"[slice] stage 2: {len(losses)} optimizer steps, loss at the first / last step {losses[0]:.4f} / "
+          f"{losses[-1]:.4f}")
+
+    def stage3():
+        collector = make_logit_collector(params, cfg, imgs)
+        states = {n: init_mp_attention_state(1000, dev) for n in sites}
+        return calibrate_mp_attention(collector, states, base_bits=MP_BASE_BITS, timesteps=MP_PROBES)
+
+    mp_states = clock(f"stage 3: calibrate_mp_attention ({len(MP_PROBES)} probe forwards)", stage3)
+    print("[slice] stage 3: logit ranges " + ", ".join(
+        f"{n} scale {float(st.scale_qk):.4g} zero {float(st.zero_qk):.4g}" for n, st in mp_states.items()))
+    runtime = clock("per-step fold", lambda: prepare_serving_runtime(qunet, params, qstates))
+    x = torch.randn(shape, generator=gen).to(dev)
+    serve = dict(mp_states=mp_states, mp_base_bits=MP_BASE_BITS)
+    ctx = dict(cfg=cfg, params=params, qunet=qunet, qstates=qstates, runtime=runtime, seq=seq, betas=betas,
+               xs_in=xs_in, x=x, steps=steps, batch=batch, dev=dev)
+    counts, outs = {}, {}
+    for name, kw in (("f32 core", {}), ("mp core", serve)):
+        sample, outs[name], counts[name] = run_sampler(ctx, name, F32_CORE, serve=kw)  # the main path, counted
+        best = min(time_ms(lambda: sample(x), reps=1) for _ in range(2))
+        dms = graph_ms(lambda: sample(x))
+        print(f"[slice] serving sampler, {name}: {best:.1f} ms wall for {steps} steps at batch {batch} = "
+              f"{batch / best * 1e3:.2f} images/s ({best / steps:.2f} ms/step); device {dms:.1f} ms = "
+              f"{dms / steps:.2f} ms/step (one run replayed as a CUDA graph; the sampler itself runs eagerly, so "
+              f"{batch / dms * 1e3:.2f} images/s is the card's bound, not a rate it delivers); peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+        if profile:
+            DEFERRED_PROFILES.append((f"{label}, {name}", lambda sample=sample: sample(x), best))
+    mp_out, plain = outs["mp core"], outs["f32 core"]
+    if torch.equal(mp_out, plain):
+        raise AssertionError("the stage-3 core left the enhanced sample unchanged")
+    qparams, _ = qunet.prepare_params(params)
+
+    def fake_quant(xt, t, i):
+        ctx_ = {"mp_states": mp_states, "base_bits": MP_BASE_BITS, "timestep": t[0].to(torch.int64)}
+        return unet_apply(qparams, cfg, xt, t, conv_apply=make_quant_conv_apply(qstates, qunet.policy, i, "infer"),
+                          attn_ctx=ctx_)
+
+    with torch.no_grad():
+        fq = clock(f"fake-quant enhanced model with the stage-3 core, DDIM {steps} steps", lambda: ddim_sample(
+            fake_quant, x, seq, betas))
+        fp = ddim_sample(lambda xt, t, i: unet_apply(params, cfg, xt, t), x, seq, betas)
+
+    def rel(a, b):
+        return ((a - b).abs().mean() / b.abs().mean()).item()
+
+    print(f"[slice] samples: the MP core's from the f32 core's {rel(mp_out, plain):.4e} (must differ: it does); from "
+          f"the fake-quant MP model's {rel(mp_out, fq):.4e}; from the FP teacher's {rel(mp_out, fp):.4e} (f32 core's "
+          f"{rel(plain, fp):.4e}, fake-quant MP model's {rel(fq, fp):.4e}; information only: random weights)")
+    return counts, {**ctx, "serve": serve}
 
 
 def phase(path, name, fn, *args, **kwargs):
@@ -1259,7 +1520,13 @@ def main(argv=None):
         steps = min(args.steps, MAX_STEPS.get(path, args.steps))
         print(f"== {path}: {label}, batch {BATCH[path]}")
         report = Report()
-        if path == "celeba-wide":
+        if path == "cifar10-enhanced":
+            phase(path, "kernels", kernel_phase, cfg, BATCH[path], gen, dev, report)
+            counts, ctx = phase(path, "slice", enhanced_slice_phase, cfg, sched, label, steps, BATCH[path], gen, dev,
+                                args.profile)
+            lever_counts = phase(path, "levers", levers_phase, ctx, timed=False)
+            launches_of = {**counts["mp core"], **{key: lever_counts[key] for key in ("K4", "K7", "K12")}}
+        elif path == "celeba-wide":
             phase(path, "attention kernels", attention_kernel_phase, cfg, BATCH[path], gen, dev, report)
             phase(path, "epilogue kernels", epilogue_phase, cfg, BATCH[path], gen, dev, report)
             counts, ctx = phase(path, "slice", slice_phase, cfg, sched, label, steps, BATCH[path], gen, dev,
@@ -1275,6 +1542,7 @@ def main(argv=None):
                 phase(path, "folds", fold_forms_phase, ctx)
             if path == "cifar10":
                 phase(path, "weights", weights_phase, ctx)
+                phase(path, "stage2", stage2_phase, ctx)
             launches_of = {**counts["f32 core"], **{key: lever_counts[key] for key in ("K4", "K7", "K12")},
                            "K3.core": counts["f32 core"]["K3"]}
         del ctx

@@ -904,3 +904,112 @@ def test_fold_with_extras_on_the_card_matches_the_cpu(dev, gen, rank1):
     assert torch.equal(card[0].cpu(), cpu[0])
     for a, b in zip(card[1:], cpu[1:]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the enhanced attention variant, stage 2 and stage 3 on the card
+# ---------------------------------------------------------------------------
+
+ENHANCED_TOY = dict(TOY, attn_variant="enhanced")
+
+
+def _enhanced(gen, dev, steps=1):
+    """The enhanced toy with seeded gammas (its init of 0 makes every block the identity), states as
+    calibration leaves them, and stage-3 states from `calibrate_mp_attention`'s update at W4A8's base bits."""
+    from attentiondm_tpu_torch.quant import attention_mp as mp
+
+    cfg = UNetConfig(**ENHANCED_TOY)
+    params = unet_init(gen, cfg, dev)
+    for site in ("down.0.attn.0", "mid.attn_1", "up.0.attn.0", "up.0.attn.1"):
+        node = params
+        for p in site.split("."):
+            node = node[int(p)] if isinstance(node, list) else node[p]
+        node["gamma"].fill_(0.5 + float(torch.rand(1, generator=gen)))
+    q = QuantizedUNet.create(cfg, 4, 8)
+    qstates = q.init_state(steps, dev)
+    for st in qstates.values():
+        st.group_ranges[..., 0], st.group_ranges[..., 1] = -1.0, 4.0
+    mp_states = {site: mp.update_quant_params(mp.init_mp_attention_state(1000, dev), torch.tensor(-6.0, device=dev),
+                                              torch.tensor(7.0, device=dev), 4)
+                 for site in ("down.0.attn.0", "mid.attn_1", "up.0.attn.0", "up.0.attn.1")}
+    return cfg, params, q, qstates, mp_states
+
+
+@pytest.mark.parametrize("mp_core", [False, True], ids=["f32_core", "mp_core"])
+def test_serving_step_enhanced_kernels_match_plain(dev, gen, mp_core):
+    """One serving step of the enhanced toy: every kernel call (K1's 1x1
+    projections, K2, the 3x3 convs) held to its plain version on the same
+    inputs, the launch counts `expected_launches` gives (four K1 1x1
+    launches a site, no attention kernel), and the whole step through the
+    kernels equal to the bit to the whole step through the plain versions
+    (no K3 runs; K1's and K2's outputs equal their plain versions' here)."""
+    cfg, params, q, qstates, mp_states = _enhanced(gen, dev)
+    runtime = prepare_serving_runtime(q, params, qstates)
+    x, t = _f(gen, (2, 8, 8, 3), dev), torch.full((2,), 500.0, device=dev)
+    kw = dict(residual_dtype=torch.bfloat16, attn_int8=False)
+    if mp_core:
+        kw.update(mp_states=mp_states, mp_base_bits=4)
+    checks.reset_launches()
+    records = []
+    with checks.per_site(records):
+        eps = serving_unet_apply(params, cfg, q, runtime, qstates, x, t, 0, **kw)
+    assert checks.read_launches() == checks.expected_launches(cfg, 1, 2, attn_int8=False)
+    assert torch.isfinite(eps).all() and {r[0] for r in records} == {"K1", "K2"}
+    bad = [r for r in records if not r[2]["ok"]]
+    assert not bad, bad
+    plain = serving_unet_apply(params, cfg, q, runtime, qstates, x, t, 0, plain=True, **kw)
+    assert torch.equal(eps, plain)
+
+
+@pytest.mark.parametrize("head_split", ["aligned", "ref"])
+@pytest.mark.parametrize("base_bits", [8, 4, 2])
+def test_mp_attention_on_the_card_matches_the_cpu(dev, gen, head_split, base_bits):
+    """The stage-3 core at the CIFAR-10 enhanced shape (L = 256, Ck = 32,
+    C = 256, 8 heads), unquantized, with quantized logits and with quantized
+    logits and probabilities: the card's f32 products in another order
+    (measured over the six cases at most 1.08e-7 mean relative, 4.8e-7
+    largest difference; no logit on a rounding tie of the quantizer)."""
+    from attentiondm_tpu_torch.ops.precision import exact_f32
+    from attentiondm_tpu_torch.quant import attention_mp as mp
+
+    q, k, v = _f(gen, (4, 256, 32), "cpu", 2.0), _f(gen, (4, 32, 256), "cpu", 2.0), _f(gen, (4, 256, 256), "cpu")
+    st = mp.update_quant_params(mp.init_mp_attention_state(1000, "cpu"), torch.tensor(-12.0), torch.tensor(12.0),
+                                base_bits)
+    st.timestep_importance.copy_(torch.randn(1000, generator=gen))
+    kw = dict(num_heads=8, base_bits=base_bits, timestep=torch.tensor(321), head_split=head_split)
+    want = mp.mp_attention(q, k, v, st, **kw)
+    with exact_f32():
+        got = mp.mp_attention(q.to(dev), k.to(dev), v.to(dev), st.to(dev),
+                              **{**kw, "timestep": kw["timestep"].to(dev)}).cpu()
+    d = (got - want).abs()
+    assert (d.mean() / want.abs().mean()).item() < 4.3e-7
+    assert d.max().item() < 1.9e-6
+
+
+def test_stage2_update_on_the_card_matches_the_cpu(dev, gen):
+    """`calibrate_differentiable` (one epoch, the attention projections, the
+    same noise) on the enhanced toy on the card and on the CPU: the losses
+    within 1e-3 relative (measured 6.5e-4: the forwards' float order), the
+    trained layers' mixed ranges equal (measured equal)."""
+    from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from attentiondm_tpu_torch.models.unet import map_tree
+    from attentiondm_tpu_torch.quant.calibrate import calibrate_differentiable
+    from attentiondm_tpu_torch.quant.state import mixed_ranges
+
+    cfg, params, q, qstates, _ = _enhanced(gen, "cpu", steps=2)
+    betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu").betas
+    x0, noise = _f(gen, (2, 8, 8, 3), "cpu"), _f(gen, (1, 2, 2, 8, 8, 3), "cpu")
+    runs = []
+    for d in ("cpu", dev):
+        def to(a, d=d):
+            return a.to(d)
+
+        runs.append(calibrate_differentiable(q, map_tree(to, params), {k: v.to(d) for k, v in qstates.items()},
+                                             to(x0), [0, 500], to(betas), noise=to(noise), attention_focus=True))
+    (cpu, l_cpu), (card, l_card) = runs
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-3)
+    for name, st in cpu.items():
+        if "attn" in name:
+            for s in range(2):
+                for a, b in zip(mixed_ranges(card[name].to("cpu"), s), mixed_ranges(st, s)):
+                    assert torch.equal(a, b), name

@@ -173,7 +173,6 @@ def test_fold_of_jax_qstates_matches_jax_runtime(chain):
 FLAGS = [
     ("residual_dtype", torch.float32), ("dot_bf16", False), ("conv_pallas", True),
     ("resblock_pallas", ((8, 128, 128),)),  # JAX's (H, Cp, Np) shape list; True and "all" are ported
-    ("mp_states", {}),
 ]
 SAMPLER_FLAGS = FLAGS + [
     ("symmetric", False), ("update", "ddpm"), ("eta", 0.5),

@@ -144,7 +144,7 @@ def test_port_imports_without_jax_triton_or_gpu():
         assert "attentiondm_tpu." not in src and "from attentiondm_tpu " not in src, f
 
 
-@pytest.mark.parametrize("call", ["schedule", "enhanced", "eta", "flash"])
+@pytest.mark.parametrize("call", ["schedule", "eta", "flash"])
 def test_unported_fp_options_raise(call):
     if call == "flash":  # ported: a long map takes the flash kernel's route (K11) instead of raising
         from attentiondm_tpu_torch.ops.attention import flash_attention_ref
@@ -159,8 +159,6 @@ def test_unported_fp_options_raise(call):
     with pytest.raises(NotImplementedError):
         if call == "schedule":
             DiffusionSchedule.create("warmup", 1e-4, 0.02, 1000, device="cpu")  # a schedule no package has
-        elif call == "enhanced":
-            list(iter_conv_layers(UNetConfig(attn_variant="enhanced")))
         else:
             sched = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu")
             ddim_sample(lambda xt, t, i: xt, torch.zeros(1, 8, 8, 3), [0, 500], sched.betas, eta=0.5)
