@@ -42,7 +42,9 @@
 //     shared memory; a lane pair swaps halves so that each thread owns 4
 //     consecutive columns of one row and stores 16 bytes (int32, f32) or 8
 //     (bf16).  acc * inv_ws + zcbias in f32, the product rounded before the
-//     sum (-fmad=false), one rounding to bf16.
+//     sum (-fmad=false), one rounding to bf16; the residual-add modes add the
+//     residual row (bf16 or f32, read as the output is written) to that sum,
+//     and round once to bf16 or not at all (f32).
 // The tensor maps are encoded on the host inside the launcher, per call
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, no -lcuda) and
 // passed as __grid_constant__ parameters; the encodes cost the wrapper a few
@@ -68,7 +70,8 @@ enum Epilogue : int {
   EPI_I32 = 0,        // raw int32 accumulator
   EPI_BF16 = 1,       // bf16(acc * inv_ws + zcbias)
   EPI_F32 = 2,        // acc * inv_ws + zcbias in f32
-  EPI_RESADD_BF16 = 3 // bf16(res + (acc * inv_ws + zcbias))
+  EPI_RESADD_BF16 = 3, // bf16(res + (acc * inv_ws + zcbias)), res bf16
+  EPI_RESADD_F32 = 4   // res + (acc * inv_ws + zcbias) in f32, res f32: nothing rounds but the f32 operations
 };
 
 // An M tile: BM accumulator rows, of which cols * rows * imgs are output
@@ -83,7 +86,7 @@ struct IgemmArgs {
   const int8_t* wt;          // [Np, KS*KS*Cp] int8, K-major
   const float* inv_ws;       // [Np] (not read by EPI_I32)
   const float* zcbias;       // [Np] (not read by EPI_I32)
-  const __nv_bfloat16* res;  // [M, Np] (EPI_RESADD_BF16 only)
+  const void* res;           // [M, Np]: bf16 (EPI_RESADD_BF16) or f32 (EPI_RESADD_F32); read by those modes only
   void* out;                 // [M, Np]
   int B, Hp, Wp, Cp, Ho, Wo, Np, stride;
   IgemmTile tile;
@@ -274,9 +277,13 @@ igemm_kernel(const __grid_constant__ IgemmMaps maps, const IgemmArgs a) {
       float f2 = __int2float_rn(v2) * iw.z + zc.z, f3 = __int2float_rn(v3) * iw.w + zc.w;
       if (MODE == EPI_F32) {
         *reinterpret_cast<float4*>(static_cast<float*>(a.out) + o) = make_float4(f0, f1, f2, f3);
+      } else if (MODE == EPI_RESADD_F32) {
+        const float4 rv = *reinterpret_cast<const float4*>(static_cast<const float*>(a.res) + o);
+        *reinterpret_cast<float4*>(static_cast<float*>(a.out) + o) =
+            make_float4(rv.x + f0, rv.y + f1, rv.z + f2, rv.w + f3);
       } else {
         if (MODE == EPI_RESADD_BF16) {
-          const uint2 rv = *reinterpret_cast<const uint2*>(a.res + o);
+          const uint2 rv = *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(a.res) + o);
           const float2 ra = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv.x));
           const float2 rb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv.y));
           f0 = ra.x + f0;

@@ -8,7 +8,8 @@
 // order of operations:
 //   1. K4's kernel (gn_epilogue.cuh, no activation, three outputs, in the
 //      plan ops/fused_gn.epilogue_plan(..., "K4") gives): GroupNorm
-//      statistics and normalize of the bf16 residual, written as three int8
+//      statistics and normalize of the residual (bf16, or f32: the float32
+//      residual stream, read as it is), written as three int8
 //      tensors at the q / k / v input quant scales;
 //   2. the q / k / v 1x1 projections: the int8 GEMM of K1 (igemm.cuh: wgmma
 //      from a TMA-fed ring, weights K-major) with an f32 dequant epilogue;
@@ -18,7 +19,8 @@
 //      per-image dynamic scales (attn_common.cuh) and the logits are
 //      float(q8 . k8) * (sq * sk * C^-1/2);
 //   4. the output projection: the int8 GEMM with a dequant + residual-add
-//      epilogue, written at the residual's dtype (bf16).
+//      epilogue (EPI_RESADD_BF16 or EPI_RESADD_F32), written at the
+//      residual's dtype: rounded once to bf16, or not at all in f32.
 //
 // The core, in the TPU kernel's order: logits (q k^T, then * ls), the row
 // maximum over all L keys, e = exp(logits - max), p = e / sum(e) by a true
@@ -367,8 +369,8 @@ static IgemmArgs proj_args(const void* x8, const void* wt, const float* iw, cons
   return a;
 }
 
-extern "C" int adm_fused_attention_block(const void* x, const void* gn, const void* sqkv, int nq, int nk,
-                                         int nv, const void* wq, const void* wk, const void* wv,
+extern "C" int adm_fused_attention_block(const void* x, int x_is_f32, const void* gn, const void* sqkv, int nq,
+                                         int nk, int nv, const void* wq, const void* wk, const void* wv,
                                          const void* eqkv, const void* sqo, int n_o, const void* wo,
                                          void* q8, void* k8, void* v8, void* qf, void* kf, void* vf,
                                          void* o8, void* amax, void* out, int B, int L, int C, int groups,
@@ -390,7 +392,7 @@ extern "C" int adm_fused_attention_block(const void* x, const void* gn, const vo
   }
   ga.B = B; ga.HW = L; ga.N = C; ga.G = groups; ga.swish = 0; ga.inv_count = inv_count;
   const GnPlan gp = {gn_plan[0], gn_plan[1], gn_plan[2], gn_plan[3], gn_plan[4], gn_plan[5]};
-  cudaError_t err = launch_gn<__nv_bfloat16, false, 3, false>(ga, gp, s);
+  cudaError_t err = launch_gn_x<3, false>(ga, x_is_f32, gp, s);
   if (err != cudaSuccess) return (int)err;
 
   const float* e = static_cast<const float*>(eqkv);
@@ -409,6 +411,6 @@ extern "C" int adm_fused_attention_block(const void* x, const void* gn, const vo
 
   const float* so = static_cast<const float*>(sqo);
   IgemmArgs a = proj_args(o8, wo, so + 2 * C, so + 3 * C, out, B, L, C, bm, cols);
-  a.res = static_cast<const __nv_bfloat16*>(x);
-  return (int)launch_igemm<1, EPI_RESADD_BF16>(a, s);
+  a.res = x;
+  return (int)(x_is_f32 ? launch_igemm<1, EPI_RESADD_F32>(a, s) : launch_igemm<1, EPI_RESADD_BF16>(a, s));
 }

@@ -1,7 +1,8 @@
 // K12: a whole identity-residual serving resblock (`resblock_pallas`):
 //   r -> GN1 -> swish -> quant -> conv1 (3x3 int8, quantized-zero halo) ->
 //   dequant -> +temb -> GN2 -> swish -> quant -> conv2 -> dequant -> + r,
-// the residual read at its dtype (bf16) and the result written once.
+// the residual read at its dtype (bf16, or f32: the float32 residual stream)
+// and the result written once at that dtype.
 //
 // Replaces the TPU kernel attentiondm_tpu/ops/pallas_resblock.py
 // resblock_pallas (_kernel), one program per batch block with the residual,
@@ -20,7 +21,9 @@
 //      acc * inv_ws + zcbias + temb in f32 (no bf16 rounding between conv1
 //      and GN2, as the TPU kernel), GN2 -> swish -> int8, again halo'd;
 //   4. conv2: the implicit GEMM with the dequant + residual-add epilogue,
-//      r + (acc * inv_ws + zcbias) rounded once to bf16.
+//      r + (acc * inv_ws + zcbias) rounded once to bf16, or kept in f32.
+// Launch 1 reads r as it is (bf16 or f32: K4's two input types), launch 4
+// adds it in EPI_RESADD_BF16 or EPI_RESADD_F32.
 // Launches 1 and 3 take the plans ops/fused_gn.epilogue_plan(..., "K4")
 // gives their shape and input type (the image form at every serving shape).  Against the unfused resblock this drops the
 // plain-torch halo padding, the entry's separate passes and the exit's
@@ -70,21 +73,21 @@ static IgemmArgs conv_args(const void* pad, const void* gt, const void* inv_ws, 
   return a;
 }
 
-// r [B, H, W, C] bf16; tproj [B, C] f32; v1, v2: the six [C] f32 vectors of
+// r [B, H, W, C] bf16 or f32 (r_is_f32); tproj [B, C] f32; v1, v2: the six [C] f32 vectors of
 // each half in the order GroupNorm scale, bias, activation quant scale,
 // zero point, conv inv_ws, zcbias; g1t, g2t [C, 9C] int8, the folds K-major;
 // scratch pad1, pad2 [B, H+2, W+2, C] int8 and acc [B, H, W, C] int32; out
-// [B, H, W, C] bf16; tile: the GEMMs' M tiling (bm, cols, rows, imgs); plan1,
+// [B, H, W, C] at r's dtype; tile: the GEMMs' M tiling (bm, cols, rows, imgs); plan1,
 // plan3: the GroupNorm launches' plans (ops/fused_gn.plan_args)
-extern "C" int adm_resblock(const void* r, const void* tproj, const void* const* v1, int n1, const void* g1t,
+extern "C" int adm_resblock(const void* r, int r_is_f32, const void* tproj, const void* const* v1, int n1, const void* g1t,
                             const void* const* v2, int n2, const void* g2t, void* pad1, void* acc, void* pad2,
                             void* out, int B, int H, int W, int C, int groups, float inv_count, const int* tile,
                             const int* plan1, const int* plan3, void* stream) {
   if (C % 128 != 0 || C > 1024 || groups > 32 || C % groups != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  cudaError_t err = launch_gn<__nv_bfloat16, false, 1, true>(
-      halo_args(r, v1[0], v1[1], v1[2], v1[3], n1, pad1, B, H, W, C, groups, inv_count), plan_of(plan1), s);
+  cudaError_t err = launch_gn_x<1, true>(
+      halo_args(r, v1[0], v1[1], v1[2], v1[3], n1, pad1, B, H, W, C, groups, inv_count), r_is_f32, plan_of(plan1), s);
   if (err != cudaSuccess) return (int)err;
 
   err = launch_igemm<3, EPI_I32>(conv_args(pad1, g1t, v1[4], v1[5], acc, B, H, W, C, tile), s);
@@ -98,6 +101,6 @@ extern "C" int adm_resblock(const void* r, const void* tproj, const void* const*
   if (err != cudaSuccess) return (int)err;
 
   IgemmArgs a = conv_args(pad2, g2t, v2[4], v2[5], out, B, H, W, C, tile);
-  a.res = static_cast<const __nv_bfloat16*>(r);
-  return (int)launch_igemm<3, EPI_RESADD_BF16>(a, s);
+  a.res = r;
+  return (int)(r_is_f32 ? launch_igemm<3, EPI_RESADD_F32>(a, s) : launch_igemm<3, EPI_RESADD_BF16>(a, s));
 }

@@ -71,8 +71,6 @@ def check_ported(cfg: UNetConfig):
     """Raise for a config the port's forward does not cover."""
     if cfg.attn_variant not in ("ddim", "enhanced"):
         raise ValueError(f"attn_variant must be 'ddim' or 'enhanced', got {cfg.attn_variant!r}")
-    if not cfg.resamp_with_conv:
-        raise NotImplementedError("resamp_with_conv=False is not on the ported path")
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int) -> torch.Tensor:
@@ -210,7 +208,7 @@ def unet_init(gen: torch.Generator, cfg: UNetConfig, device) -> Params:
                 attns.append(_init_attn(gen, block_in, cfg.attn_variant))
         level: dict = {"block": blocks, "attn": attns}
         if i_level != num_levels - 1:
-            level["downsample"] = {"conv": _init_conv(gen, 3, 3, block_in, block_in)}
+            level["downsample"] = {"conv": _init_conv(gen, 3, 3, block_in, block_in)} if cfg.resamp_with_conv else {}
             curr_res //= 2
         down.append(level)
     params["down"] = down
@@ -233,7 +231,7 @@ def unet_init(gen: torch.Generator, cfg: UNetConfig, device) -> Params:
                 attns.append(_init_attn(gen, block_in, cfg.attn_variant))
         level = {"block": blocks, "attn": attns}
         if i_level != 0:
-            level["upsample"] = {"conv": _init_conv(gen, 3, 3, block_in, block_in)}
+            level["upsample"] = {"conv": _init_conv(gen, 3, 3, block_in, block_in)} if cfg.resamp_with_conv else {}
             curr_res *= 2
         up[i_level] = level
     params["up"] = up
@@ -362,15 +360,30 @@ def _attn_apply(name, p, x, conv_apply, cfg, attn_ctx):
     return _attn_apply_ddim(name, p, x, conv_apply)
 
 
-def _downsample(name, p, x, conv_apply):
+def avg_pool2(x):
+    """The 2x2 average of NHWC `x` at stride 2, each window summed row by
+    row from the top left, ((x00 + x01) + x10) + x11, then divided by 4:
+    the order of JAX's `reduce_window` sum."""
+    s = x[:, 0::2, 0::2] + x[:, 0::2, 1::2]
+    return (s + x[:, 1::2, 0::2] + x[:, 1::2, 1::2]) / 4.0
+
+
+def nearest_up2(x):
+    """Nearest-neighbour 2x upsample of NHWC `x`: each pixel repeated 2x2."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def _downsample(name, p, x, conv_apply, with_conv=True):
+    if not with_conv:
+        return avg_pool2(x)
     # asymmetric (0,1,0,1) pad, then a VALID stride-2 conv (the DDPM graph)
     x = F.pad(x, (0, 0, 0, 1, 0, 1))
     return conv_apply(f"{name}.conv", x, p["conv"], stride=2, padding="VALID")
 
 
-def _upsample(name, p, x, conv_apply):
-    x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)  # nearest 2x
-    return conv_apply(f"{name}.conv", x, p["conv"])
+def _upsample(name, p, x, conv_apply, with_conv=True):
+    x = nearest_up2(x)
+    return conv_apply(f"{name}.conv", x, p["conv"]) if with_conv else x
 
 
 @exact_f32()
@@ -394,7 +407,7 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
                 h = _attn_apply(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx)
             hs.append(h)
         if i_level != num_levels - 1:
-            hs.append(_downsample(f"down.{i_level}.downsample", lp["downsample"], hs[-1], ca))
+            hs.append(_downsample(f"down.{i_level}.downsample", lp["downsample"], hs[-1], ca, cfg.resamp_with_conv))
 
     h = hs[-1]
     h = _resblock_apply("mid.block_1", params["mid"]["block_1"], h, temb, ca)
@@ -409,7 +422,7 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
             if lp["attn"]:
                 h = _attn_apply(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx)
         if i_level != 0:
-            h = _upsample(f"up.{i_level}.upsample", lp["upsample"], h, ca)
+            h = _upsample(f"up.{i_level}.upsample", lp["upsample"], h, ca, cfg.resamp_with_conv)
     assert not hs
 
     h = swish(group_norm(h, params["norm_out"]))

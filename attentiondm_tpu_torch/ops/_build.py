@@ -43,19 +43,20 @@ GNPLAN = ctypes.c_int * 6  # a GroupNorm launch plan (ops/fused_gn.plan_args), r
 
 # C entry points: name -> argtypes (every launcher returns cudaGetLastError())
 SIGNATURES = {
-    # xp, gqt, inv_ws, zcbias, out, B, Hp, Wp, Cp, Ho, Wo, Np, ksize, stride, mode, bm, cols, rows, imgs, stream
-    "adm_int8_conv": [_P] * 5 + [_I] * 14 + [_P],
+    # xp, gqt, inv_ws, zcbias, res (modes 3 / 4) or null, out, B, Hp, Wp, Cp, Ho, Wo, Np, ksize, stride, mode,
+    # bm, cols, rows, imgs, stream
+    "adm_int8_conv": [_P] * 6 + [_I] * 14 + [_P],
     # x, x_is_int32, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp, out,
     # B, HW, N, groups, n_levels, inv_count, the plan (cluster, wpb, threads, smem, held), stream
     "adm_epilogue_gn_swish_quant": [_P, _I] + [_P] * 8 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
     # x ... act_zp as above, scratch `partial` [B, nchunk, 2, groups] f32 and `flags` [B + 1] int32 zeroed,
     # out, B, HW, N, groups, n_levels, inv_count, the plan (threads, smem), stream
     "adm_epilogue_gn_swish_quant_blocked": [_P, _I] + [_P] * 10 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
-    # x, gn (2,C), sqkv (6,C), n_q, n_k, n_v, wq, wk, wv, eqkv (6,C), sqo (4,C), n_o, wo,
+    # x, x_is_f32, gn (2,C), sqkv (6,C), n_q, n_k, n_v, wq, wk, wv, eqkv (6,C), sqo (4,C), n_o, wo,
     # scratch q8 k8 v8 qf kf vf o8, amax [B, 2] zeroed (the int8 core) or null (the f32 core), out,
     # B, L, C, groups, inv_count, scale, bm, cols (the projections' M tiling), the core's plan (bq, vk, smem),
     # the GroupNorm launch's plan, stream; the weights K-major
-    "adm_fused_attention_block": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
+    "adm_fused_attention_block": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
     + [_P] * 9 + [_I] * 4 + [_F, _F] + [_I] * 5 + [_TILE, _P],
     # K3's core alone: q, k, v (f32), scratch q8, k8, amax (int8 core) or nulls, sqo (2, C), n_levels, out,
     # logits or null, B, L, C, plan (bq, vk, smem), scale, stream
@@ -74,10 +75,10 @@ SIGNATURES = {
     # dot, dot_is_int32, inv_ws, zcbias, x_res, res_is_f32, out, out_is_f32, sums, B, HW, N, groups, plan,
     # channels a thread, stream
     "adm_epilogue_residual_gn_stats": [_P, _I, _P, _P, _P, _I, _P, _I, _P] + [_I] * 4 + [_TILE, _I, _P],
-    # r, tproj, v1 (six vector pointers: gn scale, gn bias, act scale, act zp, inv_ws, zcbias), n1, g1,
+    # r, r_is_f32, tproj, v1 (six vector pointers: gn scale, gn bias, act scale, act zp, inv_ws, zcbias), n1, g1,
     # v2, n2, g2, scratch pad1 acc pad2, out, B, H, W, C, groups, inv_count, tile (bm, cols, rows, imgs),
     # the two GroupNorm launches' plans, stream; g1, g2 K-major
-    "adm_resblock": [_P, _P, _VEC6, _I, _P, _VEC6, _I, _P] + [_P] * 4 + [_I] * 5 + [_F, _TILE, _TILE, _TILE, _P],
+    "adm_resblock": [_P, _I, _P, _VEC6, _I, _P, _VEC6, _I, _P] + [_P] * 4 + [_I] * 5 + [_F, _TILE, _TILE, _TILE, _P],
 }
 
 

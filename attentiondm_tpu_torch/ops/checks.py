@@ -9,10 +9,14 @@ Tolerances, per kernel output against the plain version on the same inputs:
   K2, K6, K4    int8 codes: at most 1 LSB apart, on at most 0.1% of them;
   K3            mean relative error < 1e-3 and at least 99% of the
                 elements within 1 bf16 ulp (f32 sums in another order);
+                at a float32 residual the output is not rounded, so
+                instead at least K3_F32_WITHIN of the elements within 2
+                f32 ulp (a proj_out input code that the core's sums move
+                across a tie moves its whole row);
   K7            residual' within 1 bf16 ulp everywhere and the sums within
                 1e-6 relative (of the largest sum of their kind);
   K12           mean relative error < 1e-3 and at least 99.9% of the
-                elements within 1 bf16 ulp;
+                elements within 1 bf16 ulp (bf16 or float32 residual);
   K8, K9        int8 codes: at most 1 LSB apart, on at most 0.2% of them
                 (the softmax denominator and p.v sum in another order, and a
                 p on a bf16 rounding tie moves the output's last bits);
@@ -39,10 +43,19 @@ from .attention import flash_takes, takes_flash
 
 # int8 outputs: the share of codes that may differ (by at most 1 LSB) from the plain version's
 CODE_SHARE = {"K2": 1e-3, "K6": 1e-3, "K8": 2e-3, "K9": 2e-3, "K10": 1e-2, "K3.core": 2e-3}
+# K3 at a float32 residual: the share of outputs within 2 f32 ulp of the plain version's.  Measured on the H100: at
+# least 0.9484 (chip_smoke's (32, 64, 1024) check), 0.9861 at every site of a CIFAR-10 step; bounded at 2x the
+# share off
+K3_F32_WITHIN = 0.9
 
 
 def _ulp_share(gf, wf):
     return ((gf - wf).abs() <= wf.abs() * 2.0 ** -7 + 1e-30).float().mean().item()
+
+
+def _f32_ulp_share(got, want, ulps: int = 2):
+    """The share of float32 outputs within `ulps` f32 ulp of the plain version's."""
+    return ((got - want).abs() <= ulps * torch.finfo(torch.float32).eps * want.abs() + 1e-30).float().mean().item()
 
 
 def compare(kind: str, got, want) -> dict:
@@ -58,7 +71,7 @@ def compare(kind: str, got, want) -> dict:
         within = _ulp_share(go.float(), wo.float())
         sums_rel = ((gs - ws).abs().amax(dim=(0, 2)) / ws.abs().amax(dim=(0, 2))).max().item()
         return dict(max_abs_err=err, within=within, sums_rel=sums_rel, ok=within == 1.0 and sums_rel <= 1e-6)
-    if kind == "K1" and got.dtype == torch.int32:
+    if kind in ("K1", "K13", "K5") and got.dtype == torch.int32:
         err = (got - want).abs().max().item()
         return dict(max_abs_err=err, ok=err == 0)
     gf, wf = got.float(), want.float()
@@ -74,20 +87,27 @@ def compare(kind: str, got, want) -> dict:
     if kind == "K1":
         return dict(max_abs_err=err, within=within, ok=within == 1.0)
     rel = (d.mean() / wf.abs().mean()).item()
+    if kind == "K3" and got.dtype == torch.float32:
+        f32_within = _f32_ulp_share(gf, wf)
+        return dict(max_abs_err=err, rel=rel, within=within, f32_within=f32_within,
+                    ok=rel < 1e-3 and within >= 0.99 and f32_within >= K3_F32_WITHIN)
     return dict(max_abs_err=err, rel=rel, within=within,
                 ok=rel < 1e-3 and within >= (0.999 if kind == "K12" else 0.99))
 
 
 @contextlib.contextmanager
 def per_site(records: list):
-    """Teacher-forced per-site check of the serving forward: while active,
-    every kernel call of `quant/int8_serving.py` also runs its plain version
-    on the same inputs and appends (kernel, output shape, figures) to
-    `records`; the forward goes on with the kernel's output.  The plain
-    calls launch nothing, so launch counts stay the kernels' own."""
+    """Teacher-forced per-site check of the serving forward and of the
+    interception runtime: while active, every kernel call of
+    `quant/int8_serving.py` and every int8 product of `ops/quant_conv.py`
+    (K13, K5) also runs its plain version on the same inputs and appends
+    (kernel, output shape, figures) to `records`; the forward goes on with
+    the kernel's output.  The plain calls launch nothing, so launch counts
+    stay the kernels' own."""
     from ..quant import int8_serving as srv
 
     from . import int8_attention as ia
+    from . import quant_conv as qc
 
     kinds = {
         "_k1": lambda *a: "K1",
@@ -102,7 +122,10 @@ def per_site(records: list):
         # the dense float32 softmax of a short map is no kernel and has no second version
         "spatial_attention": lambda q, *a: "K11" if takes_flash(q.shape[1], q.shape[2]) else None,
     }
+    # the interception runtime's products (quantized_conv2d_int8 / _prefolded): K1's int32 3x3 and 1x1 modes
+    qc_kinds = {"conv3x3_int8_dot": lambda *a: "K13", "int8_matmul": lambda *a: "K5"}
     saved = {name: getattr(srv, name) for name in kinds}
+    qc_saved = {name: getattr(qc, name) for name in qc_kinds}
 
     def wrap(fn, kind_of):
         def call(*args, **kwargs):
@@ -118,28 +141,53 @@ def per_site(records: list):
 
     for name, kind_of in kinds.items():
         setattr(srv, name, wrap(saved[name], kind_of))
+    for name, kind_of in qc_kinds.items():
+        setattr(qc, name, wrap(qc_saved[name], kind_of))
     try:
         yield records
     finally:
         for name, fn in saved.items():
             setattr(srv, name, fn)
+        for name, fn in qc_saved.items():
+            setattr(qc, name, fn)
 
 
-def conv_plan(cfg, widths=False):
+def fused_block(cin: int, cout: int) -> bool:
+    """Whether a resblock of `cin` -> `cout` channels takes the fused chain
+    of `quant/int8_serving._resblock_fused`: both convs in the fold (at least
+    64 input channels) and conv1's output unpadded (cout on the 128 grid),
+    JAX's `fused`.  Any other block runs the unfused chain: plain GroupNorm,
+    each conv through `_conv_any` (K1 in int32 mode where the fold covers it,
+    the fake-quant float conv elsewhere)."""
+    return cin >= 64 and cout >= 64 and cout % 128 == 0
+
+
+def _k3_site(L: int, C: int) -> bool:
+    """Whether an attention site takes K3 whole: JAX's `fits` (the budget,
+    and folds of exactly (C, C), i.e. C on the 128 grid)."""
+    from .int8_attention import fused_attention_block_fits
+
+    return C % 128 == 0 and fused_attention_block_fits(L, C)
+
+
+def conv_plan(cfg, widths=False, *, dot_bf16=True):
     """One serving step's kernel calls, derived from `iter_conv_layers` and
     the config: K1 launches (name, H_in, Cp, Np, ksize, stride, out dtype;
     with `widths`, then the (cin, cout) the conv needs before the padding to
     128 columns, which a bound on its work counts),
-    the K2 and K6 epilogue shapes (HW, N), routed by `epilogue_route` on the
-    bf16 conv1 output, the K3 shapes (L, C) of the attention sites that
-    `fused_attention_block_fits` lets in, and the other, composed sites
-    (name, L, C), whose four 1x1 projections are K1 launches.  An enhanced
+    the K2 and K6 epilogue shapes (HW, N), routed by `epilogue_route` on
+    conv1's output (bf16, or with `dot_bf16=False` the int32 accumulator,
+    which also runs both resblock convs in K1's int32 mode), the K3 shapes
+    (L, C) of the attention sites that `fused_attention_block_fits` lets in,
+    and the other, composed sites (name, L, C), whose four 1x1 projections
+    are K1 launches.  An enhanced
     attention site is no K3 and no composed site: its four 1x1 projections
     (query and key to C / 8 channels, padded to 128 columns) are K1 launches
-    in int32 mode, around a core in plain torch."""
+    in int32 mode, around a core in plain torch.  A resblock off
+    `fused_block` launches each conv the fold covers in int32 mode and no
+    epilogue kernel; a conv the fold does not cover launches nothing."""
     from ..models.unet import iter_conv_layers
     from ..quant.int8_runtime import _eligible
-    from .int8_attention import fused_attention_block_fits
 
     def rup(c):
         return (c + 127) // 128 * 128
@@ -147,6 +195,8 @@ def conv_plan(cfg, widths=False):
     levels = len(cfg.ch_mult)
     res = [cfg.resolution >> i for i in range(levels)]
     k1, epi, k3, composed = [], {"K2": [], "K6": []}, [], []
+    cin_of = {name: cin for name, cin, _k in iter_conv_layers(cfg)}
+    dot = torch.bfloat16 if dot_bf16 else torch.int32
 
     def launch(name, H, cin, cout, k, stride, mode):
         k1.append((name, H, rup(cin), rup(cout), k, stride, mode) + ((cin, cout) if widths else ()))
@@ -167,7 +217,7 @@ def conv_plan(cfg, widths=False):
                 cout = cin // 8 if parts[-1] in ("query_conv", "key_conv") else cin
                 launch(name, H, cin, cout, 1, 1, torch.int32)
                 continue
-            if fused_attention_block_fits(H * H, cin):
+            if _k3_site(H * H, cin):
                 if parts[-1] == "q":
                     k3.append((H * H, cin))
                 continue
@@ -178,9 +228,11 @@ def conv_plan(cfg, widths=False):
         stride, mode = 1, torch.int32
         if parts[-1] in ("conv1", "conv2"):
             cout = cin if parts[0] == "mid" else cout
-            mode = torch.bfloat16
-            if parts[-1] == "conv1":
-                epi[fused_gn.epilogue_route((1, H, H, cout), torch.bfloat16)].append((H * H, cout))
+            block = name.rsplit(".", 1)[0]
+            if fused_block(cin_of[f"{block}.conv1"], cout):
+                mode = dot
+                if parts[-1] == "conv1":
+                    epi[fused_gn.epilogue_route((1, H, H, cout), dot)].append((H * H, cout))
         elif parts[0] == "conv_out":
             cout = cfg.out_ch
         elif parts[-2] == "downsample":
@@ -229,7 +281,7 @@ def attention_plan(cfg, *, attn_int8=True, attn_ranges=None) -> dict:
     if cfg.attn_variant == "enhanced":
         return plan
     for site, L, C in attention_sites(cfg):
-        if ia.fused_attention_block_fits(L, C):
+        if _k3_site(L, C):
             if attn_int8:
                 plan["K3.int8_core"].append((L, C))
             if not ia.k3_takes(L, C):
@@ -264,11 +316,15 @@ def require_attention_kernels(cfg, device, *, attn_int8=True, attn_ranges=None):
             + ", ".join(f"{site} (L={L}, C={C}) -> {kind}" for site, L, C, kind in refused))
 
 
-def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, resblock_pallas=False) -> dict:
+def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, resblock_pallas=False,
+               dot_bf16=True) -> dict:
     """The sites of one serving step that the three levers send through K4,
     K7 and K12, from the config and the forward's own predicates (no
     tensors): {"K4": [(site, HW, C)], "K7": [(site, HW, N)], "K12": [(site,
-    H, C)]}.  A site is a resblock's name, or "conv_out" for its entry."""
+    H, C)]}.  A site is a resblock's name, or "conv_out" for its entry.
+    Only a `fused_block` takes a lever; K12 also needs `dot_bf16` (JAX's
+    gate).  The residual's dtype moves no site: JAX's predicates read
+    shapes only."""
     from ..models.unet import iter_conv_layers
     from .pallas_conv import conv3_pallas_wins
     from .pallas_resblock import resblock_pallas_fits
@@ -285,7 +341,9 @@ def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, re
         H, cin = res[lvl], cin_of[f"{name}.conv1"]
         cout = cin if name.startswith("mid") else cfg.ch * cfg.ch_mult[lvl]
         entry_sums, sums = sums, False
-        if (resblock_pallas and not entry_sums and not want and cin == cout and cin % 128 == 0
+        if not fused_block(cin, cout):
+            return
+        if (resblock_pallas and dot_bf16 and not entry_sums and not want and cin == cout
                 and resblock_pallas_fits(batch, H, H, cin)
                 and (resblock_pallas == "all" or conv3_pallas_wins(batch, H, H, cin, cin))):
             plan["K12"].append((name, H, cin))
@@ -310,60 +368,68 @@ def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, re
     for lvl in reversed(range(levels)):
         for j in range(nrb + 1):
             block(f"up.{lvl}.block.{j}", lvl)
-    if entry_pallas and fused_gn.gn_act_quant_fits(res[0] * res[0], cin_of["conv_out"]):
+    if entry_pallas and cin_of["conv_out"] >= 64 and fused_gn.gn_act_quant_fits(res[0] * res[0], cin_of["conv_out"]):
         plan["K4"].append(("conv_out", res[0] * res[0], cin_of["conv_out"]))
     return plan
 
 
-def gn_refused(cfg, batch: int, **levers) -> list:
+def gn_refused(cfg, batch: int, *, residual_dtype=torch.float32, dot_bf16=True, **levers) -> list:
     """(site, HW, C, kernel) of every GroupNorm or resblock kernel call of one
-    serving step at `batch` and the levers given (`lever_plan`'s keywords)
-    whose CUDA kernel would refuse its shape: a resblock epilogue off K2's and
-    K6's plans (or over the whole-image budget and off K6's grid, where JAX
-    runs its XLA reference; kernel "K2/K6"), a K4 entry without a plan
+    serving step at `batch`, the residual stream `residual_dtype` (bf16 or
+    f32), `dot_bf16` and the levers given (`lever_plan`'s keywords) whose
+    CUDA kernel would refuse its shape: a resblock epilogue off K2's and
+    K6's plans for conv1's output (bf16, or int32 with `dot_bf16=False`;
+    or over the whole-image budget and off K6's grid, where JAX
+    runs its XLA reference; kernel "K2/K6"), a K4 entry without a plan for
+    the residual's dtype
     (`gn_act_quant_takes`: N above 2048, or above 1024 past 1024 rows, off
     the 8-channel grid), a K7 exit
     without a launch plan (`epilogue_residual_gn_stats_takes`: N above 1024,
     off the 8-channel grid, past 32 * 32 windows), a K12 block off
-    `resblock_pallas_takes`.  On the card
+    `resblock_pallas_takes` at the residual's dtype.  On the card
     `serving_ddim_sampler` raises with them before its first step
     (`require_gn_kernels`)."""
     from ..models.unet import iter_conv_layers
-    from ..quant.int8_runtime import _eligible
     from .pallas_resblock import resblock_pallas_takes
 
-    plan = lever_plan(cfg, batch, **levers)
+    if residual_dtype not in fused_gn.RESIDUAL_DTYPES:
+        raise ValueError(f"residual_dtype={residual_dtype!r}: the serving path's residual stream is bf16 or f32")
+    plan = lever_plan(cfg, batch, dot_bf16=dot_bf16, **levers)
     whole = {site for site, _H, _C in plan["K12"]}
     levels = len(cfg.ch_mult)
+    dot = torch.bfloat16 if dot_bf16 else torch.int32
     refused = []
-    for name, cin, k in iter_conv_layers(cfg):  # the conv1 epilogues of the blocks K12 does not take
+    for name, cin, k in iter_conv_layers(cfg):  # the conv1 epilogues of the fused blocks K12 does not take
         parts = name.split(".")
         block = name.rsplit(".", 1)[0]
-        if parts[-1] != "conv1" or block in whole or not _eligible((k, k, cin, 0)):
+        if parts[-1] != "conv1" or block in whole:
             continue
         lvl = levels - 1 if parts[0] == "mid" else int(parts[1])
         H, N = cfg.resolution >> lvl, cin if parts[0] == "mid" else cfg.ch * cfg.ch_mult[lvl]
+        if not fused_block(cin, N):
+            continue
         try:
-            kind = fused_gn.epilogue_route((batch, H, H, N), torch.bfloat16)
-            fused_gn.epilogue_plan(batch, H * H, N, torch.bfloat16, kind)
+            kind = fused_gn.epilogue_route((batch, H, H, N), dot)
+            fused_gn.epilogue_plan(batch, H * H, N, dot, kind)
         except NotImplementedError:
             refused.append((block, H * H, N, "K2/K6"))
     refused += [(site, HW, C, "K4") for site, HW, C in plan["K4"]
-                if not fused_gn.gn_act_quant_takes(batch, HW, C)]
+                if not fused_gn.gn_act_quant_takes(batch, HW, C, residual_dtype)]
     refused += [(site, HW, N, "K7") for site, HW, N in plan["K7"]
                 if not fused_gn.epilogue_residual_gn_stats_takes(HW, N)]
-    refused += [(site, H * H, C, "K12") for site, H, C in plan["K12"] if not resblock_pallas_takes(batch, H, H, C)]
+    refused += [(site, H * H, C, "K12") for site, H, C in plan["K12"]
+                if not resblock_pallas_takes(batch, H, H, C, residual_dtype)]
     return refused
 
 
-def require_gn_kernels(cfg, device, batch: int, **levers):
+def require_gn_kernels(cfg, device, batch: int, **flags):
     """Raise NotImplementedError, naming every site, where a serving step on
-    `device` at `batch` and these levers would reach a GroupNorm or resblock
-    kernel that refuses its shape (`gn_refused`); CPU tensors take the plain
-    versions, which take any shape."""
+    `device` at `batch` and these flags (`gn_refused`'s keywords) would reach
+    a GroupNorm or resblock kernel that refuses its shape; CPU tensors take
+    the plain versions, which take any shape."""
     if torch.device(device).type != "cuda":
         return
-    refused = gn_refused(cfg, batch, **levers)
+    refused = gn_refused(cfg, batch, **flags)
     if refused:
         raise NotImplementedError(
             "GroupNorm / resblock sites off the CUDA kernels' shapes (N or C a multiple of 8 up to 1024, K4 up to 2048 "
@@ -373,18 +439,24 @@ def require_gn_kernels(cfg, device, batch: int, **levers):
 
 
 def expected_launches(cfg, steps: int = 1, batch: int = 1, *, attn_int8=True, attn_ranges=None,
-                      **levers) -> dict:
+                      residual_dtype=torch.float32, dot_bf16=True, conv_pallas=False, **levers) -> dict:
     """Launch counts of `steps` serving steps, per kernel (K13 and K5 are
     K1's int32 3x3 and 1x1 launches, "K3.int8_core" the K3 launches that ran
     the int8 core), under the attention flags
-    (`attention_plan`'s keywords, the serving defaults) and the levers given
+    (`attention_plan`'s keywords, the serving defaults), `dot_bf16` and the
+    levers given
     (`lever_plan`'s keywords; none: the levers-off path).  A block K12 takes
     launches neither its two K1 convs nor its K2 / K6 epilogue; a composed
     attention site launches K1 four times, and so does an enhanced one (in
-    1x1 int32 mode: K5), with no K3 and no core kernel."""
-    k1, k2, k6, k3, _composed = conv_plan(cfg)
+    1x1 int32 mode: K5), with no K3 and no core kernel.  `residual_dtype`
+    (bf16 or f32) and `conv_pallas` change no count; they are taken so that
+    a sampler's flags pass whole."""
+    del conv_pallas  # every int8 conv is K1 whatever its value
+    if residual_dtype not in fused_gn.RESIDUAL_DTYPES:
+        raise ValueError(f"residual_dtype={residual_dtype!r}: the serving path's residual stream is bf16 or f32")
+    k1, k2, k6, k3, _composed = conv_plan(cfg, dot_bf16=dot_bf16)
     attn = attention_plan(cfg, attn_int8=attn_int8, attn_ranges=attn_ranges)
-    plan = lever_plan(cfg, batch, **levers)
+    plan = lever_plan(cfg, batch, dot_bf16=dot_bf16, **levers)
     whole = {site for site, _H, _C in plan["K12"]}
     k1 = [c for c in k1 if c[0].rsplit(".", 1)[0] not in whole]
     taken = [(H * H, C) for _site, H, C in plan["K12"]]
@@ -399,6 +471,34 @@ def expected_launches(cfg, steps: int = 1, batch: int = 1, *, attn_int8=True, at
               "K4": len(plan["K4"]), "K7": len(plan["K7"]), "K12": len(plan["K12"]),
               **{k: len(v) for k, v in attn.items() if k != "refused"}}
     return {k: n * steps for k, n in counts.items()}
+
+
+def interception_launches(cfg, steps: int = 1) -> dict:
+    """Launch counts of `steps` forwards of the interception runtime
+    (`quant/int8_runtime.int8_model_fn`, `qunet` mode "int8"), per kernel,
+    with `expected_launches`' keys: each conv the fold covers (at least 64
+    input channels, stride 1) is one K1 launch in int32 mode, K13 for a 3x3
+    conv and K5 for a 1x1; the downsample convs (stride 2) and the narrow
+    convs run the fake-quant float conv.  The attention cores are the FP
+    UNet's (`spatial_attention`): K11 where `takes_flash`, plain torch
+    elsewhere.  No other kernel runs."""
+    from ..models.unet import ATTN_PROJS, iter_conv_layers
+    from ..quant.int8_runtime import _eligible
+
+    levels = len(cfg.ch_mult)
+    n3 = n1 = k11 = 0
+    for name, cin, k in iter_conv_layers(cfg):
+        parts = name.split(".")
+        if parts[-1] == ATTN_PROJS[cfg.attn_variant][0] and cfg.attn_variant == "ddim":
+            H = cfg.resolution >> (levels - 1 if parts[0] == "mid" else int(parts[1]))
+            k11 += takes_flash(H * H, cin)
+        if parts[-2:-1] == ["downsample"] or not _eligible((k, k, cin, 0)):
+            continue
+        n3 += k == 3
+        n1 += k == 1
+    counts = {key: 0 for key in launch_counters()}
+    counts.update(K1=n1 + n3, K5=n1, K13=n3, K11=k11, **{"K3.int8_core": 0})
+    return {key: n * steps for key, n in counts.items()}
 
 
 def launch_counters() -> dict:

@@ -46,7 +46,7 @@ GROUPS = 32  # the UNet's GroupNorm (eps 1e-6)
 WIN = 32  # rows per window of the float32 sums (csrc/common.cuh GN_WIN)
 CHUNK = WIN * WIN  # rows per K6 block (GN_CHUNK)
 WHOLE_IMAGE_BYTES = 4 * 1024 * 1024  # JAX's whole-image budget for K2: HW * N * (in bytes + 1)
-_ROADMAP = "ROADMAP Queue 1, 'the enhanced variant and the remaining serving flags'"
+RESIDUAL_DTYPES = (torch.bfloat16, torch.float32)  # the serving residual streams, which K4, K7 and K12 read
 
 
 def _seq_sum(x, dim: int):
@@ -151,7 +151,8 @@ def epilogue_route(shape, dtype) -> str:
         return "K6"
     raise NotImplementedError(
         f"epilogue_gn_swish_quant: HW={HW}, N={N} is over the whole-image budget and off the blocked "
-        f"kernel's grid (N % 128, HW % 8), where JAX runs its XLA reference; not ported ({_ROADMAP})")
+        f"kernel's grid (N % 128, HW % 8), where JAX runs its XLA reference; that branch is not ported "
+        f"(ROADMAP Queue 3)")
 
 
 # The launch plan of K2 and K6 (csrc/gn_epilogue.cuh), computed here and
@@ -550,7 +551,7 @@ def gn_act_quant_takes(B: int, HW: int, C: int, dtype=torch.bfloat16, n_out: int
     `n_out` outputs: bf16 or f32, and a launch plan (`epilogue_plan(...,
     "K4")`: C a multiple of 8 and of its groups, up to 2048 in the image
     form, 1024 past 32 windows)."""
-    if dtype not in (torch.bfloat16, torch.float32):
+    if dtype not in RESIDUAL_DTYPES:
         return False
     try:
         epilogue_plan(B, HW, C, dtype, "K4", n_out)

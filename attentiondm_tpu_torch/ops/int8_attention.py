@@ -4,7 +4,9 @@
 K3 `fused_attention_block`: the whole DDIM attention block, residual ->
 GroupNorm -> three int8 quants -> int8 q/k/v 1x1 GEMMs + dequant -> softmax(q
 k^T * C^-1/2) v -> int8 quant -> int8 out-projection + dequant -> + residual,
-written at the residual's dtype (bf16).  It takes every map that
+written at the residual's dtype (bf16, or float32: the float32 residual
+stream, JAX's default, which nothing rounds but the f32 operations).  It
+takes every map that
 `fused_attention_block_fits` (JAX's VMEM cost model, kept as a pure routing
 predicate) lets in.  On the TPU one program held whole images in VMEM.  One
 image's f32 logits (L*L*4 B = 256 KB at L = 256) exceed a Hopper block's
@@ -128,7 +130,7 @@ def int8_core_plan(C: int) -> Int8CorePlan:
 
 
 def k3_takes(L: int, C: int) -> bool:
-    """Whether K3's CUDA chain takes an (L, C) map (with a bf16 residual)."""
+    """Whether K3's CUDA chain takes an (L, C) map (with a bf16 or f32 residual)."""
     return C in K3_WIDTHS and 1 <= L <= K3_MAX_L and core_plan(L, C).smem <= SMEM_PER_BLOCK
 
 
@@ -423,9 +425,9 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
     if plain or x.device.type == "cpu":
         return fused_attention_block_ref(x, gn_scale, gn_bias, qkv_quant, [w[:3] for w in weights[:3]], o_quant,
                                          weights[3][:3], scale=scale, int8_core=int8_core)
-    if x.dtype != torch.bfloat16 or not k3_takes(L, C):
+    if x.dtype not in (torch.bfloat16, torch.float32) or not k3_takes(L, C):
         raise NotImplementedError(
-            f"fused_attention_block on CUDA: bf16 residual, C in {K3_WIDTHS}, L <= {K3_MAX_L}; got "
+            f"fused_attention_block on CUDA: bf16 or f32 residual, C in {K3_WIDTHS}, L <= {K3_MAX_L}; got "
             f"{x.dtype}, C={C}, L={L} (larger maps fail `fused_attention_block_fits` and take the composed "
             f"branch of `_attn_fused`)")
     g = min(GROUPS, C)
@@ -445,14 +447,14 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
     tiles = conv_tiles(B, L, 1, 1, 1, C)  # the four projections: flat GEMMs over B * L rows
     plan = core_plan(L, C, int8_core)
     err = _build.kernels().adm_fused_attention_block(
-        x.data_ptr(), gn.data_ptr(), sqkv.data_ptr(),
+        x.data_ptr(), int(x.dtype == torch.float32), gn.data_ptr(), sqkv.data_ptr(),
         *(2 ** (b - 1) for (_s, _z, b) in qkv_quant),
         wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), eqkv.data_ptr(), sqo.data_ptr(),
         2 ** (bo - 1), wo.data_ptr(),
         *(t.data_ptr() for t in scratch8[:3]), *(t.data_ptr() for t in scratchf), scratch8[3].data_ptr(),
         None if amax is None else amax.data_ptr(), out.data_ptr(), B, L, C, g, 1.0 / (L * (C // g)), float(scale),
         tiles.BM, tiles.cols, plan.bq, plan.vk, plan.smem,
-        plan_args(epilogue_plan(B, L, C, torch.bfloat16, "K4", 3)), _build.stream_ptr(x.device))
+        plan_args(epilogue_plan(B, L, C, x.dtype, "K4", 3)), _build.stream_ptr(x.device))
     _build.check(err, "adm_fused_attention_block")
     fused_attention_block.launches += 1
     fused_attention_block.int8_core_launches += bool(int8_core)

@@ -11,6 +11,9 @@ serving step goes through this kernel (csrc/int8_conv.cu):
                                 the TPU's `_conv3x3_int8_dot`, K13)
   ksize 3, stride 2, int32 out  downsample conv (asymmetric (0,1) halo)
   ksize 1, stride 1, int32 out  nin_shortcut (the math of `int8_matmul`, K5)
+  res= (bf16 or f32)            res + (acc*inv_ws + zcbias) at the residual's
+                                dtype: the last launch of K12 (3x3) and K3
+                                (1x1), run alone here for their checks
 
 Interface: the caller supplies the int8 NHWC input with its halo already
 applied ([B, H+2, W+2, Cp] for 3x3 stride 1, [B, H+1, W+1, Cp] for the
@@ -36,7 +39,8 @@ import torch
 from . import _build
 from .quant_conv import int8_matmul_ref
 
-_MODES = {torch.int32: 0, torch.bfloat16: 1}
+_MODES = {torch.int32: 0, torch.bfloat16: 1}  # csrc/igemm.cuh Epilogue
+_RESADD_MODES = {torch.bfloat16: 3, torch.float32: 4}  # EPI_RESADD_BF16, EPI_RESADD_F32
 VMEM_BUDGET = 8 << 20  # the TPU conv kernel's plan, kept for JAX's routing predicates
 
 
@@ -141,7 +145,7 @@ def k_major(gq):
 
 
 def int8_conv_ref(xp, gq, inv_ws=None, zcbias=None, *, ksize: int = 3, stride: int = 1,
-                  out_dtype=torch.int32):
+                  out_dtype=torch.int32, res=None):
     """Plain version of `int8_conv`: one exact integer product per tap."""
     B, Hp, Wp, Cp = xp.shape
     Ho, Wo = _out_hw(Hp, Wp, ksize, stride)
@@ -153,15 +157,20 @@ def int8_conv_ref(xp, gq, inv_ws=None, zcbias=None, *, ksize: int = 3, stride: i
             k0 = (dy * ksize + dx) * Cp
             acc += int8_matmul_ref(tap.reshape(-1, Cp), gq[k0:k0 + Cp])
     acc = acc.reshape(B, Ho, Wo, Np)
+    if res is not None:
+        return (res.to(torch.float32) + (acc.to(torch.float32) * inv_ws + zcbias)).to(res.dtype)
     if out_dtype == torch.int32:
         return acc
     return (acc.to(torch.float32) * inv_ws + zcbias).to(torch.bfloat16)
 
 
 def int8_conv(xp, gq, inv_ws=None, zcbias=None, *, ksize: int = 3, stride: int = 1,
-              out_dtype=torch.int32, gqt=None, plain: bool = False):
+              out_dtype=torch.int32, gqt=None, res=None, plain: bool = False):
     """int8 NHWC conv over a halo-padded input -> int32 [B, Ho, Wo, Np], or
-    bf16 of `acc * inv_ws + zcbias` (f32 math, one rounding to bf16).
+    bf16 of `acc * inv_ws + zcbias` (f32 math, one rounding to bf16), or with
+    `res` [B, Ho, Wo, Np] (bf16 or f32) `res + (acc * inv_ws + zcbias)` at
+    res's dtype (`out_dtype` must be it): rounded once to bf16, or not at all
+    in f32.
 
     The weights come in the fold layout `gq` [ks*ks*Cp, Np], K-major as `gqt`
     [Np, ks*ks*Cp] (`gq` may then be None), or both (the serving path: the
@@ -169,8 +178,10 @@ def int8_conv(xp, gq, inv_ws=None, zcbias=None, *, ksize: int = 3, stride: int =
     version on any device (for comparisons)."""
     if ksize not in (1, 3) or stride not in (1, 2) or (ksize == 1 and stride != 1):
         raise NotImplementedError(f"int8_conv: ksize={ksize} stride={stride}")
-    if out_dtype not in _MODES:
-        raise NotImplementedError(f"int8_conv: out_dtype={out_dtype}")
+    modes = _MODES if res is None else _RESADD_MODES
+    if out_dtype not in modes or (res is not None and res.dtype != out_dtype):
+        raise NotImplementedError(f"int8_conv: out_dtype={out_dtype}, res {None if res is None else res.dtype} "
+                                  f"(int32 or bf16 out; with res, bf16 or f32 in and out)")
     B, Hp, Wp, Cp = xp.shape
     K = ksize * ksize * Cp
     if gq is None and gqt is None:
@@ -182,27 +193,31 @@ def int8_conv(xp, gq, inv_ws=None, zcbias=None, *, ksize: int = 3, stride: int =
                              f"expected int8 {shape}")
     if xp.dtype != torch.int8:
         raise ValueError(f"int8_conv: xp {xp.dtype} {tuple(xp.shape)}")
+    if out_dtype != torch.int32 and (inv_ws is None or zcbias is None):
+        raise ValueError(f"int8_conv: out_dtype={out_dtype} needs inv_ws and zcbias")
     if Cp % 128 or Np % 128:
         raise ValueError(f"int8_conv: Cp={Cp} and Np={Np} must be multiples of 128")
+    Ho, Wo = _out_hw(Hp, Wp, ksize, stride)
+    if res is not None and tuple(res.shape) != (B, Ho, Wo, Np):
+        raise ValueError(f"int8_conv: res {tuple(res.shape)} != the output's {(B, Ho, Wo, Np)}")
     if plain or xp.device.type == "cpu":
         return int8_conv_ref(xp, gq if gq is not None else gqt.t(), inv_ws, zcbias, ksize=ksize, stride=stride,
-                             out_dtype=out_dtype)
+                             out_dtype=out_dtype, res=res)
 
-    Ho, Wo = _out_hw(Hp, Wp, ksize, stride)
     if inv_ws is None:  # int32 mode reads no epilogue vectors
         inv_ws = zcbias = torch.empty(0, dtype=torch.float32, device=xp.device)
     inv_ws, zcbias = _build.f32c(inv_ws), _build.f32c(zcbias)
     gqt = k_major(gq) if gqt is None else gqt
-    _build.require_cuda("int8_conv", xp, gqt, inv_ws, zcbias)
+    _build.require_cuda("int8_conv", xp, gqt, inv_ws, zcbias, *(() if res is None else (res,)))
     out = torch.empty((B, Ho, Wo, Np), dtype=out_dtype, device=xp.device)
     t = conv_tiles(B, Ho, Wo, ksize, stride, Np)
     err = _build.kernels().adm_int8_conv(
-        xp.data_ptr(), gqt.data_ptr(), inv_ws.data_ptr(), zcbias.data_ptr(), out.data_ptr(),
-        B, Hp, Wp, Cp, Ho, Wo, Np, ksize, stride, _MODES[out_dtype], t.BM, t.cols, t.rows, t.imgs,
+        xp.data_ptr(), gqt.data_ptr(), inv_ws.data_ptr(), zcbias.data_ptr(), None if res is None else res.data_ptr(),
+        out.data_ptr(), B, Hp, Wp, Cp, Ho, Wo, Np, ksize, stride, modes[out_dtype], t.BM, t.cols, t.rows, t.imgs,
         _build.stream_ptr(xp.device))
     _build.check(err, "adm_int8_conv")
     int8_conv.launches += 1
-    key = f"{ksize}x{ksize}/s{stride}/{str(out_dtype).removeprefix('torch.')}"
+    key = f"{ksize}x{ksize}/s{stride}/{'' if res is None else 'resadd_'}{str(out_dtype).removeprefix('torch.')}"
     int8_conv.launches_by_mode[key] = int8_conv.launches_by_mode.get(key, 0) + 1
     return out
 

@@ -11,8 +11,11 @@ behind this one wrapper, counted as one launch: K4's kernel into a halo'd
 int8 buffer, K1's implicit GEMM (wgmma, reading the folds K-major) to int32,
 the same GroupNorm kernel with K2's producer on that accumulator (float32
 between conv1 and GroupNorm 2, as the TPU kernel) into a second halo'd
-buffer, and the GEMM with a dequant + residual-add epilogue.  The two
-GroupNorm launches take `epilogue_plan(..., "K4")`'s plans for bf16 and
+buffer, and the GEMM with a dequant + residual-add epilogue.  The residual
+is bf16 or float32 (the float32 residual stream, JAX's default), read as it
+is by the first launch and added by the last (K1's EPI_RESADD_BF16 or
+EPI_RESADD_F32), the output at the same dtype.  The two GroupNorm launches
+take `epilogue_plan(..., "K4")`'s plans for the residual's dtype and for
 int32 input, and write the halos' borders themselves.  The
 plain version composes the plain versions of the same stages, so its
 float32 sums run in the same order and the two agree to the bit.
@@ -26,7 +29,14 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fused_gn import GROUPS, epilogue_gn_swish_quant_ref, epilogue_plan, gn_act_quant_ref, plan_args
+from .fused_gn import (
+    GROUPS,
+    RESIDUAL_DTYPES,
+    epilogue_gn_swish_quant_ref,
+    epilogue_plan,
+    gn_act_quant_ref,
+    plan_args,
+)
 from .pallas_conv import conv_tiles, int8_conv_ref, k_major, pad_qzero
 
 VMEM_BUDGET = 10 << 20  # the TPU kernel's plan
@@ -54,14 +64,15 @@ def resblock_pallas_fits(B: int, H: int, W: int, C: int) -> bool:
     return bt >= 1 and 2 * 9 * C * C + bt * per <= VMEM_BUDGET
 
 
-def resblock_pallas_takes(B: int, H: int, W: int, C: int) -> bool:
-    """Whether K12's CUDA chain takes a [B, H, W, C] block: C a multiple of
-    128 up to 1024, and launch plans for both GroupNorm launches."""
-    if C % 128 or C > 1024:
+def resblock_pallas_takes(B: int, H: int, W: int, C: int, dtype=torch.bfloat16) -> bool:
+    """Whether K12's CUDA chain takes a [B, H, W, C] block with a `dtype`
+    residual: bf16 or f32, C a multiple of 128 up to 1024, and launch plans
+    for both GroupNorm launches."""
+    if C % 128 or C > 1024 or dtype not in RESIDUAL_DTYPES:
         return False
     try:
-        for dtype in (torch.bfloat16, torch.int32):
-            epilogue_plan(B, H * W, C, dtype, "K4")
+        for d in (dtype, torch.int32):
+            epilogue_plan(B, H * W, C, d, "K4")
     except NotImplementedError:
         return False
     return True
@@ -96,11 +107,11 @@ def resblock_pallas(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, 
     if plain or r.device.type == "cpu":
         return resblock_pallas_ref(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, gn2_bias, q2,
                                    g2_flat, sb2, a_bit1=a_bit1, a_bit2=a_bit2, out_dtype=out_dtype)
-    if (r.dtype != torch.bfloat16 or out_dtype != torch.bfloat16 or not resblock_pallas_takes(B, H, W, C)
+    if (r.dtype != out_dtype or not resblock_pallas_takes(B, H, W, C, r.dtype)
             or g1_flat.dtype != torch.int8 or g2_flat.dtype != torch.int8):
         raise NotImplementedError(
-            f"resblock_pallas on CUDA: bf16 residual in and out, int8 folds, C a multiple of 128 up to 1024; "
-            f"got {r.dtype} -> {out_dtype}, C={C}")
+            f"resblock_pallas on CUDA: a bf16 or f32 residual in and the same dtype out, int8 folds, C a multiple "
+            f"of 128 up to 1024; got {r.dtype} -> {out_dtype}, C={C}")
     half1 = [_build.f32c(v, r.device) for v in (gn1_scale, gn1_bias, *q1, *sb1)]
     half2 = [_build.f32c(v, r.device) for v in (gn2_scale, gn2_bias, *q2, *sb2)]
     r, tproj = r.contiguous(), _build.f32c(tproj, r.device)
@@ -116,9 +127,9 @@ def resblock_pallas(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, 
     out = torch.empty_like(r)
     g = min(GROUPS, C)
     t = conv_tiles(B, H, W, 3, 1, C)
-    plan1, plan3 = (plan_args(epilogue_plan(B, H * W, C, dtype, "K4")) for dtype in (torch.bfloat16, torch.int32))
+    plan1, plan3 = (plan_args(epilogue_plan(B, H * W, C, dtype, "K4")) for dtype in (r.dtype, torch.int32))
     err = _build.kernels().adm_resblock(
-        r.data_ptr(), tproj.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half1)), 2 ** (a_bit1 - 1),
+        r.data_ptr(), int(r.dtype == torch.float32), tproj.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half1)), 2 ** (a_bit1 - 1),
         g1_t.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half2)), 2 ** (a_bit2 - 1), g2_t.data_ptr(),
         pad1.data_ptr(), acc.data_ptr(), pad2.data_ptr(), out.data_ptr(),
         B, H, W, C, g, 1.0 / (H * W * (C // g)), _build.TILE(t.BM, t.cols, t.rows, t.imgs), plan1, plan3,

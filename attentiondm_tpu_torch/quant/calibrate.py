@@ -372,14 +372,13 @@ def calibrate_teacher_matched(qunet: QuantizedUNet, forward_params, qstates: Dic
     weight-quantized params (`prepare_params`), or, with `serving_extras`,
     `serving_surrogate_apply` on the float params (the serving fold's
     semantics with the extras' offsets and pinned shrinks; `rank1` its
-    step-shared form).  One `torch.optim.Adam(lr)` over the whole [S, ...]
-    tensors, as JAX's one optax state.
+    step-shared form; `symmetric=False` the asymmetric weight grid of the
+    interception runtime's folds).  One `torch.optim.Adam(lr)` over the whole
+    [S, ...] tensors, as JAX's one optax state.
 
     Per step the best evaluated iterate is kept (the first epoch evaluates
     the init first), so the result is never worse than stage 1 on the
     objective at any step.  Returns (states', losses [epochs * S] floats)."""
-    if not symmetric:
-        raise NotImplementedError("symmetric=False (the asymmetric weight fold) comes with ROADMAP Queue 1 item 5")
     sel = [n for n in qstates if not attention_focus or _is_attn(n)]
     t_rev = [float(t) for t in reversed(list(seq))]
     S = xs_in.shape[0]

@@ -36,15 +36,25 @@ torch before its convs), or with `rank1` one copy shared by every step
 (quant/rank1.py).  `serving_ddim_sampler(step_chunk=k)` folds k steps at a
 time, and `micro_batch=m` runs each chunk over the batch m images at a time.
 
-The port takes the serving path's flag values: bf16 residual stream,
-`dot_bf16`, symmetric weights, DDIM update; every value of `attn_int8` /
-`attn_ranges`, `step_chunk`, `micro_batch`, `pack_int4`, `rank1`,
-`weight_extras` and `mp_states` / `mp_base_bits`; and JAX's three fusion
-levers `entry_pallas`, `boundary_fusion` and `resblock_pallas` (True or
-"all"), routed by JAX's predicates.  Every other value raises NotImplementedError naming the
-ROADMAP slice that ports it.  `residual_dtype` defaults to float32, as in
-JAX, and that value raises until the float32 stream is ported: callers pass
-`residual_dtype=torch.bfloat16`, as bench.py does.
+The residual stream between blocks is float32 (`residual_dtype`'s default,
+as in JAX) or bf16; K3, K4, K7 and K12 read and write it at its dtype.  With
+`dot_bf16=False` a resblock's convs are K1 in int32 mode and K2 / K6 (or K7)
+dequantize the accumulator themselves; K12 then does not route, as in JAX.
+Convs the fold does not cover (fewer than 64 input channels; a resblock
+whose conv1 output is off the 128 grid) take JAX's unfused chain: plain
+GroupNorm, and each conv through `_conv_any`, K1 in int32 mode where the fold
+covers it, the fake-quant float conv elsewhere.  `resamp_with_conv=False`
+downsamples by a 2x2 average and upsamples by nearest repetition, no conv.
+
+Every flag value JAX's serving path takes is taken here but the ddpm update
+(`update="ddpm"`, ROADMAP Queue 1 item 6), which raises NotImplementedError;
+a value JAX does not define raises ValueError.  `conv_pallas` takes JAX's
+values (False, True, "all", or a collection of (H, Cp, Np) triples): on the
+TPU it moved a 3x3 conv from XLA's conv to the Pallas kernel; here every
+int8 conv already runs on K1 with its fused epilogue, so every value gives
+the same launches and the same output.  Asymmetric weight folds are the
+interception runtime's (quant/int8_runtime.py): `symmetric=False` raises
+ValueError here, as JAX refuses it.
 """
 from __future__ import annotations
 
@@ -58,17 +68,21 @@ import torch.nn.functional as F
 from ..diffusion.sampling import _seq_alphas, check_eta, ddim_step
 from ..models.unet import (
     UNetConfig,
+    avg_pool2,
     check_ported,
     conv2d,
     dense,
     enhanced_core,
     exact_f32,
     get_timestep_embedding,
+    group_norm,
     iter_conv_layers,
     lookup,
+    nearest_up2,
     swish,
 )
 from ..ops.fused_gn import (
+    RESIDUAL_DTYPES,
     epilogue_gn_swish_quant,
     epilogue_residual_gn_stats,
     epilogue_residual_gn_stats_fits,
@@ -99,21 +113,49 @@ from .primitives import div
 from .qunet import QuantizedUNet
 from .state import ActQuantState, quantize_activation
 
-_FLAGS = "Queue 1, 'the enhanced variant and the remaining serving flags'"
-_SLICE = {
-    "resblock_pallas": _FLAGS + " (the (H, Cp, Np) shape-list form)",
-    "conv_pallas": _FLAGS,
-    "symmetric": _FLAGS,
-    "residual_dtype": "Queue 1 item 5 (the float32 residual stream); pass residual_dtype=torch.bfloat16, as "
-                      "bench.py does",
-    "dot_bf16": _FLAGS,
-    "update": "Queue 1, 'runner/CLI, eval, data, parallel and tools' (the ddpm update)",
-}
+_DDPM = "ROADMAP Queue 1 item 6 (the runner and CLI: the ddpm update)"
 
-# the serving path's values; anything else raises
-_SERVING_FLAGS = dict(
-    residual_dtype=torch.bfloat16, dot_bf16=True, conv_pallas=False,
-)
+
+def _conv_pallas_ok(value) -> bool:
+    """JAX's values of `conv_pallas`: False, True, "all", or a collection of
+    (H, Cp, Np) triples of ints."""
+    if value is False or value is True or (isinstance(value, str) and value == "all"):
+        return True
+    return isinstance(value, (tuple, list, set, frozenset)) and all(
+        isinstance(t, (tuple, list)) and len(t) == 3 and all(isinstance(i, int) for i in t) for t in value)
+
+
+def _check_flags(*, residual_dtype, dot_bf16, conv_pallas, resblock_pallas):
+    """The compute-path flags of `serving_unet_apply`: JAX's values are
+    taken; any other raises ValueError, where JAX would treat it as some
+    other value (a truthy `resblock_pallas` or `conv_pallas` as True) or fail
+    later."""
+    if residual_dtype not in RESIDUAL_DTYPES:
+        raise ValueError(f"residual_dtype={residual_dtype!r}: the residual stream is torch.float32 (JAX's default) "
+                         "or torch.bfloat16")
+    if dot_bf16 is not True and dot_bf16 is not False:
+        raise ValueError(f"dot_bf16={dot_bf16!r}: True or False")
+    if not _conv_pallas_ok(conv_pallas):
+        raise ValueError(f"conv_pallas={conv_pallas!r}: False, True, 'all' or a collection of (H, Cp, Np) triples")
+    if not (resblock_pallas is False or resblock_pallas is True
+            or (isinstance(resblock_pallas, str) and resblock_pallas == "all")):
+        raise ValueError(f"resblock_pallas={resblock_pallas!r}: False, True (JAX's per-shape gate) or 'all'")
+
+
+def _check_update(update):
+    if update == "ddpm":
+        raise NotImplementedError(f"update='ddpm' is not ported yet; it comes with {_DDPM}")
+    if update != "ddim":
+        raise ValueError(f"update must be 'ddim' or 'ddpm', got {update!r}")
+
+
+def _require_symmetric(symmetric):
+    """The serving epilogue has no rowsum term: asymmetric weight folds are
+    the interception runtime's, as in JAX."""
+    if not symmetric:
+        raise ValueError("the fused serving path folds symmetric weights only (its epilogue has no rowsum term); "
+                         "asymmetric weight quantization is the interception runtime's: "
+                         "quant/int8_runtime.prepare_int8_runtime(symmetric=False) with int8_model_fn")
 
 
 def _require_attention_flags(cfg: UNetConfig, attn_int8, attn_ranges, mp_states):
@@ -127,18 +169,6 @@ def _require_attention_flags(cfg: UNetConfig, attn_int8, attn_ranges, mp_states)
                          f"attn_ranges {'given' if attn_ranges is not None else 'None'})")
     if cfg.attn_variant != "enhanced" and mp_states:
         raise ValueError("mp_states (the stage-3 mixed-precision core) apply to the enhanced attention variant only")
-
-
-def _require(**flags):
-    for name, value in flags.items():
-        if name == "resblock_pallas":  # False, True (JAX's per-shape gate) or "all"
-            if value is False or value is True or (isinstance(value, str) and value == "all"):
-                continue
-        else:
-            want = {**_SERVING_FLAGS, "symmetric": True, "update": "ddim"}[name]
-            if value is want or value == want:
-                continue
-        raise NotImplementedError(f"{name}={value!r} is not ported yet; it comes with ROADMAP {_SLICE[name]}")
 
 
 # ---------------------------------------------------------------------------
@@ -250,8 +280,12 @@ def prepare_serving_runtime(qunet: QuantizedUNet, params, qstates: Dict[str, Act
 
     `weight_extras` {name: quant.adaround.WeightExtras} (AdaRound or GPTQ
     offsets, bias-correction means, pinned shrinks, refinements) change the
-    fold only; the kernels are the same.  An empty dict is no extras."""
-    _require(symmetric=symmetric)
+    fold only; the kernels are the same.  An empty dict is no extras.
+
+    `symmetric=False` raises ValueError: the serving epilogue has no rowsum
+    term, so asymmetric folds are the interception runtime's
+    (quant/int8_runtime.py), as in JAX."""
+    _require_symmetric(symmetric)
     if rank1 and steps is not None:
         raise ValueError("rank1 shared folds are whole-schedule by construction; drop step_chunk (the shared "
                          "fold is params-sized, chunking buys nothing)")
@@ -400,6 +434,16 @@ def _conv3_bf16(xq, zp, a_bit, lay_i: ServingLayer, *, plain: bool = False):
                plain=plain)
 
 
+def _conv3_dot(xq, zp, a_bit, lay_i: ServingLayer, dot_bf16: bool, *, plain: bool = False):
+    """A fused resblock's 3x3 conv -> (its output, the (inv_ws, zcbias) the
+    kernel reading it applies): with `dot_bf16` K1's bf16 mode, its dequant
+    fused, and identity vectors; without, K1's int32 accumulator and the
+    layer's own vectors."""
+    if dot_bf16:
+        return _conv3_bf16(xq, zp, a_bit, lay_i, plain=plain), _identity_of(lay_i.inv_ws)
+    return int8_conv3_qzero(xq, zp, a_bit, lay_i.gq, gqt=lay_i.gqt, plain=plain), (lay_i.inv_ws, lay_i.zcbias)
+
+
 def _epilogue(dot, lay_i: ServingLayer, co: int):
     """int32 accumulator -> f32 output (per-out-channel dequant + bias)."""
     return (dot.to(torch.float32) * lay_i.inv_ws + lay_i.zcbias)[..., :co]
@@ -407,8 +451,10 @@ def _epilogue(dot, lay_i: ServingLayer, co: int):
 
 def _conv_any(name, x, p, rt_i, qunet, qstates, step_idx, *, stride=1, padding="SAME",
               plain=False):
-    """Single conv outside the fused chains: int8 when the fold covers it,
-    the fake-quant float conv otherwise (conv_in)."""
+    """Single conv outside the fused chains: int8 (K1, int32 mode) when the
+    fold covers it at stride 1, the fake-quant float conv otherwise (conv_in,
+    convs of fewer than 64 input channels, a downsample conv off the fold),
+    or the float conv where the conv has no quant state."""
     lay = rt_i.get(name)
     if lay is not None and stride == 1:
         a_bit = qunet.policy[name].a_bit
@@ -425,12 +471,6 @@ def _conv_any(name, x, p, rt_i, qunet, qstates, step_idx, *, stride=1, padding="
     return conv2d(x, p, stride=stride, padding=padding)
 
 
-def _uncovered(name):
-    return NotImplementedError(
-        f"{name}: convs the int8 fold does not cover (fewer than 64 input channels, or "
-        f"channels off the 128 grid) take the unfused serving branch, not ported yet (ROADMAP {_FLAGS})")
-
-
 @functools.lru_cache(maxsize=None)
 def _identity_dequant(n: int, dtype, device):
     """(ones [n], zeros [n]): the inv_ws / zcbias handed to K2 and K7 for a
@@ -442,10 +482,27 @@ def _identity_of(v):
     return _identity_dequant(v.shape[-1], v.dtype, v.device)
 
 
-def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, entry_sums=None,
-                    want_exit_stats=False, entry_pallas=False, resblock_pallas=False, plain=False):
+def _shortcut(name, p, h_res, rt_i, qunet, qstates, step_idx, *, plain=False):
+    """The resblock's shortcut: the identity, `h_res` in the stream's dtype
+    (K7 reads it as it is; its f32 conversion is exact, so these are the bits
+    of an f32 copy without the copy), or the 1x1 `nin_shortcut` through
+    `_conv_any`, as JAX."""
+    if "nin_shortcut" not in p:
+        return h_res
+    return _conv_any(f"{name}.nin_shortcut", h_res.to(torch.float32), p["nin_shortcut"], rt_i, qunet, qstates,
+                     step_idx, plain=plain)
+
+
+def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, qstates=None, step_idx=0, entry_sums=None,
+                    want_exit_stats=False, dot_bf16=True, entry_pallas=False, resblock_pallas=False, plain=False):
     """norm1 -> swish -> conv1 -> (+temb) -> norm2 -> swish -> conv2 (+shortcut),
-    the `dot_bf16` fused branch.  Returns (residual', exit sums or None).
+    fused where the fold covers both convs with conv1's output unpadded
+    (JAX's `fused`).  Returns (residual', exit sums or None).
+
+    `dot_bf16`: each conv is K1 with its dequant fused, writing bf16, and
+    K2 / K6 read that; without it the convs write K1's int32 accumulator and
+    K2 / K6 (or K7) dequantize it with `inv_ws` / `zcbias`.  A block the fold
+    does not cover runs JAX's unfused chain (plain GroupNorm, `_conv_any`).
 
     Boundary fusion: `entry_sums` are the previous fused exit's GroupNorm
     sums over this block's input (norm1 skips its statistics pass);
@@ -454,14 +511,22 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, entry_s
     c1, c2 = rt_i.get(f"{name}.conv1"), rt_i.get(f"{name}.conv2")
     a1, a2 = qunet.policy[f"{name}.conv1"], qunet.policy[f"{name}.conv2"]
     co1, co2 = p["conv1"]["kernel"].shape[3], p["conv2"]["kernel"].shape[3]
-    if c1 is None or c2 is None or c1.zcbias.shape[-1] != co1:
-        raise _uncovered(name)
     # [B, co1]; from a shared timestep's one row (serving_unet_apply), expanded over the batch
     tproj = dense(swish(temb_act), p["temb_proj"]).to(torch.float32).expand(h_res.shape[0], -1)
 
+    if not (c1 is not None and c2 is not None and c1.zcbias.shape[-1] == co1):
+        # the unfused chain, each conv dispatched on its own
+        hf = h_res.to(torch.float32)
+        h = _conv_any(f"{name}.conv1", swish(group_norm(hf, p["norm1"])), p["conv1"], rt_i, qunet, qstates, step_idx,
+                      plain=plain)
+        h = swish(group_norm(h + tproj[:, None, None, :], p["norm2"]))
+        h = _conv_any(f"{name}.conv2", h, p["conv2"], rt_i, qunet, qstates, step_idx, plain=plain)
+        x_sc = _shortcut(name, p, h_res, rt_i, qunet, qstates, step_idx, plain=plain)
+        return (x_sc.to(torch.float32) + h).to(res_dtype), None
+
     # K12: identity-residual blocks outside boundary fusion run whole, gated
     # per shape by JAX's conv policy unless "all"
-    if (resblock_pallas and entry_sums is None and not want_exit_stats and "nin_shortcut" not in p
+    if (dot_bf16 and resblock_pallas and entry_sums is None and not want_exit_stats and "nin_shortcut" not in p
             and h_res.shape[-1] == co1 == co2 and c1.gq.shape[-1] == co1 and c2.gq.shape[-1] == co2):
         B_, H_, W_, C_ = h_res.shape
         if resblock_pallas_fits(B_, H_, W_, C_) and (
@@ -475,32 +540,21 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, entry_s
 
     (hq,) = _entry_gn_quant(h_res, p["norm1"], [(c1.act_scale, c1.act_zp, a1.a_bit)], sums=entry_sums,
                             entry_pallas=entry_pallas, plain=plain)
-    hq2 = epilogue_gn_swish_quant(
-        _conv3_bf16(hq, c1.act_zp, a1.a_bit, c1, plain=plain),
-        *_identity_of(c1.inv_ws), tproj,
-        p["norm2"]["scale"], p["norm2"]["bias"], c2.act_scale, c2.act_zp, a2.a_bit, plain=plain,
-    )
-    dot2 = _conv3_bf16(hq2, c2.act_zp, a2.a_bit, c2, plain=plain)
+    dot1, epi1 = _conv3_dot(hq, c1.act_zp, a1.a_bit, c1, dot_bf16, plain=plain)
+    hq2 = epilogue_gn_swish_quant(dot1, *epi1, tproj, p["norm2"]["scale"], p["norm2"]["bias"], c2.act_scale,
+                                  c2.act_zp, a2.a_bit, plain=plain)
+    dot2, epi2 = _conv3_dot(hq2, c2.act_zp, a2.a_bit, c2, dot_bf16, plain=plain)
 
-    if "nin_shortcut" in p:
-        sname = f"{name}.nin_shortcut"
-        lay = rt_i.get(sname)
-        if lay is None:
-            raise _uncovered(sname)
-        xq = _quant_i8(h_res.to(torch.float32), lay.act_scale, lay.act_zp, qunet.policy[sname].a_bit)
-        x_sc = _epilogue(int8_conv(xq, lay.gq, 1, gqt=lay.gqt, plain=plain), lay, p["nin_shortcut"]["kernel"].shape[3])
-    else:
-        # the identity shortcut in the stream's dtype: K7 reads it as it is (its f32 conversion is exact, so
-        # these are the bits of an f32 copy, without the copy)
-        x_sc = h_res
-    # identity dequant below: dot2 already carries inv_ws + zcbias
+    x_sc = _shortcut(name, p, h_res, rt_i, qunet, qstates, step_idx, plain=plain)
     B, Np = dot2.shape[0], dot2.shape[-1]
     if want_exit_stats and Np == co2 and epilogue_residual_gn_stats_fits(dot2.numel() // (B * Np), Np):
-        return epilogue_residual_gn_stats(dot2, *_identity_of(c2.inv_ws), x_sc, out_dtype=res_dtype, plain=plain)
-    return (x_sc.to(torch.float32) + dot2.to(torch.float32)[..., :co2]).to(res_dtype), None
+        return epilogue_residual_gn_stats(dot2, *epi2, x_sc, out_dtype=res_dtype, plain=plain)
+    h = dot2.to(torch.float32)[..., :co2] if dot_bf16 else _epilogue(dot2, c2, co2)
+    return (x_sc.to(torch.float32) + h).to(res_dtype), None
 
 
-def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=None, plain=False):
+def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=None, qstates=None, step_idx=0,
+                plain=False):
     """DDIM single-head attention with int8 q/k/v/proj_out projections.
 
     Where the map fits JAX's whole-block budget: K3, with `int8_core =
@@ -510,14 +564,25 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
     step's calibrated ranges `ar_i` (the quantization at scale absmax / 127
     in plain torch, as XLA fuses it into the projection epilogues), K8
     without them, or with `attn_int8=False` the float32 `spatial_attention`;
-    then proj_out's int8 GEMM, dequant and the residual add."""
+    then proj_out's int8 GEMM, dequant and the residual add.  Where the fold
+    does not cover the projections (fewer than 64 channels), JAX's
+    fake-quant branch: plain GroupNorm, the four projections as fake-quant
+    float convs (`qstates` at `step_idx`) around `spatial_attention`."""
     B, H, W, C = h_res.shape
     L = H * W
     names = [f"{name}.{k}" for k in ("q", "k", "v", "proj_out")]
     lays = [rt_i.get(n) for n in names]
     pols = [qunet.policy[n] for n in names]
     if any(lay is None for lay in lays):
-        raise _uncovered(name)
+        hf = h_res.to(torch.float32)
+        h = group_norm(hf, p["norm"])
+
+        def fq_conv(key, x):
+            return _conv_any(f"{name}.{key}", x, p[key], rt_i, qunet, qstates, step_idx, plain=plain)
+
+        q, k, v = (fq_conv(key, h).reshape(B, L, C) for key in ("q", "k", "v"))
+        h = spatial_attention(q, k, v, scale=C ** -0.5, plain=plain).reshape(B, H, W, C)
+        return (hf + fq_conv("proj_out", h)).to(res_dtype)
     lq, lk, lv, lo = lays
     qp = [(lay.act_scale, lay.act_zp, pol.a_bit) for lay, pol in zip(lays[:3], pols[:3])]
     scale = C ** -0.5
@@ -600,6 +665,12 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     """Fused int8-resident forward (eps, float32).  Mirrors
     models/unet.unet_apply at inference.
 
+    `residual_dtype` (float32, JAX's default, or bfloat16) is the stream
+    between blocks.  `dot_bf16` (default True) fuses each resblock conv's
+    dequant into K1 and hands K2 / K6 / K7 bf16; False hands them K1's int32
+    accumulator.  `conv_pallas` takes JAX's values and changes nothing here
+    (every int8 conv is K1 already).
+
     The three levers, each routed by JAX's predicates: `entry_pallas` sends
     every resblock and conv_out entry whose image fits through K4;
     `boundary_fusion` fuses a resblock exit with the next block's GroupNorm
@@ -621,8 +692,8 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     `t` [B]: the batch's timesteps; one timestep expanded over the batch
     (stride 0) computes its embedding once.  `plain=True` runs the kernels'
     plain versions instead, on any device (for comparisons)."""
-    _require(residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
-             resblock_pallas=resblock_pallas)
+    _check_flags(residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
+                 resblock_pallas=resblock_pallas)
     check_ported(cfg)
     _require_attention_flags(cfg, attn_int8, attn_ranges, mp_states)
     rt_i = gather_step(runtime, step_idx)
@@ -637,9 +708,14 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
             return _attn_fused_enhanced(nm, pp, hh, rt_i, qunet, qstates, step_idx, res, mp_ctx=mp_ctx, plain=plain)
     else:
         def attn_site(nm, pp, hh):
-            return _attn_fused(nm, pp, hh, rt_i, qunet, res, attn_int8=attn_int8, ar_i=ar_i, plain=plain)
+            return _attn_fused(nm, pp, hh, rt_i, qunet, res, attn_int8=attn_int8, ar_i=ar_i, qstates=qstates,
+                               step_idx=step_idx, plain=plain)
     num_levels = len(cfg.ch_mult)
-    levers = dict(entry_pallas=bool(entry_pallas), resblock_pallas=resblock_pallas, plain=plain)
+    levers = dict(qstates=qstates, step_idx=step_idx, dot_bf16=dot_bf16, entry_pallas=bool(entry_pallas),
+                  resblock_pallas=resblock_pallas, plain=plain)
+
+    def conv_site(nm, h, **kw):
+        return _conv_any(nm, h, lookup(params, nm), rt_i, qunet, qstates, step_idx, plain=plain, **kw)
 
     # a timestep shared by the batch (a stride-0 t, as the sampler passes it) takes the time embedding and
     # the resblocks' projections of its one row: the same bits at any batch size (a [B, C] matmul's rounding
@@ -648,8 +724,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     temb = get_timestep_embedding(t1, cfg.ch)
     temb = dense(swish(dense(temb, params["temb"]["dense0"])), params["temb"]["dense1"])
 
-    hs = [_conv_any("conv_in", x.to(torch.float32), params["conv_in"], rt_i, qunet, qstates,
-                    step_idx, plain=plain).to(res)]
+    hs = [conv_site("conv_in", x.to(torch.float32)).to(res)]
     # boundary fusion: `sums` carries the previous fused exit's GroupNorm sums
     # only while the next consumer is a resblock norm1 over exactly that
     # tensor; attention, downsampling and the up path's concats reset it
@@ -669,13 +744,17 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
             sums = None
             nm = f"down.{i_level}.downsample.conv"
             lay = rt_i.get(nm)
-            if lay is None:
-                raise _uncovered(nm)
-            # int8 stride-2 downsample (asymmetric quantized-zero pad)
-            a_bit = qunet.policy[nm].a_bit
-            xq = _quant_i8(hs[-1].to(torch.float32), lay.act_scale, lay.act_zp, a_bit)
-            dot = int8_conv3_qzero_down(xq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
-            hs.append(_epilogue(dot, lay, lookup(params, nm)["kernel"].shape[3]).to(res))
+            if not cfg.resamp_with_conv:
+                hd = avg_pool2(hs[-1].to(torch.float32))
+            elif lay is not None:
+                # int8 stride-2 downsample (asymmetric quantized-zero pad)
+                a_bit = qunet.policy[nm].a_bit
+                xq = _quant_i8(hs[-1].to(torch.float32), lay.act_scale, lay.act_zp, a_bit)
+                dot = int8_conv3_qzero_down(xq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
+                hd = _epilogue(dot, lay, lookup(params, nm)["kernel"].shape[3])
+            else:  # off the fold: the (0, 1) zero pad, then the fake-quant stride-2 conv, as the FP graph
+                hd = conv_site(nm, F.pad(hs[-1], (0, 0, 0, 1, 0, 1)), stride=2, padding="VALID")
+            hs.append(hd.to(res))
 
     h = hs[-1]
     h, _ = _resblock_fused("mid.block_1", params["mid"]["block_1"], h, temb, rt_i, qunet, res,
@@ -692,23 +771,25 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                 h = attn_site(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h)
         if i_level != 0:
             nm = f"up.{i_level}.upsample.conv"
-            lay = rt_i.get(nm)
-            if lay is None:
-                raise _uncovered(nm)
-            # int8-domain nearest upsample: quantize at low resolution, then
-            # repeat the int8 entries (nearest resize commutes exactly with
-            # per-channel quantization)
-            a_bit = qunet.policy[nm].a_bit
-            xq = _quant_i8(h.to(torch.float32), lay.act_scale, lay.act_zp, a_bit)
-            xq = xq.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-            dot = int8_conv3_qzero(xq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
-            h = _epilogue(dot, lay, lookup(params, nm)["kernel"].shape[3]).to(res)
+            lay = rt_i.get(nm) if cfg.resamp_with_conv else None
+            if lay is not None:
+                # int8-domain nearest upsample: quantize at low resolution, then
+                # repeat the int8 entries (nearest resize commutes exactly with
+                # per-channel quantization)
+                a_bit = qunet.policy[nm].a_bit
+                xq = nearest_up2(_quant_i8(h.to(torch.float32), lay.act_scale, lay.act_zp, a_bit))
+                dot = int8_conv3_qzero(xq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
+                h = _epilogue(dot, lay, lookup(params, nm)["kernel"].shape[3]).to(res)
+            else:
+                h = nearest_up2(h)
+                if cfg.resamp_with_conv:
+                    h = conv_site(nm, h).to(res)
     assert not hs
 
-    # norm_out -> swish -> conv_out, int8
+    # norm_out -> swish -> conv_out: int8, or off the fold the fake-quant float conv
     lay = rt_i.get("conv_out")
     if lay is None:
-        raise _uncovered("conv_out")
+        return conv_site("conv_out", swish(group_norm(h.to(torch.float32), params["norm_out"]))).to(torch.float32)
     a_bit = qunet.policy["conv_out"].a_bit
     (hq,) = _entry_gn_quant(h, params["norm_out"], [(lay.act_scale, lay.act_zp, a_bit)],
                             entry_pallas=bool(entry_pallas), plain=plain)
@@ -759,8 +840,10 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
     (`serving_unet_apply`).  The states are indexed by the diffusion
     timestep, not the step, so a chunk takes them whole."""
     check_eta(eta)
-    _require(update=update, residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
-             resblock_pallas=resblock_pallas)
+    _check_update(update)
+    _check_flags(residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
+                 resblock_pallas=resblock_pallas)
+    _require_symmetric(symmetric)
     _require_attention_flags(qunet.cfg, attn_int8, attn_ranges, mp_states)
     if runtime is not None and step_chunk is not None:
         raise ValueError("a prebuilt runtime holds all steps' folds: incompatible with step_chunk's per-chunk folds")
@@ -779,8 +862,8 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
     if runtime is None and step_chunk is None:
         runtime = fold()
     flags = dict(residual_dtype=residual_dtype, attn_int8=attn_int8, boundary_fusion=boundary_fusion,
-                 entry_pallas=entry_pallas, resblock_pallas=resblock_pallas, mp_states=mp_states,
-                 mp_base_bits=mp_base_bits)
+                 dot_bf16=dot_bf16, entry_pallas=entry_pallas, conv_pallas=conv_pallas,
+                 resblock_pallas=resblock_pallas, mp_states=mp_states, mp_base_bits=mp_base_bits)
 
     def run(x, rt, qs, ar, lo, hi):
         """Steps lo .. hi - 1 of the schedule, with the fold `rt` and states `qs` of those steps."""
@@ -794,7 +877,8 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
     def sample(x):
         xs = list(x.split(micro_batch or x.shape[0]))
         for n in sorted({xi.shape[0] for xi in xs}):
-            require_gn_kernels(qunet.cfg, x.device, n, entry_pallas=entry_pallas, boundary_fusion=boundary_fusion,
+            require_gn_kernels(qunet.cfg, x.device, n, residual_dtype=residual_dtype, dot_bf16=dot_bf16,
+                               entry_pallas=entry_pallas, boundary_fusion=boundary_fusion,
                                resblock_pallas=resblock_pallas)
         require_attention_kernels(qunet.cfg, x.device, attn_int8=attn_int8, attn_ranges=attn_ranges)
         if step_chunk is None:

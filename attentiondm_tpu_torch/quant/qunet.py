@@ -23,12 +23,15 @@ import dataclasses
 from typing import Dict
 
 from ..models.unet import UNetConfig, conv2d, iter_conv_layers, lookup, map_tree, unet_apply
+from ..ops.quant_conv import quantized_conv2d_int8
+from .int8_runtime import _eligible
 from .state import (
     ActQuantConfig,
     ActQuantState,
     WeightQuantState,
     init_act_quant_state,
     make_weight_quant_state,
+    mixed_ranges,
     quantize_activation,
     quantize_activation_mixture,
     quantize_weight_per_channel,
@@ -101,14 +104,16 @@ def make_quant_conv_apply(qstates: Dict[str, ActQuantState], policy: Dict[str, A
       mixture - the calibration path: the G group ranges each quantize the
                 input and softmax(alpha_logits) mixes the G outputs, so
                 gradients reach the logits;
+      int8    - true int8 convs: an eligible conv (1x1 or 3x3, stride 1,
+                at least 64 input channels) quantizes its input at the
+                step's mixed ranges, folds those scales into its kernel,
+                quantizes it per output channel at w_bit (asymmetric) and
+                runs `ops/quant_conv.quantized_conv2d_int8` (K13 / K5 on K1);
+                the other convs take the infer path (pass the `prepare_params`
+                weights, so that they are weight-quantized too);
       collect - no quantization; each conv's per-channel input (min, max)
                 into `collect[name]`;
-      off     - the plain float conv.
-    Mode "int8" (true int8 convs through the interception runtime) comes
-    with ROADMAP Queue 1 item 5 and raises."""
-    if mode == "int8":
-        raise NotImplementedError("mode='int8' (the interception runtime) is not ported yet; it comes with ROADMAP "
-                                  "Queue 1 item 5")
+      off     - the plain float conv."""
 
     def conv_apply(name, x, p, *, stride=1, padding="SAME"):
         if mode == "collect" and collect is not None:
@@ -119,7 +124,11 @@ def make_quant_conv_apply(qstates: Dict[str, ActQuantState], policy: Dict[str, A
             return conv2d(x, p, stride=stride, padding=padding)
         st, bits = qstates[name], policy[name].a_bit
         xf = x.float()
-        if mode == "infer":
+        if mode == "int8" and _eligible(p["kernel"].shape, stride):
+            rmin, rmax = mixed_ranges(st, step_idx)
+            return quantized_conv2d_int8(xf, p["kernel"].float(), p["bias"].float(), rmin, rmax, bits,
+                                         policy[name].w_bit).to(x.dtype)
+        if mode in ("infer", "int8"):
             xq = quantize_activation(xf, st, step_idx, bits)
         elif mode == "mixture":
             xq = quantize_activation_mixture(xf, st.group_ranges[step_idx], st.alpha_logits[step_idx], bits)

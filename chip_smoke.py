@@ -2,11 +2,11 @@
 """Smoke run of the PyTorch / CUDA port (`attentiondm_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--steps 10] [--seed 0] [--profile]
-                          [--paths cifar10,church,celeba-wide,imagenet64,cifar10-enhanced]
+                          [--paths cifar10,church,celeba-wide,imagenet64,cifar10-enhanced,cifar10-f32]
 
 (`--profile` adds, after the last phase, torch.profiler's device time per
 kernel for one run of each sampler; `--paths` runs only the paths named,
-all five by default.)
+all six by default.)
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
@@ -131,6 +131,29 @@ all five by default.)
       from the plain one (it must differ) and from the fake-quant MP model's;
    c. levers: one per-site step of the MP sampler with the three levers,
       launch-counted.
+7. cifar10-f32: CIFAR-10's UNet at JAX's default float32 residual stream,
+   batch 128, --steps quad steps, the f32 attention core:
+   a. kernels (`f32_kernel_phase`): K3 at an f32 residual (K3's tolerance
+      restated for an f32 output, `ops.checks.compare`; also church's (32,
+      256, 512) and imagenet64's (32, 64, 1024), checked, not counted), K12
+      at f32, K1's f32 residual-add epilogue (EPI_RESADD_F32, K3's and K12's
+      last launch) alone, K4 on the f32 stream and K7 with an f32 residual
+      and output (each bit-equal), K2 on the int32 accumulator
+      (dot_bf16=False), K13 / K5 at every conv of the interception
+      runtime's step;
+   b. slice: teacher, stage 1, the fold, the f32-stream sampler (levers
+      off), counted and checked as 3b;
+   c. f32 (`f32_phase`): the sampler with the three levers, with
+      dot_bf16=False, with conv_pallas=True (held bit-equal to the levers-off
+      sample), each counted and checked site by site; then the device time
+      of one run of the bf16 and f32 samplers (levers off, all three) and of
+      dot_bf16=False, each replayed as a CUDA graph in this one call;
+   d. interception (`interception_phase`): `prepare_int8_runtime` with
+      symmetric and asymmetric folds, each as an `int8_model_fn` DDIM
+      sampler (launch counts against `ops.checks.interception_launches`),
+      one step held site by site and chained against the plain step, its
+      device time; one `QuantizedUNet.apply(mode="int8")` forward, counted
+      and held site by site.
 Prints a JSON line of per-kernel results, then {"ok": true, "device": ...}
 as the last line.  Any failure raises (nonzero exit, no result line); so
 does a machine without a CUDA device.
@@ -145,7 +168,8 @@ import sys
 import time
 
 CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative error (gross faults only)
-BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32, "cifar10-enhanced": 128}
+BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32, "cifar10-enhanced": 128,
+         "cifar10-f32": 128}
 MAX_STEPS = {"church": 4, "imagenet64": 4}  # a shallower schedule where the path is long
 LEVER_ROUNDS = 3  # timed runs per lever setting, taken in turns
 F32_CORE = dict(attn_int8=False)  # the attention flag of the CIFAR-10 and church paths (bench.py's)
@@ -183,6 +207,19 @@ META = {  # kernel -> (wrapper, source, the TPU kernel it replaces)
     # the core kernel of K3's chain alone; each K3 launch on the path runs it once
     "K3.core": ("attention_core (K3's f32 core alone)", "attentiondm_tpu_torch/csrc/int8_attention.cu",
                 "attentiondm_tpu/ops/int8_attention.py:448"),
+    # the cifar10-f32 path: the float32 residual stream, dot_bf16=False
+    "K3.f32": ("fused_attention_block, f32 residual", "attentiondm_tpu_torch/csrc/int8_attention.cu",
+               "attentiondm_tpu/ops/int8_attention.py:448"),
+    "K12.f32": ("resblock_pallas, f32 residual", "attentiondm_tpu_torch/csrc/resblock.cu",
+                "attentiondm_tpu/ops/pallas_resblock.py:114"),
+    "K1.resadd_f32": ("int8_conv f32 residual-add mode (EPI_RESADD_F32; K3's and K12's last launch)",
+                      "attentiondm_tpu_torch/csrc/igemm.cuh", "attentiondm_tpu/ops/pallas_conv.py:97"),
+    "K4.f32": ("gn_act_quant, f32 residual", "attentiondm_tpu_torch/csrc/gn_act_quant.cu",
+               "attentiondm_tpu/ops/fused_gn.py:109"),
+    "K7.f32": ("epilogue_residual_gn_stats, f32 residual and out",
+               "attentiondm_tpu_torch/csrc/epilogue_residual_gn_stats.cu", "attentiondm_tpu/ops/fused_gn.py:292"),
+    "K2.int32": ("epilogue_gn_swish_quant_whole, int32 accumulator (dot_bf16=False)",
+                 "attentiondm_tpu_torch/csrc/fused_gn.cu", "attentiondm_tpu/ops/fused_gn.py:188"),
 }
 # which sampler run of the celeba-wide path a kernel's launch count is read from
 ATTN_RUN = {"K10": "static int8", "K9": "static int8", "K3.int8_core": "static int8", "K8": "dynamic int8",
@@ -232,6 +269,9 @@ def path_config(path):
 
     if path == "cifar10":
         return UNetConfig(), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000), "UNetConfig() CIFAR-10"
+    if path == "cifar10-f32":
+        return (UNetConfig(), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
+                "UNetConfig() CIFAR-10, the float32 residual stream")
     if path == "cifar10-enhanced":
         return (UNetConfig(attn_variant="enhanced"), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
                 "UNetConfig(attn_variant=\"enhanced\") CIFAR-10")
@@ -796,6 +836,348 @@ def attention_kernel_phase(cfg, batch, gen, dev, report):
     torch.cuda.empty_cache()
 
 
+def f32_kernel_phase(cfg, batch, gen, dev, report):
+    """The kernels the float32 stream, dot_bf16=False and the interception
+    runtime reach, each against its plain version at the shapes its CIFAR-10
+    step gives it, timed: K3 at a float32 residual (K3's tolerance restated
+    for an f32 output; also church's (32, 256, 512) and imagenet64's (32,
+    64, 1024), checked and printed, not counted), K12 at f32 (bit-equal), K1's
+    f32 residual-add epilogue at K3's and K12's last GEMM (bit-equal), K4 on
+    the f32 stream and K7 with an f32 residual and output at the lever
+    shapes, K2 on conv1's int32 accumulator (dot_bf16=False), and K13 / K5
+    (K1's int32 3x3 and 1x1 modes) at every conv of the interception
+    runtime's step, weighted by that step's launches."""
+    import torch
+
+    from attentiondm_tpu_torch.models.unet import iter_conv_layers
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.ops.fused_gn import epilogue_gn_swish_quant, epilogue_residual_gn_stats, gn_act_quant
+    from attentiondm_tpu_torch.ops.int8_attention import fused_attention_block
+    from attentiondm_tpu_torch.ops.pallas_conv import int8_conv, k_major
+    from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas
+    from attentiondm_tpu_torch.quant.int8_runtime import _eligible
+
+    f32 = torch.float32
+
+    def randint8(shape, lo, hi):
+        return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8).to(dev)
+
+    def randf(shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+
+    def timed(fn, plain_reps=10):
+        return time_ms(fn), device_ms(fn), time_ms(lambda: fn(plain=True), reps=plain_reps)
+
+    def quant(C, lo, hi):  # an 8-bit range [lo, hi] as (scale, zero point)
+        sc = 255 / (hi - lo)
+        return torch.full((C,), sc, device=dev), torch.full((C,), round(sc * lo) + 128.0, device=dev)
+
+    # K3 at a float32 residual: CIFAR-10's shapes (counted), church's and imagenet64's (checked)
+    _k1, _k2, _k6, k3, _composed = checks.conv_plan(cfg)
+    k3_shapes = [(batch, L, C, n) for (L, C), n in sorted(collections.Counter(k3).items())]
+    for B, L, C, n in k3_shapes + [(32, 256, 512, 0), (32, 64, 1024, 0)]:
+        x = randf((B, L, C), 2.0, 0.3)
+        qkv_quant = [(torch.full((C,), 255 / 8.0, device=dev), torch.zeros(C, device=dev), b) for b in (8, 6, 8)]
+        qkv_weights = [weights_kmajor(randint8((C, C), -8, 7), randf((C,), 1e-5, 2e-4).abs(), randf((C,), 0.1))
+                       for _ in range(3)]
+        o_quant = (torch.full((C,), 255 / 4.0, device=dev), torch.zeros(C, device=dev), 8)
+        o_weights = weights_kmajor(randint8((C, C), -8, 7), randf((C,), 1e-5, 1e-3).abs(), randf((C,), 0.1))
+        args = (x, randf((C,), 0.1, 1.0), randf((C,), 0.1), qkv_quant, qkv_weights, o_quant, o_weights)
+
+        def k3_call(plain=False):
+            return fused_attention_block(*args, scale=C ** -0.5, plain=plain)
+
+        f = _held("K3", f"f32 residual B={B} L={L} C={C}", k3_call(), k3_call(plain=True))
+        ms, dms, pms = timed(k3_call)
+        # f32 residual in and out, four folds; the projections int8, the core 3xTF32 (as K3's bf16 bound)
+        b = bound(2 * nbytes(x) + 4 * C * C + 16 * 4 * C, int8_ops=4 * 2 * B * L * C * C,
+                  tf32x3_flops=2 * 2 * B * L * L * C, f32_flops=30 * x.numel() + 5 * B * L * L)
+        if n:
+            report.add("K3.f32", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
+        print(f"[kernels] K3 fused_attention_block, f32 residual, B={B} L={L} C={C} x{n}/step: {_fig(f)}; "
+              f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+        if n:  # K1's f32 residual-add mode alone at proj_out's GEMM: [B * L, C] rows
+            o8 = randint8((B, L, 1, C), -128, 127)
+            gq, iw, zc, gqt = o_weights
+            res = x.reshape(B, L, 1, C)
+
+            def resadd(plain=False):
+                return int8_conv(o8, gq, iw, zc, ksize=1, out_dtype=f32, gqt=gqt, res=res, plain=plain)
+
+            f1 = _bit_equal("K1", f"f32 residual add, 1x1 {B * L}x{C}", resadd(), resadd(plain=True))
+            ms1, dms1, pms1 = timed(resadd)
+            b1 = bound(o8.numel() + C * C + 2 * nbytes(res) + 8 * C, int8_ops=2 * B * L * C * C,
+                       f32_flops=3 * res.numel())
+            report.add("K1.resadd_f32", f1["max_abs_err"], ms1, pms1, b1, weight=n, dev_ms=dms1)
+            print(f"[kernels] K1 int8_conv f32 residual add (K3's last launch) 1x1 rows={B * L} C={C} x{n}/step: "
+                  f"{_fig(f1)}, bit-equal; kernel {ms1:.4f} ms device {dms1:.4f} ms plain {pms1:.4f} ms "
+                  f"{_bound_fig(b1)}")
+        del x, args
+    torch.cuda.empty_cache()
+
+    # K4, K7 and K12 on the float32 stream at the three-lever step's shapes (bit-equal)
+    plan = checks.lever_plan(cfg, batch, **ALL_LEVERS)
+    for (HW, C), n in sorted(collections.Counter((HW, C) for _s, HW, C in plan["K4"]).items()):
+        x = randf((batch, HW, C), 2.0, 0.3)
+        x[..., :C // 32] += 40.0
+        args = (x, randf((C,), 0.1, 1.0), randf((C,), 0.1), [(*quant(C, -0.5, 4.0), 8)])
+
+        def k4(plain=False):
+            return gn_act_quant(*args, plain=plain)
+
+        f = _bit_equal("K4", f"f32 HW={HW} C={C}", k4(), k4(plain=True))
+        ms, dms, pms = timed(k4)
+        b = bound(nbytes(x) + x.numel() + 4 * 4 * C, f32_flops=16 * x.numel())
+        report.add("K4.f32", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
+        print(f"[kernels] K4 gn_act_quant, f32 residual, B={batch} HW={HW} C={C} x{n}/step: {_fig(f)}, bit-equal; "
+              f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+    for (HW, N), n in sorted(collections.Counter((HW, N) for _s, HW, N in plan["K7"]).items()):
+        H = int(HW ** 0.5)
+        dot = randf((batch, H, H, N), 1.5, 0.2).to(torch.bfloat16)
+        x_res = randf((batch, H, H, N), 2.0, 0.5)
+        x_res[..., :N // 32] += 40.0
+        args = (dot, torch.ones(N, device=dev), torch.zeros(N, device=dev), x_res)
+
+        def k7(plain=False):
+            return epilogue_residual_gn_stats(*args, out_dtype=f32, plain=plain)
+
+        got = k7()
+        f = _bit_equal("K7", f"f32 residual HW={HW} N={N}", got, k7(plain=True))
+        ms, dms, pms = timed(k7)
+        b = bound(nbytes(*args, *got), f32_flops=8 * dot.numel())
+        report.add("K7.f32", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
+        print(f"[kernels] K7 epilogue_residual_gn_stats, f32 residual and out, B={batch} HW={HW} N={N} x{n}/step: "
+              f"{_fig(f)}, bit-equal; kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+        del got
+    for (H, C), n in sorted(collections.Counter((H, C) for _s, H, C in plan["K12"]).items()):
+        def fold():
+            return randint8((9 * C, C), -8, 7), (randf((C,), 2e-5, 2e-4).abs(), randf((C,), 0.1))
+
+        (g1, sb1), (g2, sb2) = fold(), fold()
+        r = randf((batch, H, H, C), 1.5, 0.2)
+        args = (r, randf((batch, C)), randf((C,), 0.1, 1.0), randf((C,), 0.1), quant(C, -0.5, 4.0), g1, sb1,
+                randf((C,), 0.1, 1.0), randf((C,), 0.1), quant(C, -0.5, 3.0), g2, sb2)
+        kt = dict(g1_t=k_major(g1), g2_t=k_major(g2), out_dtype=f32)
+
+        def k12(plain=False):
+            return resblock_pallas(*args, **kt, plain=plain)
+
+        f = _bit_equal("K12", f"f32 H={H} C={C}", k12(), k12(plain=True))
+        ms, dms, pms = timed(k12)
+        b = bound(2 * nbytes(r) + nbytes(g1, g2) + 4 * batch * C + 12 * 4 * C,
+                  int8_ops=2 * 2 * r.numel() * 9 * C, f32_flops=(16 + 18 + 3) * r.numel())
+        report.add("K12.f32", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
+        print(f"[kernels] K12 resblock_pallas, f32 residual, B={batch} H={H} C={C} x{n}/step: {_fig(f)}, bit-equal; "
+              f"kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+        # K1's f32 residual-add mode alone at conv2's GEMM: the halo'd int8 input, r added
+        xp = randint8((batch, H + 2, H + 2, C), -128, 127)
+
+        def resadd(plain=False):
+            return int8_conv(xp, g2, *sb2, ksize=3, out_dtype=f32, gqt=kt["g2_t"], res=r, plain=plain)
+
+        f1 = _bit_equal("K1", f"f32 residual add, 3x3 H={H} C={C}", resadd(), resadd(plain=True))
+        ms1, dms1, pms1 = timed(resadd)
+        b1 = bound(batch * H * H * C + 9 * C * C + 2 * nbytes(r) + 8 * C, int8_ops=2 * r.numel() * 9 * C,
+                   f32_flops=3 * r.numel())
+        report.add("K1.resadd_f32", f1["max_abs_err"], ms1, pms1, b1, weight=n, dev_ms=dms1)
+        print(f"[kernels] K1 int8_conv f32 residual add (K12's last launch) 3x3 H={H} C={C} x{n}/step: {_fig(f1)}, "
+              f"bit-equal; kernel {ms1:.4f} ms device {dms1:.4f} ms plain {pms1:.4f} ms {_bound_fig(b1)}")
+        del r, args, xp
+    torch.cuda.empty_cache()
+
+    # K2 on conv1's int32 accumulator (dot_bf16=False), every epilogue shape of the step
+    _k1, k2, _k6, _k3, _composed = checks.conv_plan(cfg, dot_bf16=False)
+    for (HW, N), n in sorted(collections.Counter(k2).items()):
+        H = int(HW ** 0.5)
+        dot = torch.randint(-20000, 20000, (batch, H, H, N), generator=gen, dtype=torch.int32).to(dev)
+        zcbias = randf((N,))
+        zcbias[:N // 32] += 40.0
+        args = (dot, randf((N,), 2e-5, 1e-4).abs(), zcbias, randf((batch, N)), randf((N,), 0.1, 1.0), randf((N,), 0.1),
+                torch.full((N,), 255 / 4.5, device=dev), torch.full((N,), round(255 / 4.5 * -0.5) + 128.0, device=dev),
+                8)
+
+        def k2(plain=False):
+            return epilogue_gn_swish_quant(*args, plain=plain)
+
+        f = _bit_equal("K2", f"int32 HW={HW} N={N}", k2(), k2(plain=True))
+        ms, dms, pms = timed(k2)
+        b = bound(nbytes(*args[:8]) + dot.numel(), f32_flops=18 * dot.numel())
+        report.add("K2.int32", f["max_abs_err"], ms, pms, b, weight=n, dev_ms=dms)
+        print(f"[kernels] K2 epilogue_gn_swish_quant, int32 accumulator, B={batch} HW={HW} N={N} x{n}/step: "
+              f"{_fig(f)}, bit-equal; kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}")
+    torch.cuda.empty_cache()
+
+    # K13 / K5: every conv of the interception runtime's step (the folded convs at stride 1), by shape
+    levels = len(cfg.ch_mult)
+    convs = collections.Counter()
+    for name, cin, k in iter_conv_layers(cfg):
+        parts = name.split(".")
+        if parts[-2:-1] == ["downsample"] or not _eligible((k, k, cin, 0)):
+            continue
+        lvl = levels - 1 if parts[0] == "mid" else 0 if parts[0] == "conv_out" else int(parts[1])
+        H = (cfg.resolution >> lvl) * (2 if parts[-2:-1] == ["upsample"] else 1)
+        cout = (cfg.out_ch if parts[0] == "conv_out" else cin if ".attn" in name or parts[-2:-1] == ["upsample"]
+                or parts[0] == "mid" else cfg.ch * cfg.ch_mult[lvl])
+        convs[H, cin, cout, k] += 1
+    for (H, cin, cout, k), n in sorted(convs.items()):
+        key = "K13" if k == 3 else "K5"
+        Cp, Np = -(-cin // 128) * 128, -(-cout // 128) * 128
+        xp = randint8((batch, H + k - 1, H + k - 1, Cp), -128, 127)
+        gq = randint8((k * k * Cp, Np), -8, 7)
+        gqt = k_major(gq)
+
+        def prod(plain=False):
+            return int8_conv(xp, gq, ksize=k, gqt=gqt, plain=plain)
+
+        f = _bit_equal(key, f"H={H} {cin}->{cout}", prod(), prod(plain=True))
+        ms, dms, pms = timed(prod, plain_reps=3)
+        rows = batch * H * H
+        b = bound(rows * cin + k * k * cin * cout + 4 * rows * cout, int8_ops=2 * rows * cout * k * k * cin)
+        lib, lib_fig = None, ""
+        if k == 1:  # the one library call for an int8 product: torch's private cuBLASLt int8 matmul, as kernel_phase
+            a2 = xp.reshape(-1, Cp)
+            try:
+                lib_out = torch._int_mm(a2, gq)
+            except RuntimeError as e:  # the yardstick is not available here: say why, time nothing
+                lib_fig = f" torch._int_mm none ({str(e).splitlines()[0][:80]})"
+            else:
+                if not torch.equal(lib_out.reshape(rows, Np), prod().reshape(rows, Np)):
+                    raise AssertionError(f"torch._int_mm disagrees with K5 at H={H} {cin}->{cout}")
+                lib = time_ms(lambda: torch._int_mm(a2, gq))
+                lib_fig = f" torch._int_mm {lib:.4f} ms"
+                del lib_out
+        report.add(key, f["max_abs_err"], ms, pms, b, weight=n, library_ms=lib, dev_ms=dms)
+        print(f"[kernels] {key} int8_conv int32 {k}x{k} B={batch} H={H} {cin}->{cout} (Cp={Cp} Np={Np}) x{n} a "
+              f"forward of the interception runtime: {_fig(f)}; kernel {ms:.4f} ms device {dms:.4f} ms plain "
+              f"{pms:.4f} ms{lib_fig} {_bound_fig(b)}")
+        del xp, gq, gqt
+    torch.cuda.empty_cache()
+
+
+F32_STREAM = "f32 stream"  # the f32 path's levers-off run: the float32 residual stream, the f32 attention core
+
+
+def f32_phase(ctx):
+    """The float32 stream's serving runs on the slice's params, calibration
+    and fold (its levers-off run is the slice's own): the three levers,
+    dot_bf16=False, conv_pallas=True (held bit-equal to conv_pallas=False),
+    each launch-counted and checked site by site; then one run of each of
+    these samplers and of the bf16 stream's (levers off and on) replayed as
+    a CUDA graph in one call (`graph_ms`), the device times beside each
+    other.  Returns {run: launch counts}."""
+    import torch
+
+    from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
+
+    x, steps, batch = ctx["x"], ctx["steps"], ctx["batch"]
+    f32 = dict(residual_dtype=torch.float32, **F32_CORE)
+    runs = {"three levers": {**f32, **ALL_LEVERS}, "dot_bf16=False": {**f32, "dot_bf16": False},
+            "conv_pallas=True": {**f32, "conv_pallas": True}}
+    counts = {}
+    for name, flags in runs.items():
+        _sample, out, counts[name] = run_sampler(ctx, f"f32 stream, {name}", flags, "f32")
+        if name == "conv_pallas=True":
+            same = torch.equal(out, ctx["out"])
+            print(f"[f32] conv_pallas=True: bit-equal to conv_pallas=False: {same}")
+            if not same:
+                raise AssertionError("conv_pallas=True changed the f32 stream's sample")
+        else:
+            rel = ((out - ctx["out"]).abs().mean() / ctx["out"].abs().mean()).item()
+            print(f"[f32] {name}: sample's mean rel difference from the levers-off f32 sample {rel:.3e} "
+                  f"(information only: another quantization path)")
+        del out
+
+    def sampler(**flags):
+        return serving_ddim_sampler(ctx["qunet"], ctx["params"], ctx["qstates"], ctx["seq"], ctx["betas"],
+                                    runtime=ctx["runtime"], **flags)
+
+    timed = {"bf16 stream, levers off": dict(residual_dtype=torch.bfloat16, **F32_CORE),
+             "bf16 stream, three levers": dict(residual_dtype=torch.bfloat16, **F32_CORE, **ALL_LEVERS),
+             "f32 stream, levers off": f32, "f32 stream, three levers": runs["three levers"],
+             "f32 stream, dot_bf16=False": runs["dot_bf16=False"]}
+    for name, flags in timed.items():
+        fn = sampler(**flags)
+        wall = min(time_ms(lambda: fn(x), reps=1) for _ in range(2))
+        dev_ms = graph_ms(lambda: fn(x))
+        print(f"[f32] serving sampler, {name}: device {dev_ms:.1f} ms for {steps} steps at batch {batch} "
+              f"({batch / dev_ms * 1e3:.2f} images/s at the device's rate), wall {wall:.1f} ms "
+              f"({batch / wall * 1e3:.2f} images/s); one run replayed as a CUDA graph")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def interception_phase(ctx):
+    """The interception runtime on the slice's params and calibration:
+    `prepare_int8_runtime` with symmetric and with asymmetric folds, each
+    driven as a --steps DDIM sampler through `int8_model_fn` (launch counts
+    against `checks.interception_launches`, a finite sample), one step held
+    site by site (K13 / K5 against their plain versions) and chained against
+    the plain step, its device time (a CUDA graph); then one
+    `QuantizedUNet.apply(mode="int8")` forward on the `prepare_params`
+    weights, counted and held site by site.  Returns the asymmetric
+    sampler's launch counts."""
+    import torch
+
+    from attentiondm_tpu_torch.diffusion.sampling import ddim_sample
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.quant.int8_runtime import int8_model_fn, prepare_int8_runtime
+
+    cfg, q, params, qstates, x = ctx["cfg"], ctx["qunet"], ctx["params"], ctx["qstates"], ctx["x"]
+    steps, batch = ctx["steps"], ctx["batch"]
+    t0 = torch.full((batch,), float(ctx["seq"][-1]), device=ctx["dev"])
+    expected = checks.interception_launches(cfg, steps)
+    outs, counts = {}, None
+    for label, sym in (("symmetric", True), ("asymmetric", False)):
+        rt = clock(f"{label} interception fold ({steps} steps)",
+                   lambda: prepare_int8_runtime(q, params, qstates, symmetric=sym), "interception")
+
+        def fn(plain=False):
+            return int8_model_fn(q, rt, params, qstates, symmetric=sym, plain=plain)
+
+        checks.reset_launches()
+        out = clock(f"int8_model_fn DDIM sampler, {label} folds ({steps} steps, batch {batch})",
+                    lambda: ddim_sample(fn(), x, ctx["seq"], ctx["betas"]), "interception")
+        counts = checks.read_launches()
+        print(f"[interception] {label}: launches {counts}, expected {expected}")
+        if counts != expected:
+            raise AssertionError(f"interception {label}: launch counts {counts} != expected {expected}")
+        if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"interception {label}: output {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+        held_step(lambda plain: fn(plain)(x, t0, 0), "interception")
+        # one step replayed as a CUDA graph (the sampler's schedule is built on the host per call, which a
+        # capture cannot hold; every step does the same work)
+        model = fn()
+        dev_ms = graph_ms(lambda: model(x, t0, 0))
+        print(f"[interception] {label} sampler: device {dev_ms:.2f} ms a step (one step replayed as a CUDA graph), "
+              f"{steps * dev_ms:.1f} ms for {steps} steps at batch {batch}; the f32 stream's levers-off sample lies "
+              f"{_rel(out, ctx['out']):.3e} from it (information only)")
+        outs[label] = out
+        del rt
+    print(f"[interception] asymmetric vs symmetric folds: samples {_rel(outs['asymmetric'], outs['symmetric']):.3e} "
+          f"apart (information only)")
+
+    qparams, _ = q.prepare_params(params)
+    want = checks.interception_launches(cfg, 1)
+    records = []
+    checks.reset_launches()
+    with checks.per_site(records):
+        eps = clock("QuantizedUNet.apply(mode=\"int8\"), one forward", lambda: q.apply(qparams, qstates, x, t0, 0,
+                                                                                      mode="int8"), "interception")
+    got = checks.read_launches()
+    bad = [r for r in records if not r[2]["ok"]]
+    print(f"[interception] qunet mode int8: launches {got}, expected {want}; {len(records)} sites, {len(bad)} off "
+          f"tolerance; finite {bool(torch.isfinite(eps).all())}")
+    if got != want or bad or not bool(torch.isfinite(eps).all()):
+        raise AssertionError(f"qunet mode int8: launches {got} (expected {want}), sites off tolerance {bad[:5]}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _rel(a, b):
+    return ((a - b).abs().mean() / b.abs().mean()).item()
+
+
 def clock(what, fn, tag="slice"):
     """Run fn between synchronizations and print its host-clock seconds."""
     import torch
@@ -917,8 +1299,9 @@ def run_sampler(ctx, label, flags, tag="slice", **over):
 
     c = {**ctx, **over}
     steps, batch, x = c["steps"], c["batch"], c["x"]
+    flags = {"residual_dtype": torch.bfloat16, **flags}  # bench.py's stream unless the flags name one
     sample = serving_ddim_sampler(c["qunet"], c["params"], c["qstates"], c["seq"], c["betas"], runtime=c["runtime"],
-                                  residual_dtype=torch.bfloat16, **flags, **c.get("serve", {}))
+                                  **flags, **c.get("serve", {}))
     expected = checks.expected_launches(c["cfg"], steps, batch, **flags)
     checks.reset_launches()
     out = clock(f"serving sampler, {label}, first run ({steps} steps, batch {batch})", lambda: sample(x), tag)
@@ -933,22 +1316,34 @@ def run_sampler(ctx, label, flags, tag="slice", **over):
 
 
 def step_checks(ctx, levers, tag="slice"):
-    """One serving step under `levers` (and attention flags, and `ctx["serve"]`'s
+    """One serving step under `levers` (and attention flags, the residual
+    dtype (bf16 unless named), and `ctx["serve"]`'s
     stage-3 states where the path has them): every kernel call held against its
     plain version on the same inputs, then the whole step through the kernels
     against the whole step through the plain versions.  Returns the step's
     launch counts."""
     import torch
 
-    from attentiondm_tpu_torch.ops import checks
     from attentiondm_tpu_torch.quant.int8_serving import serving_unet_apply
 
     t0 = torch.full((ctx["batch"],), float(ctx["seq"][-1]), device=ctx["dev"])
+    flags = {"residual_dtype": torch.bfloat16, **levers}
 
     def step(plain):
         return serving_unet_apply(ctx["params"], ctx["cfg"], ctx["qunet"], ctx["runtime"], ctx["qstates"],
-                                  ctx["x"], t0, 0, plain=plain, residual_dtype=torch.bfloat16, **levers,
-                                  **ctx.get("serve", {}))
+                                  ctx["x"], t0, 0, plain=plain, **flags, **ctx.get("serve", {}))
+
+    return held_step(step, tag)
+
+
+def held_step(step, tag):
+    """`step(plain)` once through the kernels with every kernel call held
+    against its plain version on the same inputs (`ops.checks.per_site`),
+    then the whole step through the kernels against the whole step through
+    the plain versions (< CHAINED_BOUND).  Returns the step's launch counts."""
+    import torch
+
+    from attentiondm_tpu_torch.ops import checks
 
     records = []
     checks.reset_launches()
@@ -1526,6 +1921,17 @@ def main(argv=None):
                                 args.profile)
             lever_counts = phase(path, "levers", levers_phase, ctx, timed=False)
             launches_of = {**counts["mp core"], **{key: lever_counts[key] for key in ("K4", "K7", "K12")}}
+        elif path == "cifar10-f32":
+            phase(path, "kernels", f32_kernel_phase, cfg, BATCH[path], gen, dev, report)
+            counts, ctx = phase(path, "slice", slice_phase, cfg, sched, label, steps, BATCH[path], gen, dev,
+                                args.profile, {F32_STREAM: dict(residual_dtype=torch.float32, **F32_CORE)})
+            f32_counts = phase(path, "f32", f32_phase, ctx)
+            icounts = phase(path, "interception", interception_phase, ctx)
+            lev = f32_counts["three levers"]
+            launches_of = {"K3.f32": counts[F32_STREAM]["K3"], "K12.f32": lev["K12"], "K4.f32": lev["K4"],
+                           "K7.f32": lev["K7"], "K1.resadd_f32": lev["K3"] + lev["K12"],
+                           "K2.int32": f32_counts["dot_bf16=False"]["K2"], "K13": icounts["K13"],
+                           "K5": icounts["K5"]}
         elif path == "celeba-wide":
             phase(path, "attention kernels", attention_kernel_phase, cfg, BATCH[path], gen, dev, report)
             phase(path, "epilogue kernels", epilogue_phase, cfg, BATCH[path], gen, dev, report)

@@ -202,6 +202,8 @@ def test_runtime_nbytes_counts_the_fold_once(toy_fold):
 # the weight extras are ported: tests/test_torch_weight_extras.py
 @pytest.mark.parametrize("kw", [dict(symmetric=False)], ids=["asymmetric"])
 def test_unported_fold_options_raise(kw):
+    """The serving fold is symmetric: an asymmetric one raises ValueError,
+    naming the interception runtime that serves it (JAX refuses it too)."""
     q = QuantizedUNet.create(UNetConfig(**TOY), 4, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="int8_runtime"):
         prepare_serving_runtime(q, {}, {}, **kw)

@@ -1013,3 +1013,154 @@ def test_stage2_update_on_the_card_matches_the_cpu(dev, gen):
             for s in range(2):
                 for a, b in zip(mixed_ranges(card[name].to("cpu"), s), mixed_ranges(st, s)):
                     assert torch.equal(a, b), name
+
+
+# ---------------------------------------------------------------------------
+# the float32 residual stream, dot_bf16=False, the interception runtime
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("res_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Cp,Np,ksize", [(128, 16, 256, 256, 1), (32, 8, 1024, 1024, 1), (3, 8, 256, 256, 3),
+                                             (2, 32, 128, 128, 3), (5, 4, 512, 256, 3)])
+def test_k1_resadd_matches_plain(dev, gen, B, H, Cp, Np, ksize, res_dtype):
+    """K1's residual-add epilogues (K3's last launch at 1x1, K12's at 3x3):
+    res + (acc * inv_ws + zcbias), f32 not rounded (EPI_RESADD_F32) or
+    rounded once to bf16, bit-equal to the plain version."""
+    xp = _i8(gen, (B, H + 2 if ksize == 3 else H, H + 2 if ksize == 3 else H, Cp), -128, 127, dev)
+    gq = _i8(gen, (ksize * ksize * Cp, Np), -8, 7, dev)
+    inv_ws, zcbias = _f(gen, (Np,), dev, 1e-4, 5e-4).abs(), _f(gen, (Np,), dev)
+    res = _f(gen, (B, H, H, Np), dev, 2.0, 0.3).to(res_dtype)
+    kw = dict(ksize=ksize, out_dtype=res_dtype, res=res)
+    key = f"{ksize}x{ksize}/s1/resadd_{str(res_dtype).removeprefix('torch.')}"
+    before = int8_conv.launches_by_mode.get(key, 0)
+    got = int8_conv(xp, gq, inv_ws, zcbias, **kw)
+    assert int8_conv.launches_by_mode[key] == before + 1 and got.dtype == res_dtype
+    assert torch.equal(got, int8_conv(xp, gq, inv_ws, zcbias, **kw, plain=True))
+
+
+def _k12_f32_args(gen, dev, B, H, C):
+    args = list(_k12_args(gen, dev, B, H, C))
+    args[0] = _f(gen, (B, H, H, C), dev, 1.5, 0.2)  # the float32 residual stream
+    return args
+
+
+@pytest.mark.parametrize("B,H,C", [(128, 16, 256), (128, 4, 256), (32, 16, 512), (32, 8, 512), (3, 32, 128),
+                                   (2, 4, 1024)])
+def test_k12_f32_bit_equal(dev, gen, B, H, C):
+    """K12 at a float32 residual (GN1 reads it as it is, conv2's epilogue
+    adds it in f32): the plain version's bits, one launch."""
+    args = _k12_f32_args(gen, dev, B, H, C)
+    before = resblock_pallas.launches
+    got = resblock_pallas(*args, out_dtype=torch.float32)
+    assert resblock_pallas.launches == before + 1 and got.dtype == torch.float32
+    assert torch.equal(got, resblock_pallas(*args, out_dtype=torch.float32, plain=True))
+    with pytest.raises(NotImplementedError):  # a float32 residual in and bf16 out is no mode of the chain
+        resblock_pallas(*args)
+
+
+@pytest.mark.parametrize("B,L,C", [(128, 256, 256), (128, 16, 256), (32, 256, 512), (32, 64, 512),
+                                   (32, 64, 1024), (3, 72, 128)])
+@pytest.mark.parametrize("int8_core", [False, True], ids=["f32_core", "int8_core"])
+def test_k3_f32_matches_plain(dev, gen, B, L, C, int8_core):
+    """K3 at a float32 residual, at every K3 width (CIFAR's 16^2 and 4^2,
+    church's, imagenet64's C = 1024): K3's tolerance, restated for an f32
+    output (`checks.compare`), one launch; the residual passes through
+    unrounded."""
+    args = list(_k3_args(gen, dev, B, L, C))
+    args[0] = args[0].float() + _f(gen, (B, L, C), dev, 1e-3)  # values off the bf16 grid
+    before = fused_attention_block.launches
+    got = fused_attention_block(*args, scale=C ** -0.5, int8_core=int8_core)
+    assert fused_attention_block.launches == before + 1 and got.dtype == torch.float32
+    fig = checks.compare("K3", got, fused_attention_block(*args, scale=C ** -0.5, int8_core=int8_core, plain=True))
+    assert fig["ok"], fig
+
+
+F32_FLAGS = {"f32": dict(residual_dtype=torch.float32),
+             "f32+levers": dict(residual_dtype=torch.float32, entry_pallas=True, boundary_fusion=True,
+                                resblock_pallas="all"),
+             "int32_dot": dict(residual_dtype=torch.float32, dot_bf16=False),
+             "int32_dot+levers": dict(residual_dtype=torch.float32, dot_bf16=False, entry_pallas=True,
+                                      boundary_fusion=True, resblock_pallas="all"),
+             "bf16_int32_dot": dict(residual_dtype=torch.bfloat16, dot_bf16=False)}
+NARROW_TOY = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,), resolution=8, dropout=0.0)
+
+
+@pytest.mark.parametrize("setting", F32_FLAGS)
+@pytest.mark.parametrize("toy", ["cifar", "levers", "narrow"])
+def test_serving_step_f32_kernels_match_plain(dev, gen, toy, setting):
+    """One serving forward at the float32 stream and with dot_bf16=False
+    (with and without the levers), every kernel call held against its plain
+    version (teacher-forced), the launch counts `expected_launches` gives
+    for those flags; the narrow toy's convs off the fold take the unfused
+    chain."""
+    cfg = UNetConfig(**{"cifar": TOY, "levers": LEVER_TOY, "narrow": NARROW_TOY}[toy])
+    B, R = 2, cfg.resolution
+    params = unet_init(gen, cfg, dev)
+    q = QuantizedUNet.create(cfg, 4, 8)
+    qstates = q.init_state(1, dev)
+    for st in qstates.values():  # ranges as calibration leaves them: [-1, 4] per group
+        st.group_ranges[..., 0], st.group_ranges[..., 1] = -1.0, 4.0
+    runtime = prepare_serving_runtime(q, params, qstates)
+    flags = dict(attn_int8=False, **F32_FLAGS[setting])
+    checks.reset_launches()
+    records = []
+    with checks.per_site(records):
+        eps = serving_unet_apply(params, cfg, q, runtime, qstates, _f(gen, (B, R, R, 3), dev),
+                                 torch.full((B,), 500.0, device=dev), 0, **flags)
+    assert checks.read_launches() == checks.expected_launches(cfg, 1, B, **flags)
+    assert torch.isfinite(eps).all()
+    bad = [r for r in records if not r[2]["ok"]]
+    assert not bad, bad
+    kinds = {r[0] for r in records}
+    if toy == "levers" and "levers" in setting:
+        assert ({"K4", "K7", "K12"} if "int32" not in setting else {"K4", "K7"}) <= kinds
+    if toy == "narrow":
+        assert kinds == {"K1"}
+
+
+def _interception_model(gen):
+    """A toy's params, states and asymmetric interception fold, made on the CPU."""
+    from attentiondm_tpu_torch.quant.int8_runtime import prepare_int8_runtime
+
+    cfg = UNetConfig(**TOY)
+    params = unet_init(gen, cfg, "cpu")
+    q = QuantizedUNet.create(cfg, 4, 8)
+    qstates = q.init_state(2, "cpu")
+    for st in qstates.values():
+        st.group_ranges[..., 0], st.group_ranges[..., 1] = -1.0, 4.0
+        st.alpha_logits.normal_(generator=gen)
+    return cfg, q, params, qstates, prepare_int8_runtime(q, params, qstates, symmetric=False)
+
+
+def test_int8_model_fn_asymmetric_on_the_card_matches_the_cpu(dev, gen):
+    """The interception runtime with asymmetric folds: one forward through
+    `int8_model_fn` on the card (K13 / K5 on K1), its launch counts, each
+    product held to its plain version, the whole forward equal to the
+    card's plain forward (the int32 sums are exact), and within 6.2e-2 of
+    the CPU's (measured 1.56e-2: cuDNN's float convs of conv_in and the
+    downsample and the card's reductions round in other last bits, which
+    flips int8 codes on ties downstream)."""
+    from attentiondm_tpu_torch.models.unet import map_tree
+    from attentiondm_tpu_torch.quant.int8_runtime import Int8Layer, int8_model_fn
+    from attentiondm_tpu_torch.quant.state import ActQuantState
+
+    cfg, q, params, qstates, rt = _interception_model(gen)
+    x, t = _f(gen, (2, 8, 8, 3), "cpu"), torch.full((2,), 500.0)
+    cpu = int8_model_fn(q, rt, params, qstates, symmetric=False)(x, t, 1)
+    to = dict(device=dev)
+    params_d = map_tree(lambda a: a.to(**to), params)
+    qs_d = {k: ActQuantState(*(getattr(v, f).to(**to) for f in ("init_range", "act_min", "act_max", "group_ranges",
+                                                                  "alpha_logits"))) for k, v in qstates.items()}
+    rt_d = {k: Int8Layer(None, *(getattr(v, f).to(**to) for f in ("ws", "wzp", "zcorr", "act_scale", "act_zp")),
+                         gqt=v.gqt.to(**to)) for k, v in rt.items()}
+    checks.reset_launches()
+    records = []
+    with checks.per_site(records):
+        card = int8_model_fn(q, rt_d, params_d, qs_d, symmetric=False)(x.to(**to), t.to(**to), 1)
+    assert checks.read_launches() == checks.interception_launches(cfg, 1)
+    assert records and all(r[2]["ok"] for r in records) and {r[0] for r in records} == {"K13", "K5"}
+    assert torch.equal(card, int8_model_fn(q, rt_d, params_d, qs_d, symmetric=False, plain=True)(
+        x.to(**to), t.to(**to), 1))
+    rel = ((card.cpu() - cpu).abs().mean() / cpu.abs().mean()).item()
+    assert rel < 6.2e-2, rel

@@ -385,6 +385,26 @@ def test_k3_matches_jax(L, C):
     assert rel < 1.5e-4 and within >= 0.99, (rel, within)
 
 
+@pytest.mark.parametrize("L,C", [(64, 128), (16, 256), (64, 512)])
+def test_k3_matches_jax_at_f32(L, C):
+    """The whole attention block at a float32 residual (JAX's default
+    stream: nothing rounds the output): the plain version against the TPU
+    kernel in interpret mode.  The core sums in f32 in another order, so a
+    proj_out input code on a tie may move its row; measured at these seeds:
+    mean rel err at most 6.6e-9, at least 98.3% of the elements within 2 f32
+    ulp (bounded at 4x: 2.6e-8, and at most 6.7% off)."""
+    rng = np.random.default_rng(L + C + 1)
+    x, *rest = _k3_inputs(rng, L, C)
+    x = x.astype(np.float32) + (1e-3 * rng.standard_normal(x.shape)).astype(np.float32)  # off the bf16 grid
+    got = fused_attention_block(_t(x), *_to_torch(rest), scale=C ** -0.5)
+    want = np.asarray(j_fused_attention_block(jnp.asarray(x), *_to_jax(rest), scale=C ** -0.5))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    got = got.numpy()
+    rel = np.abs(got - want).mean() / np.abs(want).mean()
+    within = (np.abs(got - want) <= 2 * np.finfo(np.float32).eps * np.abs(want)).mean()
+    assert rel < 2.6e-8 and within >= 0.933, (rel, within)
+
+
 # ---------------------------------------------------------------------------
 # K4, K7, K12
 # ---------------------------------------------------------------------------
@@ -490,6 +510,46 @@ def test_k12_matches_jax(H, C):
     rel = np.abs(got - want).mean() / np.abs(want).mean()
     within = (_bf16_ulps(got, want) <= 1.0).mean()
     assert within >= 0.99 and rel < 1e-3, (rel, within)
+
+
+@pytest.mark.parametrize("H,C", [(8, 128), (8, 256)])
+def test_k12_matches_jax_at_f32(H, C):
+    """K12 at a float32 residual in and out, the plain version against the
+    TPU kernel in interpret mode.  GN1 sums f32 values (not bf16 ones) in
+    the windowed order against JAX's one-hot sums, so an int8 code on a tie
+    moves its 3x3 neighbourhood; measured at these seeds: mean rel err at
+    most 2.3e-8, at least 99.74% of the elements within 2 f32 ulp (bounded
+    at 4x: 9e-8, and at most 1.03% off)."""
+    rng = np.random.default_rng(H + C + 1)
+    args = list(_k12_inputs(rng, H, C))
+    args[0] = args[0].astype(np.float32) + (1e-3 * rng.standard_normal(args[0].shape)).astype(np.float32)
+    got = resblock_pallas(_t(args[0]), *_to_torch(args[1:]), out_dtype=torch.float32)
+    want = np.asarray(jrb.resblock_pallas(*_to_jax(args), out_dtype=jnp.float32, interpret=True))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    got = got.numpy()
+    rel = np.abs(got - want).mean() / np.abs(want).mean()
+    within = (np.abs(got - want) <= 2 * np.finfo(np.float32).eps * np.abs(want)).mean()
+    assert within >= 0.9897 and rel < 9e-8, (rel, within)
+
+
+@pytest.mark.parametrize("ksize", [1, 3])
+@pytest.mark.parametrize("res_dtype", [torch.float32, torch.bfloat16])
+def test_k1_residual_add_mode(ksize, res_dtype):
+    """K1's residual-add epilogue (K3's and K12's last launch) on the CPU:
+    res + (acc * inv_ws + zcbias) in f32, at res's dtype, as the TPU
+    kernels' `o_ref[...] = (r + out).astype(o_ref.dtype)`."""
+    rng = np.random.default_rng(ksize)
+    H, Cp, Np = 6, 128, 256
+    xp = _t(_i8(rng, (2, H + ksize - 1, H + ksize - 1, Cp), -128, 127))
+    gq = _t(_i8(rng, (ksize * ksize * Cp, Np), -8, 7))
+    inv_ws, zcbias = _t(rng.uniform(1e-4, 1e-3, Np).astype(np.float32)), _t(rng.standard_normal(Np).astype(np.float32))
+    res = _t(rng.standard_normal((2, H, H, Np)).astype(np.float32)).to(res_dtype)
+    got = int8_conv(xp, gq, inv_ws, zcbias, ksize=ksize, out_dtype=res_dtype, res=res)
+    acc = int8_conv(xp, gq, ksize=ksize)
+    assert got.dtype == res_dtype
+    assert torch.equal(got, (res.float() + (acc.float() * inv_ws + zcbias)).to(res_dtype))
+    with pytest.raises(NotImplementedError):
+        int8_conv(xp, gq, inv_ws, zcbias, ksize=ksize, out_dtype=torch.int32, res=res)
 
 
 SHAPES = [(128, 32, 128), (128, 32, 256), (128, 16, 256), (128, 8, 256), (128, 4, 256), (32, 256, 128),

@@ -269,18 +269,16 @@ def test_fake_quant_ddim_sample_matches_jax(chain):
     assert _rel(out.numpy(), chain["sample"]) < 2e-2
 
 
-@pytest.mark.parametrize("call", ["prepare_params", "apply", "model_fn", "int8"])
+@pytest.mark.parametrize("call", ["prepare_params", "apply", "model_fn"])
 def test_unported_fake_quant_options_raise(chain, call):
-    """`compute_dtype` (the runner's bf16 path, Queue 1 item 6) and mode
-    "int8" (the interception runtime, Queue 1 item 5) raise."""
+    """`compute_dtype` (the runner's bf16 path, Queue 1 item 6) raises.  Mode
+    "int8" is ported: tests/test_torch_int8_runtime.py."""
     cfg, q = _port()
     x, t = torch.tensor(chain["x"]), torch.tensor(chain["t"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5" if call == "int8" else "Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         if call == "prepare_params":
             q.prepare_params(chain["params"], compute_dtype=torch.bfloat16)
         elif call == "apply":
             q.apply(chain["params"], chain["qstates"], x, t, 0, compute_dtype=torch.bfloat16)
-        elif call == "model_fn":
-            q.model_fn(chain["params"], chain["qstates"], compute_dtype=torch.bfloat16)
         else:
-            q.apply(chain["params"], chain["qstates"], x, t, 0, mode="int8")
+            q.model_fn(chain["params"], chain["qstates"], compute_dtype=torch.bfloat16)

@@ -170,40 +170,30 @@ def test_fold_of_jax_qstates_matches_jax_runtime(chain):
         np.testing.assert_allclose(lay.zcbias.numpy(), ref.zcbias.numpy(), rtol=1e-5, atol=1e-5, err_msg=name)
 
 
-FLAGS = [
-    ("residual_dtype", torch.float32), ("dot_bf16", False), ("conv_pallas", True),
-    ("resblock_pallas", ((8, 128, 128),)),  # JAX's (H, Cp, Np) shape list; True and "all" are ported
-]
-SAMPLER_FLAGS = FLAGS + [
-    ("symmetric", False), ("update", "ddpm"), ("eta", 0.5),
-]
-BF16 = dict(residual_dtype=torch.bfloat16)  # the ported residual stream; each case sets one flag off the path
+# the values JAX's serving path takes but the port does not yet (the ddpm update, eta != 0: ROADMAP Queue 1
+# item 6), and values JAX does not define or refuses: a resblock_pallas other than False / True / "all" (JAX
+# treats any truthy value as True; JAX has a shape-list form for conv_pallas only), a malformed conv_pallas,
+# a residual stream other than f32 / bf16, asymmetric serving folds (JAX refuses them, pointing to the
+# interception runtime)
+FLAGS = {
+    "resblock_pallas": ("resblock_pallas", ((8, 128, 128),)), "conv_pallas_str": ("conv_pallas", "some"),
+    "conv_pallas_pair": ("conv_pallas", [(8, 128)]), "residual_dtype_float16": ("residual_dtype", torch.float16),
+}
+SAMPLER_FLAGS = {**FLAGS, "symmetric": ("symmetric", False), "update": ("update", "ddpm"), "eta": ("eta", 0.5)}
+RAISES = {"update": NotImplementedError, "eta": NotImplementedError}  # the rest: ValueError
 
 
-@pytest.mark.parametrize("flag,value", SAMPLER_FLAGS, ids=[f for f, _ in SAMPLER_FLAGS])
+@pytest.mark.parametrize("flag,value", SAMPLER_FLAGS.values(), ids=list(SAMPLER_FLAGS))
 def test_unported_serving_flags_raise(chain, flag, value):
-    """Every flag value off the serving path raises instead of being ignored."""
+    """Every flag value off the serving path raises instead of being ignored:
+    item 6's values NotImplementedError, the others ValueError."""
     cfg, q, sched = _port()
-    with pytest.raises(NotImplementedError):
-        if (flag, value) in FLAGS:
+    with pytest.raises(RAISES.get(flag, ValueError)):
+        if (flag, value) in FLAGS.values():
             serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                               torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, **{**BF16, flag: value})
+                               torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, **{flag: value})
         else:
-            serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, **{**BF16, flag: value})
-
-
-@pytest.mark.parametrize("entry", ["serving_unet_apply", "serving_ddim_sampler"])
-def test_residual_dtype_defaults_to_float32_which_raises(chain, entry):
-    """As in JAX, `residual_dtype` defaults to float32; the float32 stream is
-    not ported yet, so a call that passes none raises, naming Queue 1 item 5
-    and the bf16 value to pass."""
-    cfg, q, sched = _port()
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 5.*residual_dtype=torch\.bfloat16"):
-        if entry == "serving_unet_apply":
-            serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
-                               torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, attn_int8=False)
-        else:
-            serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, attn_int8=False)
+            serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, **{flag: value})
 
 
 @pytest.mark.parametrize("flag", ["attn_int8", "attn_ranges"])

@@ -579,9 +579,14 @@ def test_teacher_matched_keeps_each_steps_best_iterate(chain):
 
 
 def test_teacher_matched_refuses_asymmetric_and_trains_nothing_without_parameters(chain):
+    """`symmetric=False` (the interception runtime's asymmetric weight grid)
+    is taken: the fake-quant forward reads no weight grid, so without
+    `serving_extras` a run gives symmetric=True's bits (the surrogate's
+    asymmetric conv is held to JAX's in tests/test_torch_int8_runtime.py).
+    With no parameter to train the states come back as they are."""
     _, q, _ = _port()
     args = (q, chain["qparams"], chain["qstates"], _t(chain["xs_in"]), _t(chain["eps_ref"]), SEQ)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        cal.calibrate_teacher_matched(*args, symmetric=False)
+    asym, sym = (cal.calibrate_teacher_matched(*args, epochs=1, symmetric=flag) for flag in (False, True))
+    assert asym[1] == sym[1] and all(torch.equal(asym[0][n].alpha_logits, sym[0][n].alpha_logits) for n in sym[0])
     assert cal.calibrate_teacher_matched(*args, train_alpha=False, train_range_scale=False) == (chain["qstates"], [])
     assert lookup(chain["params"], "mid.attn_1")["gamma"].item() == 1.0
