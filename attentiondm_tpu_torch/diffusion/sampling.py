@@ -1,4 +1,4 @@
-"""DDIM sampler (port of `attentiondm_tpu/diffusion/sampling.py`).
+"""DDIM and DDPM samplers (port of `attentiondm_tpu/diffusion/sampling.py`).
 
 The JAX `lax.scan` becomes a Python loop over steps.  Nothing inside the loop
 reads a value back to the host, so the device runs the steps back to back.
@@ -6,6 +6,11 @@ reads a value back to the host, so the device runs the steps back to back.
 The model callable is ``model_fn(x, t, step_idx) -> eps`` with NHWC `x`, a
 [N] float32 timestep vector `t` and the integer position `step_idx` within
 the reversed sequence.
+
+JAX draws a stochastic sampler's noise from a `jax.random.split` chain,
+which torch cannot reproduce: here it comes from an explicit
+`torch.Generator`, or is handed in per step (`noise=`, the draws
+themselves, the way a test feeds JAX's draws to the port).
 """
 from __future__ import annotations
 
@@ -46,11 +51,17 @@ def _seq_alphas(betas: torch.Tensor, seq: Sequence[int]):
     return t_rev, tn_rev, compute_alpha(betas, t_rev), compute_alpha(betas, tn_rev)
 
 
-def check_eta(eta: float):
-    if eta != 0:
-        raise NotImplementedError(
-            f"eta={eta!r}: stochastic DDIM sampling is not ported yet; it comes with ROADMAP "
-            "Queue 1, 'runner/CLI, eval, data, parallel and tools'")
+def draw_noise(i: int, like: torch.Tensor, generator: torch.Generator | None = None, noise=None):
+    """The standard normals of sampler step `i`, shaped like `like`: `noise[i]`
+    where the caller hands the draws in (a [S, N, H, W, C] tensor or a list of
+    S tensors, e.g. JAX's split-chain draws), else a draw from `generator` (on
+    the generator's device, moved to `like`'s).  Without either it raises:
+    a stochastic sampler never draws from torch's global state."""
+    if noise is not None:
+        return torch.as_tensor(noise[i]).to(device=like.device, dtype=like.dtype)
+    if generator is None:
+        raise ValueError("a stochastic sampler needs generator= (a torch.Generator) or noise= (the draws)")
+    return torch.randn(like.shape, generator=generator, device=generator.device, dtype=like.dtype).to(like.device)
 
 
 def ddim_step(xt, et, at, at_next, eta, noise):
@@ -62,23 +73,61 @@ def ddim_step(xt, et, at, at_next, eta, noise):
     return xt_next, x0_t
 
 
-def ddim_sample(model_fn: Callable, x: torch.Tensor, seq: Sequence[int], betas: torch.Tensor, *,
-                eta: float = 0.0, keep_trajectory: bool = False):
-    """Run the deterministic (eta = 0) DDIM trajectory.
+def ddpm_step(xt, et, at, atm1, t, noise):
+    """One ancestral (DDPM) update; returns (sample, x0_from_e).  x0 is
+    clipped to [-1, 1], and the noise is masked off at t == 0 (`t` the
+    integer timestep)."""
+    beta_t = 1.0 - at / atm1
+    x0_from_e = torch.sqrt(1.0 / at) * xt - torch.sqrt(1.0 / at - 1.0) * et
+    x0_from_e = torch.clamp(x0_from_e, -1.0, 1.0)
+    mean = (torch.sqrt(atm1) * beta_t * x0_from_e + torch.sqrt(1.0 - beta_t) * (1.0 - atm1) * xt) / (1.0 - at)
+    mask = (torch.as_tensor(t) > 0).to(xt.dtype)
+    sample = mean + mask * torch.exp(0.5 * torch.log(beta_t)) * noise
+    return sample, x0_from_e
 
-    Returns x_final, or (x_final, xs [S, N, H, W, C], x0_preds) with
-    `keep_trajectory` (the calibration set is built from `xs`)."""
-    check_eta(eta)
+
+def step_rule(update: str, eta: float = 0.0, generator: torch.Generator | None = None, noise=None):
+    """The per-step update `(i, xt, et, t, at, at_next) -> (x_next, x0)` of
+    "ddim" (noised at `eta` > 0) or "ddpm" (always noised; `eta` unused),
+    its noise from `draw_noise`.  Every sampler of the package steps with it."""
+
+    def rule(i, xt, et, t, at, at_next):
+        if update == "ddpm":
+            return ddpm_step(xt, et, at, at_next, t, draw_noise(i, xt, generator, noise))
+        e = draw_noise(i, xt, generator, noise) if eta > 0 else torch.zeros_like(xt)
+        return ddim_step(xt, et, at, at_next, eta, e)
+
+    return rule
+
+
+def _run(rule, model_fn, x, seq, betas, keep_trajectory):
     t_rev, _, at, at_next = _seq_alphas(betas, seq)
     n = x.shape[0]
     xs, x0s = [], []
     for i in range(t_rev.shape[0]):
-        t_vec = t_rev[i].to(torch.float32).expand(n)
-        et = model_fn(x, t_vec, i)
-        x, x0_t = ddim_step(x, et, at[i], at_next[i], 0.0, torch.zeros_like(x))
+        et = model_fn(x, t_rev[i].to(torch.float32).expand(n), i)
+        x, x0_t = rule(i, x, et, t_rev[i], at[i], at_next[i])
         if keep_trajectory:
             xs.append(x)
             x0s.append(x0_t)
     if keep_trajectory:
         return x, torch.stack(xs), torch.stack(x0s)
     return x
+
+
+def ddim_sample(model_fn: Callable, x: torch.Tensor, seq: Sequence[int], betas: torch.Tensor, *,
+                eta: float = 0.0, generator: torch.Generator | None = None, noise=None,
+                keep_trajectory: bool = False):
+    """Run the DDIM trajectory; at eta > 0 each step adds eta-scaled noise
+    (`draw_noise`: from `generator`, or step i's entry of `noise`).
+
+    Returns x_final, or (x_final, xs [S, N, H, W, C], x0_preds) with
+    `keep_trajectory` (the calibration set is built from `xs`)."""
+    return _run(step_rule("ddim", eta, generator, noise), model_fn, x, seq, betas, keep_trajectory)
+
+
+def ddpm_sample(model_fn: Callable, x: torch.Tensor, seq: Sequence[int], betas: torch.Tensor, *,
+                generator: torch.Generator | None = None, noise=None, keep_trajectory: bool = False):
+    """Ancestral DDPM sampling along `seq`; every step draws its noise
+    (`draw_noise`), the last one masks it off."""
+    return _run(step_rule("ddpm", generator=generator, noise=noise), model_fn, x, seq, betas, keep_trajectory)

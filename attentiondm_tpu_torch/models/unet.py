@@ -331,7 +331,7 @@ def _attn_apply_enhanced(name, p, x, conv_apply, cfg, attn_ctx=None):
     ctx = attn_ctx or {}
     collect = ctx.get("collect")
     if collect is not None:
-        lg = torch.matmul(q, k) * (Ck ** -0.5)
+        lg = torch.matmul(q.float(), k.float()) * (Ck ** -0.5)
         collect[name] = (lg.amin(), lg.amax())
     out = enhanced_core(name, q, k, v, cfg, ctx).to(x.dtype)
     out = conv_apply(f"{name}.output_conv", out.reshape(B, H, W, C), p["output_conv"])
@@ -340,10 +340,12 @@ def _attn_apply_enhanced(name, p, x, conv_apply, cfg, attn_ctx=None):
 
 def enhanced_core(name, q, k, v, cfg, attn_ctx=None):
     """The enhanced block's core on q [B, L, Ck], k [B, Ck, L] and v [B, L,
-    C], float32: softmax(q k / sqrt(Ck)) v, or where `attn_ctx`'s
-    `mp_states` holds the block `name`, the stage-3 mixed-precision core
-    (`mp_attention` at the context's `base_bits`, `timestep` and
-    `head_split`).  The FP, fake-quant and serving forwards all call it."""
+    C]: softmax(q k / sqrt(Ck)) v, or where `attn_ctx`'s `mp_states` holds
+    the block `name`, the stage-3 mixed-precision core (`mp_attention` at the
+    context's `base_bits`, `timestep` and `head_split`).  The FP, fake-quant
+    and serving forwards all call it.  The products sum in float32 and the
+    softmax runs in float32; at a bf16 compute dtype its weights and the
+    output round to bf16, as in JAX."""
     ctx = attn_ctx or {}
     mp_state = (ctx.get("mp_states") or {}).get(name)
     if mp_state is not None:
@@ -351,7 +353,8 @@ def enhanced_core(name, q, k, v, cfg, attn_ctx=None):
 
         return mp_attention(q, k, v, mp_state, num_heads=cfg.attn_heads, base_bits=ctx.get("base_bits", 8),
                             timestep=ctx.get("timestep"), head_split=ctx.get("head_split", "aligned"))
-    return torch.matmul(torch.softmax(torch.matmul(q, k) * (q.shape[-1] ** -0.5), dim=-1), v)
+    w = torch.softmax(torch.matmul(q.float(), k.float()) * (q.shape[-1] ** -0.5), dim=-1).to(q.dtype)
+    return torch.matmul(w.float(), v.float()).to(q.dtype)
 
 
 def _attn_apply(name, p, x, conv_apply, cfg, attn_ctx):
@@ -388,14 +391,22 @@ def _upsample(name, p, x, conv_apply, with_conv=True):
 
 @exact_f32()
 def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor, *,
-               conv_apply: Callable | None = None, attn_ctx: dict | None = None) -> torch.Tensor:
+               conv_apply: Callable | None = None, attn_ctx: dict | None = None,
+               compute_dtype=None) -> torch.Tensor:
     """Predict eps from (x_t [NHWC], t [N]); float32 out, inference only.
-    `attn_ctx` goes to every enhanced attention block (`_attn_apply_enhanced`)."""
+    `attn_ctx` goes to every enhanced attention block (`_attn_apply_enhanced`).
+
+    `compute_dtype` (e.g. torch.bfloat16) runs the network at that
+    activation dtype: x and the timestep embedding are cast to it, and the
+    params must be pre-cast (`cast_params`).  GroupNorm statistics and the
+    attention softmax stay float32."""
     check_ported(cfg)
     ca = conv_apply or _default_conv_apply
     num_levels = len(cfg.ch_mult)
 
     temb = get_timestep_embedding(t, cfg.ch)
+    if compute_dtype is not None:
+        x, temb = x.to(compute_dtype), temb.to(compute_dtype)
     temb = dense(swish(dense(temb, params["temb"]["dense0"])), params["temb"]["dense1"])
 
     hs = [ca("conv_in", x, params["conv_in"])]

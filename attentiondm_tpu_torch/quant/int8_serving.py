@@ -46,9 +46,9 @@ GroupNorm, and each conv through `_conv_any`, K1 in int32 mode where the fold
 covers it, the fake-quant float conv elsewhere.  `resamp_with_conv=False`
 downsamples by a 2x2 average and upsamples by nearest repetition, no conv.
 
-Every flag value JAX's serving path takes is taken here but the ddpm update
-(`update="ddpm"`, ROADMAP Queue 1 item 6), which raises NotImplementedError;
-a value JAX does not define raises ValueError.  `conv_pallas` takes JAX's
+Every flag value JAX's serving path takes is taken here, the ddpm update and
+eta > 0 too (their noise from a `torch.Generator`, or handed in); a value
+JAX does not define raises ValueError.  `conv_pallas` takes JAX's
 values (False, True, "all", or a collection of (H, Cp, Np) triples): on the
 TPU it moved a 3x3 conv from XLA's conv to the Pallas kernel; here every
 int8 conv already runs on K1 with its fused epilogue, so every value gives
@@ -65,7 +65,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from ..diffusion.sampling import _seq_alphas, check_eta, ddim_step
+from ..diffusion.sampling import _seq_alphas, step_rule
 from ..models.unet import (
     UNetConfig,
     avg_pool2,
@@ -113,9 +113,6 @@ from .primitives import div
 from .qunet import QuantizedUNet
 from .state import ActQuantState, quantize_activation
 
-_DDPM = "ROADMAP Queue 1 item 6 (the runner and CLI: the ddpm update)"
-
-
 def _conv_pallas_ok(value) -> bool:
     """JAX's values of `conv_pallas`: False, True, "all", or a collection of
     (H, Cp, Np) triples of ints."""
@@ -143,9 +140,7 @@ def _check_flags(*, residual_dtype, dot_bf16, conv_pallas, resblock_pallas):
 
 
 def _check_update(update):
-    if update == "ddpm":
-        raise NotImplementedError(f"update='ddpm' is not ported yet; it comes with {_DDPM}")
-    if update != "ddim":
+    if update not in ("ddim", "ddpm"):
         raise ValueError(f"update must be 'ddim' or 'ddpm', got {update!r}")
 
 
@@ -807,6 +802,16 @@ def _slice_states(qstates: Dict[str, ActQuantState], sl: slice) -> Dict[str, Act
             for k, v in qstates.items()}
 
 
+def _stream_generators(generator, n_mb: int):
+    """One generator per micro-batch, as JAX's `fold_in(key, i)` gives each
+    micro-batch its own stream: the caller's generator where there is one
+    micro-batch, else generators seeded from draws of it."""
+    if n_mb == 1:
+        return [generator]
+    seeds = torch.randint(0, 2 ** 62, (n_mb,), generator=generator, device=generator.device).tolist()
+    return [torch.Generator(device=generator.device).manual_seed(s) for s in seeds]
+
+
 def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState], seq,
                          betas: torch.Tensor, *, eta: float = 0.0, step_chunk=None,
                          micro_batch=None, residual_dtype=torch.float32, symmetric: bool = True,
@@ -814,10 +819,18 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
                          boundary_fusion: bool = False, dot_bf16: bool = True,
                          entry_pallas: bool = False, conv_pallas=False, resblock_pallas=False,
                          pack_int4: bool = False, rank1: bool = False, update: str = "ddim",
-                         mp_states=None, mp_base_bits: int = 8, runtime=None):
-    """Deterministic (eta = 0) DDIM sampler over the fused int8 serving
-    path: folds every step's weights once (or reuses a prebuilt `runtime`),
-    then returns ``sample(x) -> x_final``.
+                         mp_states=None, mp_base_bits: int = 8, runtime=None, plain: bool = False):
+    """Sampler over the fused int8 serving path: folds every step's weights
+    once (or reuses a prebuilt `runtime`), then returns
+    ``sample(x, generator=None, noise=None) -> x_final``.
+
+    `update` selects the per-step rule: "ddim" (generalized, noised at
+    `eta` > 0) or "ddpm" (ancestral, always noised; `eta` is ignored).  The
+    eps model, the folds, chunking and rank-1 folds are the same for both.
+    A stochastic sampler draws step i's noise from `generator` (a
+    `torch.Generator`; None: one seeded 0 on x's device, as JAX's default
+    key is `PRNGKey(0)`), or takes it from `noise` ([S, N, H, W, C] or a list
+    of S tensors: the draws themselves, e.g. JAX's).
 
     `runtime`: a prebuilt `prepare_serving_runtime` tree to reuse; samplers
     that differ only in compute-path flags (`attn_int8`, `attn_ranges`,
@@ -828,18 +841,21 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
     `step_chunk=k` folds k steps at a time inside `sample`, so the fold holds
     k steps instead of all; `micro_batch=m` then advances the batch through
     each chunk m images at a time, so one chunk's fold serves the whole
-    batch.  Both give the unchunked sampler's output to the bit (the fold's
-    shrink is the whole schedule's, `_fold_all_steps`).  As in JAX, `rank1`
-    and a prebuilt `runtime` refuse `step_chunk`; unlike JAX, which ignores
-    it there, `micro_batch` without `step_chunk` raises too.
+    batch.  Both give the unchunked sampler's output to the bit at eta = 0
+    (the fold's shrink is the whole schedule's, `_fold_all_steps`).  A noised
+    sampler gives each micro-batch its own stream (`_stream_generators`,
+    carried across the chunks; `noise` is sliced along N), so it matches the
+    un-micro-batched one only at eta = 0 with the ddim update, as in JAX.
+    As in JAX, `rank1` and a prebuilt `runtime` refuse `step_chunk`; unlike
+    JAX, which ignores it there, `micro_batch` without `step_chunk` raises too.
 
     `weight_extras` {name: quant.adaround.WeightExtras} go into every fold,
     a chunk's too (its [S, co] refinements' rows of the chunk).
 
     `mp_states` / `mp_base_bits`: the enhanced variant's stage-3 core
     (`serving_unet_apply`).  The states are indexed by the diffusion
-    timestep, not the step, so a chunk takes them whole."""
-    check_eta(eta)
+    timestep, not the step, so a chunk takes them whole.  `plain=True` runs
+    every kernel's plain version instead (the other side of a check)."""
     _check_update(update)
     _check_flags(residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
                  resblock_pallas=resblock_pallas)
@@ -854,6 +870,7 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
         raise ValueError("micro_batch advances the batch through each chunk of step_chunk: it needs step_chunk")
     t_rev, _, at, at_next = _seq_alphas(betas, seq)
     S = t_rev.shape[0]
+    noised = update == "ddpm" or eta > 0
 
     def fold(steps=None):
         return prepare_serving_runtime(qunet, params, qstates, symmetric=symmetric, steps=steps,
@@ -863,35 +880,53 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
         runtime = fold()
     flags = dict(residual_dtype=residual_dtype, attn_int8=attn_int8, boundary_fusion=boundary_fusion,
                  dot_bf16=dot_bf16, entry_pallas=entry_pallas, conv_pallas=conv_pallas,
-                 resblock_pallas=resblock_pallas, mp_states=mp_states, mp_base_bits=mp_base_bits)
+                 resblock_pallas=resblock_pallas, mp_states=mp_states, mp_base_bits=mp_base_bits, plain=plain)
 
-    def run(x, rt, qs, ar, lo, hi):
+    def run(x, rt, qs, ar, lo, hi, gen, noise):
         """Steps lo .. hi - 1 of the schedule, with the fold `rt` and states `qs` of those steps."""
-        n = x.shape[0]
+        n, rule = x.shape[0], step_rule(update, eta, gen, noise)
         for i in range(lo, hi):
             et = serving_unet_apply(params, qunet.cfg, qunet, rt, qs, x, t_rev[i].to(torch.float32).expand(n),
                                     i - lo, attn_ranges=ar, **flags)
-            x, _ = ddim_step(x, et, at[i], at_next[i], 0.0, torch.zeros_like(x))
+            x, _ = rule(i, x, et, t_rev[i], at[i], at_next[i])
         return x
 
-    def sample(x):
-        xs = list(x.split(micro_batch or x.shape[0]))
+    def sample(x, generator=None, noise=None):
+        mb = micro_batch or x.shape[0]
+        xs = list(x.split(mb))
         for n in sorted({xi.shape[0] for xi in xs}):
             require_gn_kernels(qunet.cfg, x.device, n, residual_dtype=residual_dtype, dot_bf16=dot_bf16,
                                entry_pallas=entry_pallas, boundary_fusion=boundary_fusion,
                                resblock_pallas=resblock_pallas)
         require_attention_kernels(qunet.cfg, x.device, attn_int8=attn_int8, attn_ranges=attn_ranges)
+        gens = [None] * len(xs)
+        if noised and noise is None:
+            gens = _stream_generators(generator or torch.Generator(device=x.device).manual_seed(0), len(xs))
+        noises = [None] * len(xs)
+        if noise is not None:
+            noises = [[noise[i][j * mb:(j + 1) * mb] for i in range(S)] for j in range(len(xs))]
         if step_chunk is None:
-            return run(x, runtime, qstates, attn_ranges, 0, S)
+            return run(x, runtime, qstates, attn_ranges, 0, S, gens[0], noises[0])
         for c0 in range(0, S, step_chunk):
             sl = slice(c0, min(c0 + step_chunk, S))
             rt = fold(sl)
             qs = _slice_states(qstates, sl)
             ar = None if attn_ranges is None else {k: a[sl] for k, a in attn_ranges.items()}
             for j, xj in enumerate(xs):
-                xs[j] = run(xj, rt, qs, ar, sl.start, sl.stop)
+                xs[j] = run(xj, rt, qs, ar, sl.start, sl.stop, gens[j], noises[j])
             del rt
         return torch.cat(xs)
 
     sample.runtime = runtime
     return sample
+
+
+def serving_model_fn(qunet: QuantizedUNet, runtime: Dict[str, ServingLayer], params,
+                     qstates: Dict[str, ActQuantState], **flags):
+    """Sampler-compatible `(x, t, step_idx) -> eps` closure over the serving
+    forward on RAW params; `flags` are `serving_unet_apply`'s keywords."""
+
+    def fn(x, t, step_idx):
+        return serving_unet_apply(params, qunet.cfg, qunet, runtime, qstates, x, t, step_idx, **flags)
+
+    return fn

@@ -22,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from ..models.unet import UNetConfig, conv2d, iter_conv_layers, lookup, map_tree, unet_apply
+from ..models.unet import UNetConfig, cast_params, conv2d, iter_conv_layers, lookup, map_tree, unet_apply
 from ..ops.quant_conv import quantized_conv2d_int8
 from .int8_runtime import _eligible
 from .state import (
@@ -36,12 +36,6 @@ from .state import (
     quantize_activation_mixture,
     quantize_weight_per_channel,
 )
-
-
-def _require_compute_dtype(compute_dtype):
-    if compute_dtype is not None:
-        raise NotImplementedError(f"compute_dtype={compute_dtype!r} is not ported yet; it comes with ROADMAP "
-                                  "Queue 1 item 6 (the runner's bf16 path)")
 
 
 def make_bit_policy(cfg: UNetConfig, bitwidth: int, a_bitwidth: int | None = None,
@@ -157,21 +151,23 @@ class QuantizedUNet:
 
     def prepare_params(self, params, compute_dtype=None):
         """Quantize the weights once: (quantized params, weight states).
-        `compute_dtype` (the runner's bf16 path) takes None only for now."""
-        _require_compute_dtype(compute_dtype)
+        The quantization runs in float32; `compute_dtype` (e.g. bfloat16)
+        then casts the quantized params for a run at that dtype."""
         ws = make_weight_states(params, self.cfg, self.policy)
-        return quantize_params(params, ws, self.policy, self.cfg), ws
+        qp = quantize_params(params, ws, self.policy, self.cfg)
+        return (qp if compute_dtype is None else cast_params(qp, compute_dtype)), ws
 
     def apply(self, qparams, qstates, x, t, step_idx, mode="infer", compute_dtype=None):
-        _require_compute_dtype(compute_dtype)
+        """eps of the fake-quant model; with `compute_dtype` the activations
+        run at that dtype (`unet_apply`), each conv's range math in float32
+        and its conv at the kernel's dtype."""
         ca = make_quant_conv_apply(qstates, self.policy, step_idx, mode=mode)
-        return unet_apply(qparams, self.cfg, x, t, conv_apply=ca)
+        return unet_apply(qparams, self.cfg, x, t, conv_apply=ca, compute_dtype=compute_dtype)
 
     def model_fn(self, qparams, qstates, mode="infer", compute_dtype=None):
         """Sampler-compatible `(x, t, step_idx) -> eps` closure."""
-        _require_compute_dtype(compute_dtype)
 
         def fn(x, t, step_idx):
-            return self.apply(qparams, qstates, x, t, step_idx, mode=mode)
+            return self.apply(qparams, qstates, x, t, step_idx, mode=mode, compute_dtype=compute_dtype)
 
         return fn

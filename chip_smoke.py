@@ -2,11 +2,11 @@
 """Smoke run of the PyTorch / CUDA port (`attentiondm_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--steps 10] [--seed 0] [--profile]
-                          [--paths cifar10,church,celeba-wide,imagenet64,cifar10-enhanced,cifar10-f32]
+                          [--paths cifar10,church,celeba-wide,imagenet64,cifar10-enhanced,cifar10-f32,cifar10-cli]
 
 (`--profile` adds, after the last phase, torch.profiler's device time per
 kernel for one run of each sampler; `--paths` runs only the paths named,
-all six by default.)
+all seven by default.)
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
@@ -154,6 +154,25 @@ all six by default.)
       one step held site by site and chained against the plain step, its
       device time; one `QuantizedUNet.apply(mode="int8")` forward, counted
       and held site by site.
+8. cifar10-cli: the CLI, `main_torch.main(argv)` in this process, at
+   cifar10.yml (ch 128, ch_mult 1-2-2-2, attention at 16^2), --batch_size
+   128 --num_samples 128 --timesteps --steps --skip_type quad --ni, the exp
+   tree under exp/chip_smoke_cli (`cli_phase`): (a) --execution serving with
+   --ckpt_path to a reference-named torch state dict written from the seeded
+   generator (the loaded params held equal to it) and --calib_cache auto
+   (the runner's default weight pass, GPTQ with the per-step refinement);
+   (b) --sample_type ddpm_noisy and (c) --eta 0.5 --weight_refine off (the
+   cut: (c) calibrates anew, its eta being in the cache's header); each
+   serving run's launches against `expected_launches`, one served step site
+   by site and chained, its PNGs equal to the sampler's images, and the run
+   against its plain run on the same generator (< 0.1); (d) --fid
+   --num_samples 256, ids 130 and up deleted and the run resumed: every
+   file byte-identical, PNGs read back with zlib equal to the uint8 images;
+   (e) --execution fake_quant, --fp32, --fp32 --compute_dtype bfloat16.
+   Each run prints its seconds per stage (load, teacher, calibration,
+   weight pass, refinement, fold, sampling, png) and its images/s.  The
+   path adds no row to the kernels line (its kernels are CIFAR-10's K1, K2
+   and K3, measured by the paths above).
 Prints a JSON line of per-kernel results, then {"ok": true, "device": ...}
 as the last line.  Any failure raises (nonzero exit, no result line); so
 does a machine without a CUDA device.
@@ -169,7 +188,7 @@ import time
 
 CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative error (gross faults only)
 BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32, "cifar10-enhanced": 128,
-         "cifar10-f32": 128}
+         "cifar10-f32": 128, "cifar10-cli": 128}
 MAX_STEPS = {"church": 4, "imagenet64": 4}  # a shallower schedule where the path is long
 LEVER_ROUNDS = 3  # timed runs per lever setting, taken in turns
 F32_CORE = dict(attn_int8=False)  # the attention flag of the CIFAR-10 and church paths (bench.py's)
@@ -272,6 +291,10 @@ def path_config(path):
     if path == "cifar10-f32":
         return (UNetConfig(), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
                 "UNetConfig() CIFAR-10, the float32 residual stream")
+    if path == "cifar10-cli":
+        config = load_config("cifar10.yml")
+        return (UNetConfig.from_config(config), DiffusionSchedule.from_config(config),
+                "cifar10.yml CIFAR-10 through main_torch.py")
     if path == "cifar10-enhanced":
         return (UNetConfig(attn_variant="enhanced"), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
                 "UNetConfig(attn_variant=\"enhanced\") CIFAR-10")
@@ -1871,6 +1894,189 @@ def enhanced_slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=Fals
     return counts, {**ctx, "serve": serve}
 
 
+CLI_EXP = "exp/chip_smoke_cli"  # the CLI's --exp tree (git-ignored), emptied before the path runs
+CLI_FID = 256  # --num_samples of the --fid run (two batches of 128)
+CLI_HOLE = 130  # the --fid files from this id on are deleted, then the run resumes
+SERVING = ["--execution", "serving"]
+# the serving runs (a) to (c): (a) writes the calibration cache that (b), (d) and (e)'s fake-quant run load; (c)'s
+# eta is part of the cache's header, so it calibrates anew (without the fold refinement) into a cache of its own
+CLI_SERVING_RUNS = {"a": SERVING + ["--calib_cache", "auto"],
+                    "b": SERVING + ["--calib_cache", "auto", "--sample_type", "ddpm_noisy"],
+                    "c": SERVING + ["--calib_cache", f"{CLI_EXP}/calib_eta.npz", "--eta", "0.5",
+                                    "--weight_refine", "off"]}
+CLI_OTHER_RUNS = {"fake_quant": ["--execution", "fake_quant", "--calib_cache", "auto"], "fp32": ["--fp32"],
+                  "fp32 bf16": ["--fp32", "--compute_dtype", "bfloat16"]}
+
+
+def cli_argv(steps, batch, ckpt, *extra, n=None):
+    """main_torch's argv: cifar10.yml at --batch_size `batch`, `n` images (default one batch), `steps` quad steps."""
+    return ["--config", "cifar10.yml", "--doc", "cifar10-cli", "--exp", CLI_EXP, "--sample", "--ni", "--batch_size",
+            str(batch), "--num_samples", str(n or batch), "--timesteps", str(steps), "--skip_type", "quad",
+            "--ckpt_path", ckpt, *extra]
+
+
+def cli_run(label, argv):
+    """`main_torch.main(argv)` with every launch count set to 0 just before
+    and read just after; it must return 0.  Prints the runner's seconds per
+    stage.  Returns (runner, launch counts)."""
+    import main_torch
+    from attentiondm_tpu_torch.ops import checks
+
+    checks.reset_launches()
+    t0 = time.perf_counter()
+    rc = main_torch.main(argv)
+    wall = time.perf_counter() - t0
+    counts = checks.read_launches()
+    if rc != 0:
+        raise AssertionError(f"main_torch.main({argv}) returned {rc} (its traceback is in the log above)")
+    r = main_torch.main.runner
+    n = r.fid_images or int(r.args.num_samples)
+    rate = n / r.timings["sampling"] if r.timings.get("sampling") else float("nan")
+    print(f"[cli] ({label}) {' '.join(argv[argv.index('--ckpt_path') + 2:])}: {wall:.2f} s; seconds: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in r.timings.items())
+          + f"; sampling {n} images: {rate:.1f} images/s")
+    return r, counts
+
+
+def cli_serving_checks(label, r, counts, steps, batch, runs=1, full=True):
+    """A serving run's checks: its launch counts against `expected_launches`
+    for the flags the runner passed (`runs` sampler runs); with `full`, one
+    served step held site by site and chained, the PNGs equal to the
+    runner's sampler run again on the same draws, and that run against the
+    same sampler through the plain versions on the same generator
+    (< CHAINED_BOUND)."""
+    import torch
+
+    from attentiondm_tpu_torch.data.transforms import inverse_transform_uint8
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler, serving_unet_apply
+    from attentiondm_tpu_torch.utils.images import read_png
+
+    srv, dev = r.serving, r.device
+    kw = srv["kwargs"]
+    flags = {k: kw[k] for k in ("attn_int8", "attn_ranges", "residual_dtype")}
+    expected = {k: v * runs for k, v in checks.expected_launches(r.ucfg, steps, batch, **flags).items()}
+    print(f"[cli] ({label}) update {kw['update']}, eta {kw['eta']}, residual {kw['residual_dtype']}, weight extras on "
+          f"{len(kw['weight_extras'] or {})} layers: launches {counts}, expected {expected}")
+    if counts != expected:
+        raise AssertionError(f"cli ({label}): launch counts {counts} != expected {expected}")
+    if not full:
+        return
+    shape = (batch, r.ucfg.resolution, r.ucfg.resolution, r.ucfg.in_channels)
+    x, draws = r.randomness("sample", shape)
+    t0 = torch.full((batch,), float(srv["seq"][-1]), device=dev)
+    runtime = srv["sampler"].runtime
+
+    def step(plain):
+        return serving_unet_apply(srv["params"], r.ucfg, srv["qunet"], runtime, srv["qstates"], x, t0, 0, plain=plain,
+                                  **flags)
+
+    held_step(step, "cli")
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    out = srv["sampler"](x, **draws)
+    torch.cuda.synchronize()
+    print(f"[cli] ({label}) the runner's sampling stage {r.timings['sampling'] * 1e3:.1f} ms (the sampler's first run); "
+          f"the same sampler again on the same draws {(time.perf_counter() - t_run) * 1e3:.1f} ms wall")
+    want = inverse_transform_uint8(r.config, out).cpu().numpy()
+    for i in range(batch):
+        if not (read_png(f"{r.args.image_folder}/sample_{i}.png") == want[i]).all():
+            raise AssertionError(f"cli ({label}): sample_{i}.png is not the sampler's image {i}")
+    x2, draws2 = r.randomness("sample", shape)
+    plain = serving_ddim_sampler(srv["qunet"], srv["params"], srv["qstates"], srv["seq"], r.betas, plain=True,
+                                 runtime=runtime, **kw)(x2, **draws2)
+    rel = _rel(out, plain)
+    print(f"[cli] ({label}) whole run ({steps} steps, update {kw['update']}, eta {kw['eta']}) through the kernels vs "
+          f"the plain versions on the same generator: mean rel err {rel:.3e} (bound {CHAINED_BOUND}); the "
+          f"{batch} PNGs are the sampler's images")
+    if not (torch.isfinite(out).all() and rel < CHAINED_BOUND):
+        raise AssertionError(f"cli ({label}): kernels vs plain run, mean rel err {rel}")
+
+
+def cli_phase(cfg, steps, batch, gen):
+    """The CLI (`main_torch.main`) at cifar10.yml, --batch_size 128,
+    --timesteps quad, serving, --ni, with the exp tree under CLI_EXP:
+    (a) --ckpt_path to a reference-named state dict written here from the
+    seeded generator (the loaded params held equal to it), --calib_cache
+    auto; (b) --sample_type ddpm_noisy; (c) --eta 0.5 --weight_refine off;
+    each held by `cli_serving_checks`.  (d) --fid --num_samples 256, ids
+    CLI_HOLE and up deleted, run again: every file byte-identical, the PNGs
+    read back with zlib equal to the sampler's uint8 images.  (e)
+    --execution fake_quant, --fp32, --fp32 --compute_dtype bfloat16."""
+    import glob
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from attentiondm_tpu_torch.data.transforms import inverse_transform_uint8
+    from attentiondm_tpu_torch.models.torch_convert import ddim_state_dict
+    from attentiondm_tpu_torch.models.unet import map_tree, unet_init
+    from attentiondm_tpu_torch.utils.images import read_png
+
+    shutil.rmtree(CLI_EXP, ignore_errors=True)
+    os.makedirs(CLI_EXP)
+    params = unet_init(gen, cfg, "cpu")
+    ckpt = f"{CLI_EXP}/model-seeded.ckpt"
+    torch.save(ddim_state_dict(params, cfg), ckpt)
+    print(f"[cli] wrote {ckpt}: the reference's key names, {sum(a.numel() for a in ddim_state_dict(params, cfg).values()) / 1e6:.2f}M "
+          f"params from the seeded generator")
+    runners = {}
+    for label, extra in CLI_SERVING_RUNS.items():
+        r, counts = cli_run(label, cli_argv(steps, batch, ckpt, *extra))
+        if label == "a":
+            got, want = [], []
+            map_tree(got.append, r.serving["params"])
+            map_tree(want.append, params)
+            if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)) or len(got) != len(want):
+                raise AssertionError("cli (a): the loaded params differ from the state dict written")
+            print(f"[cli] (a) loaded params equal the state dict's, {len(got)} tensors")
+        elif "calibration cache" not in r.timings or ("calibration" in r.timings) != (label == "c"):
+            raise AssertionError(f"cli ({label}): calibration cache use {sorted(r.timings)}")
+        cli_serving_checks(label, r, counts, steps, batch)
+        runners[label] = r
+        r.serving = None
+        torch.cuda.empty_cache()
+
+    argv = cli_argv(steps, batch, ckpt, *SERVING, "--fid", "--calib_cache", "auto", "--image_folder", "fid", n=CLI_FID)
+    r, counts = cli_run("d", argv)
+    cli_serving_checks("d", r, counts, steps, batch, runs=CLI_FID // batch, full=False)
+    folder = r.args.image_folder
+    first = {p: open(p, "rb").read() for p in glob.glob(f"{folder}/*.png")}
+    if len(first) != CLI_FID:
+        raise AssertionError(f"cli (d): {len(first)} files, expected {CLI_FID}")
+    for i in range(CLI_HOLE, CLI_FID):
+        os.remove(f"{folder}/{i}.png")
+    r, counts = cli_run("d, resumed", argv)
+    cli_serving_checks("d, resumed", r, counts, steps, batch, runs=(CLI_FID - CLI_HOLE // batch * batch) // batch,
+                       full=False)
+    again = {p: open(p, "rb").read() for p in glob.glob(f"{folder}/*.png")}
+    if again != first or r.fid_images != CLI_FID - CLI_HOLE // batch * batch:
+        raise AssertionError(f"cli (d): the resumed files differ ({r.fid_images} images generated again)")
+    x, draws = r.randomness("fid", (batch, cfg.resolution, cfg.resolution, cfg.in_channels), 1)
+    u8 = inverse_transform_uint8(r.config, r.serving["sampler"](x, **draws)).cpu().numpy()
+    if not all((read_png(f"{folder}/{batch + i}.png") == u8[i]).all() for i in range(batch)):
+        raise AssertionError("cli (d): the PNGs read back differ from the sampler's uint8 images")
+    print(f"[cli] (d) resumed at {CLI_HOLE // batch * batch} after deleting ids {CLI_HOLE}..{CLI_FID - 1}: all "
+          f"{CLI_FID} files byte-identical; PNGs {batch}..{2 * batch - 1} read back with zlib equal the sampler's uint8 "
+          f"images; PNG encoding {r.timings['png']:.2f} s of background threads, {r.timings['png wait']:.3f} s waited "
+          f"after the last batch")
+    r.serving = None
+
+    imgs = {}
+    for label, extra in CLI_OTHER_RUNS.items():
+        r, counts = cli_run(label, cli_argv(steps, batch, ckpt, *extra))
+        imgs[label] = np.stack([read_png(f"{r.args.image_folder}/sample_{i}.png") for i in range(batch)]).astype(
+            np.float64)
+        if any(counts.values()):
+            raise AssertionError(f"cli ({label}): no kernel runs off the serving path, counts {counts}")
+    a = imgs["fp32"]
+    for label in ("fake_quant", "fp32 bf16"):
+        print(f"[cli] (e) {label} images vs fp32's: mean abs pixel difference {np.abs(imgs[label] - a).mean():.3f} "
+              f"of 255 (information only; random weights)")
+
+
 def phase(path, name, fn, *args, **kwargs):
     """fn(*args, **kwargs), and its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -1915,7 +2121,10 @@ def main(argv=None):
         steps = min(args.steps, MAX_STEPS.get(path, args.steps))
         print(f"== {path}: {label}, batch {BATCH[path]}")
         report = Report()
-        if path == "cifar10-enhanced":
+        if path == "cifar10-cli":
+            ctx = phase(path, "cli", cli_phase, cfg, steps, BATCH[path], gen)
+            launches_of = {}
+        elif path == "cifar10-enhanced":
             phase(path, "kernels", kernel_phase, cfg, BATCH[path], gen, dev, report)
             counts, ctx = phase(path, "slice", enhanced_slice_phase, cfg, sched, label, steps, BATCH[path], gen, dev,
                                 args.profile)

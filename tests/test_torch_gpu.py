@@ -13,6 +13,8 @@ cores) mean relative error < 1e-3 with 99% of the elements within 1 bf16
 ulp, K7 within 1 bf16 ulp with sums within 1e-6 relative, K12 mean relative
 error < 1e-3 with 99.9% within 1 bf16 ulp, K8 and K9 at most 1 LSB on at
 most 0.2% of the codes, K10 on at most 1%, K11 within 2e-5 + 2e-5 |x|."""
+import os
+
 import pytest
 import torch
 
@@ -1164,3 +1166,49 @@ def test_int8_model_fn_asymmetric_on_the_card_matches_the_cpu(dev, gen):
         x.to(**to), t.to(**to), 1))
     rel = ((card.cpu() - cpu).abs().mean() / cpu.abs().mean()).item()
     assert rel < 6.2e-2, rel
+
+
+@pytest.mark.parametrize("kind", ["ddpm_noisy", "eta"])
+def test_runner_serving_sample_on_the_card(dev, tmp_path, kind):
+    """The runner's serving `sample()` on the card (the toy UNet at W4A8,
+    `--sample_type ddpm_noisy` or `--eta 0.5`): K1, K2 and K3 launched as
+    `expected_launches` says for its flags, eight PNGs written, and the
+    same sampler through the plain versions on the same generator within
+    the chained bound (0.1 mean relative) of the kernels' run."""
+    import argparse
+
+    from attentiondm_tpu_torch.config import dict2namespace
+    from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
+    from attentiondm_tpu_torch.runners.diffusion import Diffusion
+
+    config = dict2namespace({
+        "data": {"dataset": "CIFAR10", "image_size": 8, "channels": 3, "rescaled": True},
+        "model": {"in_channels": 3, "out_ch": 3, "ch": 128, "ch_mult": [1, 2], "num_res_blocks": 1,
+                  "attn_resolutions": [8], "dropout": 0.0, "var_type": "fixedlarge", "ema": False},
+        "diffusion": {"beta_schedule": "linear", "beta_start": 1e-4, "beta_end": 0.02,
+                      "num_diffusion_timesteps": 1000},
+        "sampling": {"batch_size": 8}})
+    args = argparse.Namespace(
+        seed=3, timesteps=3, skip_type="quad", eta=0.5 if kind == "eta" else 0.0, sample_type=kind
+        if kind == "ddpm_noisy" else "generalized", fid=False, fid_stats=None, interpolation=False, sequence=False,
+        execution="serving", fp32=False, bitwidth=4, a_bitwidth=8, normgroup=0, compute_dtype="float32",
+        attn_variant="ddim", mixed_precision_attention=False, attn_int8=False, step_chunk=None, superbatch=None,
+        shared_fold=False, pack_int4=False, weight_opt="biascorr", weight_refine="off", adaround_iters=10,
+        calibrate_attention=False, calib_t_mode="real", sample_weight=2.0, calib_cache=None, ckpt_path=None,
+        use_pretrained=False, num_samples=8, image_folder=str(tmp_path / "img"), log_path=str(tmp_path / "log"))
+    r = Diffusion(args, config)
+    checks.reset_launches()
+    r.sample()
+    counts = checks.read_launches()
+    srv = r.serving
+    flags = {k: srv["kwargs"][k] for k in ("attn_int8", "attn_ranges", "residual_dtype")}
+    assert counts == checks.expected_launches(r.ucfg, 3, 8, **flags)
+    assert counts["K1"] and counts["K2"] and counts["K3"]
+    assert sorted(os.listdir(args.image_folder)) == sorted([f"sample_{i}.png" for i in range(8)] + ["grid.png"])
+    x, kw = r.randomness("sample", (8, 8, 8, 3))
+    out = srv["sampler"](x, **kw)
+    x, kw = r.randomness("sample", (8, 8, 8, 3))
+    plain = serving_ddim_sampler(srv["qunet"], srv["params"], srv["qstates"], srv["seq"], r.betas, plain=True,
+                                 runtime=srv["sampler"].runtime, **srv["kwargs"])(x, **kw)
+    rel = ((out - plain).abs().mean() / plain.abs().mean()).item()
+    assert torch.isfinite(out).all() and rel < 0.1, rel

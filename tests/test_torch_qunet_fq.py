@@ -271,14 +271,21 @@ def test_fake_quant_ddim_sample_matches_jax(chain):
 
 @pytest.mark.parametrize("call", ["prepare_params", "apply", "model_fn"])
 def test_unported_fake_quant_options_raise(chain, call):
-    """`compute_dtype` (the runner's bf16 path, Queue 1 item 6) raises.  Mode
-    "int8" is ported: tests/test_torch_int8_runtime.py."""
+    """`compute_dtype` is taken by all three calls (it raised until the
+    runner's bf16 path was ported; its parity with JAX is
+    tests/test_torch_compute_dtype.py): bf16 params, a float32 eps; a mode
+    the interceptor does not define still raises ValueError.  Mode "int8"
+    is ported: tests/test_torch_int8_runtime.py."""
     cfg, q = _port()
     x, t = torch.tensor(chain["x"]), torch.tensor(chain["t"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        if call == "prepare_params":
-            q.prepare_params(chain["params"], compute_dtype=torch.bfloat16)
-        elif call == "apply":
-            q.apply(chain["params"], chain["qstates"], x, t, 0, compute_dtype=torch.bfloat16)
-        else:
-            q.model_fn(chain["params"], chain["qstates"], compute_dtype=torch.bfloat16)
+    qp, _ = q.prepare_params(chain["params"], compute_dtype=torch.bfloat16)
+    assert qp["conv_in"]["kernel"].dtype == torch.bfloat16
+    if call == "prepare_params":
+        return
+    if call == "apply":
+        eps = q.apply(qp, chain["qstates"], x, t, 0, compute_dtype=torch.bfloat16)
+    else:
+        eps = q.model_fn(qp, chain["qstates"], compute_dtype=torch.bfloat16)(x, t, 0)
+    assert eps.dtype == torch.float32 and torch.isfinite(eps).all()
+    with pytest.raises(ValueError):
+        q.apply(qp, chain["qstates"], x, t, 0, mode="fast", compute_dtype=torch.bfloat16)

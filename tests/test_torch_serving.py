@@ -170,25 +170,24 @@ def test_fold_of_jax_qstates_matches_jax_runtime(chain):
         np.testing.assert_allclose(lay.zcbias.numpy(), ref.zcbias.numpy(), rtol=1e-5, atol=1e-5, err_msg=name)
 
 
-# the values JAX's serving path takes but the port does not yet (the ddpm update, eta != 0: ROADMAP Queue 1
-# item 6), and values JAX does not define or refuses: a resblock_pallas other than False / True / "all" (JAX
-# treats any truthy value as True; JAX has a shape-list form for conv_pallas only), a malformed conv_pallas,
-# a residual stream other than f32 / bf16, asymmetric serving folds (JAX refuses them, pointing to the
-# interception runtime)
+# values JAX does not define or refuses: a resblock_pallas other than False / True / "all" (JAX treats any
+# truthy value as True; JAX has a shape-list form for conv_pallas only), a malformed conv_pallas, a residual
+# stream other than f32 / bf16, asymmetric serving folds (JAX refuses them, pointing to the interception
+# runtime), an update other than "ddim" / "ddpm" (JAX raises ValueError too)
 FLAGS = {
     "resblock_pallas": ("resblock_pallas", ((8, 128, 128),)), "conv_pallas_str": ("conv_pallas", "some"),
     "conv_pallas_pair": ("conv_pallas", [(8, 128)]), "residual_dtype_float16": ("residual_dtype", torch.float16),
 }
-SAMPLER_FLAGS = {**FLAGS, "symmetric": ("symmetric", False), "update": ("update", "ddpm"), "eta": ("eta", 0.5)}
-RAISES = {"update": NotImplementedError, "eta": NotImplementedError}  # the rest: ValueError
+SAMPLER_FLAGS = {**FLAGS, "symmetric": ("symmetric", False), "update": ("update", "ancestral")}
 
 
 @pytest.mark.parametrize("flag,value", SAMPLER_FLAGS.values(), ids=list(SAMPLER_FLAGS))
 def test_unported_serving_flags_raise(chain, flag, value):
-    """Every flag value off the serving path raises instead of being ignored:
-    item 6's values NotImplementedError, the others ValueError."""
+    """Every flag value off the serving path raises ValueError instead of
+    being ignored (the ddpm update and eta != 0 are taken:
+    tests/test_torch_ddpm.py)."""
     cfg, q, sched = _port()
-    with pytest.raises(RAISES.get(flag, ValueError)):
+    with pytest.raises(ValueError):
         if (flag, value) in FLAGS.values():
             serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"],
                                torch.from_numpy(chain["x"]), torch.from_numpy(chain["t"]), 0, **{flag: value})

@@ -156,12 +156,16 @@ def test_unported_fp_options_raise(call):
         dense = torch.softmax(q @ k.transpose(1, 2) * 128 ** -0.5, dim=-1) @ v
         assert not torch.equal(out, dense) and torch.allclose(out, dense, atol=2e-5, rtol=2e-5)
         return
-    with pytest.raises(NotImplementedError):
-        if call == "schedule":
-            DiffusionSchedule.create("warmup", 1e-4, 0.02, 1000, device="cpu")  # a schedule no package has
-        else:
-            sched = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu")
+    if call == "eta":  # ported: eta > 0 draws from the generator it is given (tests/test_torch_ddpm.py), none raises
+        sched = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device="cpu")
+        with pytest.raises(ValueError, match="generator"):
             ddim_sample(lambda xt, t, i: xt, torch.zeros(1, 8, 8, 3), [0, 500], sched.betas, eta=0.5)
+        out = ddim_sample(lambda xt, t, i: xt, torch.zeros(1, 8, 8, 3), [0, 500], sched.betas, eta=0.5,
+                          generator=torch.Generator().manual_seed(0))
+        assert torch.isfinite(out).all() and out.abs().sum() > 0
+        return
+    with pytest.raises(NotImplementedError):
+        DiffusionSchedule.create("warmup", 1e-4, 0.02, 1000, device="cpu")  # a schedule no package has
 
 
 def test_exact_f32_scopes_the_tf32_switches():
