@@ -4,7 +4,8 @@ JAX's name-keyed, self-describing format: one numpy `.npz` whose keys are
 the flattened tree paths joined by "/", with three markers: `<path>/__len__`
 (a list's length), `<path>/__none__` (a None leaf) and `<path>/__dc__` (a
 dataclass: its module and qualified name as bytes).  A file written by
-either package loads in the other.  For the published torch DDIM
+either package loads in the other, training states (`training.TrainState`
+with optax-shaped optimizer states) among them.  For the published torch DDIM
 checkpoints use `models.torch_convert.load_torch_checkpoint`.
 """
 from __future__ import annotations
@@ -80,24 +81,27 @@ def load_checkpoint(path: str, like, *, prefix: str = "", device=None, flat: dic
                 raise KeyError(f"checkpoint missing key {key}/__len__")
             n = int(flat[key + "/__len__"])
             out = [walk(node[i] if i < len(node) else None, path_ + [str(i)]) for i in range(n)]
-            return type(node)(out) if isinstance(node, tuple) else out
+            if isinstance(node, tuple):  # a namedtuple (an optimizer state) takes its fields by position
+                return type(node)(*out) if hasattr(node, "_fields") else type(node)(out)
+            return out
         if node is None:
             return None
         if hasattr(node, "__dataclass_fields__"):
             return type(node)(**{f: walk(getattr(node, f), path_ + [f]) for f in node.__dataclass_fields__})
         if key not in flat:
             raise KeyError(f"checkpoint missing key {key}")
-        return torch.from_numpy(np.ascontiguousarray(flat[key])).to(device)
+        return torch.from_numpy(np.array(flat[key], order="C")).to(device)  # np.array keeps a 0-d leaf 0-d
 
     return walk(like, [prefix] if prefix else [])
 
 
-def load_params(path: str, like, device=None):
+def load_params(path: str, like, device=None, *, ema: bool = True):
     """Model params from a `.npz` checkpoint: a bare param tree, or a
-    training state's `ema` subtree where it holds one, else its `params`
-    (JAX's `TrainState` keys, read by name with no optimizer state)."""
+    training state's (JAX's `TrainState` keys, read by name with no
+    optimizer state) `ema` subtree with `ema` (the config's `model.ema`),
+    else its `params`, as JAX's `_load_params` chooses.  With `ema` a state
+    saved without an EMA raises KeyError, as in JAX."""
     flat = read_flat(path)
     if any(k.startswith("params/") for k in flat):
-        prefix = "ema" if any(k.startswith("ema/") and k != "ema/__none__" for k in flat) else "params"
-        return load_checkpoint(path, like, prefix=prefix, device=device, flat=flat)
+        return load_checkpoint(path, like, prefix="ema" if ema else "params", device=device, flat=flat)
     return load_checkpoint(path, like, device=device, flat=flat)

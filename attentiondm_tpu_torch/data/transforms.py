@@ -1,6 +1,5 @@
 """Model-space transforms of images (port of the transforms of
-`attentiondm_tpu/data/transforms.py`; the datasets are ROADMAP Queue 1
-item 7).
+`attentiondm_tpu/data/transforms.py`; the datasets are `data/datasets.py`).
 
 Images are float32 NHWC tensors in [0, 1]; `data_transform` maps them to
 model space (dequantization, logit or rescale to [-1, 1]) and

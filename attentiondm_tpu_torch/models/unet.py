@@ -10,10 +10,12 @@ package so the two compare like with like:
 - every conv goes through a `conv_apply(name, x, p, stride=, padding=)`
   chokepoint, which calibration intercepts.
 
-Both attention variants are ported, at inference: "ddim" (the checkpoints'
-single-head block) and "enhanced" (multi-head, per-projection bit-widths, a
-learnable gamma residual; `attn_ctx` collects its logit ranges or swaps its
-core for the stage-3 mixed-precision one, quant/attention_mp.py).
+Both attention variants are ported: "ddim" (the checkpoints' single-head
+block) and "enhanced" (multi-head, per-projection bit-widths, a learnable
+gamma residual; `attn_ctx` collects its logit ranges or swaps its core for
+the stage-3 mixed-precision one, quant/attention_mp.py).  The forward is
+differentiable end to end; with `train=True` it applies the resblocks'
+dropout (training.py).
 """
 from __future__ import annotations
 
@@ -268,6 +270,19 @@ def count_params(params: Params) -> int:
     return sum(n)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict / list / tuple tree, in `map_tree`'s order."""
+    out = []
+    map_tree(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree of `like`'s structure (dicts and lists) holding `leaves` in `tree_leaves` order."""
+    it = iter(leaves)
+    return map_tree(lambda _: next(it), like)
+
+
 def lookup(params, name):
     """Param node of a dotted conv name (`down.0.block.1.conv1`)."""
     node = params
@@ -277,7 +292,7 @@ def lookup(params, name):
 
 
 # ---------------------------------------------------------------------------
-# forward (inference)
+# forward
 # ---------------------------------------------------------------------------
 
 
@@ -285,11 +300,13 @@ def _default_conv_apply(name, x, p, *, stride=1, padding="SAME"):
     return conv2d(x, p, stride=stride, padding=padding)
 
 
-def _resblock_apply(name, p, x, temb, conv_apply):
+def _resblock_apply(name, p, x, temb, conv_apply, dropout=None):
     h = swish(group_norm(x, p["norm1"]))
     h = conv_apply(f"{name}.conv1", h, p["conv1"])
     h = h + dense(swish(temb), p["temb_proj"])[:, None, None, :]
     h = swish(group_norm(h, p["norm2"]))
+    if dropout is not None:
+        h = dropout(h)
     h = conv_apply(f"{name}.conv2", h, p["conv2"])
     if "nin_shortcut" in p:
         x = conv_apply(f"{name}.nin_shortcut", x, p["nin_shortcut"])
@@ -389,20 +406,49 @@ def _upsample(name, p, x, conv_apply, with_conv=True):
     return conv_apply(f"{name}.conv", x, p["conv"]) if with_conv else x
 
 
+def _dropout(cfg: UNetConfig, train: bool, generator, dropout_masks):
+    """The resblocks' dropout, `h -> where(mask, h / keep, 0)` with mask ~
+    Bernoulli(keep) (`rand < keep`, drawn from `generator` on h's device, or
+    the next of `dropout_masks`), or None where it does not run: it runs
+    with `train`, a nonzero `cfg.dropout` and randomness given."""
+    if not (train and cfg.dropout > 0 and (generator is not None or dropout_masks is not None)):
+        return None
+    keep = 1.0 - cfg.dropout
+    masks = None if dropout_masks is None else iter(dropout_masks)
+
+    def drop(h):
+        if masks is not None:
+            mask = next(masks)
+        else:
+            mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+        return torch.where(mask, h / keep, 0.0)
+
+    return drop
+
+
 @exact_f32()
 def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor, *,
                conv_apply: Callable | None = None, attn_ctx: dict | None = None,
-               compute_dtype=None) -> torch.Tensor:
-    """Predict eps from (x_t [NHWC], t [N]); float32 out, inference only.
-    `attn_ctx` goes to every enhanced attention block (`_attn_apply_enhanced`).
+               compute_dtype=None, train: bool = False, generator: torch.Generator | None = None,
+               dropout_masks=None) -> torch.Tensor:
+    """Predict eps from (x_t [NHWC], t [N]); float32 out, differentiable in
+    params and x.  `attn_ctx` goes to every enhanced attention block
+    (`_attn_apply_enhanced`).
 
     `compute_dtype` (e.g. torch.bfloat16) runs the network at that
     activation dtype: x and the timestep embedding are cast to it, and the
     params must be pre-cast (`cast_params`).  GroupNorm statistics and the
-    attention softmax stay float32."""
+    attention softmax stay float32.
+
+    `train=True` applies dropout (rate `cfg.dropout`) after each resblock's
+    second GroupNorm + swish, with masks drawn from `generator` or handed in
+    as `dropout_masks` (one bool tensor per resblock, in call order: down,
+    mid 1, mid 2, up; JAX draws resblock i's from `split(rng, 64)[i]`).
+    Without either, no dropout runs."""
     check_ported(cfg)
     ca = conv_apply or _default_conv_apply
     num_levels = len(cfg.ch_mult)
+    drop = _dropout(cfg, train, generator, dropout_masks)
 
     temb = get_timestep_embedding(t, cfg.ch)
     if compute_dtype is not None:
@@ -413,7 +459,7 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
     for i_level in range(num_levels):
         lp = params["down"][i_level]
         for i_block in range(cfg.num_res_blocks):
-            h = _resblock_apply(f"down.{i_level}.block.{i_block}", lp["block"][i_block], hs[-1], temb, ca)
+            h = _resblock_apply(f"down.{i_level}.block.{i_block}", lp["block"][i_block], hs[-1], temb, ca, drop)
             if lp["attn"]:
                 h = _attn_apply(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx)
             hs.append(h)
@@ -421,15 +467,15 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
             hs.append(_downsample(f"down.{i_level}.downsample", lp["downsample"], hs[-1], ca, cfg.resamp_with_conv))
 
     h = hs[-1]
-    h = _resblock_apply("mid.block_1", params["mid"]["block_1"], h, temb, ca)
+    h = _resblock_apply("mid.block_1", params["mid"]["block_1"], h, temb, ca, drop)
     h = _attn_apply("mid.attn_1", params["mid"]["attn_1"], h, ca, cfg, attn_ctx)
-    h = _resblock_apply("mid.block_2", params["mid"]["block_2"], h, temb, ca)
+    h = _resblock_apply("mid.block_2", params["mid"]["block_2"], h, temb, ca, drop)
 
     for i_level in reversed(range(num_levels)):
         lp = params["up"][i_level]
         for i_block in range(cfg.num_res_blocks + 1):
             h = _resblock_apply(f"up.{i_level}.block.{i_block}", lp["block"][i_block],
-                                torch.cat([h, hs.pop()], dim=-1), temb, ca)
+                                torch.cat([h, hs.pop()], dim=-1), temb, ca, drop)
             if lp["attn"]:
                 h = _attn_apply(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx)
         if i_level != 0:
@@ -439,6 +485,22 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
     h = swish(group_norm(h, params["norm_out"]))
     h = ca("conv_out", h, params["conv_out"])
     return h.to(torch.float32)
+
+
+def dropout_shapes(cfg: UNetConfig, n: int) -> list:
+    """The [N, H, W, C] of each resblock's dropout mask at batch `n`, in
+    `unet_apply`'s call order (down, mid 1, mid 2, up): `dropout_masks`'s shapes."""
+    shapes, res = [], cfg.resolution
+    for i, m in enumerate(cfg.ch_mult):
+        shapes += [(n, res, res, cfg.ch * m)] * cfg.num_res_blocks
+        if i != len(cfg.ch_mult) - 1:
+            res //= 2
+    shapes += [(n, res, res, cfg.ch * cfg.ch_mult[-1])] * 2
+    for i in reversed(range(len(cfg.ch_mult))):
+        shapes += [(n, res, res, cfg.ch * cfg.ch_mult[i])] * (cfg.num_res_blocks + 1)
+        if i != 0:
+            res *= 2
+    return shapes
 
 
 # the 1x1 projections of an attention block, in call order

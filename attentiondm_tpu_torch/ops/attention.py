@@ -14,6 +14,11 @@ m (from -1e30), alpha = exp(m - m_new), denom = denom * alpha + sum(p) and
 acc = acc * alpha + p . v; acc / denom at the end.  Kernel and plain version
 sum their float32 dot products in different orders, so they agree to
 rounding, not to the bit.
+
+K11 has no backward, as JAX's Pallas kernel has none (`jax.grad` through it
+fails to linearize): `flash_attention` raises where autograd would need one,
+on the CPU as on the card, rather than return an output that carries no
+gradient to q, k and v.
 """
 from __future__ import annotations
 
@@ -79,10 +84,14 @@ def flash_attention(q, k, v, *, scale=None, block_q: int = 256, block_k: int = 5
     `flash_attention_ref` (2e-5 + 2e-5 |x|).  `block_q` is kept for JAX's
     signature only: it has to divide L, as there, and changes nothing here
     (the kernel sizes its query tiles from D and the batch).  `plain=True`
-    runs the plain version on any device."""
+    runs the plain version on any device.  Inputs that require grad, with
+    grad mode on, raise ValueError: K11 has no backward."""
     B, L, D = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
+        raise ValueError(f"flash_attention (K11) has no backward, as JAX's Pallas kernel has none: a map of L={L} "
+                         "tokens cannot be differentiated (run it under torch.no_grad(), or attend below L=1024)")
     if scale is None:
         scale = D ** -0.5
     _, bk = _blocks(L, block_q, block_k)

@@ -1,26 +1,32 @@
-"""The runner's sampling half (port of `attentiondm_tpu/runners/diffusion.py`).
+"""The runner (port of `attentiondm_tpu/runners/diffusion.py`): train, test and sample.
 
-`Diffusion(args, config, device=None)` loads a model (a `.npz` param tree or
-training state, a torch DDIM `.ckpt` / `.pth` converted by name, a
-registered checkpoint by name, or seeded random weights), calibrates it
-(stage 1, the W4 weight pass, stage 2 in either mode, the fold refinement,
-stage 3, the calibration cache) and samples through one of three models:
-the fused int8 serving sampler (`--execution serving`, the CUDA kernels),
-the fake-quant model, or the float model (`--fp32`, at `--compute_dtype`).
-`sample()` writes a grid and `sample_<i>.png`, or with `--fid` numbered
-PNGs for a bulk run that resumes where it stopped, or a `--sequence` /
-`--interpolation` grid.
+`Diffusion(args, config, device=None)` trains a model (`train()`: the
+config's optimizer, clipping and EMA over its dataset, snapshots of the
+training state, `--resume_training`), evaluates one (`test()`: the eps-MSE
+on the test split, float, fake-quant or served through the CUDA kernels),
+and samples: it loads a model (a `.npz` param tree, or a training state's
+EMA or params as the config's `model.ema` says, a torch DDIM `.ckpt` /
+`.pth` converted by name, a registered checkpoint by name, or seeded random
+weights), calibrates it (stage 1, the W4 weight pass, stage 2 in either
+mode, the fold refinement, stage 3, the calibration cache) and samples
+through one of three models: the fused int8 serving sampler (`--execution
+serving`, the CUDA kernels), the fake-quant model, or the float model
+(`--fp32`, at `--compute_dtype`).  `sample()` writes a grid and
+`sample_<i>.png`, or with `--fid` numbered PNGs for a bulk run that resumes
+where it stopped, or a `--sequence` / `--interpolation` grid.
 
 All randomness goes through `randomness(stream, shape, index)`: a
-`torch.Generator` on the device, seeded from `--seed` at JAX's offsets (+77
-for the calibration set, +99 for stage 2), whose first draw is a batch's
-initial noise and whose later draws are its sampler's per-step noise.  A
-test replaces that one method to hand in JAX's draws (`{"noise": ...}` in
-place of `{"generator": ...}`).
+`torch.Generator` on the device, seeded from `--seed` at JAX's offsets (+1
+for the training steps, +77 for the calibration set, +99 for stage 2),
+whose first draw is a batch's initial noise (the test batch's eps) and
+whose later draws are its sampler's per-step noise (a training step's t,
+eps and dropout masks).  A test replaces that one method to hand in JAX's
+draws (`{"noise": ...}`, `{"t": ..., "e": ..., "dropout_masks": ...}` in
+place of `{"generator": ...}`).  The loader's shuffle stays numpy's
+`default_rng(seed + epoch)`, as in JAX.
 
-Not ported here: `train()` (ROADMAP Queue 1 item 6b, the training half),
-`test()` and `--fid_stats` (item 7: the datasets and the Inception network);
-each raises NotImplementedError.
+Not ported here: `--fid_stats` (ROADMAP Queue 1 item 7: the Inception
+network), which raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -47,8 +53,10 @@ from ..quant.calibrate import (
 from ..quant.qunet import QuantizedUNet
 from ..utils.images import save_image, save_image_grid, write_png_batch
 
-# the offsets from --seed of JAX's keys: the calibration set's PRNGKey(seed + 77), stage 2's PRNGKey(seed + 99)
-SEED_OFFSETS = {"sample": 0, "interpolation": 0, "fid": 0, "calibration": 77, "calibration t": 77, "stage2": 99}
+# the offsets from --seed of JAX's keys: the training steps' PRNGKey(seed + 1), the calibration set's
+# PRNGKey(seed + 77), stage 2's PRNGKey(seed + 99)
+SEED_OFFSETS = {"sample": 0, "interpolation": 0, "fid": 0, "calibration": 77, "calibration t": 77, "stage2": 99,
+                "train": 1, "transform": 0, "test": 0}
 _STREAM_IDS = {name: i for i, name in enumerate(SEED_OFFSETS)}
 
 
@@ -133,7 +141,8 @@ class Diffusion:
 
     def _load_params(self):
         """Model params: a `.npz` checkpoint (a param tree, or a training
-        state's EMA / params by name), a torch `.ckpt` / `.pth` converted by
+        state's EMA where the config's `model.ema` is set, else its params),
+        a torch `.ckpt` / `.pth` converted by
         name, or seeded random init where no checkpoint is found."""
         from ..checkpoint import load_params
         from ..models.torch_convert import load_torch_checkpoint
@@ -154,7 +163,8 @@ class Diffusion:
         if path and os.path.exists(path):
             logging.info(f"loading checkpoint {path}")
             if path.endswith(".npz"):
-                return load_params(path, unet_init(torch.Generator().manual_seed(0), self.ucfg, "cpu"), self.device)
+                return load_params(path, unet_init(torch.Generator().manual_seed(0), self.ucfg, "cpu"), self.device,
+                                   ema=bool(self.config.model.ema))
             # CelebA-style training checkpoints carry the EMA weights in the list's tail
             ema = self.config.data.dataset.upper() == "CELEBA" and bool(self.config.model.ema)
             return load_torch_checkpoint(path, self.ucfg, ema=ema, device=self.device)
@@ -167,15 +177,210 @@ class Diffusion:
                                     group_num=int(getattr(args, "normgroup", 0) or 0))
 
     # ------------------------------------------------------------------
-    # not ported here
+    # training
     # ------------------------------------------------------------------
 
+    def _train_state_like(self):
+        """The training state a checkpoint of this config loads into: the
+        config's optimizer state, and an EMA where `model.ema` is set."""
+        from ..training import get_optimizer, init_train_state
+
+        params = unet_init(torch.Generator().manual_seed(0), self.ucfg, self.device)
+        return init_train_state(params, get_optimizer(self.config), use_ema=bool(self.config.model.ema))
+
     def train(self):
-        raise NotImplementedError("training is not ported yet: ROADMAP Queue 1 item 6b, the runner's training half "
-                                  "(training.py, diffusion/losses.py, models/ema.py, --resume_training)")
+        """Train on the config's dataset on this runner's device: batches of
+        `training.batch_size` from `iterate_batches(seed=--seed + epoch,
+        workers=data.num_workers)`, one `make_train_step` step each (the
+        config's optimizer, `optim.grad_clip`, the EMA at `model.ema_rate`
+        where `model.ema` is set) until `training.n_iters`; the loss of each
+        step is read one step late (`.item()` waits for the device), logged
+        to `<log_path>/train_metrics.csv` and `<exp>/tensorboard/<doc>`; the
+        training state goes to `ckpt_<step>.npz` and `ckpt.npz` at step 1
+        and every `snapshot_freq` steps.  `--resume_training` loads
+        `ckpt.npz` and continues from its step, with the draws, the shuffle
+        and the epoch count started again from 0, as JAX's runner does.
+        The final state stays on `train_state`, each step's host seconds on
+        `step_seconds` (the loop's on `timings["train"]`)."""
+        from ..checkpoint import load_checkpoint, save_checkpoint
+        from ..data.datasets import get_dataset
+        from ..data.loader import iterate_batches
+        from ..data.transforms import data_transform
+        from ..training import get_optimizer, init_train_state, make_train_step
+        from ..utils.metrics_log import MetricsLogger
+        from ..utils.tb_writer import SummaryWriter
+
+        args, config = self.args, self.config
+        train_ds, _ = get_dataset(args, config)
+        batch = config.training.batch_size
+        logging.info(f"training on {self.device}, batch {batch}")
+        tx = get_optimizer(config)
+        params = unet_init(torch.Generator().manual_seed(int(args.seed)), self.ucfg, self.device)
+        state = init_train_state(params, tx, use_ema=bool(config.model.ema))
+        start_step = 0
+        ckpt_path = os.path.join(args.log_path, "ckpt.npz")
+        if args.resume_training and os.path.exists(ckpt_path):
+            state = load_checkpoint(ckpt_path, state, device=self.device)
+            start_step = int(state.step)
+            logging.info(f"resumed from step {start_step}")
+        step_fn = make_train_step(self.ucfg, self.betas, tx, grad_clip=getattr(config.optim, "grad_clip", None),
+                                  ema_rate=config.model.ema_rate if config.model.ema else None)
+        logger = MetricsLogger(os.path.join(args.log_path, "train_metrics.csv"))
+        tb_logger = SummaryWriter(os.path.join(args.exp, "tensorboard", args.doc))
+        _, transform_kw = self.randomness("transform")
+        self.step_seconds = []
+        t_train = time.perf_counter()
+        pending = None
+
+        def flush(p):
+            if p is None:
+                return
+            p_step, p_loss, p_dt, p_epoch = p
+            p_loss = p_loss.item()
+            logging.info(f"step: {p_step}, loss: {p_loss:.5f}, data time: {p_dt:.3f}")
+            logger.log(p_step, loss=p_loss, data_s=round(p_dt, 4), epoch=p_epoch)
+            tb_logger.add_scalar("loss", p_loss, p_step)
+
+        def save(step):
+            save_checkpoint(os.path.join(args.log_path, f"ckpt_{step}.npz"), state)
+            save_checkpoint(ckpt_path, state)
+
+        step = start_step
+        workers = int(getattr(config.data, "num_workers", 0) or 0)
+        for epoch in range(config.training.n_epochs):
+            t_data = time.time()
+            for x, _y in iterate_batches(train_ds, batch, seed=args.seed + epoch, workers=workers):
+                data_time = time.time() - t_data
+                t0 = time.perf_counter()
+                x0 = data_transform(config, torch.from_numpy(x).to(self.device), **transform_kw)
+                _, draws = self.randomness("train", index=step - start_step)
+                state, loss = step_fn(state, x0, **draws)
+                step += 1
+                flush(pending)  # the previous step's loss: this step is queued on the device meanwhile
+                pending = (step, loss, data_time, epoch)
+                if step % config.training.snapshot_freq == 0 or step == 1:
+                    flush(pending)
+                    pending = None
+                    save(step)
+                self.step_seconds.append(time.perf_counter() - t0)
+                if step >= config.training.n_iters:
+                    break
+                t_data = time.time()
+            if step >= config.training.n_iters:
+                break
+        flush(pending)
+        tb_logger.close()
+        self.train_state = state
+        self.timings["train"] = time.perf_counter() - t_train
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
 
     def test(self):
-        raise NotImplementedError("--test needs the datasets, not ported yet: ROADMAP Queue 1 item 7 (data and eval)")
+        """The eps-MSE (summed over pixels, averaged over images) on the
+        test split, under the same execution flags as `sample()`: the float
+        model with --fp32 (or bitwidth <= 0), else the fake-quant model, or
+        with --execution serving the calibrated model served through the
+        kernels (`serving_unet_apply`).  The quantized models take each batch
+        at one sampler step, the batches walking the schedule at an even
+        stride (stratified coverage); the float model draws t per image.  At
+        most --num_samples images (default 11 batches of at most 64); the log
+        states the coverage.  Returns the mean; the figures stay on
+        `test_result`."""
+        from ..data.datasets import get_dataset
+        from ..data.loader import iterate_batches
+        from ..data.transforms import data_transform
+        from ..diffusion.losses import noise_estimation_loss
+
+        args, config = self.args, self.config
+        _, test_ds = get_dataset(args, config)
+        params = self._timed("load", self._load_params)
+        batch = max(1, min(getattr(config.sampling, "batch_size", 64), 64, len(test_ds)))
+        ucfg = self.ucfg
+        quant = not getattr(args, "fp32", False) and args.bitwidth > 0
+        serving = quant and getattr(args, "execution", "fake_quant") == "serving"
+        desc = "fp32"
+        if quant:
+            # the quantized state is indexed by sampler step: each batch is evaluated at one step of the schedule
+            seq = self.make_seq()
+            S = len(list(seq))
+            t_rev = np.asarray(list(seq))[::-1]
+            qunet = self._qunet()
+            qstates = qunet.init_state(S, self.device)
+            qstates, _ = self.calibrate_model(params, qunet, qstates, seq, first=True, compute_extras=serving,
+                                              collect_attn_ranges=serving and bool(getattr(args, "attn_int8", False)))
+            bits = f"W{args.bitwidth}A{getattr(args, 'a_bitwidth', None) or args.bitwidth}"
+            if serving:
+                from ..quant.int8_serving import prepare_serving_runtime, serving_unet_apply
+
+                runtime = self._timed("fold", lambda: prepare_serving_runtime(
+                    qunet, params, qstates, weight_extras=self.weight_extras,
+                    rank1=bool(getattr(args, "shared_fold", False)), pack_int4=bool(getattr(args, "pack_int4", False))))
+
+                def apply(x, t_vec, i):
+                    return serving_unet_apply(params, ucfg, qunet, runtime, qstates, x, t_vec, i, attn_int8=False)
+
+                desc = f"serving-int8 {bits}"
+            else:
+                qparams, _ = qunet.prepare_params(params)
+
+                def apply(x, t_vec, i):
+                    return qunet.apply(qparams, qstates, x, t_vec, i)
+
+                desc = f"fake-quant {bits}"
+            abar = torch.cumprod(1.0 - self.betas, dim=0)
+
+            def eval_loss(x0, e, t, i):
+                a = abar[int(t_rev[i])]
+                x = x0 * torch.sqrt(a) + e * torch.sqrt(1.0 - a)
+                t_vec = torch.full((x0.shape[0],), float(t_rev[i]), device=self.device)
+                return torch.square(e - apply(x, t_vec, i)).sum(dim=(1, 2, 3)).mean()
+        else:
+            def eval_loss(x0, e, t, i):
+                return noise_estimation_loss(lambda x, tt: unet_apply(params, ucfg, x, tt), x0, t, e, self.betas)[0]
+
+        max_examples = args.num_samples or 11 * batch
+        losses, step_losses = [], {}  # quantized: sampler step -> its batches' losses
+        seen = bi = 0
+        if quant:
+            n_expected = max(1, -(-max_examples // batch))
+            stride = S / n_expected if n_expected < S else 1.0
+        t0 = time.perf_counter()
+        for x, _y in iterate_batches(test_ds, batch, shuffle=False):
+            x0 = data_transform(config, torch.from_numpy(x).to(self.device))
+            e, draws = self.randomness("test", tuple(x0.shape), bi)
+            i = int(bi * stride) % S if quant else None
+            t = None
+            if not quant:
+                t = draws["t"] if "t" in draws else torch.randint(
+                    0, self.num_timesteps, (x0.shape[0],), generator=draws["generator"], device=self.device)
+            with torch.no_grad():
+                loss = eval_loss(x0, e, t, i).item()
+            losses.append(loss)
+            if quant:
+                step_losses.setdefault(i, []).append(loss)
+            seen += x0.shape[0]
+            bi += 1
+            if seen >= max_examples:
+                break
+        self.timings["test"] = time.perf_counter() - t0
+        avg = float(np.mean(losses))
+        logging.info(f"test eps-MSE (sum over pixels, {desc}): {avg:.4f} over {seen}/{len(test_ds)} test examples "
+                     f"({len(losses)} batches; --num_samples raises the cap)")
+        self.test_result = dict(eps_mse=avg, desc=desc, seen=seen, total=len(test_ds), batches=len(losses),
+                                batch=batch)
+        if step_losses:
+            per_step = {i: float(np.mean(v)) for i, v in sorted(step_losses.items())}
+            worst = max(per_step, key=per_step.get)
+            logging.info(f"  timestep coverage: {len(per_step)}/{S} sampler steps (stratified); worst step {worst} "
+                         f"(t={int(t_rev[worst])}): {per_step[worst]:.4f}")
+            self.test_result.update(steps_covered=len(per_step), steps=S, worst_step=worst)
+        return avg
+
+    # ------------------------------------------------------------------
+    # not ported here
+    # ------------------------------------------------------------------
 
     def _score_fid(self):
         raise NotImplementedError("--fid_stats needs the Inception network, not ported yet: ROADMAP Queue 1 item 7 "

@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch / CUDA port (`attentiondm_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--steps 10] [--seed 0] [--profile]
-                          [--paths cifar10,church,celeba-wide,imagenet64,cifar10-enhanced,cifar10-f32,cifar10-cli]
+                          [--paths cifar10,church,celeba-wide,imagenet64,cifar10-enhanced,cifar10-f32,cifar10-cli,
+                                   cifar10-train]
 
 (`--profile` adds, after the last phase, torch.profiler's device time per
-kernel for one run of each sampler; `--paths` runs only the paths named,
-all seven by default.)
+kernel for one run of each sampler and one training step; `--paths` runs only the paths named,
+all eight by default.)
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
@@ -173,6 +174,37 @@ all seven by default.)
    weight pass, refinement, fold, sampling, png) and its images/s.  The
    path adds no row to the kernels line (its kernels are CIFAR-10's K1, K2
    and K3, measured by the paths above).
+9. cifar10-train: the training half through the CLI at cifar10.yml's full
+   width (ch 128, ch_mult 1-2-2-2, attention at 16^2, dropout 0.1, Adam 2e-4,
+   clip 1.0, EMA 0.9999), batch 512, on a seeded stand-in for CIFAR-10:
+   10240 training and 1024 test images made by `synthetic_batch` on the card
+   and written as uint8 in CIFAR-10's pickle layout under
+   exp/chip_smoke_train/datasets (`train_phase`; the cuts, printed: n_iters
+   30, snapshot_freq 10, the image count):
+   a. one step at full width on 4 images on the card against the same step
+      on the CPU, given the same params, batch, t, eps and dropout masks: the
+      loss and the gradient norm before clipping within 1e-5 relative, the
+      params, Adam's moments and the EMA by `training.compare_train_states`;
+   b. `main_torch.main` trains 30 steps: every loss finite, the last 10
+      steps' mean below the first 10's, ckpt_1 / 10 / 20 / 30, ckpt.npz,
+      train_metrics.csv and the event file; no kernel launched; the step's
+      median wall, device time by part (CUDA events: forward + backward,
+      optimizer, EMA), images/s, peak memory and its bound (the convolution
+      and attention FLOPs over 67 TFLOP/s);
+   c. --resume_training to 40 steps: the state loaded equal to ckpt.npz,
+      the steps logged 31..40;
+   d. --test --fp32 on the EMA and (model.ema false) on the params, which
+      must test lower; then --test --execution serving (the served step's
+      launches against `expected_launches`): the eps-MSE and its coverage;
+   e. --sample --execution serving --fid --num_samples 128 on the trained
+      EMA (ckpt.npz's, as cifar10.yml's model.ema says; (d)'s calibration
+      cache), then on the trained params (model.ema false, calibrated anew):
+      launches, one step site by site and chained, the served sample's
+      distance from the fp sample of the same weights;
+   f. tools/train_synthetic.py: 20 steps of each distribution at batch 128,
+      the EMA loaded through --ckpt_path, --resume from .train.npz.
+   The path adds no row to the kernels line (the training step reaches no
+   kernel; its served runs reach K1, K13, K5, K2 and K3, measured above).
 Prints a JSON line of per-kernel results, then {"ok": true, "device": ...}
 as the last line.  Any failure raises (nonzero exit, no result line); so
 does a machine without a CUDA device.
@@ -188,7 +220,7 @@ import time
 
 CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative error (gross faults only)
 BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32, "cifar10-enhanced": 128,
-         "cifar10-f32": 128, "cifar10-cli": 128}
+         "cifar10-f32": 128, "cifar10-cli": 128, "cifar10-train": 512}
 MAX_STEPS = {"church": 4, "imagenet64": 4}  # a shallower schedule where the path is long
 LEVER_ROUNDS = 3  # timed runs per lever setting, taken in turns
 F32_CORE = dict(attn_int8=False)  # the attention flag of the CIFAR-10 and church paths (bench.py's)
@@ -291,10 +323,10 @@ def path_config(path):
     if path == "cifar10-f32":
         return (UNetConfig(), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
                 "UNetConfig() CIFAR-10, the float32 residual stream")
-    if path == "cifar10-cli":
+    if path in ("cifar10-cli", "cifar10-train"):
         config = load_config("cifar10.yml")
         return (UNetConfig.from_config(config), DiffusionSchedule.from_config(config),
-                "cifar10.yml CIFAR-10 through main_torch.py")
+                f"cifar10.yml CIFAR-10 through main_torch.py{', trained' if path == 'cifar10-train' else ''}")
     if path == "cifar10-enhanced":
         return (UNetConfig(attn_variant="enhanced"), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
                 "UNetConfig(attn_variant=\"enhanced\") CIFAR-10")
@@ -1213,14 +1245,25 @@ def clock(what, fn, tag="slice"):
     return out
 
 
-# `--profile`: (label, run, wall ms) of each sampler, profiled after every phase has run, so that no timed
-# run has a profiler window before it
+# `--profile`: (label, run, wall ms[, split]) of each sampler (and the training step, split), profiled after every
+# phase has run, so that no timed run has a profiler window before it
 DEFERRED_PROFILES = []
 
 
-def profile_sampler(label, run, wall_ms, top: int = 25):
-    """torch.profiler over one sampler run: device time per kernel, and its
-    share of the run's wall time."""
+# cuDNN's and cuBLAS's kernels, by name: the convolutions (implicit GEMM, FFT, Winograd), their layout transposes
+# and the dense GEMMs; a training step's profile sums its kernels into these and the rest (plain-torch passes)
+LIBRARY_KERNELS = ("cudnn", "xmma", "gemm", "fft", "complex", "dgrad", "wgrad", "fprop", "Nchw", "Nhwc", "nchw",
+                   "nhwc", "conv", "cutlass", "winograd")
+
+
+def profile_sampler(label, run, wall_ms, top: int = 25, split: bool = False):
+    """torch.profiler over one run of a sampler (or a training step): device
+    time per kernel, and its share of the run's wall time; with `split`, the
+    kernels' sum in cuDNN / cuBLAS's (`LIBRARY_KERNELS`) and the rest.
+    Autograd's nodes and the runtime's markers, which carry their kernels'
+    time again, are left out."""
+    import re
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1230,12 +1273,17 @@ def profile_sampler(label, run, wall_ms, top: int = 25):
     rows = []
     for e in prof.key_averages():
         dt = getattr(e, "device_time_total", 0)
-        if dt and not e.key.startswith(("aten::", "cuda")):
+        if (dt and not e.key.startswith(("aten::", "cuda", "autograd::")) and not re.search(r"Backward\d*$", e.key)
+                and e.key not in ("Command Buffer Full", "torch::autograd::AccumulateGrad")):
             rows.append((dt / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"[profile] {label}: device kernel time {total:.1f} ms over one sampler run of {wall_ms:.1f} ms wall "
+    print(f"[profile] {label}: device kernel time {total:.1f} ms over one run of {wall_ms:.1f} ms wall "
           f"(timed without the profiler)")
+    if split:
+        lib = sum(ms for ms, _, key in rows if any(k in key for k in LIBRARY_KERNELS))
+        print(f"[profile] {label}: cuDNN / cuBLAS kernels (convolutions, GEMMs, their transposes) {lib:.1f} ms "
+              f"({lib / total:.1%}), the rest (elementwise passes, reductions, copies) {total - lib:.1f} ms")
     for ms, n, key in rows[:top]:
         print(f"[profile] {ms:9.2f} ms {n:6d}x {ms / total * 100:5.1f}% {key[:100]}")
 
@@ -1915,7 +1963,7 @@ def cli_argv(steps, batch, ckpt, *extra, n=None):
             "--ckpt_path", ckpt, *extra]
 
 
-def cli_run(label, argv):
+def cli_run(label, argv, tag="cli"):
     """`main_torch.main(argv)` with every launch count set to 0 just before
     and read just after; it must return 0.  Prints the runner's seconds per
     stage.  Returns (runner, launch counts)."""
@@ -1930,11 +1978,13 @@ def cli_run(label, argv):
     if rc != 0:
         raise AssertionError(f"main_torch.main({argv}) returned {rc} (its traceback is in the log above)")
     r = main_torch.main.runner
-    n = r.fid_images or int(r.args.num_samples)
-    rate = n / r.timings["sampling"] if r.timings.get("sampling") else float("nan")
-    print(f"[cli] ({label}) {' '.join(argv[argv.index('--ckpt_path') + 2:])}: {wall:.2f} s; seconds: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in r.timings.items())
-          + f"; sampling {n} images: {rate:.1f} images/s")
+    shown = argv[argv.index("--ckpt_path") + 2:] if "--ckpt_path" in argv else argv
+    rate = ""
+    if r.timings.get("sampling"):
+        n = r.fid_images or int(r.args.num_samples)
+        rate = f"; sampling {n} images: {n / r.timings['sampling']:.1f} images/s"
+    print(f"[{tag}] ({label}) {' '.join(shown)}: {wall:.2f} s; seconds: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in r.timings.items()) + rate)
     return r, counts
 
 
@@ -2077,6 +2127,358 @@ def cli_phase(cfg, steps, batch, gen):
               f"of 255 (information only; random weights)")
 
 
+TRAIN_EXP = "exp/chip_smoke_train"  # the training path's --exp tree (git-ignored), emptied before the path runs
+TRAIN_SET = (10240, 1024)  # the seeded CIFAR-10 stand-in: training images (cut from 50000) and test images
+TRAIN_ITERS, TRAIN_SNAPSHOT, TRAIN_MORE = 30, 10, 10  # n_iters, snapshot_freq (cut from 5M, 5000), resumed steps
+SYNTH_STEPS, SYNTH_BATCH = 20, 128  # tools/train_synthetic.py's run per distribution
+PARITY_IMAGES = 4  # the card-vs-CPU step's batch
+
+
+def _train_config(n_iters, ema=True):
+    """cifar10.yml with the path's cuts (n_iters, snapshot_freq) and `model.ema`, written under TRAIN_EXP; returns
+    its path."""
+    import yaml
+
+    from attentiondm_tpu_torch.config import CONFIG_DIR
+
+    with open(f"{CONFIG_DIR}/cifar10.yml") as f:
+        d = yaml.safe_load(f)
+    d["training"].update(n_iters=n_iters, snapshot_freq=TRAIN_SNAPSHOT)
+    d["model"]["ema"] = ema
+    path = f"{TRAIN_EXP}/cifar10_n{n_iters}{'' if ema else '_params'}.yml"
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    return path
+
+
+def train_argv(config, *extra):
+    return ["--config", config, "--doc", "train", "--exp", TRAIN_EXP, "--ni", "--seed", "0", *extra]
+
+
+def _losses(log_path):
+    import csv
+
+    with open(f"{log_path}/train_metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    return [int(r["step"]) for r in rows], [float(r["loss"]) for r in rows]
+
+
+def train_parity(cfg, gen, tx, lr):
+    """(a) one training step at full width on PARITY_IMAGES images on the card
+    against the same step on the CPU: the same params, batch, t, eps and
+    dropout masks.  The loss and the global gradient norm before clipping
+    within 1e-5 relative; the params, Adam's moments and the EMA by
+    `training.compare_train_states` (the CPU tests' tolerances)."""
+    import torch
+
+    from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from attentiondm_tpu_torch.models.unet import dropout_shapes, map_tree, unet_apply, unet_init
+    from attentiondm_tpu_torch.training import (
+        compare_train_states,
+        global_norm,
+        init_train_state,
+        loss_and_grads,
+        make_train_step,
+    )
+
+    n = PARITY_IMAGES
+    params = unet_init(gen, cfg, "cpu")
+    x0 = torch.rand((n, cfg.resolution, cfg.resolution, 3), generator=gen) * 2 - 1
+    t, e = torch.randint(0, 1000, (n,), generator=gen), torch.randn(x0.shape, generator=gen)
+    masks = [torch.rand(s, generator=gen) < 1 - cfg.dropout for s in dropout_shapes(cfg, n)]
+    out = {}
+    for where in ("cpu", "cuda"):
+        betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device=where).betas
+        state = init_train_state(map_tree(lambda a: a.to(where), params), tx)
+        draws = dict(t=t.to(where), e=e.to(where), dropout_masks=[m.to(where) for m in masks])
+        _, grads = loss_and_grads(lambda p, x, tt, **r: unet_apply(p, cfg, x, tt, train=True, **r), state.params,
+                                  x0.to(where), draws["t"], draws["e"], betas, {"dropout_masks": draws["dropout_masks"]})
+        norm = global_norm(grads).item()
+        t0 = time.perf_counter()
+        new, loss = make_train_step(cfg, betas, tx, grad_clip=1.0, ema_rate=0.9999)(state, x0.to(where), **draws)
+        out[where] = (new, loss.item(), norm, time.perf_counter() - t0)
+    (gs, gl, gn, gt), (ws, wl, wn, wt) = out["cuda"], out["cpu"]
+    res = compare_train_states(gs, ws, lr)
+    figs = ", ".join(f"{k} {v[0]:.2e} off, worst {v[1]:.3e}" for k, v in res.items() if k != "ok")
+    print(f"[train] (a) one step at full width, {n} images, card vs CPU: loss {gl:.6f} / {wl:.6f} (rel "
+          f"{abs(gl - wl) / abs(wl):.2e}), grad norm before clipping {gn:.6f} / {wn:.6f} (rel {abs(gn - wn) / wn:.2e}); "
+          f"{figs}; step {gt:.2f} s card, {wt:.2f} s CPU")
+    if not (abs(gl - wl) <= 1e-5 * abs(wl) and abs(gn - wn) <= 1e-5 * wn and res["ok"]):
+        raise AssertionError(f"train (a): the card's step is off the CPU's: {res}")
+
+
+def step_parts_ms(r, x0, reps=3):
+    """Device time (CUDA events, median of `reps`) of a training step's parts
+    on the runner's final state and a batch of the dataset: forward +
+    backward, the optimizer (clipping, the Adam update and its application)
+    and the EMA."""
+    import statistics
+
+    import torch
+
+    from attentiondm_tpu_torch.models.ema import ema_update
+    from attentiondm_tpu_torch.models.unet import unet_apply
+    from attentiondm_tpu_torch.training import (
+        antithetic_timesteps,
+        apply_updates,
+        clip_by_global_norm,
+        get_optimizer,
+        loss_and_grads,
+    )
+
+    cfg, state, tx = r.ucfg, r.train_state, get_optimizer(r.config)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    parts = collections.defaultdict(list)
+    for _ in range(reps):
+        t = antithetic_timesteps(g, x0.shape[0], r.num_timesteps)
+        e = torch.randn(x0.shape, generator=g, device="cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        _, grads = loss_and_grads(lambda p, x, tt, **k: unet_apply(p, cfg, x, tt, train=True, **k), state.params, x0,
+                                  t, e, r.betas, {"generator": g})
+        ev[1].record()
+        grads, _ = clip_by_global_norm(grads, r.config.optim.grad_clip)
+        updates, _ = tx.update(grads, state.opt_state, state.params)
+        params = apply_updates(state.params, updates)
+        ev[2].record()
+        ema_update(state.ema, params, mu=r.config.model.ema_rate)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for name, a, b in (("forward + backward", 0, 1), ("optimizer", 1, 2), ("EMA", 2, 3)):
+            parts[name].append(ev[a].elapsed_time(ev[b]))
+        del grads, updates, params
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def step_flops(cfg):
+    """A training step's convolution and attention FLOPs per image: 3x the
+    forward's (the backward takes the gradients of both operands), the
+    forward's counted conv by conv on one image."""
+    import torch
+
+    from attentiondm_tpu_torch.models.unet import conv2d, unet_apply, unet_init
+    from attentiondm_tpu_torch.ops.checks import attention_sites
+
+    params = unet_init(torch.Generator().manual_seed(0), cfg, "cuda")
+    flops = [0]
+
+    def ca(name, x, p, stride=1, padding="SAME"):
+        out = conv2d(x, p, stride=stride, padding=padding)
+        kh, kw, cin = p["kernel"].shape[:3]
+        flops[0] += 2 * out.numel() * kh * kw * cin
+        return out
+
+    with torch.no_grad():
+        unet_apply(params, cfg, torch.zeros((1, cfg.resolution, cfg.resolution, cfg.in_channels), device="cuda"),
+                   torch.zeros(1, device="cuda"), conv_apply=ca)
+    attn = sum(2 * 2 * L * L * C for _, L, C in attention_sites(cfg))  # q.k and p.v
+    return 3 * (flops[0] + attn)
+
+
+def train_phase(cfg, steps, gen, profile=False):
+    """The training half at cifar10.yml's full width (`train_argv`), batch
+    512, on a seeded CIFAR-10 stand-in (TRAIN_SET images made by
+    `synthetic_batch` on the card, written as uint8 in CIFAR-10's pickle
+    layout under TRAIN_EXP/datasets): (a) `train_parity`; (b) `main_torch`
+    trains TRAIN_ITERS steps (every loss finite, the last 10 steps' mean
+    below the first 10's, the snapshots, the CSV and the event file; the
+    step's wall, device time by part, images/s, peak memory, share of its
+    bound; no kernel launched); (c) --resume_training to TRAIN_ITERS +
+    TRAIN_MORE (the state loaded equal to ckpt.npz, the first step logged
+    the saved one + 1); (d) --test --fp32, then --test --execution serving
+    (`steps` quad steps, the launches as `expected_launches`); (e) --sample
+    --execution serving --fid on the trained EMA and on the trained params,
+    each loaded by name as the config's model.ema says (launches, one step
+    site by site and chained, how far from the fp sample); (f)
+    tools/train_synthetic.py, SYNTH_STEPS steps of each distribution at
+    SYNTH_BATCH, its EMA through --ckpt_path and --resume.  With `profile`,
+    one training step on the trained state joins the deferred profiles."""
+    import argparse
+    import glob
+    import os
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from attentiondm_tpu_torch import checkpoint
+    from attentiondm_tpu_torch.config import load_config
+    from attentiondm_tpu_torch.data.datasets import get_dataset, write_cifar10
+    from attentiondm_tpu_torch.data.synthetic import synthetic_batch
+    from attentiondm_tpu_torch.data.transforms import data_transform
+    from attentiondm_tpu_torch.diffusion.sampling import ddim_sample
+    from attentiondm_tpu_torch.models.unet import tree_leaves, unet_apply
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.quant.int8_serving import serving_unet_apply
+    from attentiondm_tpu_torch.runners.diffusion import Diffusion
+    from attentiondm_tpu_torch.tools import train_synthetic
+    from attentiondm_tpu_torch.training import get_optimizer, make_train_step
+
+    shutil.rmtree(TRAIN_EXP, ignore_errors=True)
+    os.makedirs(TRAIN_EXP)
+    n_train, n_test = TRAIN_SET
+    imgs = synthetic_batch(torch.Generator(device="cuda").manual_seed(0), n_train + n_test, cfg.resolution)
+    u8 = ((imgs + 1.0) * 127.5 + 0.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
+    write_cifar10(f"{TRAIN_EXP}/datasets/cifar10", u8, np.random.default_rng(0).integers(0, 10, len(u8)), n_test)
+    config = _train_config(TRAIN_ITERS)
+    print(f"[train] dataset: {n_train} training and {n_test} test images (synthetic_batch, seed 0) in CIFAR-10's "
+          f"pickle layout under {TRAIN_EXP}/datasets; cuts: n_iters {TRAIN_ITERS} (cifar10.yml: 5000000), "
+          f"snapshot_freq {TRAIN_SNAPSHOT} (5000), the image count (50000 / 10000)")
+    lr = load_config(config).optim.lr
+    train_parity(cfg, gen, get_optimizer(load_config(config)), lr)
+
+    # (b) train
+    torch.cuda.reset_peak_memory_stats()
+    r, counts = cli_run("b: train", train_argv(config), tag="train")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if any(counts.values()):
+        raise AssertionError(f"train (b): the training step launched kernels: {counts}")
+    log = r.args.log_path
+    steps_logged, losses = _losses(log)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    files = sorted(os.path.basename(p) for p in glob.glob(f"{log}/*.npz"))
+    want_files = sorted(["ckpt.npz", "ckpt_1.npz"] + [f"ckpt_{k}.npz" for k in range(TRAIN_SNAPSHOT, TRAIN_ITERS + 1,
+                                                                                      TRAIN_SNAPSHOT)])
+    events = glob.glob(f"{TRAIN_EXP}/tensorboard/train/events.out.tfevents.*")
+    print(f"[train] (b) {len(losses)} steps at batch {r.config.training.batch_size}: loss {losses[0]:.2f} -> "
+          f"{losses[-1]:.2f}, mean of the first 10 {first:.2f}, of the last 10 {last:.2f}; files {files}, "
+          f"{len(events)} event file")
+    if not (steps_logged == list(range(1, TRAIN_ITERS + 1)) and np.isfinite(losses).all() and last < first
+            and files == want_files and len(events) == 1):
+        raise AssertionError(f"train (b): steps {steps_logged}, losses {losses}, files {files}, events {events}")
+    batch = r.config.training.batch_size
+    wall = statistics.median(r.step_seconds)
+    train_ds = get_dataset(r.args, r.config)[0]
+    x0 = data_transform(r.config, torch.from_numpy(np.stack([train_ds[i][0] for i in range(batch)])).cuda())
+    parts = step_parts_ms(r, x0)
+    flops = step_flops(cfg) * batch
+    bound_ms = flops / 67e12 * 1e3
+    dev_ms = sum(parts.values())
+    print(f"[train] (b) step: wall {wall * 1e3:.1f} ms median of {len(r.step_seconds)} (host clock, loss read one "
+          f"step late; snapshots included), {batch / wall:.1f} images/s; device "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+          + f" = {dev_ms:.1f} ms ({batch / dev_ms * 1e3:.1f} images/s); peak memory {peak:.2f} GB "
+          f"(max_memory_allocated); bound {bound_ms:.1f} ms ({flops / 1e12:.2f} TFLOP of convs and attention at 67 "
+          f"TFLOP/s f32): the device step at {bound_ms / dev_ms:.1%} of it, the wall at {bound_ms / wall / 1e3:.1%}")
+    if profile:
+        step_fn = make_train_step(cfg, r.betas, get_optimizer(r.config), grad_clip=r.config.optim.grad_clip,
+                                  ema_rate=r.config.model.ema_rate)
+        DEFERRED_PROFILES.append((f"cifar10-train, one training step at batch {batch}",
+                                  lambda fn=step_fn, st=r.train_state, x=x0, g=torch.Generator(device="cuda")
+                                  .manual_seed(6): fn(st, x, generator=g), wall * 1e3, True))
+    del x0, r
+    torch.cuda.empty_cache()
+
+    # (c) resume
+    saved = checkpoint.read_flat(f"{log}/ckpt.npz")
+    loaded = []
+    orig = checkpoint.load_checkpoint
+
+    def spy(*a, **kw):
+        loaded.append(orig(*a, **kw))
+        return loaded[-1]
+
+    checkpoint.load_checkpoint = spy
+    try:
+        r, counts = cli_run("c: resume", train_argv(_train_config(TRAIN_ITERS + TRAIN_MORE), "--resume_training"),
+                            tag="train")
+    finally:
+        checkpoint.load_checkpoint = orig
+    flat = checkpoint._flatten(loaded[0])
+    same = flat.keys() == saved.keys() and all(np.array_equal(flat[k], saved[k]) for k in saved
+                                               if not k.endswith("__dc__"))
+    steps_logged, losses = _losses(log)
+    new = steps_logged[TRAIN_ITERS:]
+    print(f"[train] (c) resumed: the state loaded equals ckpt.npz ({len(saved)} keys, step {int(saved['step'])}): "
+          f"{same}; steps logged {new[0]}..{new[-1]}; the state ends at step {int(r.train_state.step)}")
+    if not (same and new == list(range(TRAIN_ITERS + 1, TRAIN_ITERS + TRAIN_MORE + 1))
+            and int(r.train_state.step) == TRAIN_ITERS + TRAIN_MORE and not any(counts.values())):
+        raise AssertionError(f"train (c): loaded {same}, steps {new}, counts {counts}")
+    del r, loaded, flat
+    torch.cuda.empty_cache()
+
+    # (d) --test, float (the EMA, and the params under model.ema false) and served
+    serve = ["--timesteps", str(steps), "--skip_type", "quad", "--weight_refine", "off", "--calib_cache", "auto"]
+    config = _train_config(TRAIN_ITERS + TRAIN_MORE)
+    mse = {}
+    for label, cfg_path, extra in (("d: test fp32", config, ["--test", "--fp32"]),
+                                   ("d: test fp32, model.ema false", _train_config(TRAIN_ITERS + TRAIN_MORE, ema=False),
+                                    ["--test", "--fp32"]),
+                                   ("d: test served", config, ["--test", *SERVING, *serve])):
+        r, counts = cli_run(label, train_argv(cfg_path, *extra), tag="train")
+        mse[label] = r.test_result["eps_mse"]
+        res = r.test_result
+        print(f"[train] ({label}) eps-MSE {res['eps_mse']:.4f} ({res['desc']}) over {res['seen']}/{res['total']} "
+              f"test images, {res['batches']} batches of {res['batch']}"
+              + (f", {res['steps_covered']}/{res['steps']} sampler steps" if "steps" in res else "")
+              + f"; {r.timings['test']:.2f} s")
+        expected = (checks.expected_launches(r.ucfg, res["batches"], res["batch"], attn_int8=False,
+                                             residual_dtype=torch.float32)
+                    if "--execution" in extra else {k: 0 for k in counts})
+        if counts != expected or not np.isfinite(res["eps_mse"]):
+            raise AssertionError(f"train ({label}): launches {counts}, expected {expected}; {res}")
+    # the EMA at rate 0.9999 has moved 1 - 0.9999^40 = 0.4% of the way from the init: the trained params test lower
+    if not mse["d: test fp32, model.ema false"] < mse["d: test fp32"]:
+        raise AssertionError(f"train (d): the trained params test no lower than the EMA: {mse}")
+
+    # (e) the trained weights served: the EMA (cifar10.yml's model.ema; (d)'s calibration cache) and the params
+    # (model.ema false; a cache of their own: the cache's header names the flags, not the weights)
+    for label, cfg_path, cache in (("e: serve the EMA", config, "auto"),
+                                   ("e: serve the params", _train_config(TRAIN_ITERS + TRAIN_MORE, ema=False),
+                                    f"{TRAIN_EXP}/calib_params.npz")):
+        extra = ["--sample", *SERVING, *serve[:-1], cache, "--fid", "--num_samples", "128", "--batch_size", "128",
+                 "--image_folder", label.split()[-1]]
+        r, counts = cli_run(label, train_argv(cfg_path, *extra), tag="train")
+        cli_serving_checks(label, r, counts, steps, 128, full=False)
+        want = checkpoint.load_checkpoint(f"{log}/ckpt.npz", r.serving["params"],
+                                          prefix="ema" if "EMA" in label else "params", device="cuda")
+        if not all(torch.equal(a, b) for a, b in zip(tree_leaves(r.serving["params"]), tree_leaves(want))):
+            raise AssertionError(f"train ({label}): the served params are not ckpt.npz's")
+        if ("calibration" in r.timings) != (cache != "auto"):
+            raise AssertionError(f"train ({label}): calibration cache use {sorted(r.timings)}")
+        srv = r.serving
+        shape = (128, cfg.resolution, cfg.resolution, cfg.in_channels)
+        x, draws = r.randomness("fid", shape, 0)
+        t0 = torch.full((128,), float(srv["seq"][-1]), device="cuda")
+        kw = srv["kwargs"]
+        flags = {k: kw[k] for k in ("attn_int8", "attn_ranges", "residual_dtype")}
+        held_step(lambda plain: serving_unet_apply(srv["params"], r.ucfg, srv["qunet"], srv["sampler"].runtime,
+                                                   srv["qstates"], x, t0, 0, plain=plain, **flags), "train")
+        with torch.no_grad():
+            served = srv["sampler"](x, **draws)
+            fp = ddim_sample(lambda xt, t, i: unet_apply(srv["params"], r.ucfg, xt, t), x, srv["seq"], r.betas)
+        print(f"[train] ({label}) ckpt.npz's `{'ema' if 'EMA' in label else 'params'}` served: {r.fid_images} PNGs, "
+              f"finite {bool(torch.isfinite(served).all())}; the served sample from the fp sample of the same weights "
+              f"and noise: mean rel {_rel(served, fp):.4e}, mean abs {(served - fp).abs().mean().item():.4e}")
+        if not torch.isfinite(served).all() or r.fid_images != 128:
+            raise AssertionError(f"train ({label}): {r.fid_images} images, finite {torch.isfinite(served).all()}")
+        del r, srv, served, fp
+        torch.cuda.empty_cache()
+
+    # (f) tools/train_synthetic.py
+    for dist in ("procedural", "natural"):
+        out = f"{TRAIN_EXP}/synthetic_{dist}.npz"
+        checks.reset_launches()
+        t0 = time.perf_counter()
+        state, losses = train_synthetic.train(steps=SYNTH_STEPS, batch=SYNTH_BATCH, seed=0, log_every=5, out=out,
+                                              dist=dist)
+        secs = time.perf_counter() - t0
+        counts = checks.read_launches()
+        rr = Diffusion(argparse.Namespace(ckpt_path=out, seed=0), load_config(config))
+        loaded = rr._load_params()
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(loaded), tree_leaves(state.ema)))
+        again, _ = train_synthetic.train(steps=2, batch=SYNTH_BATCH, seed=0, log_every=1, resume=out, dist=dist)
+        print(f"[train] (f) train_synthetic {dist}: {SYNTH_STEPS} steps at batch {SYNTH_BATCH} in {secs:.1f} s (saves "
+              f"included), losses {[round(v, 2) for v in losses]}; the EMA loads through --ckpt_path equal: {same}; "
+              f"--resume continues to step {int(again.step)}")
+        if not (np.isfinite(losses).all() and same and int(again.step) == SYNTH_STEPS + 2 and not any(counts.values())):
+            raise AssertionError(f"train (f) {dist}: losses {losses}, loaded {same}, step {int(again.step)}, "
+                                 f"counts {counts}")
+        del state, again, loaded
+    shutil.rmtree(TRAIN_EXP, ignore_errors=True)
+
+
 def phase(path, name, fn, *args, **kwargs):
     """fn(*args, **kwargs), and its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -2123,6 +2525,9 @@ def main(argv=None):
         report = Report()
         if path == "cifar10-cli":
             ctx = phase(path, "cli", cli_phase, cfg, steps, BATCH[path], gen)
+            launches_of = {}
+        elif path == "cifar10-train":
+            ctx = phase(path, "train", train_phase, cfg, steps, gen, args.profile)
             launches_of = {}
         elif path == "cifar10-enhanced":
             phase(path, "kernels", kernel_phase, cfg, BATCH[path], gen, dev, report)
@@ -2177,8 +2582,8 @@ def main(argv=None):
                 raise AssertionError(f"{key} was not launched on the {path} path")
         torch.cuda.empty_cache()
         print(f"== {path}: {time.perf_counter() - t0:.1f} s")
-    for label, run, wall_ms in DEFERRED_PROFILES:
-        profile_sampler(label, run, wall_ms)
+    for label, run, wall_ms, *split in DEFERRED_PROFILES:
+        profile_sampler(label, run, wall_ms, split=bool(split))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

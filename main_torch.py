@@ -5,9 +5,13 @@
     python3 main_torch.py --config cifar10.yml --doc cifar10 --sample --execution serving --ni \
         --batch_size 128 --timesteps 100 --skip_type quad [--fid --num_samples 50000] [--ckpt_path PATH]
 
-Dispatch: --sample -> runner.sample(); --test -> runner.test(); else train
-(these two raise NotImplementedError until their ROADMAP items land).  The
-runner runs on the current CUDA device and stops when there is none.
+    python3 main_torch.py --config cifar10.yml --doc cifar10 --ni [--resume_training]
+    python3 main_torch.py --config cifar10.yml --doc cifar10 --test [--execution serving] [--num_samples N]
+
+Dispatch: --sample -> runner.sample(); --test -> runner.test() (the test
+split's eps-MSE); else runner.train() (the training state under
+exp/logs/<doc>, `ckpt.npz`, which --sample and --test then load by name).
+The runner runs on the current CUDA device and stops when there is none.
 `--tp` / `--sp` other than 1 raise (ROADMAP Queue 1 item 9, parallel).
 """
 import argparse

@@ -76,14 +76,15 @@ def test_jax_params_npz_loads_bit_equal(tmp_path, jparams):
 @pytest.mark.parametrize("use_ema", [True, False])
 def test_jax_train_state_npz_gives_ema_else_params(tmp_path, jparams, use_ema):
     """A JAX training state (params, optax state, EMA, step): the port takes
-    its `ema` subtree where it holds one, else `params`, by name, with no
-    optimizer object."""
+    its `ema` subtree where the config that wrote it keeps one (`ema=`, the
+    config's `model.ema`), else `params`, by name, with no optimizer object
+    (tests/test_torch_train_ckpt.py holds the other pairings against JAX)."""
     state = init_train_state(jparams, optax.adam(1e-3), use_ema=use_ema)
     if use_ema:
         state = dataclasses.replace(state, ema=jax.tree_util.tree_map(lambda a: a * 0.5 + 1.0, jparams))
     path = str(tmp_path / "ckpt.npz")
     jckpt.save_checkpoint(path, state)
-    got = checkpoint.load_params(path, _like(), device="cpu")
+    got = checkpoint.load_params(path, _like(), device="cpu", ema=use_ema)
     assert_trees_equal(got, state.ema if use_ema else state.params)
 
 

@@ -1212,3 +1212,55 @@ def test_runner_serving_sample_on_the_card(dev, tmp_path, kind):
                                  runtime=srv["sampler"].runtime, **srv["kwargs"])(x, **kw)
     rel = ((out - plain).abs().mean() / plain.abs().mean()).item()
     assert torch.isfinite(out).all() and rel < 0.1, rel
+
+
+def test_flash_attention_refuses_autograd_on_the_card(dev, gen):
+    """K11 has no backward: with grad mode on and an input that requires
+    grad it raises on the card as on the CPU; under no_grad it launches."""
+    q = _f(gen, (1, 1024, 128), dev).requires_grad_(True)
+    with pytest.raises(ValueError, match="no backward"):
+        spatial_attention(q, q, q)
+    n = flash_attention.launches
+    with torch.no_grad():
+        out = spatial_attention(q, q, q)
+    assert flash_attention.launches == n + 1 and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("optimizer", ["Adam", "RMSProp", "SGD"])
+def test_train_step_on_the_card_matches_the_cpu(dev, gen, optimizer):
+    """One training step (dropout 0.1, clipping, EMA) on the card against the
+    same step on the CPU, given the same params, batch, t, eps and masks:
+    the loss within 1e-5 relative, the state by
+    `training.compare_train_states` (the CPU tests' tolerances)."""
+    import dataclasses
+
+    from attentiondm_tpu_torch.config import dict2namespace
+    from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from attentiondm_tpu_torch.models.unet import dropout_shapes, map_tree
+    from attentiondm_tpu_torch.training import (
+        compare_train_states,
+        get_optimizer,
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = dataclasses.replace(UNetConfig(**TOY), dropout=0.1)
+    lr = 2e-4
+    tx = get_optimizer(dict2namespace({"optim": dict(optimizer=optimizer, lr=lr, beta1=0.9, eps=1e-8,
+                                                     weight_decay=0.0)}))
+    params = unet_init(gen, cfg, "cpu")
+    x0 = torch.rand((4, 8, 8, 3), generator=gen) * 2 - 1
+    t = torch.randint(0, 1000, (4,), generator=gen)
+    e = torch.randn(x0.shape, generator=gen)
+    masks = [torch.rand(s, generator=gen) < 0.9 for s in dropout_shapes(cfg, 4)]
+    states, losses = {}, {}
+    for where in ("cpu", dev):
+        betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device=where).betas
+        step = make_train_step(cfg, betas, tx, grad_clip=1.0, ema_rate=0.9)
+        state = init_train_state(map_tree(lambda a: a.to(where), params), tx)
+        states[str(where)], losses[str(where)] = step(state, x0.to(where), t=t.to(where), e=e.to(where),
+                                                      dropout_masks=[m.to(where) for m in masks])
+    got, want = states[str(dev)], states["cpu"]
+    assert abs(losses[str(dev)].item() - losses["cpu"].item()) <= 1e-5 * abs(losses["cpu"].item())
+    res = compare_train_states(got, want, lr)
+    assert res["ok"], res

@@ -132,6 +132,8 @@ def test_port_imports_without_jax_triton_or_gpu():
         "import sys\n"
         "import attentiondm_tpu_torch.quant.int8_serving, attentiondm_tpu_torch.quant.calibrate\n"
         "import attentiondm_tpu_torch.ops._build, attentiondm_tpu_torch.diffusion.sampling\n"
+        "import attentiondm_tpu_torch.training, attentiondm_tpu_torch.runners.diffusion\n"
+        "import attentiondm_tpu_torch.data.loader, attentiondm_tpu_torch.tools.train_synthetic\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'attentiondm_tpu', 'triton')]\n"
         "assert not bad, bad\n"
     )
