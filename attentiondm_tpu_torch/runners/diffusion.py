@@ -13,7 +13,10 @@ through one of three models: the fused int8 serving sampler (`--execution
 serving`, the CUDA kernels), the fake-quant model, or the float model
 (`--fp32`, at `--compute_dtype`).  `sample()` writes a grid and
 `sample_<i>.png`, or with `--fid` numbered PNGs for a bulk run that resumes
-where it stopped, or a `--sequence` / `--interpolation` grid.
+where it stopped, or a `--sequence` / `--interpolation` grid.  With
+`--fid_stats` the `--fid` folder is scored once it is written: Inception
+statistics on the device against the reference `.npz` (or folder), the
+Frechet distance printed as `FID: x.xxxx`.
 
 All randomness goes through `randomness(stream, shape, index)`: a
 `torch.Generator` on the device, seeded from `--seed` at JAX's offsets (+1
@@ -24,9 +27,6 @@ eps and dropout masks).  A test replaces that one method to hand in JAX's
 draws (`{"noise": ...}`, `{"t": ..., "e": ..., "dropout_masks": ...}` in
 place of `{"generator": ...}`).  The loader's shuffle stays numpy's
 `default_rng(seed + epoch)`, as in JAX.
-
-Not ported here: `--fid_stats` (ROADMAP Queue 1 item 7: the Inception
-network), which raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -93,6 +93,7 @@ class Diffusion:
         self.timings = {}  # seconds of each stage of the last run, by name
         self.serving = None  # the serving sampler and what it was built from, after a serving sample()
         self.fid_images = 0  # images the last --fid run generated
+        self.fid_score = None  # the last --fid_stats score
 
     # ------------------------------------------------------------------
     # helpers
@@ -378,13 +379,37 @@ class Diffusion:
             self.test_result.update(steps_covered=len(per_step), steps=S, worst_step=worst)
         return avg
 
-    # ------------------------------------------------------------------
-    # not ported here
-    # ------------------------------------------------------------------
-
     def _score_fid(self):
-        raise NotImplementedError("--fid_stats needs the Inception network, not ported yet: ROADMAP Queue 1 item 7 "
-                                  "(data and eval); generate with --fid and score the folder elsewhere")
+        """Score the --fid folder (--fid_stats) as JAX's runner does: the
+        generated images' Inception statistics from float32 sums of f and
+        f f^T on the device (`sharded_statistics`), the reference statistics
+        of --fid_stats (`.npz` or an image folder), and the Frechet distance
+        (`frechet_smoke_safe`: eigenvalue form below 2048 images), printed
+        as `FID: x.xxxx` and returned.  Canonical FID needs
+        --inception_weights (the pt_inception state dict); without it a
+        seeded random Inception gives numbers comparable only to statistics
+        from the same network."""
+        from ..eval import fid as fid_eval
+        from ..eval.inception import InceptionV3FID
+
+        args = self.args
+        w = getattr(args, "inception_weights", None)
+        if w:
+            net = InceptionV3FID.from_torch(w, device=self.device)
+        else:
+            logging.warning("--fid_stats without --inception_weights: scoring with a seeded random-init Inception — "
+                            "comparable only to stats from the same random net, NOT canonical FID")
+            net = InceptionV3FID.random(device=self.device)
+        t0 = time.time()
+        mu1, s1 = fid_eval.compute_statistics_of_path(args.fid_stats, net.extract, device=self.device)
+        mu2, s2 = fid_eval.sharded_statistics(fid_eval._iter_image_dir(args.image_folder, 256), net.extract,
+                                              device=self.device)
+        n_gen = sum(len(glob.glob(os.path.join(args.image_folder, f"*.{ext}"))) for ext in fid_eval.IMAGE_EXTENSIONS)
+        fid = fid_eval.frechet_smoke_safe(mu2, s2, mu1, s1, n_gen)
+        logging.info(f"FID({args.image_folder} vs {args.fid_stats}) = {fid:.4f} (n={n_gen}, scored in "
+                     f"{time.time() - t0:.1f}s)")
+        print(f"FID: {fid:.4f}")
+        return fid
 
     # ------------------------------------------------------------------
     # calibration pipeline
@@ -647,8 +672,6 @@ class Diffusion:
 
     def sample(self):
         args, config = self.args, self.config
-        if args.fid and getattr(args, "fid_stats", None):
-            self._score_fid()
         self.timings = {}
         seq = self.make_seq()
         params = self._timed("load", self._load_params)
@@ -669,7 +692,10 @@ class Diffusion:
 
         os.makedirs(args.image_folder, exist_ok=True)
         if args.fid:
-            return self._fid(dispatch, serving)
+            n = self._fid(dispatch, serving)
+            if getattr(args, "fid_stats", None):  # the folder is scored once it is written
+                self.fid_score = self._timed("fid score", self._score_fid)
+            return n
         if args.interpolation:
             if serving:  # the trajectory paths run on the fake-quant model (they need the generic `apply`)
                 apply, mstate, _ = self._build_model(params, seq)

@@ -6,8 +6,9 @@ the rows are deflated by `zlib` (level 1, as the native writer), and the
 chunks carry `binascii.crc32` sums.  No imaging package is needed.  A batch
 is encoded on a thread pool (zlib releases the GIL), each file written
 under a temporary name and renamed into place, so an interrupted run leaves
-no half-written `<id>.png`.  `read_png` decodes the files this module
-writes (8-bit, filter 0).
+no half-written `<id>.png`.  `read_png` decodes any 8-bit non-interlaced
+PNG (the five row filters, grey, grey + alpha, RGB, RGBA and palette
+images), `to_rgb` converts it as PIL's `.convert("RGB")` does.
 """
 from __future__ import annotations
 
@@ -49,14 +50,53 @@ def encode_png(img: np.ndarray, level: int = 1) -> bytes:
     return _SIG + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b"")
 
 
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples a pixel (grey, RGB, palette, grey + alpha, RGBA)
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """The rows [h, stride] of a PNG's inflated data [h, 1 + stride]: each
+    row's filter (0 none, 1 Sub, 2 Up, 3 Average, 4 Paeth) undone against
+    the reconstructed row above, `bpp` bytes a pixel."""
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.int32)
+    for y in range(h):
+        kind, f = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if kind == 0:
+            row = f
+        elif kind == 1:  # Sub: a running sum along each of the pixel's bytes
+            row = np.cumsum(f.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif kind == 2:  # Up
+            row = (f + prior) & 0xFF
+        elif kind in (3, 4):  # Average, Paeth: pixel by pixel, left to right
+            row = np.zeros(stride, np.int32)
+            left, upleft = np.zeros(bpp, np.int32), np.zeros(bpp, np.int32)
+            for x in range(0, stride, bpp):
+                up = prior[x:x + bpp]
+                if kind == 3:
+                    pred = (left + up) >> 1
+                else:
+                    p = left + up - upleft
+                    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+                    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+                left = (f[x:x + bpp] + pred) & 0xFF
+                row[x:x + bpp] = left
+                upleft = up
+        else:
+            raise ValueError(f"PNG row filter {kind}")
+        out[y] = row
+        prior = row.astype(np.int32)
+    return out
+
+
 def read_png(path: str) -> np.ndarray:
-    """uint8 [H, W, C] of an 8-bit PNG whose rows all use filter 0 (this
-    module's files); anything else raises ValueError."""
+    """uint8 [H, W, C] of an 8-bit non-interlaced PNG, any row filter: C is
+    1 (grey), 2 (grey + alpha), 3 (RGB, or a palette image expanded) or 4
+    (RGBA), as stored.  Other depths and interlaced files raise ValueError."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIG:
         raise ValueError(f"{path}: not a PNG")
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, palette = 8, [], None, None
     while pos < len(data):
         (n,), kind = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + n]
@@ -64,17 +104,28 @@ def read_png(path: str) -> np.ndarray:
             raise ValueError(f"{path}: bad CRC in {kind!r}")
         if kind == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         pos += 12 + n
     w, h, depth, ctype, _, _, interlace = hdr
-    c = {v: k for k, v in _COLOR_TYPE.items()}.get(ctype)
-    if depth != 8 or c is None or interlace:
+    c = _CHANNELS.get(ctype)
+    if depth != 8 or c is None or interlace or (ctype == 3 and palette is None):
         raise ValueError(f"{path}: depth {depth}, colour type {ctype}, interlace {interlace}")
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: a row filter other than 0")
-    return rows[:, 1:].reshape(h, w, c).copy()
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
+    rows = raw[:, 1:].copy() if not raw[:, 0].any() else _unfilter(raw, h, w * c, c)
+    img = rows.reshape(h, w, c)
+    return palette[img[..., 0]] if ctype == 3 else img
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, 3] of a `read_png` image, as PIL's `.convert("RGB")`
+    makes it: grey repeated into the three channels, alpha dropped."""
+    c = img.shape[-1]
+    if c in (1, 2):
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return img[..., :3]
 
 
 def _write(path: str, png: bytes):

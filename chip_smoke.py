@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py [--steps 10] [--seed 0] [--profile]
                           [--paths cifar10,church,celeba-wide,imagenet64,cifar10-enhanced,cifar10-f32,cifar10-cli,
-                                   cifar10-train]
+                                   cifar10-train,cifar10-quality]
 
 (`--profile` adds, after the last phase, torch.profiler's device time per
 kernel for one run of each sampler and one training step; `--paths` runs only the paths named,
-all eight by default.)
+all nine by default.)
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
@@ -205,6 +205,37 @@ all eight by default.)
       the EMA loaded through --ckpt_path, --resume from .train.npz.
    The path adds no row to the kernels line (the training step reaches no
    kernel; its served runs reach K1, K13, K5, K2 and K3, measured above).
+10. cifar10-quality: the eval and quality slice at CIFAR-10's full width
+   (`UNetConfig()`, 35.75M params), its tree under exp/chip_smoke_quality
+   (`quality_phase`):
+   a. eval: the seeded random FID Inception (`eval/inception.py`) on the card
+      under `exact_f32()` against the same network on the CPU (8 images at
+      32^2, max rel err < 1e-4); the features of 1024 images at batch 256
+      timed by CUDA events (images/s, peak memory, the share of the
+      convolutions' f32 bound, counted by `FlopCounterMode`);
+      `eval/fid.sharded_statistics` (JAX's float32 sums of f and f f^T) against
+      float64 mean and `np.cov` over the same features (the error printed);
+   b. ladder: `tools/train_synthetic` trains the UNet 60 steps at batch 128
+      (cut from 12000), then `tools/quality_protocol.run_protocol` on its EMA
+      at --steps quad steps, batch 64, calibration batch 8, bits 8:8 and 4:8,
+      stage 2, the bf16 row, KID, the serving rows and `--adaround
+      --weight_rows gptq`: the table as `[quality]` lines; every row finite,
+      fp32 0, w8a8_s1 at or below w4a8_s1; each serving row (its sampler and
+      its eps scan) launching what `expected_launches` says, the others none;
+   c. fid: `eval.fid --save-stats` over 512 stand-in PNGs written by
+      `utils/images`, then `main_torch.main(--sample --fid --fid_stats
+      --execution serving)` on the trained EMA, 256 images at batch 128,
+      without --inception_weights: the launches, the folder scored after the
+      run, the FID printed and returned equal to the API's that JAX's runner
+      scores with (`sharded_statistics` + `frechet_smoke_safe`) to 1e-6 and
+      within 1e-4 of the float64 route (`compute_statistics_of_path`);
+   d. on-ramp and bench: `tools/real_ckpt` on stand-in assets in a temp dir
+      (a `TorchDDIMUNet` toy's state dict, a randomized `TorchFIDInception`,
+      reference statistics): the golden check (< 5e-4), a finite sample, the
+      statistics saved; `tools/train_bench --batches 512 --steps 5`.
+   The path adds no row to the kernels line: its serving runs reach K1, K13,
+   K5, K2 and K3 (measured above); the Inception, the statistics and the
+   training step run in cuDNN / cuBLAS.
 Prints a JSON line of per-kernel results, then {"ok": true, "device": ...}
 as the last line.  Any failure raises (nonzero exit, no result line); so
 does a machine without a CUDA device.
@@ -220,7 +251,7 @@ import time
 
 CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative error (gross faults only)
 BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32, "cifar10-enhanced": 128,
-         "cifar10-f32": 128, "cifar10-cli": 128, "cifar10-train": 512}
+         "cifar10-f32": 128, "cifar10-cli": 128, "cifar10-train": 512, "cifar10-quality": 64}
 MAX_STEPS = {"church": 4, "imagenet64": 4}  # a shallower schedule where the path is long
 LEVER_ROUNDS = 3  # timed runs per lever setting, taken in turns
 F32_CORE = dict(attn_int8=False)  # the attention flag of the CIFAR-10 and church paths (bench.py's)
@@ -320,6 +351,9 @@ def path_config(path):
 
     if path == "cifar10":
         return UNetConfig(), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000), "UNetConfig() CIFAR-10"
+    if path == "cifar10-quality":
+        return (UNetConfig(), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
+                "UNetConfig() CIFAR-10, trained here: eval, the quality ladder, --fid_stats, the on-ramp and bench")
     if path == "cifar10-f32":
         return (UNetConfig(), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
                 "UNetConfig() CIFAR-10, the float32 residual stream")
@@ -2479,6 +2513,268 @@ def train_phase(cfg, steps, gen, profile=False):
     shutil.rmtree(TRAIN_EXP, ignore_errors=True)
 
 
+QUALITY_EXP = "exp/chip_smoke_quality"  # the quality path's tree (git-ignored), emptied before the path runs
+QUALITY_TRAIN = (60, 128)  # train_synthetic's steps (cut from 12000) and batch
+QUALITY_LADDER = dict(batch=64, calib_batch=8, bit_configs=((8, 8), (4, 8)), stage2=True, serving=True, kid=True,
+                      adaround=True, weight_rows="gptq")
+INCEPTION_CHECK, INCEPTION_IMAGES, INCEPTION_BATCH = 8, 1024, 256  # card vs CPU images; timed images and batch
+INCEPTION_REL = 1e-4  # card vs CPU features: max |difference| / max |feature| (the CPU tests' bound against JAX)
+QUALITY_REF, QUALITY_FID, QUALITY_FID_BATCH = 512, 256, 128  # stand-in reference PNGs; --fid images and batch
+FID_REL = 1e-6  # the runner's FID against the API it scores with (`sharded_statistics`) on the same folder
+FID64_REL = 1e-4  # ... and against the float64 route (features on the host, `np.cov`)
+
+
+def _stand_in_images(n, seed, res=32):
+    """n float [0, 1] NHWC images of `synthetic_batch` (procedural shapes) on the card."""
+    import torch
+
+    from attentiondm_tpu_torch.data.synthetic import synthetic_batch
+
+    return (synthetic_batch(torch.Generator(device="cuda").manual_seed(seed), n, res) + 1.0) * 0.5
+
+
+def quality_eval():
+    """(eval) The seeded random Inception on the card against the same
+    network on the CPU (INCEPTION_CHECK images at 32^2, < INCEPTION_REL);
+    INCEPTION_IMAGES images' features at INCEPTION_BATCH timed by CUDA events
+    (images/s, peak memory, the share of the convolutions' f32 bound); and
+    `sharded_statistics` (float32 sums of f and f f^T on the card, JAX's
+    form) against float64 mean and `np.cov` over the same features."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from attentiondm_tpu_torch.eval.fid import sharded_statistics
+    from attentiondm_tpu_torch.eval.inception import InceptionV3FID
+
+    net, net_cpu = InceptionV3FID.random(device="cuda"), InceptionV3FID.random(device="cpu")
+    x = _stand_in_images(INCEPTION_CHECK, 3)
+    got, want = net.extract(x).cpu(), net_cpu.extract(x.cpu())
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"[quality] (eval) random Inception, {INCEPTION_CHECK} images at 32^2, card vs CPU: max rel err {rel:.3e} "
+          f"(bound {INCEPTION_REL:g}); features {tuple(got.shape)}")
+    if not (torch.isfinite(got).all() and rel < INCEPTION_REL):
+        raise AssertionError(f"quality (eval): the card's Inception is off the CPU's: {rel}")
+    with FlopCounterMode(display=False) as fc:
+        net_cpu.extract(x[:1].cpu())
+    flops = fc.get_total_flops()
+
+    imgs = _stand_in_images(INCEPTION_IMAGES, 4)
+    net.extract(imgs[:INCEPTION_BATCH])  # warm: cuDNN's algorithm choice
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    feats = torch.cat([net.extract(imgs[i:i + INCEPTION_BATCH]) for i in range(0, INCEPTION_IMAGES, INCEPTION_BATCH)])
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    bound_ms = flops * INCEPTION_IMAGES / F32_FLOPS_PER_S * 1e3
+    print(f"[quality] (eval) features of {INCEPTION_IMAGES} images at batch {INCEPTION_BATCH}: {ms:.1f} ms device "
+          f"(CUDA events), {INCEPTION_IMAGES / ms * 1e3:.1f} images/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {flops / 1e9:.2f} GFLOP an image (the convolutions "
+          f"at 299^2, FlopCounterMode), bound {bound_ms:.1f} ms at 67 TFLOP/s f32: {bound_ms / ms:.1%}")
+    f64 = feats.double().cpu().numpy()
+    mu64, sig64 = f64.mean(axis=0), np.cov(f64, rowvar=False)
+    mu, sig = sharded_statistics(feats, lambda f: f, batch_size=INCEPTION_BATCH)
+    mu_rel = float(np.abs(mu - mu64).max() / np.abs(mu64).max())
+    sig_rel = float(np.abs(sig - sig64).max() / np.abs(sig64).max())
+    print(f"[quality] (eval) sharded_statistics (float32 sums on the card) vs float64 mean / np.cov over the same "
+          f"{INCEPTION_IMAGES} features: mu max rel err {mu_rel:.3e}, sigma max rel err {sig_rel:.3e} (max |sigma| "
+          f"{np.abs(sig64).max():.3e}, mean |mu| {np.abs(mu64).mean():.3e}, mean feature std "
+          f"{np.sqrt(np.diag(sig64)).mean():.3e})")
+    if not (np.isfinite(sig).all() and np.isfinite(mu).all()):
+        raise AssertionError("quality (eval): sharded_statistics is not finite")
+
+
+def quality_ladder(cfg, steps):
+    """(ladder) `tools/train_synthetic` trains `cfg` QUALITY_TRAIN steps,
+    then `tools/quality_protocol.run_protocol` runs on its EMA at `steps`
+    quad steps with QUALITY_LADDER's rows.  Each row's launches are read as
+    it lands: a serving row (its sampler and its eps scan, 2 x `steps`
+    steps) launches what `expected_launches` says, any other row nothing.
+    Every row finite, fp32 0, w8a8_s1 at or below w4a8_s1.  Returns the EMA's
+    path."""
+    import numpy as np
+    import torch
+
+    from attentiondm_tpu_torch.checkpoint import save_checkpoint
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.tools import train_synthetic
+    from attentiondm_tpu_torch.tools.quality_protocol import format_table, run_protocol
+
+    n_steps, batch = QUALITY_TRAIN
+    t0 = time.perf_counter()
+    state, losses = train_synthetic.train(steps=n_steps, batch=batch, seed=0, log_every=n_steps // 4, cfg=cfg)
+    ckpt = f"{QUALITY_EXP}/ema.npz"
+    save_checkpoint(ckpt, state.ema)
+    print(f"[quality] (ladder) train_synthetic: {n_steps} steps at batch {batch} in {time.perf_counter() - t0:.1f} s, "
+          f"losses {[round(v, 2) for v in losses]}; the EMA at {ckpt}")
+    counts = {}
+
+    def on_row(name, row):
+        counts[name] = checks.read_launches()
+        checks.reset_launches()
+
+    ema = state.ema
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    checks.reset_launches()
+    t0 = time.perf_counter()
+    rows = run_protocol(ema, cfg, steps=steps, on_row=on_row, **QUALITY_LADDER)
+    secs = time.perf_counter() - t0
+    flags = ", ".join(f"{k} {v}" for k, v in QUALITY_LADDER.items())
+    print(f"[quality] (ladder) run_protocol, DDIM-{steps} quad, {flags}: {secs:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for line in format_table(rows).splitlines():
+        print(f"[quality] {line}")
+    bad = []
+    for name, row in rows.items():
+        if not all(np.isfinite(v) for k, v in row.items() if not (name == "fp32" and k == "psnr")):
+            bad.append(f"{name} not finite: {row}")
+        res = torch.bfloat16 if "bf16res" in name else torch.float32
+        want = (checks.expected_launches(cfg, 2 * steps, QUALITY_LADDER["batch"], attn_int8=False, residual_dtype=res)
+                if name.startswith("int8_") else {k: 0 for k in counts[name]})
+        if counts[name] != want:
+            bad.append(f"{name}: launches {counts[name]}, expected {want}")
+    served = [n for n in rows if n.startswith("int8_")]
+    print(f"[quality] (ladder) {len(served)} serving rows ({', '.join(served)}), each launching "
+          f"{checks.expected_launches(cfg, 2 * steps, QUALITY_LADDER['batch'], attn_int8=False)} as expected: "
+          f"{not any('launches' in b for b in bad)}")
+    fp = rows["fp32"]
+    if fp["eps_rel_mse_mean"] != 0 or fp["eps_rel_mse_max"] != 0 or fp.get("kid", 0) != 0:
+        bad.append(f"fp32 row {fp}")
+    if not rows["w8a8_s1"]["eps_rel_mse_mean"] <= rows["w4a8_s1"]["eps_rel_mse_mean"]:
+        bad.append(f"w8a8_s1 {rows['w8a8_s1']} above w4a8_s1 {rows['w4a8_s1']}")
+    if bad:
+        raise AssertionError("quality (ladder): " + "; ".join(bad))
+    return ckpt
+
+
+def quality_fid(ckpt, steps):
+    """(fid) `eval.fid --save-stats` over QUALITY_REF stand-in PNGs written by
+    `utils/images`; then `main_torch.main(--sample --fid --fid_stats
+    --execution serving)` on the trained EMA, QUALITY_FID images at
+    QUALITY_FID_BATCH, no --inception_weights (the seeded random Inception):
+    its launches, and its FID (as printed and as returned) finite, equal to
+    the API's that JAX's runner scores with (`sharded_statistics` +
+    `frechet_smoke_safe`) over the same folder within FID_REL, and within
+    FID64_REL of the float64 route (`compute_statistics_of_path`)."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+
+    from attentiondm_tpu_torch.eval import fid
+    from attentiondm_tpu_torch.eval.inception import InceptionV3FID
+    from attentiondm_tpu_torch.utils.images import write_png_batch
+
+    ref_dir, stats = f"{QUALITY_EXP}/reference", f"{QUALITY_EXP}/reference_stats.npz"
+    write_png_batch(_stand_in_images(QUALITY_REF, 5).cpu().numpy(), ref_dir, 0)
+    t0 = time.perf_counter()
+    if fid.main([ref_dir, stats, "--save-stats", "--batch-size", str(INCEPTION_BATCH)]) != 0:
+        raise AssertionError("quality (fid): eval.fid --save-stats failed")
+    print(f"[quality] (fid) eval.fid --save-stats over {QUALITY_REF} stand-in PNGs: {time.perf_counter() - t0:.1f} s")
+    argv = ["--config", "cifar10.yml", "--doc", "quality", "--exp", QUALITY_EXP, "--sample", "--ni", "--batch_size",
+            str(QUALITY_FID_BATCH), "--num_samples", str(QUALITY_FID), "--timesteps", str(steps), "--skip_type",
+            "quad", "--ckpt_path", ckpt, *SERVING, "--weight_refine", "off", "--fid", "--fid_stats", stats,
+            "--image_folder", "fid"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        r, counts = cli_run("fid", argv, tag="quality")
+    print(out.getvalue(), end="")
+    printed = [float(v) for v in re.findall(r"^FID: (\S+)$", out.getvalue(), re.M)]
+    cli_serving_checks("fid", r, counts, steps, QUALITY_FID_BATCH, runs=QUALITY_FID // QUALITY_FID_BATCH, full=False)
+    net = InceptionV3FID.random(device="cuda")
+    folder = r.args.image_folder
+    mu, sigma = fid.sharded_statistics(fid._iter_image_dir(folder, INCEPTION_BATCH), net.extract)
+    mu64, sigma64 = fid.compute_statistics_of_path(folder, net.extract, batch_size=INCEPTION_BATCH)
+    with np.load(stats) as f:
+        api = fid.frechet_smoke_safe(mu, sigma, f["mu"], f["sigma"], QUALITY_FID)
+        api64 = fid.frechet_smoke_safe(mu64, sigma64, f["mu"], f["sigma"], QUALITY_FID)
+    rel, rel64 = abs(r.fid_score - api) / abs(api), abs(r.fid_score - api64) / abs(api64)
+    print(f"[quality] (fid) {r.fid_images} images scored after the --fid loop: printed {printed}, returned "
+          f"{r.fid_score:.8f}, the API's {api:.8f} (rel {rel:.2e}, bound {FID_REL:g}), the float64 route's "
+          f"{api64:.8f} (rel {rel64:.2e}, bound {FID64_REL:g}); scoring {r.timings['fid score']:.2f} s")
+    if not (len(printed) == 1 and np.isfinite(r.fid_score) and rel < FID_REL and rel64 < FID64_REL
+            and abs(printed[0] - r.fid_score) <= 5e-5 + 1e-6 * abs(r.fid_score)):
+        raise AssertionError(f"quality (fid): printed {printed}, returned {r.fid_score}, API {api}, "
+                             f"float64 {api64}")
+
+
+def quality_onramp():
+    """(on-ramp and bench) `tools/real_ckpt` on stand-in assets in a temp
+    dir (a `TorchDDIMUNet` toy's state dict under the registry's name, a
+    randomized `TorchFIDInception`, reference statistics): the golden check
+    (< 5e-4), a finite sample, the statistics saved; then
+    `tools/train_bench --batches 512 --steps 5`."""
+    import json as _json
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from attentiondm_tpu_torch.tools import real_ckpt, train_bench
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    try:
+        from torch_inception_oracle import TorchFIDInception, randomize_
+        from torch_oracle import TorchDDIMUNet
+    finally:
+        sys.path.pop(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(f"{tmp}/toy.yml", "w") as f:
+            f.write("data:\n    dataset: CIFAR10\n    image_size: 16\n    channels: 3\n"
+                    "model:\n    in_channels: 3\n    out_ch: 3\n    ch: 32\n    ch_mult: [1, 2]\n"
+                    "    num_res_blocks: 1\n    attn_resolutions: [8]\n    dropout: 0.0\n    resamp_with_conv: True\n")
+        torch.manual_seed(0)
+        torch.save(TorchDDIMUNet(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,), resolution=16)
+                   .state_dict(), f"{tmp}/model-790000.ckpt")
+        torch.save(randomize_(TorchFIDInception(), seed=3).state_dict(), f"{tmp}/pt_inception-2015-12-05-6726825d.pth")
+        a = np.random.default_rng(0).standard_normal((8, 2048))
+        np.savez(f"{tmp}/fid_stats_cifar10_train.npz", mu=a.mean(0), sigma=np.cov(a, rowvar=False))
+        t0 = time.perf_counter()
+        rep = real_ckpt.main(["--name", "cifar10", "--dir", tmp, "--config", f"{tmp}/toy.yml", "--steps", "4",
+                              "--sample_batch", "4", "--fid", "8", "--out", f"{tmp}/report.json", "--grid",
+                              f"{tmp}/grid.png"])
+        saved = os.path.exists(f"{tmp}/report_stats.npz")
+        print(f"[quality] (on-ramp) real_ckpt on stand-in assets: {time.perf_counter() - t0:.1f} s, golden "
+              f"{rep.get('golden_max_abs_diff')}, sampling finite {rep.get('sampling_finite')}, features "
+              f"{rep.get('inception_feat_dim')}, stats saved {saved}, FID {rep.get('fid')}")
+        if not (rep.get("golden_max_abs_diff") is not None and rep["golden_max_abs_diff"] < real_ckpt.GOLDEN_TOL
+                and rep.get("sampling_finite") and saved and np.isfinite(rep.get("fid", np.nan))):
+            raise AssertionError(f"quality (on-ramp): {rep}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        summary = train_bench.main(["--batches", "512", "--steps", "5", "--json", f"{tmp}/bench.json"])
+        with open(f"{tmp}/bench.json") as f:
+            same = _json.load(f) == _json.loads(_json.dumps(summary))
+    (r,) = summary["results"]
+    print(f"[quality] (bench) train_bench at batch 512, 5 steps: {r['step_ms']:.1f} ms a step wall, "
+          f"{r['device_ms']:.1f} device, {r['img_per_s']:.1f} images/s, peak {r['max_memory_gb']:.2f} GB, loss "
+          f"{r['loss']:.2f}; checkpoint {summary['checkpoint']}; JSON written: {same}; {time.perf_counter() - t0:.1f} s")
+    if not (same and np.isfinite(r["loss"]) and r["img_per_s"] > 0):
+        raise AssertionError(f"quality (bench): {summary}")
+
+
+def quality_phase(cfg, steps):
+    """The cifar10-quality path: `quality_eval`, `quality_ladder`,
+    `quality_fid` on the ladder's trained EMA, `quality_onramp`."""
+    import os
+    import shutil
+
+    shutil.rmtree(QUALITY_EXP, ignore_errors=True)
+    os.makedirs(QUALITY_EXP)
+    phase("cifar10-quality", "eval", quality_eval)
+    ckpt = phase("cifar10-quality", "ladder", quality_ladder, cfg, steps)
+    phase("cifar10-quality", "fid", quality_fid, ckpt, steps)
+    phase("cifar10-quality", "on-ramp and bench", quality_onramp)
+    shutil.rmtree(QUALITY_EXP, ignore_errors=True)
+
+
 def phase(path, name, fn, *args, **kwargs):
     """fn(*args, **kwargs), and its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -2528,6 +2824,9 @@ def main(argv=None):
             launches_of = {}
         elif path == "cifar10-train":
             ctx = phase(path, "train", train_phase, cfg, steps, gen, args.profile)
+            launches_of = {}
+        elif path == "cifar10-quality":
+            ctx = quality_phase(cfg, steps)
             launches_of = {}
         elif path == "cifar10-enhanced":
             phase(path, "kernels", kernel_phase, cfg, BATCH[path], gen, dev, report)

@@ -102,6 +102,9 @@ def test_cli_imports_no_jax_and_needs_cuda(tmp_path):
         "for m in pkgutil.walk_packages(attentiondm_tpu_torch.__path__, 'attentiondm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import torch\n"
+        "for m in ('eval', 'eval.fid', 'eval.inception', 'eval.clip_score', 'tools.quality_protocol',\n"
+        "          'tools.real_ckpt', 'tools.train_bench'):\n"
+        "    assert 'attentiondm_tpu_torch.' + m in sys.modules, m\n"
         "assert not torch.cuda.is_available()\n"
         "rc = main_torch.main(['--config', 'cifar10.yml', '--doc', 'd', '--sample', '--fp32', '--ni', '--exp', 'e'])\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'attentiondm_tpu'))\n"

@@ -1264,3 +1264,29 @@ def test_train_step_on_the_card_matches_the_cpu(dev, gen, optimizer):
     assert abs(losses[str(dev)].item() - losses["cpu"].item()) <= 1e-5 * abs(losses["cpu"].item())
     res = compare_train_states(got, want, lr)
     assert res["ok"], res
+
+
+def test_inception_on_the_card_matches_the_cpu(dev):
+    """The seeded random FID Inception on the card (under `exact_f32()`)
+    against the same network on the CPU: 4 images at 32^2, max |difference|
+    / max |feature| < 1e-4 (the bound the CPU tests hold the port to JAX)."""
+    from attentiondm_tpu_torch.eval.inception import InceptionV3FID
+
+    x = torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    got = InceptionV3FID.random(device=dev).extract(x.to(dev)).cpu()
+    want = InceptionV3FID.random(device="cpu").extract(x)
+    assert torch.isfinite(got).all() and ((got - want).abs().max() / want.abs().max()).item() < 1e-4
+
+
+def test_sharded_statistics_on_the_card(dev):
+    """Float32 sums of f and f f^T on the card against float64 statistics of
+    the same features (offset by 1, as Inception's are), within the
+    cancellation that JAX's form has at this mean-to-spread ratio."""
+    from attentiondm_tpu_torch.eval.fid import sharded_statistics
+
+    f = torch.randn((512, 256), generator=torch.Generator().manual_seed(2), dtype=torch.float64) * 0.1 + 1.0
+    mu, sigma = sharded_statistics(f.float().to(dev), lambda b: b, batch_size=128)
+    f64 = f.float().double().numpy()
+    mu64, sig64 = f64.mean(axis=0), np.cov(f64, rowvar=False)
+    assert np.abs(mu - mu64).max() <= 1e-6 * np.abs(mu64).max()
+    assert np.abs(sigma - sig64).max() <= 1e-3 * np.abs(sig64).max()

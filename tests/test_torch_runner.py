@@ -238,19 +238,16 @@ def test_calib_cache_round_trip(tmp_path, ckpt):
 
 
 def test_unported_entry_points_raise(tmp_path):
-    """train() and test() on a dataset not ported yet (CelebA) and
-    --fid_stats (the Inception network) raise, naming ROADMAP item 7; no
-    flag is ignored.  train() and test() themselves are ported
-    (tests/test_torch_runner_train.py)."""
+    """train() and test() on a dataset not ported yet (CelebA) raise, naming
+    ROADMAP item 7; no flag is ignored.  train() and test() themselves are
+    ported (tests/test_torch_runner_train.py), and so is --fid_stats
+    (tests/test_torch_fid_stats.py)."""
     r = _port_runner(_args(tmp_path, "x", fp32=True), jax_draws=False)
     r.config.data.dataset = "CELEBA"
     with pytest.raises(NotImplementedError, match="item 7"):
         r.train()
     with pytest.raises(NotImplementedError, match="item 7"):
         r.test()
-    r.args.fid, r.args.fid_stats = True, "stats.npz"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        r.sample()
 
 
 def test_runner_needs_a_device_or_cpu(tmp_path, monkeypatch):

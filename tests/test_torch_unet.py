@@ -134,6 +134,9 @@ def test_port_imports_without_jax_triton_or_gpu():
         "import attentiondm_tpu_torch.ops._build, attentiondm_tpu_torch.diffusion.sampling\n"
         "import attentiondm_tpu_torch.training, attentiondm_tpu_torch.runners.diffusion\n"
         "import attentiondm_tpu_torch.data.loader, attentiondm_tpu_torch.tools.train_synthetic\n"
+        "import attentiondm_tpu_torch.eval, attentiondm_tpu_torch.eval.clip_score\n"
+        "import attentiondm_tpu_torch.tools.quality_protocol, attentiondm_tpu_torch.tools.real_ckpt\n"
+        "import attentiondm_tpu_torch.tools.train_bench\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'attentiondm_tpu', 'triton')]\n"
         "assert not bad, bad\n"
     )
