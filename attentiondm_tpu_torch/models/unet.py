@@ -300,7 +300,7 @@ def _default_conv_apply(name, x, p, *, stride=1, padding="SAME"):
     return conv2d(x, p, stride=stride, padding=padding)
 
 
-def _resblock_apply(name, p, x, temb, conv_apply, dropout=None):
+def _resblock_apply(name, p, x, temb, conv_apply, dropout=None, gates=None):
     h = swish(group_norm(x, p["norm1"]))
     h = conv_apply(f"{name}.conv1", h, p["conv1"])
     h = h + dense(swish(temb), p["temb_proj"])[:, None, None, :]
@@ -310,6 +310,8 @@ def _resblock_apply(name, p, x, temb, conv_apply, dropout=None):
     h = conv_apply(f"{name}.conv2", h, p["conv2"])
     if "nin_shortcut" in p:
         x = conv_apply(f"{name}.nin_shortcut", x, p["nin_shortcut"])
+    if gates is not None and "resblock" in gates:
+        h = h * gates["resblock"]
     return x + h
 
 
@@ -374,10 +376,16 @@ def enhanced_core(name, q, k, v, cfg, attn_ctx=None):
     return torch.matmul(w.float(), v.float()).to(q.dtype)
 
 
-def _attn_apply(name, p, x, conv_apply, cfg, attn_ctx):
+def _attn_apply(name, p, x, conv_apply, cfg, attn_ctx, gates=None):
+    """The configured attention block; a `gates["attention"]` scales its
+    change to x: x + g * (out - x)."""
     if cfg.attn_variant == "enhanced":
-        return _attn_apply_enhanced(name, p, x, conv_apply, cfg, attn_ctx)
-    return _attn_apply_ddim(name, p, x, conv_apply)
+        out = _attn_apply_enhanced(name, p, x, conv_apply, cfg, attn_ctx)
+    else:
+        out = _attn_apply_ddim(name, p, x, conv_apply)
+    if gates is not None and "attention" in gates:
+        out = x + gates["attention"] * (out - x)
+    return out
 
 
 def avg_pool2(x):
@@ -430,7 +438,7 @@ def _dropout(cfg: UNetConfig, train: bool, generator, dropout_masks):
 def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor, *,
                conv_apply: Callable | None = None, attn_ctx: dict | None = None,
                compute_dtype=None, train: bool = False, generator: torch.Generator | None = None,
-               dropout_masks=None) -> torch.Tensor:
+               dropout_masks=None, gates: dict | None = None) -> torch.Tensor:
     """Predict eps from (x_t [NHWC], t [N]); float32 out, differentiable in
     params and x.  `attn_ctx` goes to every enhanced attention block
     (`_attn_apply_enhanced`).
@@ -444,13 +452,21 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
     second GroupNorm + swish, with masks drawn from `generator` or handed in
     as `dropout_masks` (one bool tensor per resblock, in call order: down,
     mid 1, mid 2, up; JAX draws resblock i's from `split(rng, 64)[i]`).
-    Without either, no dropout runs."""
+    Without either, no dropout runs.
+
+    `gates` (0-d tensors under "resblock", "attention", "temb", any of them)
+    scale every resblock's residual branch, every attention block's change
+    to its input and the timestep embedding before its MLP: the ablation
+    search's architecture gates, differentiable through autograd.  Without
+    them every output is as it was."""
     check_ported(cfg)
     ca = conv_apply or _default_conv_apply
     num_levels = len(cfg.ch_mult)
     drop = _dropout(cfg, train, generator, dropout_masks)
 
     temb = get_timestep_embedding(t, cfg.ch)
+    if gates is not None and "temb" in gates:
+        temb = temb * gates["temb"]
     if compute_dtype is not None:
         x, temb = x.to(compute_dtype), temb.to(compute_dtype)
     temb = dense(swish(dense(temb, params["temb"]["dense0"])), params["temb"]["dense1"])
@@ -459,25 +475,26 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
     for i_level in range(num_levels):
         lp = params["down"][i_level]
         for i_block in range(cfg.num_res_blocks):
-            h = _resblock_apply(f"down.{i_level}.block.{i_block}", lp["block"][i_block], hs[-1], temb, ca, drop)
+            h = _resblock_apply(f"down.{i_level}.block.{i_block}", lp["block"][i_block], hs[-1], temb, ca, drop,
+                                gates)
             if lp["attn"]:
-                h = _attn_apply(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx)
+                h = _attn_apply(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx, gates)
             hs.append(h)
         if i_level != num_levels - 1:
             hs.append(_downsample(f"down.{i_level}.downsample", lp["downsample"], hs[-1], ca, cfg.resamp_with_conv))
 
     h = hs[-1]
-    h = _resblock_apply("mid.block_1", params["mid"]["block_1"], h, temb, ca, drop)
-    h = _attn_apply("mid.attn_1", params["mid"]["attn_1"], h, ca, cfg, attn_ctx)
-    h = _resblock_apply("mid.block_2", params["mid"]["block_2"], h, temb, ca, drop)
+    h = _resblock_apply("mid.block_1", params["mid"]["block_1"], h, temb, ca, drop, gates)
+    h = _attn_apply("mid.attn_1", params["mid"]["attn_1"], h, ca, cfg, attn_ctx, gates)
+    h = _resblock_apply("mid.block_2", params["mid"]["block_2"], h, temb, ca, drop, gates)
 
     for i_level in reversed(range(num_levels)):
         lp = params["up"][i_level]
         for i_block in range(cfg.num_res_blocks + 1):
             h = _resblock_apply(f"up.{i_level}.block.{i_block}", lp["block"][i_block],
-                                torch.cat([h, hs.pop()], dim=-1), temb, ca, drop)
+                                torch.cat([h, hs.pop()], dim=-1), temb, ca, drop, gates)
             if lp["attn"]:
-                h = _attn_apply(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx)
+                h = _attn_apply(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx, gates)
         if i_level != 0:
             h = _upsample(f"up.{i_level}.upsample", lp["upsample"], h, ca, cfg.resamp_with_conv)
     assert not hs

@@ -12,8 +12,9 @@ mode, the fold refinement, stage 3, the calibration cache) and samples
 through one of three models: the fused int8 serving sampler (`--execution
 serving`, the CUDA kernels), the fake-quant model, or the float model
 (`--fp32`, at `--compute_dtype`).  `sample()` writes a grid and
-`sample_<i>.png`, or with `--fid` numbered PNGs for a bulk run that resumes
-where it stopped, or a `--sequence` / `--interpolation` grid.  With
+`sample_<i>.png`, or with `--fid` numbered PNGs (the C++ writer,
+`native.write_png_batch`, as JAX's) for a bulk run that resumes where it
+stopped, or a `--sequence` / `--interpolation` grid.  With
 `--fid_stats` the `--fid` folder is scored once it is written: Inception
 statistics on the device against the reference `.npz` (or folder), the
 Frechet distance printed as `FID: x.xxxx`.
@@ -45,13 +46,14 @@ from ..data.transforms import inverse_data_transform, inverse_transform_uint8
 from ..diffusion.sampling import ddim_sample, ddpm_sample, make_timestep_seq
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.unet import UNetConfig, cast_params, count_params, unet_apply, unet_init
+from ..native import write_png_batch
 from ..quant.calibrate import (
     calibrate_differentiable,
     calibrate_ranges,
     select_calibration_images,
 )
 from ..quant.qunet import QuantizedUNet
-from ..utils.images import save_image, save_image_grid, write_png_batch
+from ..utils.images import save_image, save_image_grid
 
 # the offsets from --seed of JAX's keys: the training steps' PRNGKey(seed + 1), the calibration set's
 # PRNGKey(seed + 77), stage 2's PRNGKey(seed + 99)

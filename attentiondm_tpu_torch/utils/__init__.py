@@ -1,1 +1,5 @@
-"""See the matching module of attentiondm_tpu for the reference."""
+"""Image output, metrics logging and profiling helpers (port of `attentiondm_tpu/utils`)."""
+from .images import save_image, save_image_grid
+from .metrics_log import AverageMeter, MetricsLogger
+
+__all__ = ["save_image", "save_image_grid", "MetricsLogger", "AverageMeter"]

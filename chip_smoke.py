@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py [--steps 10] [--seed 0] [--profile]
                           [--paths cifar10,church,celeba-wide,imagenet64,cifar10-enhanced,cifar10-f32,cifar10-cli,
-                                   cifar10-train,cifar10-quality]
+                                   cifar10-train,cifar10-quality,celeba-data]
 
 (`--profile` adds, after the last phase, torch.profiler's device time per
 kernel for one run of each sampler and one training step; `--paths` runs only the paths named,
-all nine by default.)
+all ten by default.)
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
@@ -232,10 +232,40 @@ all nine by default.)
    d. on-ramp and bench: `tools/real_ckpt` on stand-in assets in a temp dir
       (a `TorchDDIMUNet` toy's state dict, a randomized `TorchFIDInception`,
       reference statistics): the golden check (< 5e-4), a finite sample, the
-      statistics saved; `tools/train_bench --batches 512 --steps 5`.
+      statistics saved; `tools/train_bench --batches 32 --steps 1` (its
+      arguments and JSON; the full-batch step is cifar10-train's).
    The path adds no row to the kernels line: its serving runs reach K1, K13,
    K5, K2 and K3 (measured above); the Inception, the statistics and the
    training step run in cuDNN / cuBLAS.
+11. celeba-data: celeba.yml at full width (64^2, ch 128, ch_mult 1-2-2-2-4,
+   attention at 16^2: C = 256, L = 256), its tree under exp/chip_smoke_data
+   (`data_phase`): first K1 (with K13 and K5), K2 / K6 and K3 (and K3's core
+   alone) against their plain versions at every shape of its serving step
+   at batch 128, levers off (as 3a); then, every launch count set to 0:
+   a. readers: seeded fixtures in each dataset's layout (CelebA's official
+      178x218 JPEGs and list_eval_partition.txt, church_outdoor_{train,val}
+      lmdbs and an FFHQ lmdb written by the port's `write_lmdb`, an ImageNet
+      folder), each read by `get_dataset` and the loader: the PIL version,
+      the split sizes, the host's images/s;
+   b. train: `main_torch.main(--config celeba.yml)` (n_iters and
+      snapshot_freq cut to 5) at batch 128 on the CelebA fixture: every loss
+      finite, no kernel launched; the step's wall, device time by part and
+      peak memory;
+   c. sweep: `tools/serving_sweep` at celeba.yml, DDIM-4, batches 64 and
+      128, step_chunk none / 2 / shared / packed, 3 reps: each variant's
+      first run launch-counted against `expected_launches`, the chunked and
+      packed runs bit-equal to the unchunked one, no error row; images/s per
+      variant beside the card's name and power limit;
+   d. ablation: `tools/ablation_attention` A-D on (b)'s EMA, DDIM-2 (each
+      variant's stage-1 calibration costs ~7 s a step at this width), 16
+      samples a model, the seeded random Inception: the four rows;
+   e. ranges: weight, activation and attention ranges at timesteps 0 and
+      999, the reports as JSON;
+   f. DiffSearch: one (lambda, eta) pair, 3 steps at batch 4, the gates
+      through autograd on the card: finite losses and gates.
+   The path's kernels line rows are K1, K13, K5, K2 (K6 where the router
+   sends a shape there), K3 and K3.core at celeba.yml's shapes, their
+   launches the path's (the sweep's: nothing else of it launches a kernel).
 Prints a JSON line of per-kernel results, then {"ok": true, "device": ...}
 as the last line.  Any failure raises (nonzero exit, no result line); so
 does a machine without a CUDA device.
@@ -251,7 +281,7 @@ import time
 
 CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative error (gross faults only)
 BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32, "cifar10-enhanced": 128,
-         "cifar10-f32": 128, "cifar10-cli": 128, "cifar10-train": 512, "cifar10-quality": 64}
+         "cifar10-f32": 128, "cifar10-cli": 128, "cifar10-train": 512, "cifar10-quality": 64, "celeba-data": 128}
 MAX_STEPS = {"church": 4, "imagenet64": 4}  # a shallower schedule where the path is long
 LEVER_ROUNDS = 3  # timed runs per lever setting, taken in turns
 F32_CORE = dict(attn_int8=False)  # the attention flag of the CIFAR-10 and church paths (bench.py's)
@@ -368,6 +398,10 @@ def path_config(path):
         config = load_config("celeba.yml")
         cfg = dataclasses.replace(UNetConfig.from_config(config), attn_resolutions=(64, 32, 16))
         return cfg, DiffusionSchedule.from_config(config), "celeba.yml CelebA with attn_resolutions=(64, 32, 16)"
+    if path == "celeba-data":
+        config = load_config("celeba.yml")
+        return (UNetConfig.from_config(config), DiffusionSchedule.from_config(config),
+                "celeba.yml CelebA: the readers, training, the serving sweep and the analysis tools")
     if path == "imagenet64":
         config = load_config("imagenet64.yml")
         return UNetConfig.from_config(config), DiffusionSchedule.from_config(config), "imagenet64.yml ImageNet-64"
@@ -591,11 +625,11 @@ def epilogue_phase(cfg, batch, gen, dev, report):
     torch.cuda.empty_cache()
 
 
-def kernel_phase(cfg, batch, gen, dev, report, both_cores=False):
-    """Every kernel of the path's serving step (and of its lever steps) against
-    its plain version at the step's shapes, timed; `both_cores` also holds
-    K3's int8 core at each K3 shape (printed, not counted: the path runs the
-    f32 core)."""
+def kernel_phase(cfg, batch, gen, dev, report, both_cores=False, levers=True):
+    """Every kernel of the path's serving step (and, with `levers`, of its
+    lever steps) against its plain version at the step's shapes, timed;
+    `both_cores` also holds K3's int8 core at each K3 shape (printed, not
+    counted: the path runs the f32 core)."""
     import torch
 
     from attentiondm_tpu_torch.ops import checks
@@ -736,6 +770,8 @@ def kernel_phase(cfg, batch, gen, dev, report, both_cores=False):
               f"device {dms:.4f} ms plain {pms:.4f} ms F.scaled_dot_product_attention {lib:.4f} ms {_bound_fig(b)}")
         del q, k, v
     torch.cuda.empty_cache()
+    if not levers:
+        return
 
     # K4, K7, K12: every shape a step launches under the three levers together (the
     # weight n of the JSON line's sums) or under one lever alone (m, printed)
@@ -2704,12 +2740,16 @@ def quality_fid(ckpt, steps):
                              f"float64 {api64}")
 
 
+BENCH_BATCH = 32  # tools/train_bench's run: its arguments and JSON (the full-batch step is cifar10-train's)
+
+
 def quality_onramp():
     """(on-ramp and bench) `tools/real_ckpt` on stand-in assets in a temp
     dir (a `TorchDDIMUNet` toy's state dict under the registry's name, a
     randomized `TorchFIDInception`, reference statistics): the golden check
     (< 5e-4), a finite sample, the statistics saved; then
-    `tools/train_bench --batches 512 --steps 5`."""
+    `tools/train_bench --batches 32 --steps 1` (its arguments and its JSON;
+    the training step at full batch is cifar10-train's)."""
     import json as _json
     import os
     import tempfile
@@ -2749,11 +2789,11 @@ def quality_onramp():
             raise AssertionError(f"quality (on-ramp): {rep}")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        summary = train_bench.main(["--batches", "512", "--steps", "5", "--json", f"{tmp}/bench.json"])
+        summary = train_bench.main(["--batches", str(BENCH_BATCH), "--steps", "1", "--json", f"{tmp}/bench.json"])
         with open(f"{tmp}/bench.json") as f:
             same = _json.load(f) == _json.loads(_json.dumps(summary))
     (r,) = summary["results"]
-    print(f"[quality] (bench) train_bench at batch 512, 5 steps: {r['step_ms']:.1f} ms a step wall, "
+    print(f"[quality] (bench) train_bench at batch {BENCH_BATCH}, 1 step: {r['step_ms']:.1f} ms a step wall, "
           f"{r['device_ms']:.1f} device, {r['img_per_s']:.1f} images/s, peak {r['max_memory_gb']:.2f} GB, loss "
           f"{r['loss']:.2f}; checkpoint {summary['checkpoint']}; JSON written: {same}; {time.perf_counter() - t0:.1f} s")
     if not (same and np.isfinite(r["loss"]) and r["img_per_s"] > 0):
@@ -2773,6 +2813,304 @@ def quality_phase(cfg, steps):
     phase("cifar10-quality", "fid", quality_fid, ckpt, steps)
     phase("cifar10-quality", "on-ramp and bench", quality_onramp)
     shutil.rmtree(QUALITY_EXP, ignore_errors=True)
+
+
+DATA_EXP = "exp/chip_smoke_data"  # the data path's tree (git-ignored), emptied before the path runs
+CELEBA_SET = (256, 16, 16)  # the CelebA fixture's train / valid / test images (official 178x218 layout)
+LSUN_SET = (64, 16)  # church_outdoor_{train,val}_lmdb images, 341x256 JPEGs
+FFHQ_SET, IMAGENET_SET = 64, 64  # FFHQ lmdb images (256^2 JPEGs under the 64 key), ImageNet folder images (64^2)
+DATA_ITERS = 5  # main_torch's training steps at celeba.yml's batch (n_iters and snapshot_freq, cut from 5M / 5000)
+SWEEP = dict(timesteps=4, batches=(64, 128), step_chunks="none,2,shared,packed", reps=3)
+ABLATION = dict(sampler="ddim", steps=2, num_samples=16, batch=16)  # cut from 4: each variant's stage-1 calibration costs ~7 s a step here
+
+
+def _fixture_image(rng, w, h):
+    """A seeded RGB PIL image of (w, h): a smooth random field plus noise."""
+    from PIL import Image
+    import numpy as np
+
+    low = Image.fromarray(rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, 3), dtype=np.uint8))
+    x = np.asarray(low.resize((w, h), Image.BICUBIC), np.int16) + rng.integers(-12, 13, (h, w, 3))
+    return Image.fromarray(np.clip(x, 0, 255).astype(np.uint8))
+
+
+def write_data_fixtures(root):
+    """Seeded stand-ins in each dataset's own layout under `root`/datasets:
+    CelebA's official layout (JPEGs under img_align_celeba/ and
+    list_eval_partition.txt), church_outdoor_{train,val}_lmdb and an FFHQ
+    lmdb written by the port's `write_lmdb`, and an ImageNet folder."""
+    import io
+    import os
+
+    import numpy as np
+
+    from attentiondm_tpu_torch.data.lmdb_reader import write_lmdb
+
+    rng = np.random.default_rng(0)
+
+    def jpeg(img):
+        buf = io.BytesIO()
+        img.save(buf, format="JPEG", quality=90)
+        return buf.getvalue()
+
+    celeba = f"{root}/datasets/celeba"
+    os.makedirs(f"{celeba}/img_align_celeba")
+    lines = []
+    for split, n in enumerate(CELEBA_SET):
+        for _ in range(n):
+            name = f"{len(lines) + 1:06d}.jpg"
+            _fixture_image(rng, 178, 218).save(f"{celeba}/img_align_celeba/{name}", quality=90)
+            lines.append(f"{name} {split}\n")
+    with open(f"{celeba}/list_eval_partition.txt", "w") as f:
+        f.writelines(lines)
+    for split, n in zip(("train", "val"), LSUN_SET):
+        write_lmdb(f"{root}/datasets/lsun/church_outdoor_{split}_lmdb/",
+                   {f"{split}{i:07d}".encode(): jpeg(_fixture_image(rng, 341, 256)) for i in range(n)})
+    items = {b"length": str(FFHQ_SET).encode()}
+    items.update({f"64-{i:05d}".encode(): jpeg(_fixture_image(rng, 256, 256)) for i in range(FFHQ_SET)})
+    write_lmdb(f"{root}/datasets/ffhq/", items)
+    for i in range(IMAGENET_SET):
+        d = f"{root}/datasets/imagenet64/n0{i % 2}"
+        os.makedirs(d, exist_ok=True)
+        _fixture_image(rng, 64, 64).save(f"{d}/{i:05d}.png")
+
+
+def data_readers(root):
+    """(a) `get_dataset` and the loader on each fixture with its config
+    (celeba.yml, church.yml, imagenet64.yml; FFHQ as celeba.yml with dataset
+    FFHQ): the split sizes, a batch's shape, dtype and range, and the host's
+    images/s over the training split (the config's num_workers threads)."""
+    import argparse
+
+    import numpy as np
+    import PIL
+
+    from attentiondm_tpu_torch.config import load_config
+    from attentiondm_tpu_torch.data.datasets import get_dataset
+    from attentiondm_tpu_torch.data.loader import iterate_batches
+
+    t0 = time.perf_counter()
+    write_data_fixtures(root)
+    print(f"[data] (a) PIL {PIL.__version__}; fixtures written in {time.perf_counter() - t0:.1f} s under "
+          f"{root}/datasets")
+    ffhq = load_config("celeba.yml")
+    ffhq.data.dataset = "FFHQ"
+    readers = {"CELEBA (official layout)": (load_config("celeba.yml"), (CELEBA_SET[0], CELEBA_SET[2])),
+               "LSUN church_outdoor (lmdb)": (load_config("church.yml"), LSUN_SET),
+               "FFHQ (lmdb, seeded 90/10 split)": (ffhq, (int(FFHQ_SET * 0.9), FFHQ_SET - int(FFHQ_SET * 0.9))),
+               "IMAGENET (folder)": (load_config("imagenet64.yml"), (IMAGENET_SET, IMAGENET_SET))}
+    args = argparse.Namespace(exp=root)
+    for name, (config, sizes) in readers.items():
+        train, test = get_dataset(args, config)
+        s = config.data.image_size
+        workers = int(getattr(config.data, "num_workers", 0) or 0)
+        t0, n = time.perf_counter(), 0
+        for x, _y in iterate_batches(train, 32, seed=0, drop_last=False, workers=workers):
+            if not (x.shape[1:] == (s, s, 3) and x.dtype == np.float32 and 0.0 <= x.min() and x.max() <= 1.0):
+                raise AssertionError(f"data (a) {name}: a batch of {x.shape} {x.dtype} in [{x.min()}, {x.max()}]")
+            n += len(x)
+        dt = time.perf_counter() - t0
+        print(f"[data] (a) {name}: train {len(train)}, test {len(test)} images at {s}^2; host read of the training "
+              f"split ({workers} threads, batch 32): {n / dt:.1f} images/s")
+        if (len(train), len(test)) != sizes or n != len(train):
+            raise AssertionError(f"data (a) {name}: splits {len(train)} / {len(test)}, read {n}, want {sizes}")
+
+
+def data_train(cfg):
+    """(b) `main_torch.main` trains celeba.yml DATA_ITERS steps at its batch on
+    the CelebA fixture (the cuts written into the path's config): every loss
+    finite, no kernel launched; the step's host and device time
+    (`step_parts_ms`), peak memory.  Returns the trained state's checkpoint."""
+    import csv
+    import statistics
+
+    import numpy as np
+    import torch
+    import yaml
+
+    import main_torch
+    from attentiondm_tpu_torch.config import CONFIG_DIR
+    from attentiondm_tpu_torch.data.datasets import get_dataset
+    from attentiondm_tpu_torch.data.transforms import data_transform
+    from attentiondm_tpu_torch.ops import checks
+
+    with open(f"{CONFIG_DIR}/celeba.yml") as f:
+        d = yaml.safe_load(f)
+    d["training"].update(n_iters=DATA_ITERS, snapshot_freq=DATA_ITERS)
+    config = f"{DATA_EXP}/celeba_n{DATA_ITERS}.yml"
+    with open(config, "w") as f:
+        yaml.safe_dump(d, f)
+    before = checks.read_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = main_torch.main(["--config", config, "--doc", "celeba", "--exp", DATA_EXP, "--ni", "--seed", "0"])
+    wall = time.perf_counter() - t0
+    r = main_torch.main.runner
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    after = checks.read_launches()
+    with open(f"{r.args.log_path}/train_metrics.csv") as f:
+        losses = [float(row["loss"]) for row in csv.DictReader(f)]
+    batch = r.config.training.batch_size
+    step = statistics.median(r.step_seconds)
+    train_ds = get_dataset(r.args, r.config)[0]
+    x0 = data_transform(r.config, torch.from_numpy(np.stack([train_ds[i][0] for i in range(batch)])).cuda())
+    parts = step_parts_ms(r, x0)
+    dev_ms = sum(parts.values())
+    print(f"[data] (b) main_torch --config celeba.yml (n_iters {DATA_ITERS}, snapshot_freq {DATA_ITERS}; cut from "
+          f"5000000 / 5000) on the CelebA fixture: {wall:.1f} s, {len(losses)} steps at batch {batch}, losses "
+          f"{', '.join(f'{v:.2f}' for v in losses)}; step wall {step * 1e3:.1f} ms median ({batch / step:.1f} "
+          f"images/s, the data read included); device " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+          + f" = {dev_ms:.1f} ms ({batch / dev_ms * 1e3:.1f} images/s); peak memory {peak:.2f} GB")
+    if rc != 0 or len(losses) != DATA_ITERS or not np.isfinite(losses).all() or after != before:
+        raise AssertionError(f"data (b): rc {rc}, losses {losses}, launches {before} -> {after}")
+    ckpt = f"{r.args.log_path}/ckpt.npz"
+    del x0, r, main_torch.main.runner
+    torch.cuda.empty_cache()
+    return ckpt
+
+
+def data_sweep(cfg, dev):
+    """(c) `tools/serving_sweep` at celeba.yml over SWEEP's grid: each
+    variant's first run launches what `expected_launches` says for one run,
+    the chunked and packed runs equal the unchunked one to the bit, no error
+    row (every variant ran); images/s per variant with the card."""
+    import torch
+
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.tools.serving_sweep import parse_chunks, sweep
+
+    chunks, record = parse_chunks(SWEEP["step_chunks"]), {}
+    rows = sweep("celeba.yml", SWEEP["timesteps"], list(SWEEP["batches"]), chunks, reps=SWEEP["reps"], device=dev,
+                 record=record)
+    card = nvidia_smi_line()
+    want = [(b, c) for b in SWEEP["batches"] for c in chunks]
+    if [(r["batch"], r["step_chunk"]) for r in rows] != want:
+        raise AssertionError(f"data (c): the sweep's rows {rows} are not the grid {want} (an error row)")
+    for (b, c), rec in record.items():
+        expected = checks.expected_launches(cfg, SWEEP["timesteps"], b, attn_int8=False)
+        if rec["launches"] != expected:
+            raise AssertionError(f"data (c) batch {b} step_chunk {c}: launches {rec['launches']} != {expected}")
+    modes = {k: v for k, v in checks.launch_counters()["K1"].launches_by_mode.items() if v}
+    for b in SWEEP["batches"]:
+        base = record[(b, None)]["out"]
+        for c in (2, "packed"):
+            if not torch.equal(record[(b, c)]["out"], base):
+                raise AssertionError(f"data (c) batch {b}: step_chunk {c} differs from the unchunked run")
+        rel = ((record[(b, "shared")]["out"] - base).abs().mean() / base.abs().mean()).item()
+        print(f"[data] (c) batch {b}: step_chunk 2 and packed bit-equal to the unchunked run; shared (rank-1) "
+              f"mean rel difference {rel:.3e} (another quantization, information only)")
+    for r in rows:
+        print(f"[data] (c) serving_sweep celeba.yml DDIM-{SWEEP['timesteps']} batch {r['batch']} step_chunk "
+              f"{r['step_chunk']}: {r['img_per_sec']:.1f} images/s (best of {SWEEP['reps']}: "
+              f"{', '.join(f'{v:.1f}' for v in r['all'])}); {card}")
+    print(f"[data] (c) every variant's first run launched as expected_launches says; K1's modes over the sweep "
+          f"{modes}")
+    del record
+    torch.cuda.empty_cache()
+
+
+def data_ablation(cfg, params, dev):
+    """(d) the A-D ablation on (b)'s trained EMA: ABLATION's sampler, steps
+    and samples, FID against the FP samples under the seeded random
+    Inception (relative only); the four rows printed."""
+    import numpy as np
+
+    from attentiondm_tpu_torch.config import load_config
+    from attentiondm_tpu_torch.eval.inception import InceptionV3FID
+    from attentiondm_tpu_torch.tools import ablation_attention as ab
+
+    rows = ab.run_attention_ablation(load_config("celeba.yml"), f"{DATA_EXP}/ablation", params=params, device=dev,
+                                     extractor=InceptionV3FID.random(0, device=dev).extract,
+                                     ablation_cfg=ab.AblationConfig(**ABLATION))
+    for v, r in rows.items():
+        print(f"[data] (d) ablation {v}: conv {r['conv_bits']} bits, attention {r['attention_bits']} bits, FID vs "
+              f"FP {r['fid_vs_fp']:.4f} (random Inception, relative only; DDIM-{ABLATION['steps']}, "
+              f"{ABLATION['num_samples']} samples a model), {r['seconds']} s")
+    if list(rows) != list(ab.VARIANTS) or not all(np.isfinite(r["fid_vs_fp"]) for r in rows.values()):
+        raise AssertionError(f"data (d): {rows}")
+
+
+def data_ranges(cfg, params, dev):
+    """(e) weight, activation and attention ranges at timesteps 0 and 999
+    on 4 images, each report written as JSON; every range finite, every
+    conv and attention projection present."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from attentiondm_tpu_torch.models.unet import iter_conv_layers
+    from attentiondm_tpu_torch.tools import activation_range as ar
+
+    x = torch.randn((4, cfg.resolution, cfg.resolution, 3), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    reports = {"weight": ar.collect_weight_ranges(params, cfg),
+               "activation": ar.collect_activation_ranges(params, cfg, x, [0, 999]),
+               "attention": ar.collect_attention_ranges(params, cfg, x, [0, 999])}
+    for kind, rep in reports.items():
+        ar.save_range_report(rep, f"{DATA_EXP}/ranges/{kind}_ranges.json")
+    convs = [name for name, _c, _k in iter_conv_layers(cfg)]
+    projs = [name for name in convs if name.rsplit(".", 1)[-1] in ar.ATTN_LEAVES]
+    finite = all(np.isfinite(np.asarray(v, np.float64)).all() for rep in reports.values() for d in rep.values()
+                 for v in d.values())
+    lo, hi = min(d["min"].min() for d in reports["activation"].values()), max(
+        d["max"].max() for d in reports["activation"].values())
+    print(f"[data] (e) ranges at timesteps 0 and 999, batch 4: {len(reports['weight'])} weight, "
+          f"{len(reports['activation'])} activation, {len(reports['attention'])} attention sites; conv inputs in "
+          f"[{lo:.2f}, {hi:.2f}]; reports {sorted(os.listdir(f'{DATA_EXP}/ranges'))}")
+    if not (finite and sorted(reports["weight"]) == sorted(reports["activation"]) == sorted(convs)
+            and sorted(reports["attention"]) == sorted(projs)):
+        raise AssertionError("data (e): a range is not finite, or a site is missing")
+
+
+def data_diffsearch(params, dev):
+    """(f) one DiffSearch pair (lambda 0.01, eta 0.05), 3 steps at batch 4,
+    the gates through autograd on the card: losses and gates finite, the
+    gates moved."""
+    import numpy as np
+
+    from attentiondm_tpu_torch.config import load_config
+    from attentiondm_tpu_torch.tools.ablation_diffsearch import run_diff_search
+
+    res = run_diff_search(load_config("celeba.yml"), f"{DATA_EXP}/diffsearch", params=params, lambdas=(0.01,),
+                          etas=(0.05,), steps=3, batch=4, device=dev, plot=False)
+    (r,) = res.values()
+    gates = [v for hist in r["weights_evolution"].values() for v in hist]
+    print(f"[data] (f) DiffSearch lambda 0.01, eta 0.05, 3 steps at batch 4 on the card: losses "
+          f"{', '.join(f'{v:.2f}' for v in r['loss'])}; final gates "
+          + ", ".join(f"{k} {v:.4f}" for k, v in r["final_weights"].items()))
+    if not (np.isfinite(r["loss"]).all() and np.isfinite(gates).all() and r["final_weights"]["resblock"] != 0.5):
+        raise AssertionError(f"data (f): {r}")
+
+
+def data_phase(cfg, gen, dev, report):
+    """The celeba-data path: celeba.yml's kernels against their plain
+    versions at batch 128 (levers off, as the sweep serves them), then,
+    with every launch count set to 0, its six phases: (a) `data_readers`,
+    (b) `data_train`, (c) `data_sweep`, (d) `data_ablation`, (e)
+    `data_ranges`, (f) `data_diffsearch`.  Returns the phases' launch
+    counts (the sweep's: nothing else launches a kernel)."""
+    import os
+    import shutil
+
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.tools.activation_range import load_weights
+
+    path = "celeba-data"
+    phase(path, "kernels", kernel_phase, cfg, BATCH[path], gen, dev, report, levers=False)
+    shutil.rmtree(DATA_EXP, ignore_errors=True)
+    os.makedirs(DATA_EXP)
+    checks.reset_launches()
+    phase(path, "(a) readers", data_readers, DATA_EXP)
+    ckpt = phase(path, "(b) train", data_train, cfg)
+    phase(path, "(c) sweep", data_sweep, cfg, dev)
+    params = load_weights(ckpt, cfg, dev)  # the trained state's EMA, as celeba.yml's model.ema says
+    phase(path, "(d) ablation", data_ablation, cfg, params, dev)
+    phase(path, "(e) ranges", data_ranges, cfg, params, dev)
+    phase(path, "(f) DiffSearch", data_diffsearch, params, dev)
+    counts = checks.read_launches()
+    shutil.rmtree(DATA_EXP, ignore_errors=True)
+    return counts
 
 
 def phase(path, name, fn, *args, **kwargs):
@@ -2828,6 +3166,9 @@ def main(argv=None):
         elif path == "cifar10-quality":
             ctx = quality_phase(cfg, steps)
             launches_of = {}
+        elif path == "celeba-data":
+            ctx = data_phase(cfg, gen, dev, report)
+            launches_of = {**{key: ctx[key] for key in report.rows if key in ctx}, "K3.core": ctx["K3"]}
         elif path == "cifar10-enhanced":
             phase(path, "kernels", kernel_phase, cfg, BATCH[path], gen, dev, report)
             counts, ctx = phase(path, "slice", enhanced_slice_phase, cfg, sched, label, steps, BATCH[path], gen, dev,

@@ -79,8 +79,9 @@ def test_cifar10_reads_the_pickle_layout_as_jax(tmp_path):
 
 def test_get_dataset_names_and_raises(tmp_path):
     """SYNTHETIC and CIFAR10 as JAX builds them; a missing CIFAR-10 raises
-    JAX's FileNotFoundError text; every other name raises
-    NotImplementedError naming ROADMAP Queue 1 item 7."""
+    JAX's FileNotFoundError text, and so does a missing CelebA, LSUN, FFHQ
+    or ImageNet set (their readers: tests/test_torch_datasets.py); a name
+    JAX does not read raises NotImplementedError, as JAX's does."""
     args = dict2namespace({"exp": str(tmp_path / "exp")})
     cfg = dict2namespace({"data": {"dataset": "SYNTHETIC", "image_size": 8, "channels": 3, "num_synthetic": 30}})
     (tr, te), (jtr, jte) = datasets.get_dataset(args, cfg), jdatasets.get_dataset(args, cfg)
@@ -95,10 +96,18 @@ def test_get_dataset_names_and_raises(tmp_path):
     _write_set(tmp_path)
     tr, te = datasets.get_dataset(args, cfg)
     assert (len(tr), len(te)) == (50, 10)
-    for name in ("CELEBA", "LSUN", "FFHQ", "IMAGENET", "MNIST"):
+    for name in ("CELEBA", "LSUN", "FFHQ", "IMAGENET"):
         cfg.data.dataset = name
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(FileNotFoundError) as port_err:
             datasets.get_dataset(args, cfg)
+        with pytest.raises(FileNotFoundError) as jax_err:
+            jdatasets.get_dataset(args, cfg)
+        assert str(port_err.value) == str(jax_err.value)
+    cfg.data.dataset = "MNIST"
+    with pytest.raises(NotImplementedError, match="dataset MNIST"):
+        datasets.get_dataset(args, cfg)
+    with pytest.raises(NotImplementedError, match="dataset MNIST"):
+        jdatasets.get_dataset(args, cfg)
 
 
 def test_metrics_logger_csv_as_jax(tmp_path, monkeypatch):

@@ -81,6 +81,23 @@ def test_frechet_functions_match_jax(n1):
         assert np.isfinite(got) and abs(got - want) <= 1e-10 * abs(want)
 
 
+def test_frechet_distance_on_a_scipy_without_disp(monkeypatch):
+    """Newer scipy's `sqrtm` takes no `disp=` (the card's machine has such a
+    scipy): the port's Frechet distance does not pass it, and keeps JAX's
+    value to 1e-10."""
+    from scipy import linalg
+
+    real = linalg.sqrtm
+    monkeypatch.setattr(linalg, "sqrtm", lambda a: real(a))
+    rng = np.random.default_rng(3)
+    a, b = rng.normal(size=(60, 16)), rng.normal(size=(70, 16)) * 0.8 + 0.1
+    m1, s1, m2, s2 = a.mean(0), np.cov(a, rowvar=False), b.mean(0), np.cov(b, rowvar=False)
+    got = calculate_frechet_distance(m1, s1, m2, s2)
+    monkeypatch.setattr(linalg, "sqrtm", real)
+    want = jfid.calculate_frechet_distance(m1, s1, m2, s2)
+    assert abs(got - want) <= 1e-10 * abs(want)
+
+
 def test_activation_statistics_exact():
     imgs = np.random.default_rng(3).random((10, 4, 4, 3)).astype(np.float32)
     mu, sigma = calculate_activation_statistics([imgs], _mean_pool, device="cpu")

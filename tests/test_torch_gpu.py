@@ -1290,3 +1290,63 @@ def test_sharded_statistics_on_the_card(dev):
     mu64, sig64 = f64.mean(axis=0), np.cov(f64, rowvar=False)
     assert np.abs(mu - mu64).max() <= 1e-6 * np.abs(mu64).max()
     assert np.abs(sigma - sig64).max() <= 1e-3 * np.abs(sig64).max()
+
+
+def test_serving_sweep_through_the_kernels(dev):
+    """`tools/serving_sweep` on the toy through the kernels: each variant's
+    first run launches what `expected_launches` says for one run, and the
+    chunked and packed runs equal the unchunked one to the bit."""
+    from attentiondm_tpu_torch.tools.serving_sweep import sweep
+
+    cfg, record = UNetConfig(**TOY), {}
+    rows = sweep("cifar10.yml", 2, [2, 4], [None, 2, "shared", "packed"], reps=1, ucfg_override=cfg, device=dev,
+                 record=record)
+    assert len(rows) == 8 and all(r["img_per_sec"] > 0 for r in rows)
+    for (b, ck), r in record.items():
+        assert r["launches"] == checks.expected_launches(cfg, 2, b, attn_int8=False), (b, ck)
+    for b in (2, 4):
+        assert torch.equal(record[(b, 2)]["out"], record[(b, None)]["out"])
+        assert torch.equal(record[(b, "packed")]["out"], record[(b, None)]["out"])
+        assert torch.isfinite(record[(b, "shared")]["out"]).all()
+
+
+def test_gate_gradients_on_the_card_match_the_cpu(dev, gen):
+    """`unet_apply(gates=)` differentiated through autograd on the card
+    (forward and backward under `exact_f32()`) against the CPU: the loss within 1e-5 relative,
+    each gate logit's gradient within 1e-4 relative."""
+    from attentiondm_tpu_torch.models.unet import map_tree, unet_apply
+    from attentiondm_tpu_torch.ops.precision import exact_f32
+
+    cfg = UNetConfig(**TOY)
+    params = unet_init(gen, cfg, "cpu")
+    x, t = torch.randn((2, 8, 8, 3), generator=gen), torch.tensor([3.0, 700.0])
+    e = torch.randn(x.shape, generator=gen)
+    out = {}
+    for where in ("cpu", dev):
+        logits = {k: torch.tensor(v, device=where, requires_grad=True)
+                  for k, v in (("resblock", 0.3), ("attention", -0.4), ("temb", 1.1))}
+        with exact_f32():  # the backward's convs too
+            eps = unet_apply(map_tree(lambda a: a.to(where), params), cfg, x.to(where), t.to(where),
+                             gates={k: torch.sigmoid(v) for k, v in logits.items()})
+            loss = ((eps - e.to(where)) ** 2).sum()
+            loss.backward()
+        out[str(where)] = (loss.item(), {k: v.grad.item() for k, v in logits.items()})
+    (wl, wg), (gl, gg) = out["cpu"], out[str(dev)]
+    assert abs(gl - wl) <= 1e-5 * abs(wl)
+    for k in wg:
+        assert abs(gg[k] - wg[k]) <= 1e-4 * abs(wg[k]), (k, gg[k], wg[k])
+
+
+def test_native_png_writer_on_the_card_machine(dev, tmp_path):
+    """The C++ writer builds here with g++ and zlib; its PNGs hold the
+    pixels `utils/images` writes."""
+    from attentiondm_tpu_torch import native
+    from attentiondm_tpu_torch.utils import images
+
+    x = np.random.default_rng(0).uniform(0, 1, (6, 16, 24, 3)).astype(np.float32)
+    assert native.native_available()
+    assert native.write_png_batch(x, str(tmp_path / "n"), 3) == 6
+    images.write_png_batch(x, str(tmp_path / "p"), 3)
+    for i in range(3, 9):
+        np.testing.assert_array_equal(images.read_png(str(tmp_path / "n" / f"{i}.png")),
+                                      images.read_png(str(tmp_path / "p" / f"{i}.png")))

@@ -238,15 +238,22 @@ def test_calib_cache_round_trip(tmp_path, ckpt):
 
 
 def test_unported_entry_points_raise(tmp_path):
-    """train() and test() on a dataset not ported yet (CelebA) raise, naming
-    ROADMAP item 7; no flag is ignored.  train() and test() themselves are
-    ported (tests/test_torch_runner_train.py), and so is --fid_stats
+    """train() and test() on a CelebA set that is not there raise
+    FileNotFoundError naming its folder (nothing is downloaded), and on a
+    dataset JAX does not read NotImplementedError; no flag is ignored.
+    train() and test() themselves are ported
+    (tests/test_torch_runner_train.py), and so is --fid_stats
     (tests/test_torch_fid_stats.py)."""
     r = _port_runner(_args(tmp_path, "x", fp32=True), jax_draws=False)
     r.config.data.dataset = "CELEBA"
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(FileNotFoundError, match="celeba"):
         r.train()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(FileNotFoundError, match="celeba"):
+        r.test()
+    r.config.data.dataset = "MNIST"
+    with pytest.raises(NotImplementedError, match="dataset MNIST"):
+        r.train()
+    with pytest.raises(NotImplementedError, match="dataset MNIST"):
         r.test()
 
 
