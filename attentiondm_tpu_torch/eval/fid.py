@@ -142,12 +142,14 @@ def sharded_statistics(images, extract_fn, mesh=None, batch_size=256, device=Non
     sigma = (sum f f^T - n mu mu^T) / (n - 1) in float32.
 
     `images` is one [N, H, W, C] array (sliced into `batch_size` chunks) or
-    an iterable of batches (a streaming sampler).  One device: a `mesh`
-    raises (batch-sharded statistics are ROADMAP Queue 1 item 9)."""
-    if mesh is not None:
-        raise NotImplementedError("sharded_statistics over a mesh is not ported: one device only (ROADMAP Queue 1 "
-                                  "item 9, parallel)")
+    an iterable of batches (a streaming sampler).  With a `mesh`
+    (`parallel.make_mesh`) of several data ranks, every rank walks the same
+    batches and extracts its contiguous share of each (JAX's device order),
+    and the two sums are all-reduced over `data` at the end; the ranks of
+    any other axis repeat their data rank's work, as GSPMD replicates JAX's
+    over `model`."""
     dev = _device(device)
+    n_dev = 1 if mesh is None else mesh.shape.get("data", 1)
     if hasattr(images, "shape"):
         batches = (images[i:i + batch_size] for i in range(0, len(images), batch_size))
     else:
@@ -156,11 +158,20 @@ def sharded_statistics(images, extract_fn, mesh=None, batch_size=256, device=Non
     n_total = 0
     with exact_f32():
         for b in batches:
+            n_total += len(b)
+            if n_dev > 1:  # this rank's share: contiguous, as even as the batch allows
+                lo, hi = (len(b) * mesh.index("data") // n_dev, len(b) * (mesh.index("data") + 1) // n_dev)
+                b = b[lo:hi]
+                if not len(b):
+                    continue
             f = extract_fn(torch.as_tensor(b, dtype=torch.float32, device=dev)).float()
             fs, ffT = f.sum(dim=0), f.T @ f
             s1 = fs if s1 is None else s1 + fs
             s2 = ffT if s2 is None else s2 + ffT
-            n_total += f.shape[0]
+    if n_dev > 1:
+        from ..parallel.collectives import all_reduce
+
+        s1, s2 = all_reduce(s1, mesh.groups["data"]), all_reduce(s2, mesh.groups["data"])
     mu = s1.cpu().numpy() / n_total
     sigma = (s2.cpu().numpy() - n_total * np.outer(mu, mu)) / (n_total - 1)
     return mu, sigma

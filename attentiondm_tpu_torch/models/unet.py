@@ -300,14 +300,34 @@ def _default_conv_apply(name, x, p, *, stride=1, padding="SAME"):
     return conv2d(x, p, stride=stride, padding=padding)
 
 
-def _resblock_apply(name, p, x, temb, conv_apply, dropout=None, gates=None):
-    h = swish(group_norm(x, p["norm1"]))
-    h = conv_apply(f"{name}.conv1", h, p["conv1"])
-    h = h + dense(swish(temb), p["temb_proj"])[:, None, None, :]
-    h = swish(group_norm(h, p["norm2"]))
+def _norm(x, p, par=None, split=False):
+    """GroupNorm under the `parallel=` context: the rows' sums all-reduced
+    (sp), or the local groups of a channel-split norm (tp)."""
+    if par is None:
+        return group_norm(x, p)
+    if par.sp:
+        return par.group_norm(x, p)
+    return group_norm(x, p, num_groups=par.norm_groups(split))
+
+
+def _col(x, par):
+    """A replicated input of a column-parallel layer (tp's f), else x."""
+    return x if par is None else par.column_in(x)
+
+
+def _row(conv_apply, name, h, p, par):
+    """A row-parallel conv (tp: partial sums all-reduced, then the bias)."""
+    return conv_apply(name, h, p) if par is None else par.row_conv(conv_apply, name, h, p)
+
+
+def _resblock_apply(name, p, x, temb, conv_apply, dropout=None, gates=None, par=None):
+    h = swish(_norm(x, p["norm1"], par))
+    h = conv_apply(f"{name}.conv1", _col(h, par), p["conv1"])
+    h = h + dense(_col(swish(temb), par), p["temb_proj"])[:, None, None, :]
+    h = swish(_norm(h, p["norm2"], par, split=True))
     if dropout is not None:
         h = dropout(h)
-    h = conv_apply(f"{name}.conv2", h, p["conv2"])
+    h = _row(conv_apply, f"{name}.conv2", h, p["conv2"], par)
     if "nin_shortcut" in p:
         x = conv_apply(f"{name}.nin_shortcut", x, p["nin_shortcut"])
     if gates is not None and "resblock" in gates:
@@ -315,21 +335,24 @@ def _resblock_apply(name, p, x, temb, conv_apply, dropout=None, gates=None):
     return x + h
 
 
-def _attn_apply_ddim(name, p, x, conv_apply):
+def _attn_apply_ddim(name, p, x, conv_apply, par=None):
     """Single-head attention block: softmax(q k^T / sqrt(C)) v."""
     from ..ops.attention import spatial_attention
 
     B, H, W, C = x.shape
-    h = group_norm(x, p["norm"])
-    q = conv_apply(f"{name}.q", h, p["q"]).reshape(B, H * W, C)
-    k = conv_apply(f"{name}.k", h, p["k"]).reshape(B, H * W, C)
-    v = conv_apply(f"{name}.v", h, p["v"]).reshape(B, H * W, C)
-    h = spatial_attention(q, k, v, scale=C ** -0.5).to(x.dtype).reshape(B, H, W, C)
-    h = conv_apply(f"{name}.proj_out", h, p["proj_out"])
+    h = _col(_norm(x, p["norm"], par), par)
+    q = conv_apply(f"{name}.q", h, p["q"]).reshape(B, H * W, -1)
+    k = conv_apply(f"{name}.k", h, p["k"]).reshape(B, H * W, -1)
+    v = conv_apply(f"{name}.v", h, p["v"]).reshape(B, H * W, -1)
+    if par is None:
+        h = spatial_attention(q, k, v, scale=C ** -0.5)
+    else:
+        h = par.attention(q, k.transpose(1, 2), v, C ** -0.5)
+    h = _row(conv_apply, f"{name}.proj_out", h.to(x.dtype).reshape(B, H, W, -1), p["proj_out"], par)
     return x + h
 
 
-def _attn_apply_enhanced(name, p, x, conv_apply, cfg, attn_ctx=None):
+def _attn_apply_enhanced(name, p, x, conv_apply, cfg, attn_ctx=None, par=None):
     """The enhanced attention block: 1x1 query / key / value / output
     projections with key_channels = C // 8, softmax(q k^T / sqrt(Ck)) v over
     the whole projection, and `gamma * out + x`.
@@ -340,20 +363,24 @@ def _attn_apply_enhanced(name, p, x, conv_apply, cfg, attn_ctx=None):
     `base_bits` (default 8), `timestep` (the diffusion timestep, an integer
     tensor or None) and `head_split` (default "aligned"))."""
     B, H, W, C = x.shape
-    q = conv_apply(f"{name}.query_conv", x, p["query_conv"])
-    k = conv_apply(f"{name}.key_conv", x, p["key_conv"])
-    v = conv_apply(f"{name}.value_conv", x, p["value_conv"])
+    xc = _col(x, par)
+    q = conv_apply(f"{name}.query_conv", xc, p["query_conv"])
+    k = conv_apply(f"{name}.key_conv", xc, p["key_conv"])
+    v = conv_apply(f"{name}.value_conv", xc, p["value_conv"])
     Ck = q.shape[-1]
     q = q.reshape(B, H * W, Ck)
     k = k.reshape(B, H * W, Ck).transpose(1, 2)  # [B, Ck, HW]
-    v = v.reshape(B, H * W, C)
+    v = v.reshape(B, H * W, -1)
     ctx = attn_ctx or {}
     collect = ctx.get("collect")
     if collect is not None:
         lg = torch.matmul(q.float(), k.float()) * (Ck ** -0.5)
         collect[name] = (lg.amin(), lg.amax())
-    out = enhanced_core(name, q, k, v, cfg, ctx).to(x.dtype)
-    out = conv_apply(f"{name}.output_conv", out.reshape(B, H, W, C), p["output_conv"])
+    if par is None:
+        out = enhanced_core(name, q, k, v, cfg, ctx).to(x.dtype)
+    else:  # the scale is the whole projection's: Ck is a shard's under tp
+        out = par.attention(q, k, v, (Ck * (par.size if par.tp else 1)) ** -0.5).to(x.dtype)
+    out = _row(conv_apply, f"{name}.output_conv", out.reshape(B, H, W, -1), p["output_conv"], par)
     return p["gamma"].to(x.dtype) * out + x
 
 
@@ -376,13 +403,13 @@ def enhanced_core(name, q, k, v, cfg, attn_ctx=None):
     return torch.matmul(w.float(), v.float()).to(q.dtype)
 
 
-def _attn_apply(name, p, x, conv_apply, cfg, attn_ctx, gates=None):
+def _attn_apply(name, p, x, conv_apply, cfg, attn_ctx, gates=None, par=None):
     """The configured attention block; a `gates["attention"]` scales its
     change to x: x + g * (out - x)."""
     if cfg.attn_variant == "enhanced":
-        out = _attn_apply_enhanced(name, p, x, conv_apply, cfg, attn_ctx)
+        out = _attn_apply_enhanced(name, p, x, conv_apply, cfg, attn_ctx, par)
     else:
-        out = _attn_apply_ddim(name, p, x, conv_apply)
+        out = _attn_apply_ddim(name, p, x, conv_apply, par)
     if gates is not None and "attention" in gates:
         out = x + gates["attention"] * (out - x)
     return out
@@ -401,11 +428,11 @@ def nearest_up2(x):
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
-def _downsample(name, p, x, conv_apply, with_conv=True):
+def _downsample(name, p, x, conv_apply, with_conv=True, par=None):
     if not with_conv:
         return avg_pool2(x)
     # asymmetric (0,1,0,1) pad, then a VALID stride-2 conv (the DDPM graph)
-    x = F.pad(x, (0, 0, 0, 1, 0, 1))
+    x = par.pad_down(x) if par is not None and par.sp else F.pad(x, (0, 0, 0, 1, 0, 1))
     return conv_apply(f"{name}.conv", x, p["conv"], stride=2, padding="VALID")
 
 
@@ -438,7 +465,7 @@ def _dropout(cfg: UNetConfig, train: bool, generator, dropout_masks):
 def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor, *,
                conv_apply: Callable | None = None, attn_ctx: dict | None = None,
                compute_dtype=None, train: bool = False, generator: torch.Generator | None = None,
-               dropout_masks=None, gates: dict | None = None) -> torch.Tensor:
+               dropout_masks=None, gates: dict | None = None, parallel=None) -> torch.Tensor:
     """Predict eps from (x_t [NHWC], t [N]); float32 out, differentiable in
     params and x.  `attn_ctx` goes to every enhanced attention block
     (`_attn_apply_enhanced`).
@@ -458,9 +485,18 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
     scale every resblock's residual branch, every attention block's change
     to its input and the timestep embedding before its MLP: the ablation
     search's architecture gates, differentiable through autograd.  Without
-    them every output is as it was."""
+    them every output is as it was.
+
+    `parallel` (a `parallel.tp.UNetParallel`) runs the forward on one
+    rank's shard: its params split over channels (tp) or x's rows of the
+    images (sp), with the collectives where GSPMD puts JAX's; eps comes
+    back as this rank's part (sp: its rows).  Without it nothing changes."""
     check_ported(cfg)
     ca = conv_apply or _default_conv_apply
+    par = parallel
+    if par is not None:
+        par.check_rows(cfg)
+        ca = par.conv(ca)
     num_levels = len(cfg.ch_mult)
     drop = _dropout(cfg, train, generator, dropout_masks)
 
@@ -476,30 +512,33 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
         lp = params["down"][i_level]
         for i_block in range(cfg.num_res_blocks):
             h = _resblock_apply(f"down.{i_level}.block.{i_block}", lp["block"][i_block], hs[-1], temb, ca, drop,
-                                gates)
+                                gates, par)
             if lp["attn"]:
-                h = _attn_apply(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx, gates)
+                h = _attn_apply(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx, gates,
+                                par)
             hs.append(h)
         if i_level != num_levels - 1:
-            hs.append(_downsample(f"down.{i_level}.downsample", lp["downsample"], hs[-1], ca, cfg.resamp_with_conv))
+            hs.append(_downsample(f"down.{i_level}.downsample", lp["downsample"], hs[-1], ca, cfg.resamp_with_conv,
+                                  par))
 
     h = hs[-1]
-    h = _resblock_apply("mid.block_1", params["mid"]["block_1"], h, temb, ca, drop, gates)
-    h = _attn_apply("mid.attn_1", params["mid"]["attn_1"], h, ca, cfg, attn_ctx, gates)
-    h = _resblock_apply("mid.block_2", params["mid"]["block_2"], h, temb, ca, drop, gates)
+    h = _resblock_apply("mid.block_1", params["mid"]["block_1"], h, temb, ca, drop, gates, par)
+    h = _attn_apply("mid.attn_1", params["mid"]["attn_1"], h, ca, cfg, attn_ctx, gates, par)
+    h = _resblock_apply("mid.block_2", params["mid"]["block_2"], h, temb, ca, drop, gates, par)
 
     for i_level in reversed(range(num_levels)):
         lp = params["up"][i_level]
         for i_block in range(cfg.num_res_blocks + 1):
             h = _resblock_apply(f"up.{i_level}.block.{i_block}", lp["block"][i_block],
-                                torch.cat([h, hs.pop()], dim=-1), temb, ca, drop, gates)
+                                torch.cat([h, hs.pop()], dim=-1), temb, ca, drop, gates, par)
             if lp["attn"]:
-                h = _attn_apply(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx, gates)
+                h = _attn_apply(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx, gates,
+                                par)
         if i_level != 0:
             h = _upsample(f"up.{i_level}.upsample", lp["upsample"], h, ca, cfg.resamp_with_conv)
     assert not hs
 
-    h = swish(group_norm(h, params["norm_out"]))
+    h = swish(_norm(h, params["norm_out"], par))
     h = ca("conv_out", h, params["conv_out"])
     return h.to(torch.float32)
 

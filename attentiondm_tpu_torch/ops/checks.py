@@ -41,6 +41,25 @@ from . import fused_gn
 from .attention import flash_takes, takes_flash
 
 
+# the card's published peaks (H100 SXM data sheet, dense), for the bounds of chip_smoke.py and the probes
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12  # tensor cores, dense
+BF16_FLOPS_PER_S = 989e12  # tensor cores, dense
+F32_FLOPS_PER_S = 67e12  # outside the tensor cores
+# f32 products on the tensor cores as 3xTF32 (K3's core): three TF32 products (495 TFLOP/s dense) for each.
+# One TF32 pass would be faster but rounds each operand to 10 bits, which K3's tolerance does not allow
+# (1.3% of proj_out's input codes flip), so the split is the least work that computes the function.
+TF32X3_FLOPS_PER_S = 495e12 / 3
+
+
+def bound_ms(nbytes, int8_ops=0, f32_flops=0, bf16_flops=0, tf32x3_flops=0):
+    """(bytes ms, operations ms) the card needs at least for the work: the
+    bytes over the memory rate, the operations over the peak of their type."""
+    ops = (int8_ops / INT8_OPS_PER_S + bf16_flops / BF16_FLOPS_PER_S + f32_flops / F32_FLOPS_PER_S
+           + tf32x3_flops / TF32X3_FLOPS_PER_S)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops * 1e3
+
+
 # int8 outputs: the share of codes that may differ (by at most 1 LSB) from the plain version's
 CODE_SHARE = {"K2": 1e-3, "K6": 1e-3, "K8": 2e-3, "K9": 2e-3, "K10": 1e-2, "K3.core": 2e-3}
 # K3 at a float32 residual: the share of outputs within 2 f32 ulp of the plain version's.  Measured on the H100: at

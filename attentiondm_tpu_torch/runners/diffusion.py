@@ -47,6 +47,8 @@ from ..diffusion.sampling import ddim_sample, ddpm_sample, make_timestep_seq
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.unet import UNetConfig, cast_params, count_params, unet_apply, unet_init
 from ..native import write_png_batch
+from ..parallel import make_mesh
+from ..parallel.distributed import world
 from ..quant.calibrate import (
     calibrate_differentiable,
     calibrate_ranges,
@@ -96,6 +98,7 @@ class Diffusion:
         self.serving = None  # the serving sampler and what it was built from, after a serving sample()
         self.fid_images = 0  # images the last --fid run generated
         self.fid_score = None  # the last --fid_stats score
+        self.rank, self.world = world()  # this process's rank in the default process group (0, 1 without one)
 
     # ------------------------------------------------------------------
     # helpers
@@ -191,6 +194,30 @@ class Diffusion:
         params = unet_init(torch.Generator().manual_seed(0), self.ucfg, self.device)
         return init_train_state(params, get_optimizer(self.config), use_ema=bool(self.config.model.ema))
 
+    def _train_mesh(self):
+        """(mesh, data ranks, tp, sp) of `train()`, as JAX's runner picks
+        them: --tp with --sp drops --sp; a degree that does not divide the
+        world (or, for --tp, the 32 GroupNorm groups) falls back to pure
+        data parallelism, with a warning."""
+        args = self.args
+        tp, sp = int(getattr(args, "tp", 1) or 1), int(getattr(args, "sp", 1) or 1)
+        n_all = self.world
+        if tp > 1 and sp > 1:
+            logging.warning("--tp and --sp shard the same mesh axis; ignoring --sp")
+            sp = 1
+        if tp > 1 and (n_all % tp or 32 % tp):
+            logging.warning(f"--tp {tp} must divide the device count ({n_all}) and the 32 GroupNorm groups; "
+                            "falling back to pure DP")
+            tp = 1
+        if sp > 1 and n_all % sp:
+            logging.warning(f"--sp {sp} must divide the device count ({n_all}); falling back to pure DP")
+            sp = 1
+        if tp > 1 or sp > 1:
+            model = tp if tp > 1 else sp
+            return make_mesh(axes=("data", "model"), shape=(n_all // model, model)), n_all // model, tp, sp
+        mesh = make_mesh()
+        return mesh, mesh.size, tp, sp
+
     def train(self):
         """Train on the config's dataset on this runner's device: batches of
         `training.batch_size` from `iterate_batches(seed=--seed + epoch,
@@ -204,19 +231,32 @@ class Diffusion:
         `ckpt.npz` and continues from its step, with the draws, the shuffle
         and the epoch count started again from 0, as JAX's runner does.
         The final state stays on `train_state`, each step's host seconds on
-        `step_seconds` (the loop's on `timings["train"]`)."""
+        `step_seconds` (the loop's on `timings["train"]`).
+
+        Over several ranks (`parallel.initialize_distributed`) the step is
+        `make_sharded_train_step` on the mesh `_train_mesh` picks (data
+        parallel, data x tensor with --tp, data x spatial with --sp); the
+        batch is cut to a multiple of the data ranks, every rank loads the
+        whole batch and keeps its slice, and rank 0 writes the logs and the
+        checkpoints (gathered to whole tensors under --tp; `--resume_training`
+        cuts them to the shards again).  With one rank the step is
+        `make_train_step` (`make_sharded_train_step` of a one-rank mesh)."""
         from ..checkpoint import load_checkpoint, save_checkpoint
         from ..data.datasets import get_dataset
         from ..data.loader import iterate_batches
         from ..data.transforms import data_transform
-        from ..training import get_optimizer, init_train_state, make_train_step
+        from ..parallel import gather_unet_params, shard_unet_params, unet_param_specs
+        from ..training import get_optimizer, init_train_state, make_sharded_train_step, map_train_state
         from ..utils.metrics_log import MetricsLogger
         from ..utils.tb_writer import SummaryWriter
 
         args, config = self.args, self.config
         train_ds, _ = get_dataset(args, config)
+        mesh, n_dev, tp, sp = self._train_mesh()
+        n_all = mesh.size
         batch = config.training.batch_size
-        logging.info(f"training on {self.device}, batch {batch}")
+        batch -= batch % n_dev or 0
+        logging.info(f"training on {n_all} device(s) ({self.device}; dp{n_dev} x tp{tp} x sp{sp}), batch {batch}")
         tx = get_optimizer(config)
         params = unet_init(torch.Generator().manual_seed(int(args.seed)), self.ucfg, self.device)
         state = init_train_state(params, tx, use_ema=bool(config.model.ema))
@@ -226,10 +266,16 @@ class Diffusion:
             state = load_checkpoint(ckpt_path, state, device=self.device)
             start_step = int(state.step)
             logging.info(f"resumed from step {start_step}")
-        step_fn = make_train_step(self.ucfg, self.betas, tx, grad_clip=getattr(config.optim, "grad_clip", None),
-                                  ema_rate=config.model.ema_rate if config.model.ema else None)
-        logger = MetricsLogger(os.path.join(args.log_path, "train_metrics.csv"))
-        tb_logger = SummaryWriter(os.path.join(args.exp, "tensorboard", args.doc))
+        kw = dict(grad_clip=getattr(config.optim, "grad_clip", None),
+                  ema_rate=config.model.ema_rate if config.model.ema else None)
+        specs = None
+        if tp > 1:  # the checkpoint's whole tensors, cut to this rank's shards
+            specs = unet_param_specs(params)
+            state = map_train_state(lambda tree: shard_unet_params(mesh, tree), state)
+        step_fn = make_sharded_train_step(mesh, self.ucfg, self.betas, tx, param_specs=specs, spatial=sp > 1, **kw)
+        main = self.rank == 0
+        logger = MetricsLogger(os.path.join(args.log_path, "train_metrics.csv")) if main else None
+        tb_logger = SummaryWriter(os.path.join(args.exp, "tensorboard", args.doc)) if main else None
         _, transform_kw = self.randomness("transform")
         self.step_seconds = []
         t_train = time.perf_counter()
@@ -241,12 +287,17 @@ class Diffusion:
             p_step, p_loss, p_dt, p_epoch = p
             p_loss = p_loss.item()
             logging.info(f"step: {p_step}, loss: {p_loss:.5f}, data time: {p_dt:.3f}")
-            logger.log(p_step, loss=p_loss, data_s=round(p_dt, 4), epoch=p_epoch)
-            tb_logger.add_scalar("loss", p_loss, p_step)
+            if main:
+                logger.log(p_step, loss=p_loss, data_s=round(p_dt, 4), epoch=p_epoch)
+                tb_logger.add_scalar("loss", p_loss, p_step)
 
         def save(step):
-            save_checkpoint(os.path.join(args.log_path, f"ckpt_{step}.npz"), state)
-            save_checkpoint(ckpt_path, state)
+            """The state under JAX's keys, whole tensors (gathered over tp), written by rank 0."""
+            whole = state if specs is None else map_train_state(lambda tree: gather_unet_params(mesh, tree, specs),
+                                                                state)
+            if main:
+                save_checkpoint(os.path.join(args.log_path, f"ckpt_{step}.npz"), whole)
+                save_checkpoint(ckpt_path, whole)
 
         step = start_step
         workers = int(getattr(config.data, "num_workers", 0) or 0)
@@ -272,7 +323,8 @@ class Diffusion:
             if step >= config.training.n_iters:
                 break
         flush(pending)
-        tb_logger.close()
+        if main:
+            tb_logger.close()
         self.train_state = state
         self.timings["train"] = time.perf_counter() - t_train
 
@@ -384,7 +436,8 @@ class Diffusion:
     def _score_fid(self):
         """Score the --fid folder (--fid_stats) as JAX's runner does: the
         generated images' Inception statistics from float32 sums of f and
-        f f^T on the device (`sharded_statistics`), the reference statistics
+        f f^T on the device (`sharded_statistics`, each batch split over the
+        data ranks and the sums all-reduced), the reference statistics
         of --fid_stats (`.npz` or an image folder), and the Frechet distance
         (`frechet_smoke_safe`: eigenvalue form below 2048 images), printed
         as `FID: x.xxxx` and returned.  Canonical FID needs
@@ -405,12 +458,13 @@ class Diffusion:
         t0 = time.time()
         mu1, s1 = fid_eval.compute_statistics_of_path(args.fid_stats, net.extract, device=self.device)
         mu2, s2 = fid_eval.sharded_statistics(fid_eval._iter_image_dir(args.image_folder, 256), net.extract,
-                                              device=self.device)
+                                              mesh=make_mesh(), device=self.device)
         n_gen = sum(len(glob.glob(os.path.join(args.image_folder, f"*.{ext}"))) for ext in fid_eval.IMAGE_EXTENSIONS)
         fid = fid_eval.frechet_smoke_safe(mu2, s2, mu1, s1, n_gen)
         logging.info(f"FID({args.image_folder} vs {args.fid_stats}) = {fid:.4f} (n={n_gen}, scored in "
                      f"{time.time() - t0:.1f}s)")
-        print(f"FID: {fid:.4f}")
+        if self.rank == 0:
+            print(f"FID: {fid:.4f}")
         return fid
 
     # ------------------------------------------------------------------
@@ -465,7 +519,35 @@ class Diffusion:
         fold refinement (--weight_refine) + stage 3
         (--mixed_precision_attention), with --calib_cache persistence.
         Returns (qstates, mp_states or None); the attention ranges and the
-        weight extras land on `self`."""
+        weight extras land on `self`.
+
+        Every rank calls it.  Over several ranks rank 0 calibrates (and
+        reads or writes the cache) and the others take its result, so every
+        rank serves one calibration and one process writes the file."""
+        def run():
+            return self._calibrate(params, qunet, qstates, seq, first, collect_attn_ranges, compute_extras)
+
+        if self.world == 1:
+            return run()
+        from ..parallel.collectives import broadcast_object
+
+        keys = ("attn_ranges", "weight_extras", "sample_count", "timestep_select")
+        out = None
+        if self.rank == 0:
+            try:
+                out = {"result": run(), **{k: getattr(self, k) for k in keys}}
+            except Exception as e:  # the other ranks wait on the broadcast: hand them the failure
+                broadcast_object({"error": f"{type(e).__name__}: {e}"}, self.device)
+                raise
+        out = broadcast_object(out, self.device)
+        if "error" in out:
+            raise RuntimeError(f"calibration failed on rank 0: {out['error']}")
+        for k in keys:
+            setattr(self, k, out[k])
+        return out["result"]
+
+    def _calibrate(self, params, qunet, qstates, seq, first, collect_attn_ranges, compute_extras):
+        """`calibrate_model` in this process."""
         from ..quant.calib_cache import load_calibration, save_calibration
 
         args = self.args
@@ -673,6 +755,13 @@ class Diffusion:
         return lambda x, **kw: ddim_sample(model, x, seq, self.betas, eta=args.eta, **kw)
 
     def sample(self):
+        """Sample as the flags say (see the module's docstring).  Over
+        several ranks each batch of the --fid loop and of the plain sample
+        splits over the data ranks (rounded to their count as JAX's runner
+        rounds it); every rank draws the whole batch's noise and keeps its
+        slice, the images are gathered back, and rank 0 writes the PNGs, so
+        the files are those of one rank.  --interpolation and --sequence
+        stay on rank 0, unsharded, as in JAX."""
         args, config = self.args, self.config
         self.timings = {}
         seq = self.make_seq()
@@ -686,26 +775,45 @@ class Diffusion:
             apply, mstate, desc = self._build_model(params, seq)
             run = self._float_sampler(apply, mstate, seq)
         logging.info(f"sampling with {len(list(seq))} steps, model={desc}")
+        mesh = make_mesh()
+        n_dev = mesh.size
+        noised = args.sample_type == "ddpm_noisy" or args.eta > 0
 
         def dispatch(stream, n, index=0):
+            """Batch `index` of `stream`: n images, split over the data ranks
+            (every rank draws the whole batch's noise and keeps its slice),
+            gathered back whole on every rank."""
             x, kw = self.randomness(stream, self._image_shape(n), index)
+            if n_dev > 1:
+                from ..diffusion.sampling import draw_noise
+                from ..parallel import shard_batch
+                from ..parallel.collectives import all_gather
+
+                if noised:  # the sampler's per-step draws, whole, in its order; then this rank's slice
+                    noise = kw["noise"] if "noise" in kw else [draw_noise(i, x, kw["generator"])
+                                                               for i in range(len(list(seq)))]
+                    kw = {"noise": [shard_batch(mesh, torch.as_tensor(z, device=x.device)) for z in noise]}
+                x = shard_batch(mesh, x)
             with torch.no_grad():
-                return run(x, **kw)
+                out = run(x, **kw)
+            return out if n_dev == 1 else torch.cat(all_gather(out, mesh.groups["data"]))
 
         os.makedirs(args.image_folder, exist_ok=True)
         if args.fid:
-            n = self._fid(dispatch, serving)
+            n = self._fid(dispatch, serving, n_dev)
             if getattr(args, "fid_stats", None):  # the folder is scored once it is written
                 self.fid_score = self._timed("fid score", self._score_fid)
             return n
+        if (args.interpolation or args.sequence) and serving:
+            # the trajectory paths run on the fake-quant model (they need the generic `apply`); every rank
+            # takes part in its calibration
+            apply, mstate, _ = self._build_model(params, seq)
         if args.interpolation:
-            if serving:  # the trajectory paths run on the fake-quant model (they need the generic `apply`)
-                apply, mstate, _ = self._build_model(params, seq)
+            if self.rank:  # unsharded, as in JAX: rank 0 draws and writes the grid
+                return None
             return self._interpolation(apply, mstate, seq)
         n = args.num_samples or 64
-        if args.sequence:
-            if serving:
-                apply, mstate, _ = self._build_model(params, seq)
+        if args.sequence and self.rank == 0:  # unsharded, as in JAX
             x, kw = self.randomness("sample", self._image_shape(n))
             with torch.no_grad():
                 _, traj, _ = ddim_sample(lambda xt, t, i: apply(mstate, xt, t, i), x, seq, self.betas, eta=args.eta,
@@ -715,9 +823,11 @@ class Diffusion:
             for s in range(0, traj.shape[0], stride):
                 save_image_grid(inverse_data_transform(config, traj[s]).numpy(),
                                 os.path.join(args.image_folder, f"seq_step{s}.png"))
+        n = max(n_dev, n - n % n_dev)
         out = self._timed("sampling", lambda: dispatch("sample", n))
-        imgs = self._timed("png", lambda: self._save_samples(inverse_data_transform(config, out).cpu().numpy()))
-        logging.info(f"saved {imgs} samples to {args.image_folder}")
+        if self.rank == 0:
+            imgs = self._timed("png", lambda: self._save_samples(inverse_data_transform(config, out).cpu().numpy()))
+            logging.info(f"saved {imgs} samples to {args.image_folder}")
 
     def _save_samples(self, imgs):
         for i in range(imgs.shape[0]):
@@ -725,13 +835,15 @@ class Diffusion:
         save_image_grid(imgs, os.path.join(self.args.image_folder, "grid.png"))
         return imgs.shape[0]
 
-    def _fid(self, dispatch, serving):
+    def _fid(self, dispatch, serving, n_dev: int = 1):
         """The --fid bulk loop: `<id>.png` files up to --num_samples (default
         50000), batch b from the stream of index b, resuming at the first
         missing id aligned down to the batch grid (the interrupted batch is
-        generated again, byte-identical).  The last batch generates only the
-        images still missing.  Batch k's PNGs are encoded on a background
-        thread while the host launches batch k+1."""
+        generated again, byte-identical).  The batch rounds down to a
+        multiple of the `n_dev` data ranks, and the last one generates the
+        images still missing rounded up to one (it keeps those it needs), as
+        JAX's runner does; rank 0 writes.  Batch k's PNGs are encoded on a
+        background thread while the host launches batch k+1."""
         args, config = self.args, self.config
         total = args.num_samples if args.num_samples else 50000
         batch = getattr(config.sampling, "batch_size", 256)
@@ -741,12 +853,14 @@ class Diffusion:
                 batch = max(batch, int(args.superbatch))
             else:
                 logging.warning("--superbatch requires --step_chunk; ignoring")
+        batch = max(n_dev, batch - batch % n_dev)
         img_id = _contiguous_prefix(args.image_folder)
         img_id -= img_id % batch
         start = img_id
         if start:
             logging.info(f"resuming: {start} images already in {args.image_folder}")
         png_s = [0.0]
+        main = self.rank == 0
 
         def write(imgs, iid):
             t0 = time.perf_counter()
@@ -758,16 +872,23 @@ class Diffusion:
             pending = None
             for iid in range(img_id, total, batch):
                 n = min(batch, total - iid)
-                out = self._timed("sampling", lambda: inverse_transform_uint8(config, dispatch("fid", n, iid // batch)))
+                n_gen = max(n_dev, n + (-n) % n_dev)
+                out = self._timed("sampling", lambda: inverse_transform_uint8(
+                    config, dispatch("fid", n_gen, iid // batch)[:n]))
                 imgs = out.cpu().numpy()
                 if pending is not None:
                     pending.result()
-                pending = writer.submit(write, imgs, iid)
+                if main:
+                    pending = writer.submit(write, imgs, iid)
                 rate = (iid + n - start) / max(1e-9, time.perf_counter() - t0)
-                logging.info(f"{iid + n}/{total} images ({rate:.1f} img/s)")
+                logging.info(f"{iid + n}/{total} images ({rate:.1f} img/s, {rate / n_dev:.1f} img/s/device)")
             t_wait = time.perf_counter()
             if pending is not None:
                 pending.result()
+        if n_dev > 1:  # the folder is whole before any rank reads it (--fid_stats)
+            import torch.distributed as dist
+
+            dist.barrier()
         self.timings["png"] = png_s[0]
         self.timings["png wait"] = time.perf_counter() - t_wait
         self.fid_images = total - start

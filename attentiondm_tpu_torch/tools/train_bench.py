@@ -7,7 +7,11 @@ batch sizes, and the checkpoint save / resume round trip.
         [--steps 20] [--json out.json]
 
 The step is `training.make_train_step` on one device under `exact_f32()`
-(the runner's `train()` step), on one fixed batch of uniform [-1, 1] images
+(the runner's `train()` step), or under torchrun (`torchrun
+--nproc_per_node N -m attentiondm_tpu_torch.tools.train_bench`) the data-
+parallel `make_sharded_train_step` over a mesh of the N ranks, as JAX's
+bench runs over its device mesh (the batch is the global one; rank 0
+prints), on one fixed batch of uniform [-1, 1] images
 with the step's t, eps and dropout drawn from a seeded generator; host
 batch assembly is left out (the runner overlaps it).  After `warmup` steps,
 each of which waits for the loss, `steps` steps are queued back to back and
@@ -34,18 +38,21 @@ from ..config import load_config
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.unet import UNetConfig, tree_leaves, unet_init
 from ..ops.precision import exact_f32
-from ..training import get_optimizer, init_train_state, make_train_step
+from ..parallel import initialize_distributed, make_mesh
+from ..training import get_optimizer, init_train_state, make_sharded_train_step
 
 
-def bench_batch(ucfg, betas, config, batch: int, steps: int, warmup: int = 3, device=None):
-    """(results, the final training state) of `steps` timed steps at `batch`."""
+def bench_batch(ucfg, betas, config, batch: int, steps: int, warmup: int = 3, device=None, mesh=None):
+    """(results, the final training state) of `steps` timed steps at
+    `batch` (the global batch over a `mesh` of several ranks)."""
     device = default_device() if device is None else torch.device(device)
     cuda = device.type == "cuda"
     tx = get_optimizer(config)
     params = unet_init(torch.Generator().manual_seed(0), ucfg, device)
     state = init_train_state(params, tx, use_ema=bool(config.model.ema))
-    step_fn = make_train_step(ucfg, betas, tx, grad_clip=getattr(config.optim, "grad_clip", None),
-                              ema_rate=config.model.ema_rate if config.model.ema else None)
+    kw = dict(grad_clip=getattr(config.optim, "grad_clip", None),
+              ema_rate=config.model.ema_rate if config.model.ema else None)
+    step_fn = make_sharded_train_step(make_mesh() if mesh is None else mesh, ucfg, betas, tx, **kw)
     rng = np.random.default_rng(0)
     x0 = torch.as_tensor(rng.uniform(-1, 1, (batch, ucfg.resolution, ucfg.resolution, 3)), dtype=torch.float32,
                          device=device)
@@ -109,20 +116,24 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
 
+    initialize_distributed(device=args.device)  # torchrun's ranks join; alone, a no-op
     device = default_device() if args.device is None else torch.device(args.device)
     config = load_config(args.config)
     ucfg = UNetConfig.from_config(config)
     betas = DiffusionSchedule.from_config(config, device=device).betas
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"device: {device} ({name})")
+    mesh = make_mesh()
+    main_rank = mesh.coords.get("data", 0) == 0
+    print(f"device: {device} ({name})" + (f"  mesh: {mesh.shape}" if mesh.size > 1 else ""))
 
     results, state = [], None
     for b in (int(x) for x in args.batches.split(",")):
         state = None  # the last batch's state goes before the next one's is made
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        r, state = bench_batch(ucfg, betas, config, b, args.steps, device=device)
-        print(json.dumps(_rounded(r)))
+        r, state = bench_batch(ucfg, betas, config, b, args.steps, device=device, mesh=mesh)
+        if main_rank:
+            print(json.dumps(_rounded(r)))
         results.append(r)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -131,9 +142,11 @@ def main(argv=None):
 
     best = max(results, key=lambda r: r["img_per_s"])
     summary = {"metric": "train_img_per_s", "value": round(best["img_per_s"], 2), "unit": "img/s",
-               "device": name, "batch": best["batch"], "step_ms": round(best["step_ms"], 2),
+               "device": name, "devices": mesh.size, "batch": best["batch"], "step_ms": round(best["step_ms"], 2),
                "checkpoint": {k: round(v, 3) for k, v in ck.items() if k != "param_l1"},
                "results": [_rounded(r) for r in results]}
+    if not main_rank:
+        return summary
     print(json.dumps(summary))
     if args.json:
         with open(args.json, "w") as f:

@@ -30,7 +30,7 @@ import torch
 
 from .diffusion.losses import noise_estimation_loss
 from .models.ema import ema_init, ema_update
-from .models.unet import UNetConfig, map_tree, tree_leaves, tree_unflatten, unet_apply
+from .models.unet import UNetConfig, dropout_shapes, map_tree, tree_leaves, tree_unflatten, unet_apply
 from .ops.precision import exact_f32
 
 
@@ -179,50 +179,79 @@ def global_norm(tree):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, clip: float):
+def clip_by_global_norm(grads, clip: float, sum_squares: Callable | None = None):
     """(grads * min(1, clip / (norm + 1e-12)), norm): JAX's rule (not
-    `clip_grad_norm_`, whose 1e-6 differs)."""
-    norm = global_norm(grads)
+    `clip_grad_norm_`, whose 1e-6 differs).  `sum_squares(grads)` gives the
+    norm's square where some leaves are shards (`make_sharded_train_step`)."""
+    norm = global_norm(grads) if sum_squares is None else torch.sqrt(sum_squares(grads))
     scale = torch.clamp(torch.full_like(norm, clip) / (norm + 1e-12), max=1.0)  # a true division, as JAX divides
     return tree_unflatten(grads, torch._foreach_mul(tree_leaves(grads), scale)), norm
 
 
-def loss_and_grads(apply, params, x0, t, e, betas, randomness: dict):
+def loss_and_grads(apply, params, x0, t, e, betas, randomness: dict, n: int | None = None):
     """(the batch's eps-MSE, detached; its gradient tree over `params`):
     `apply(params, x, t, **randomness)` is the model, run forward and
-    backward under `exact_f32()`."""
+    backward under `exact_f32()`.  With `n`, the loss is the batch's sum
+    over `n` (a rank's share of a global batch of n)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     live = tree_unflatten(params, leaves)
     with exact_f32(), torch.enable_grad():
-        loss, _ = noise_estimation_loss(lambda x, tt: apply(live, x, tt, **randomness), x0, t, e, betas)
-        grads = torch.autograd.grad(loss, leaves)
+        se, _ = noise_estimation_loss(lambda x, tt: apply(live, x, tt, **randomness), x0, t, e, betas,
+                                      keepdim=n is not None)
+        loss = se if n is None else se.sum() / n
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     return loss.detach(), tree_unflatten(params, grads)
+
+
+@dataclasses.dataclass
+class StepSharding:
+    """How `make_train_step` runs on one rank of a mesh (built by
+    `make_sharded_train_step`): `local(x0, t, e, masks)` cuts the global
+    batch and its draws to this rank's slices; `reduce(x)` sums a gradient
+    or the loss over the ranks that share it; `sum_squares` (or None) is
+    clipping's squared norm over sharded leaves; `parallel` the forward's
+    `unet_apply(parallel=)` context (or None)."""
+    local: Callable
+    reduce: Callable
+    sum_squares: Callable | None
+    parallel: Any
 
 
 def make_train_step(cfg: UNetConfig, betas: torch.Tensor, tx: GradientTransformation, *,
                     grad_clip: float | None = 1.0, ema_rate: float | None = 0.9999,
-                    model_apply: Callable | None = None):
+                    model_apply: Callable | None = None, sharding: StepSharding | None = None):
     """The training step `(state, x0 [N, H, W, C], *, generator=None, t=None,
     e=None, dropout_masks=None) -> (state, loss)`.  The timesteps, the noise
     and the dropout masks are drawn from `generator` (a torch.Generator on
     x0's device, in that order), or handed in (`t` [N] int, `e` like x0,
     `dropout_masks` as `unet_apply` takes them).  `model_apply(params, x,
     t, **randomness)` replaces the UNet's train-mode forward; the loss is
-    left on the device."""
+    left on the device.  `sharding` runs the step on one rank of a mesh
+    (`make_sharded_train_step`): x0 and the draws are the global batch's,
+    the masks drawn whole before the forward, each cut to the rank's slice."""
     num_timesteps = betas.shape[0]
-    apply = model_apply or (lambda p, x, tt, **rnd: unet_apply(p, cfg, x, tt, train=True, **rnd))
+    par = None if sharding is None else sharding.parallel
+    apply = model_apply or (lambda p, x, tt, **rnd: unet_apply(p, cfg, x, tt, train=True, parallel=par, **rnd))
 
     def train_step(state: TrainState, x0, *, generator=None, t=None, e=None, dropout_masks=None):
         if generator is None and (t is None or e is None):
             raise ValueError("train_step draws t and e from generator= (a torch.Generator), or takes t= and e=")
+        n = x0.shape[0]
         if t is None:
-            t = antithetic_timesteps(generator, x0.shape[0], num_timesteps)
+            t = antithetic_timesteps(generator, n, num_timesteps)
         if e is None:
             e = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
-        rnd = {"dropout_masks": dropout_masks} if dropout_masks is not None else {"generator": generator}
-        loss, grads = loss_and_grads(apply, state.params, x0, t, e, betas, rnd)
+        if sharding is None:
+            rnd = {"dropout_masks": dropout_masks} if dropout_masks is not None else {"generator": generator}
+            loss, grads = loss_and_grads(apply, state.params, x0, t, e, betas, rnd)
+        else:
+            if dropout_masks is None and generator is not None:
+                dropout_masks = _draw_masks(cfg, n, generator, x0.device)
+            xl, tl, el, masks = sharding.local(x0, t, e, dropout_masks)
+            loss, grads = loss_and_grads(apply, state.params, xl, tl, el, betas, {"dropout_masks": masks}, n=n)
+            loss, grads = sharding.reduce(loss), map_tree(sharding.reduce, grads)
         if grad_clip is not None:
-            grads, _ = clip_by_global_norm(grads, grad_clip)
+            grads, _ = clip_by_global_norm(grads, grad_clip, None if sharding is None else sharding.sum_squares)
         with torch.no_grad():
             updates, opt_state = tx.update(grads, state.opt_state, state.params)
             params = apply_updates(state.params, updates)
@@ -231,6 +260,96 @@ def make_train_step(cfg: UNetConfig, betas: torch.Tensor, tx: GradientTransforma
         return TrainState(params=params, opt_state=opt_state, ema=ema, step=state.step + 1), loss
 
     return train_step
+
+
+def map_train_state(fn, state: TrainState) -> TrainState:
+    """The state with `fn` applied to every param-shaped tree: the params,
+    the EMA and the optimizer's moments or trace (its counts stay)."""
+    def opt(node):
+        if isinstance(node, dict):
+            return fn(node)
+        if isinstance(node, tuple):
+            vals = [opt(v) for v in node]
+            return type(node)(*vals) if hasattr(node, "_fields") else tuple(vals)
+        return node
+
+    return TrainState(params=fn(state.params), opt_state=opt(state.opt_state),
+                      ema=None if state.ema is None else fn(state.ema), step=state.step)
+
+
+def _draw_masks(cfg: UNetConfig, n: int, generator, device):
+    """The dropout masks of a batch of `n` drawn from `generator` in
+    `unet_apply`'s order and shapes, as its train-mode forward draws them
+    (none where dropout does not run)."""
+    if not cfg.dropout > 0:
+        return None
+    keep = 1.0 - cfg.dropout
+    return [torch.rand(shape, generator=generator, device=device) < keep for shape in dropout_shapes(cfg, n)]
+
+
+def make_sharded_train_step(mesh, cfg: UNetConfig, betas: torch.Tensor, tx: GradientTransformation, *,
+                            param_specs=None, spatial: bool = False, grad_clip: float | None = 1.0,
+                            ema_rate: float | None = 0.9999):
+    """`make_train_step` over `mesh` (a `parallel.Mesh`): the step
+    `(state, x0 [global N, H, W, C], *, generator=None, t=None, e=None,
+    dropout_masks=None) -> (state, loss)`, run by every rank of the mesh.
+
+    Every rank draws the whole global batch's t, eps and dropout masks (or
+    takes them whole) and keeps its own slice, so the step equals the
+    one-device step up to the collectives' summation order.
+    - param_specs=None, spatial=False: data parallel.  The batch splits
+      over `data`; each rank's gradient of its share of the global mean is
+      all-reduced over `data`.
+    - param_specs (from `parallel.unet_param_specs`): data x tensor
+      parallel.  `state` holds this rank's shards (`shard_unet_params`, and
+      the optimizer state and EMA made from them), which stay on the spec
+      through each update; the forward's collectives are Megatron's
+      (`parallel.tp`); the gradients all-reduce over `data`, and clipping
+      sums the sharded leaves' squares over `model`.
+    - spatial=True: data x spatial parallel.  The batch splits over `data`
+      and the image height over `model`; params stay whole, and every rank's
+      gradient of its rows' share of the loss all-reduces over the mesh.
+    `spatial` with `param_specs` raises ValueError: both shard the model axis."""
+    from .parallel.collectives import all_reduce
+    from .parallel.mesh import local_slice
+    from .parallel.tp import UNetParallel
+
+    if spatial and param_specs is not None:
+        raise ValueError("spatial sharding shards activations; tensor parallelism shards the same mesh axis — pick one")
+    kw = dict(grad_clip=grad_clip, ema_rate=ema_rate)
+    if mesh.size == 1:
+        return make_train_step(cfg, betas, tx, **kw)
+    mode = "tp" if param_specs is not None else "sp" if spatial else None
+    par = None if mode is None else UNetParallel.of(mesh, mode)
+    model_g = mesh.groups.get("model")
+    groups = [g for g in (mesh.groups.get("data"), model_g if spatial else None) if g is not None]
+    mask_dim = None if par is None else 3 if par.tp else 1  # tp splits the masks' channels, sp their rows
+    row_dim = 1 if par is not None and par.sp else None
+
+    def cut(x, dim_model=None):
+        x = local_slice(x, mesh, "data", 0)
+        return x if dim_model is None else local_slice(x, mesh, "model", dim_model)
+
+    def local(x0, t, e, masks):
+        masks = None if masks is None else [cut(mk, mask_dim) for mk in masks]
+        return cut(x0, row_dim), cut(t), cut(e, row_dim), masks
+
+    def reduce(x):
+        for g in groups:
+            x = all_reduce(x, g)
+        return x
+
+    sum_squares = None
+    if par is not None and par.tp:
+        specs = tree_leaves(param_specs)
+
+        def sum_squares(grads):
+            """The replicated leaves' squares once, the shards' summed over the model ranks."""
+            sq = [torch.sum(x * x) for x in tree_leaves(grads)]
+            rep = torch.stack([q for q, sp in zip(sq, specs) if sp is None]).sum()
+            return rep + all_reduce(torch.stack([q for q, sp in zip(sq, specs) if sp is not None]).sum(), model_g)
+
+    return make_train_step(cfg, betas, tx, sharding=StepSharding(local, reduce, sum_squares, par), **kw)
 
 
 # a train step on the card against the same step on the CPU (or a port step against JAX's): Adam's first update

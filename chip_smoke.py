@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py [--steps 10] [--seed 0] [--profile]
                           [--paths cifar10,church,celeba-wide,imagenet64,cifar10-enhanced,cifar10-f32,cifar10-cli,
-                                   cifar10-train,cifar10-quality,celeba-data]
+                                   cifar10-train,cifar10-quality,celeba-data,cifar10-parallel]
 
 (`--profile` adds, after the last phase, torch.profiler's device time per
 kernel for one run of each sampler and one training step; `--paths` runs only the paths named,
-all ten by default.)
+all eleven by default.)
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
@@ -157,7 +157,7 @@ all ten by default.)
       and held site by site.
 8. cifar10-cli: the CLI, `main_torch.main(argv)` in this process, at
    cifar10.yml (ch 128, ch_mult 1-2-2-2, attention at 16^2), --batch_size
-   128 --num_samples 128 --timesteps --steps --skip_type quad --ni, the exp
+   128 --num_samples 128 --timesteps --steps (at most 5) --skip_type quad --ni, the exp
    tree under exp/chip_smoke_cli (`cli_phase`): (a) --execution serving with
    --ckpt_path to a reference-named torch state dict written from the seeded
    generator (the loaded params held equal to it) and --calib_cache auto
@@ -217,7 +217,7 @@ all ten by default.)
       float64 mean and `np.cov` over the same features (the error printed);
    b. ladder: `tools/train_synthetic` trains the UNet 60 steps at batch 128
       (cut from 12000), then `tools/quality_protocol.run_protocol` on its EMA
-      at --steps quad steps, batch 64, calibration batch 8, bits 8:8 and 4:8,
+      at --steps quad steps (at most 5), batch 64, calibration batch 8, bits 8:8 and 4:8,
       stage 2, the bf16 row, KID, the serving rows and `--adaround
       --weight_rows gptq`: the table as `[quality]` lines; every row finite,
       fp32 0, w8a8_s1 at or below w4a8_s1; each serving row (its sampler and
@@ -266,6 +266,35 @@ all ten by default.)
    The path's kernels line rows are K1, K13, K5, K2 (K6 where the router
    sends a shape there), K3 and K3.core at celeba.yml's shapes, their
    launches the path's (the sweep's: nothing else of it launches a kernel).
+12. cifar10-parallel: the parallel runtime (`attentiondm_tpu_torch/parallel/`)
+   at CIFAR-10's width (`UNetConfig()`, batch 128, its tree under
+   exp/chip_smoke_parallel; `parallel_phase`):
+   a. one rank over NCCL, joined from a torchrun-style environment (world
+      size 1) by `main_torch`'s `initialize_distributed()`: `--fid
+      --execution serving`, PAR_BATCHES batches of 128 (--weight_opt off;
+      the second run loads the first's calibration cache), its PNGs
+      byte-equal to the same run without a process group;
+   b. two ranks sharing the card over gloo, spawned (`parallel_rank`, a
+      FileStore, a PAR_JOIN deadline, the card named): which collectives
+      gloo takes on CUDA tensors; the same `main_torch --fid` run over the
+      two ranks with a cache of its own (rank 0 alone calibrates and writes
+      it, rank 1 takes its calibration), each batch split 64 / 64 through
+      the kernels, each rank's launches (set to 0 just before its run)
+      against `expected_launches` at 64 per batch, the PNGs against (a)'s
+      (byte-equal, or held to CHAINED_BOUND with the first kernel whose
+      per-image output depends on its batch named, `batch_variance`),
+      images/s of two ranks against one; one DP, one tp 2
+      and one sp 2 training step at cifar10.yml's width, batch 32, from one
+      init and generator seed (the ranks' losses equal, the one-device
+      step's within 1e-5, each state held to the one-device step on the card
+      by `training.compare_train_states`, conv1's local shape printed, a
+      second step timed); `sharded_statistics` over the two ranks against
+      one rank's (mu within 1e-6 of its largest magnitude, sigma within 1e-6
+      of the second moment's, the summed quantities);
+   c. each Hopper probe (`attentiondm_tpu_torch/tools/`) once at the
+      smallest setting its arguments allow (PROBE_ARGS), its JSON printed.
+   The path adds no row to the kernels line: its serving runs reach K1, K13,
+   K5, K2 and K3, measured by the cifar10 path.
 Prints a JSON line of per-kernel results, then {"ok": true, "device": ...}
 as the last line.  Any failure raises (nonzero exit, no result line); so
 does a machine without a CUDA device.
@@ -281,8 +310,11 @@ import time
 
 CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative error (gross faults only)
 BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32, "cifar10-enhanced": 128,
-         "cifar10-f32": 128, "cifar10-cli": 128, "cifar10-train": 512, "cifar10-quality": 64, "celeba-data": 128}
-MAX_STEPS = {"church": 4, "imagenet64": 4}  # a shallower schedule where the path is long
+         "cifar10-f32": 128, "cifar10-cli": 128, "cifar10-train": 512, "cifar10-quality": 64, "celeba-data": 128,
+         "cifar10-parallel": 128}
+# a shallower schedule where the path is long (the CLI's and the quality ladder's calibrations and per-step
+# refinement grow with the steps; cut from 10 so that eleven paths stay well inside the 1200 s limit)
+MAX_STEPS = {"church": 4, "imagenet64": 4, "cifar10-cli": 5, "cifar10-quality": 5}
 LEVER_ROUNDS = 3  # timed runs per lever setting, taken in turns
 F32_CORE = dict(attn_int8=False)  # the attention flag of the CIFAR-10 and church paths (bench.py's)
 # the three attention settings of the celeba-wide path; attn_ranges=True stands for the calibrated ranges
@@ -340,22 +372,10 @@ ALL_LEVERS = dict(entry_pallas=True, boundary_fusion=True, resblock_pallas="all"
 LEVER_SETS = {"all three": ALL_LEVERS, "entry_pallas": dict(entry_pallas=True),
               "boundary_fusion": dict(boundary_fusion=True), "resblock_pallas=all": dict(resblock_pallas="all")}
 
-# the card's published peaks (H100 SXM data sheet), for `bound_ms`
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12  # tensor cores, dense
-BF16_FLOPS_PER_S = 989e12  # tensor cores, dense
-F32_FLOPS_PER_S = 67e12  # outside the tensor cores
-# f32 products on the tensor cores as 3xTF32 (K3's core): three TF32 products (495 TFLOP/s dense) for each.
-# One TF32 pass would be faster but rounds each operand to 10 bits, which K3's tolerance does not allow
-# (1.3% of proj_out's input codes flip), so the split is the least work that computes the function.
-TF32X3_FLOPS_PER_S = 495e12 / 3
-
-
-def bound(nbytes, int8_ops=0, f32_flops=0, bf16_flops=0, tf32x3_flops=0):
-    """(bytes ms, operations ms) the card needs at least for one launch."""
-    ops = (int8_ops / INT8_OPS_PER_S + bf16_flops / BF16_FLOPS_PER_S + f32_flops / F32_FLOPS_PER_S
-           + tf32x3_flops / TF32X3_FLOPS_PER_S)
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops * 1e3
+# the card's published peaks (H100 SXM data sheet) and the bound from them live in the package (`ops.checks`)
+from attentiondm_tpu_torch.ops.checks import F32_FLOPS_PER_S  # noqa: E402
+from attentiondm_tpu_torch.ops.checks import bound_ms as bound  # noqa: E402
+from attentiondm_tpu_torch.tools.probe import device_ms  # noqa: E402,F401  (gn_shapes and attn_shapes read it here)
 
 
 def nbytes(*tensors):
@@ -394,6 +414,9 @@ def path_config(path):
     if path == "cifar10-enhanced":
         return (UNetConfig(attn_variant="enhanced"), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
                 "UNetConfig(attn_variant=\"enhanced\") CIFAR-10")
+    if path == "cifar10-parallel":
+        return (UNetConfig(), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
+                "UNetConfig() CIFAR-10 over torch.distributed: NCCL world 1, two ranks on the card over gloo, the probes")
     if path == "celeba-wide":
         config = load_config("celeba.yml")
         cfg = dataclasses.replace(UNetConfig.from_config(config), attn_resolutions=(64, 32, 16))
@@ -408,39 +431,6 @@ def path_config(path):
     config = load_config("church.yml")
     return (UNetConfig.from_config(config), DiffusionSchedule.from_config(config),
             "church.yml LSUN church_outdoor")
-
-
-SPIN_CYCLES = 40_000_000  # about 20 ms of torch.cuda._sleep at the H100's clocks (`device_ms`)
-
-
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time in ms of one call of `fn`, the wrapper's host time left
-    out: CUDA events around `reps` calls that the host enqueues while the card
-    still runs a spin kernel, so the card then runs them back to back.  An
-    event behind the spin kernel that has not completed when the last call is
-    enqueued shows that every call waited on the card; if it has, the spin is
-    made four times as long and the measurement taken again.  The figure
-    holds everything the wrapper launches: its own kernels and, for K3, the
-    few small torch kernels that pack its vectors."""
-    import torch
-
-    fn()
-    spun, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    cycles = SPIN_CYCLES
-    for _ in range(4):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(cycles)
-        spun.record()
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        queued = not spun.query()
-        torch.cuda.synchronize()
-        if queued:
-            return start.elapsed_time(end) / reps
-        cycles *= 4
-    raise AssertionError("device_ms: the host could not enqueue the calls while the card was busy")
 
 
 def graph_ms(fn, reps: int = 3):
@@ -3113,6 +3103,391 @@ def data_phase(cfg, gen, dev, report):
     return counts
 
 
+PAR_EXP = "exp/chip_smoke_parallel"  # the parallel path's tree (git-ignored), emptied before the path runs
+PAR_RANKS, PAR_TRAIN_BATCH, PAR_FID_IMAGES = 2, 32, 256  # ranks sharing the card; the steps' batch; FID images
+PAR_BATCHES = 2  # the --fid runs' batches of BATCH["cifar10-parallel"]
+PAR_JOIN = 600  # seconds the path waits for its ranks
+# the smallest setting each probe's own arguments allow (its full-size run is recorded in PERF.md)
+PROBE_ARGS = {"conv_roofline": ["--batch", "2", "--reps", "2"],
+              "conv_attack_probe": ["--batch", "2", "--reps", "2"],
+              "perf_probe_int8": ["--batch", "8", "--reps", "2"],
+              "step_breakdown": ["--batch", "8", "--steps", "2", "--rounds", "1"],
+              "ab_serving_levers": ["--batch", "8", "--steps", "2", "--reps", "1"],
+              "bench_enhanced_mp": ["--batch", "8", "--steps", "2", "--reps", "1"],
+              "gptq_imagenet64_probe": ["--steps", "1", "--batch", "1"]}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _gloo_cuda_ops(dev) -> dict:
+    """Which collectives gloo runs on CUDA tensors here: each called on a
+    card tensor by both ranks, {op: "ok" | "wrong result" | its error}.  The
+    port's collectives (`parallel/collectives.py`) hand gloo the card's
+    tensors as they are: all_reduce, all_gather and broadcast must be "ok"."""
+    import torch
+    import torch.distributed as dist
+
+    me = dist.get_rank()
+    t = lambda: torch.full((4,), float(me + 1), device=dev)  # noqa: E731
+    ops = {
+        "all_reduce": lambda: (lambda a: (dist.all_reduce(a), a)[1].tolist() == [3.0] * 4)(t()),
+        "broadcast": lambda: (lambda a: (dist.broadcast(a, 0), a)[1].tolist() == [1.0] * 4)(t()),
+        "all_gather": lambda: (lambda out: (dist.all_gather(out, t()), [o[0].item() for o in out])[1] == [1.0, 2.0])(
+            [torch.empty(4, device=dev) for _ in range(2)]),
+        "all_gather_into_tensor": lambda: (lambda out: (dist.all_gather_into_tensor(out, t()), out.tolist())[1]
+                                           == [1.0] * 4 + [2.0] * 4)(torch.empty(8, device=dev)),
+        "reduce_scatter_tensor": lambda: (lambda out: (dist.reduce_scatter_tensor(
+            out, torch.cat([t(), t()])), out.tolist())[1] == [3.0] * 4)(torch.empty(4, device=dev)),
+    }
+    got = {}
+    for name, fn in ops.items():
+        try:
+            got[name] = "ok" if fn() else "wrong result"
+        except (RuntimeError, NotImplementedError, ValueError) as e:
+            got[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+        dist.barrier()
+    return got
+
+
+def parallel_rank(rank, world, store, argv):
+    """One of the two ranks sharing the card over gloo (spawned by
+    `parallel_phase`): the collectives gloo takes on CUDA tensors, the two-
+    rank `main_torch` run of `argv`, the DP / tp 2 / sp 2 training steps and
+    the sharded FID statistics; its results to PAR_EXP/rank<r>.pt."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    from attentiondm_tpu_torch.parallel import initialize_distributed
+    from attentiondm_tpu_torch.parallel.distributed import rank_device
+
+    initialize_distributed(f"file://{store}", world, rank, 300, device="cuda:0")  # the card the ranks share
+    dev = rank_device()
+    res = {"device": str(dev), "backend": dist.get_backend(), "gloo_cuda": _gloo_cuda_ops(dev)}
+    res.update(_rank_cli(argv))
+    res.update(_rank_training(rank, dev))
+    res.update(_rank_fid(rank, dev))
+    torch.save(res, f"{PAR_EXP}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _timed_s(fn, dev):
+    """(fn(), its seconds between device syncs, after a barrier: the ranks start together)."""
+    import torch
+    import torch.distributed as dist
+
+    from attentiondm_tpu_torch.tools.probe import sync
+
+    dist.barrier()
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _rank_cli(argv):
+    """This rank's part of `main_torch.main(argv)` over the process group
+    it joined (main_torch's own `initialize_distributed()` finds it): the
+    launch counts, set to 0 just before the run and read just after, the
+    runner's flags, batch split and seconds by stage."""
+    import main_torch
+    from attentiondm_tpu_torch.ops import checks
+
+    checks.reset_launches()
+    t0 = time.perf_counter()
+    rc = main_torch.main(argv)
+    wall = time.perf_counter() - t0
+    counts = checks.read_launches()
+    if rc != 0:
+        raise AssertionError(f"main_torch.main({argv}) returned {rc} (its traceback is in the log above)")
+    r = main_torch.main.runner
+    flags = {k: r.serving["kwargs"][k] for k in ("attn_int8", "attn_ranges", "residual_dtype")}
+    return {"cli": {"counts": counts, "flags": flags, "cfg": r.ucfg, "timings": dict(r.timings), "wall": wall,
+                    "images": r.fid_images}}
+
+
+def _rank_training(rank, dev):
+    """One DP step (the two ranks' halves of the batch), one tp 2 step and
+    one sp 2 step at cifar10.yml's width and batch PAR_TRAIN_BATCH from one
+    init and one generator seed, each timed once more; rank 0 holds each
+    against the one-device step on the card (`compare_train_states`)."""
+    import torch
+
+    from attentiondm_tpu_torch.config import load_config
+    from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from attentiondm_tpu_torch.models.unet import UNetConfig, unet_init
+    from attentiondm_tpu_torch.parallel import gather_unet_params, make_mesh, shard_unet_params, unet_param_specs
+    from attentiondm_tpu_torch.training import (compare_train_states, get_optimizer, init_train_state,
+                                                make_sharded_train_step, make_train_step, map_train_state)
+
+    config = load_config("cifar10.yml")
+    cfg, tx = UNetConfig.from_config(config), get_optimizer(config)
+    betas = DiffusionSchedule.from_config(config, device=dev).betas
+    kw = dict(grad_clip=config.optim.grad_clip, ema_rate=config.model.ema_rate)
+    x0 = torch.rand((PAR_TRAIN_BATCH, 32, 32, 3), generator=torch.Generator().manual_seed(3)).to(dev) * 2 - 1
+
+    def fresh():
+        return unet_init(torch.Generator().manual_seed(0), cfg, dev)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(7)
+
+    want = None
+    if rank == 0:
+        want, loss1 = make_train_step(cfg, betas, tx, **kw)(init_train_state(fresh(), tx), x0, generator=gen())
+        want_loss = float(loss1)
+    out = {}
+    for mode in ("dp", "tp", "sp"):
+        mesh = make_mesh() if mode == "dp" else make_mesh(axes=("data", "model"), shape=(1, PAR_RANKS))
+        specs = unet_param_specs(fresh()) if mode == "tp" else None
+        params = shard_unet_params(mesh, fresh()) if mode == "tp" else fresh()
+        step = make_sharded_train_step(mesh, cfg, betas, tx, param_specs=specs, spatial=mode == "sp", **kw)
+        state, loss = step(init_train_state(params, tx), x0, generator=gen())
+        local = tuple(state.params["down"][0]["block"][0]["conv1"]["kernel"].shape)
+        whole = state if specs is None else map_train_state(lambda t: gather_unet_params(mesh, t, specs), state)
+        (_, loss2), seconds = _timed_s(lambda: step(state, x0, generator=gen()), dev)
+        row = {"loss": float(loss), "conv1_local": local, "seconds": seconds}
+        if rank == 0:
+            row["cmp"] = compare_train_states(whole, want, config.optim.lr, 1)
+            row["one_device_loss"] = want_loss
+        out[mode] = row
+        del state, whole, step
+        torch.cuda.empty_cache()
+    return {"training": out}
+
+
+def _rank_fid(rank, dev):
+    """`sharded_statistics` of PAR_FID_IMAGES stand-in images over the two
+    ranks (the seeded random FID Inception), and on rank 0 the one-rank
+    statistics of the same images."""
+    from attentiondm_tpu_torch.eval.fid import sharded_statistics
+    from attentiondm_tpu_torch.eval.inception import InceptionV3FID
+    from attentiondm_tpu_torch.parallel import make_mesh
+
+    imgs = _stand_in_images(PAR_FID_IMAGES, 11)
+    net = InceptionV3FID.random(device=dev)
+    mu, sigma = sharded_statistics(imgs, net.extract, mesh=make_mesh(), batch_size=128, device=dev)
+    out = {"mu": mu, "sigma": sigma}
+    if rank == 0:
+        out["one_rank"] = sharded_statistics(imgs, net.extract, batch_size=128, device=dev)
+    return {"fid": out}
+
+
+def parallel_phase(cfg, steps):
+    """The parallel runtime on the one card (`parallel/`), through
+    `main_torch --fid --execution serving` at batch 128, PAR_BATCHES
+    batches:
+    (a) one rank over NCCL, joined from a torchrun-style environment (world
+        size 1), its PNGs byte-equal to the same run without a process
+        group (which calibrates and writes --calib_cache; the NCCL run
+        loads it);
+    (b) two ranks sharing the card over gloo (spawned, each with a
+        deadline): which collectives gloo takes on CUDA tensors; the same
+        run over the two ranks with a cache of its own (rank 0 calibrates
+        and writes it, rank 1 takes rank 0's calibration), each batch split
+        64 / 64 through the serving kernels: each rank's launches, set to 0
+        just before its run, against `expected_launches` at 64, the PNGs
+        against (a)'s; one DP, one tp 2 and one sp 2 training step at
+        cifar10.yml's width, batch 32 (the ranks' losses equal, each step
+        held to the one-device step by `compare_train_states`); the sharded
+        FID statistics against one rank's;
+    (c) each Hopper probe once at the smallest setting its arguments allow."""
+    import glob
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    import main_torch
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.tools import probe
+    from attentiondm_tpu_torch.utils.images import read_png
+
+    shutil.rmtree(PAR_EXP, ignore_errors=True)
+    os.makedirs(PAR_EXP)
+    batch = BATCH["cifar10-parallel"]
+    n_img = batch * PAR_BATCHES
+
+    def argv(doc, folder):
+        return ["--config", "cifar10.yml", "--doc", doc, "--exp", PAR_EXP, "--sample", "--ni", "--execution",
+                "serving", "--batch_size", str(batch), "--num_samples", str(n_img), "--timesteps", str(steps),
+                "--skip_type", "quad", "--weight_opt", "off", "--calib_cache", "auto", "--fid", "--image_folder",
+                folder]
+
+    def pngs(folder):
+        return {os.path.basename(f): open(f, "rb").read()
+                for f in glob.glob(f"{PAR_EXP}/image_samples/{folder}/*.png")}
+
+    # (a) one rank over NCCL against no process group, the same --fid run (the second loads the first's calibration)
+    files, rates = {}, {}
+    for label in ("no process group", "nccl, world 1"):
+        env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+        if label.startswith("nccl"):
+            os.environ.update(env)
+        t0 = time.perf_counter()
+        try:
+            rc = main_torch.main(argv("par", label.split(",")[0].replace(" ", "_")))
+            backend = dist.get_backend() if dist.is_initialized() else None
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k in env:
+                os.environ.pop(k, None)
+        r = main_torch.main.runner
+        if rc != 0:
+            raise AssertionError(f"parallel (a) {label}: main_torch returned {rc}")
+        files[label] = pngs(label.split(",")[0].replace(" ", "_"))
+        rates[label] = n_img / r.timings["sampling"]
+        print(f"[parallel] (a) {label}: backend {backend}, {len(files[label])} PNGs in {time.perf_counter() - t0:.1f} s; "
+              f"sampling {rates[label]:.1f} images/s")
+    if files["no process group"] != files["nccl, world 1"] or len(files["nccl, world 1"]) != n_img:
+        raise AssertionError("parallel (a): the NCCL world-1 --fid run's PNGs differ from the run without one")
+    print(f"[parallel] (a) the NCCL world-1 run's {len(files['nccl, world 1'])} PNGs are byte-equal to the run "
+          "without a process group")
+
+    # (b) the two ranks: the same --fid run over both (a fresh cache: rank 0 calibrates), the steps, the statistics
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(parallel_rank, args=(PAR_RANKS, os.path.abspath(f"{PAR_EXP}/store"),
+                                                  argv("par2", "two_ranks")),
+                             nprocs=PAR_RANKS, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=max(1.0, PAR_JOIN - (time.perf_counter() - t0))):
+            if time.perf_counter() - t0 > PAR_JOIN:
+                raise AssertionError(f"parallel (b): the ranks did not finish in {PAR_JOIN} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    res = [torch.load(f"{PAR_EXP}/rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
+    print(f"[parallel] (b) {PAR_RANKS} ranks on {res[0]['device']} over {res[0]['backend']}: "
+          f"{time.perf_counter() - t0:.1f} s with their start-up; gloo on CUDA tensors: {res[0]['gloo_cuda']}")
+    if any(res[0]["gloo_cuda"][op] != "ok" for op in ("all_reduce", "all_gather", "broadcast")):
+        raise AssertionError("parallel (b): gloo refuses a collective the port hands it on the card")
+    cli = [r["cli"] for r in res]
+    local = batch // PAR_RANKS
+    expected = {k: v * PAR_BATCHES
+                for k, v in checks.expected_launches(cli[0]["cfg"], steps, local, **cli[0]["flags"]).items()}
+    calibrated = ["calibration" in c["timings"] for c in cli]
+    for r, c in enumerate(cli):
+        print(f"[parallel] (b) rank {r} main_torch {' '.join(argv('par2', 'two_ranks'))}: {c['wall']:.2f} s; "
+              "seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in c["timings"].items()) + f"; launches {c['counts']}")
+        if c["counts"] != expected:
+            raise AssertionError(f"parallel (b) rank {r}: launches {c['counts']} != expected {expected}")
+    cache = f"{PAR_EXP}/logs/par2/calib_cache.npz"
+    if calibrated != [True, False] or not os.path.exists(cache):
+        raise AssertionError(f"parallel (b): calibrated on ranks {calibrated}, cache written: {os.path.exists(cache)}")
+    got = pngs("two_ranks")
+    equal = got == files["no process group"]
+    two_rate = n_img / max(c["timings"]["sampling"] for c in cli)
+    print(f"[parallel] (b) DP serving through main_torch, {PAR_BATCHES} batches of {batch} split {local} / {local}: "
+          f"rank 0 alone calibrated and wrote the cache, rank 1 took its calibration; each rank's launches equal "
+          f"expected_launches at {local} x {PAR_BATCHES} {expected}; the {len(got)} PNGs byte-equal to the one-rank "
+          f"run's: {equal}; sampling: one rank {rates['no process group']:.1f} images/s, two ranks sharing the card "
+          f"{two_rate:.1f} images/s ({two_rate / PAR_RANKS:.1f} a rank)")
+    if not equal:
+        if sorted(got) != sorted(files["no process group"]):
+            raise AssertionError(f"parallel (b): {len(got)} PNGs, the one-rank run wrote {len(files['no process group'])}")
+        a = np.stack([read_png(f"{PAR_EXP}/image_samples/two_ranks/{k}") for k in sorted(got)]).astype(np.float64)
+        b = np.stack([read_png(f"{PAR_EXP}/image_samples/no_process_group/{k}") for k in sorted(got)]).astype(np.float64)
+        rel = float(np.abs(a - b).mean() / np.abs(b).mean())
+        params, qunet, qstates, seq, _ = probe.calibrated(cfg, steps, torch.device("cuda", 0))
+        print(f"[parallel] (b) not byte-equal: mean rel {rel:.3e} of the pixels, held to CHAINED_BOUND "
+              f"{CHAINED_BOUND}; {batch_variance(qunet, params, qstates, seq, probe.images(cfg, batch, 5, 'cuda'))}")
+        if not rel < CHAINED_BOUND:
+            raise AssertionError(f"parallel (b): the two-rank images are {rel} from the one-rank images")
+    for mode in ("dp", "tp", "sp"):
+        rows = [r["training"][mode] for r in res]
+        cmp = rows[0]["cmp"]
+        print(f"[parallel] (b) {mode} step, batch {PAR_TRAIN_BATCH}: losses {[row['loss'] for row in rows]} (one device "
+              f"{rows[0]['one_device_loss']}); conv1 kernel on each rank {rows[0]['conv1_local']}; against the "
+              f"one-device step: {cmp}; a second step {max(row['seconds'] for row in rows) * 1e3:.1f} ms")
+        if len({row["loss"] for row in rows}) != 1 or not cmp["ok"]:
+            raise AssertionError(f"parallel (b) {mode}: losses {[row['loss'] for row in rows]}, {cmp}")
+        if not abs(rows[0]["loss"] - rows[0]["one_device_loss"]) <= 1e-5 * abs(rows[0]["one_device_loss"]):
+            raise AssertionError(f"parallel (b) {mode}: loss {rows[0]['loss']} vs one device's "
+                                 f"{rows[0]['one_device_loss']}")
+    fid = res[0]["fid"]
+    mu1, s1 = fid["one_rank"]
+    # the summed quantities' scales: |mu| and the second moment sigma + mu mu^T (of which sigma is a difference)
+    d_mu = float(abs(fid["mu"] - mu1).max() / max(abs(mu1).max(), 1e-30))
+    moment = float(abs(s1 + np.outer(mu1, mu1)).max())
+    d_s = float(abs(fid["sigma"] - s1).max())
+    print(f"[parallel] (b) sharded_statistics over {PAR_RANKS} ranks ({PAR_FID_IMAGES} images) against one rank: "
+          f"mu {d_mu:.3e} of its largest magnitude, sigma {d_s / moment:.3e} of the second moment's ("
+          f"{d_s / float(abs(s1).max()):.3e} of sigma's; bound 1e-6 of the summed quantities); the ranks' sigmas equal: "
+          f"{bool((fid['sigma'] == res[1]['fid']['sigma']).all())}")
+    if not (d_mu <= 1e-6 and d_s <= 1e-6 * moment and (fid["sigma"] == res[1]["fid"]["sigma"]).all()):
+        raise AssertionError(f"parallel (b): sharded statistics off by {d_mu}, {d_s / moment}")
+
+    # (c) the probes
+    for name, args in PROBE_ARGS.items():
+        mod = __import__(f"attentiondm_tpu_torch.tools.{name}", fromlist=["main"])
+        t0 = time.perf_counter()
+        mod.main(args + ["--out", f"{PAR_EXP}/{name}.json"])
+        torch.cuda.empty_cache()
+        print(f"[parallel] (c) probe {name} {' '.join(args)}: {time.perf_counter() - t0:.1f} s")
+
+
+def batch_variance(qunet, params, qstates, seq, x) -> str:
+    """Which kernel makes an image's result depend on its batch: one serving
+    step at the batch and at its first half, every kernel call's output
+    captured in call order; the first call whose first-half output differs
+    names the kernel (the calls before it agreed, so its inputs did)."""
+    import torch
+
+    from attentiondm_tpu_torch.quant import int8_serving as srv
+
+    names = {"_k1": "K1", "epilogue_gn_swish_quant": "K2/K6", "fused_attention_block": "K3", "gn_act_quant": "K4",
+             "epilogue_residual_gn_stats": "K7", "_rb_kernel": "K12"}
+    rt = srv.prepare_serving_runtime(qunet, params, qstates)
+
+    def run(xb):
+        outs, saved = [], {n: getattr(srv, n) for n in names}
+
+        def wrap(n, fn):
+            def call(*a, **k):
+                o = fn(*a, **k)
+                outs.append((names[n], o if torch.is_tensor(o) else o[0]))
+                return o
+            return call
+
+        for n in names:
+            setattr(srv, n, wrap(n, saved[n]))
+        try:
+            t = torch.full((xb.shape[0],), float(seq[-1]), device=xb.device)
+            with torch.no_grad():
+                eps = srv.serving_unet_apply(params, qunet.cfg, qunet, rt, qstates, xb, t, 0,
+                                             residual_dtype=torch.bfloat16, **F32_CORE)
+        finally:
+            for n, fn in saved.items():
+                setattr(srv, n, fn)
+        return eps, outs
+
+    h = x.shape[0] // 2
+    eps_w, whole = run(x)
+    eps_h, half = run(x[:h])
+    for i, ((kind, a), (_, b)) in enumerate(zip(whole, half)):
+        if not torch.equal(a[:h], b):
+            return (f"first kernel call whose per-image output depends on the batch: #{i} {kind} {tuple(a.shape)}, "
+                    f"max abs diff {(a[:h].float() - b.float()).abs().max().item():.3e}")
+    return (f"all {len(whole)} kernel calls of a step bit-equal per image at {x.shape[0]} and {h}; the step's eps "
+            f"equal: {torch.equal(eps_w[:h], eps_h)} (the difference is outside the kernels)")
+
+
 def phase(path, name, fn, *args, **kwargs):
     """fn(*args, **kwargs), and its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -3159,6 +3534,9 @@ def main(argv=None):
         report = Report()
         if path == "cifar10-cli":
             ctx = phase(path, "cli", cli_phase, cfg, steps, BATCH[path], gen)
+            launches_of = {}
+        elif path == "cifar10-parallel":
+            ctx = phase(path, "parallel", parallel_phase, cfg, steps)
             launches_of = {}
         elif path == "cifar10-train":
             ctx = phase(path, "train", train_phase, cfg, steps, gen, args.profile)

@@ -12,7 +12,10 @@ Dispatch: --sample -> runner.sample(); --test -> runner.test() (the test
 split's eps-MSE); else runner.train() (the training state under
 exp/logs/<doc>, `ckpt.npz`, which --sample and --test then load by name).
 The runner runs on the current CUDA device and stops when there is none.
-`--tp` / `--sp` other than 1 raise (ROADMAP Queue 1 item 9, parallel).
+Under torchrun (`torchrun --nproc_per_node N main_torch.py ...`) the ranks
+join first (`parallel.initialize_distributed`): sampling and --fid split
+each batch over them, and training runs data parallel, or data x tensor
+(`--tp`) or data x spatial (`--sp`) parallel.
 """
 import argparse
 import logging
@@ -165,7 +168,8 @@ def parse_args_and_config(argv=None):
         raise ValueError(f"level {args.verbose} not supported")
 
     handlers = [logging.StreamHandler()]
-    if not args.test and not args.sample:
+    first = int(os.environ.get("RANK", 0)) == 0  # torchrun's rank 0 clears and writes the folders; the others read
+    if not args.test and not args.sample and first:
         if not args.resume_training:
             if os.path.exists(args.log_path):
                 if args.ni or input("Folder already exists. Overwrite? (Y/N)").upper() == "Y":
@@ -184,7 +188,7 @@ def parse_args_and_config(argv=None):
     elif args.sample:
         os.makedirs(os.path.join(args.exp, "image_samples"), exist_ok=True)
         args.image_folder = os.path.join(args.exp, "image_samples", args.image_folder)
-        if os.path.exists(args.image_folder) and not (args.fid or args.interpolation):
+        if os.path.exists(args.image_folder) and not (args.fid or args.interpolation) and first:
             if args.ni or input(
                 f"Image folder {args.image_folder} already exists. Overwrite? (Y/N)"
             ).upper() == "Y":
@@ -214,18 +218,16 @@ def main(argv=None) -> int:
     error (logged with its traceback).  The runner of the call stays on
     `main.runner`."""
     args, config = parse_args_and_config(argv)
-    for flag in ("tp", "sp"):
-        if getattr(args, flag) != 1:
-            raise NotImplementedError(f"--{flag} {getattr(args, flag)}: the parallel runtime is not ported yet "
-                                      "(ROADMAP Queue 1 item 9); the port runs on one GPU")
     logging.info(f"Writing log file to {args.log_path}")
     logging.info(f"Exp instance id = {os.getpid()}")
     logging.info(f"Exp comment = {args.comment}")
 
+    from attentiondm_tpu_torch.parallel import initialize_distributed
     from attentiondm_tpu_torch.runners.diffusion import Diffusion
 
     main.runner = None
     try:
+        initialize_distributed()  # torchrun's environment joins the ranks; without it a no-op
         main.runner = runner = Diffusion(args, config)
         if args.sample:
             runner.sample()

@@ -9,13 +9,29 @@ The policies are equal.  The states are held conv by conv on JAX's inputs
 (5e-7, as tests/test_torch_calibrate.py), and whole at the first conv.
 These are chained-quantizer toys (ROADMAP Queue 3): one fake-quant code that
 rounds the other way moves the next conv's input, so later convs' ranges,
-and with them the samples, drift from JAX's.  Measured on this toy over four
-PYTHONHASHSEEDs (JAX draws each variant's noise from a salted `hash` of its
-name): the FID rows within 14.8% of JAX's (A; B 13.8%, C 4.8%, D 1.5%),
-while the rows themselves move by up to 2x between seeds; the saved
-samples' mean abs pixel difference from JAX's 7.7 (A), 5.9 (B), 1.2 (C)
-and 0.46 (D) of 255.  Held: `FID_REL` and `PIXEL_DIFF`, about twice those."""
+and with them the samples, drift from JAX's.
+
+JAX draws each variant's noise from `fold_in(key, hash(name) % 997)`, and
+`hash` of a str is salted per process by PYTHONHASHSEED, so JAX's rows moved
+from run to run.  Swept over PYTHONHASHSEED 1 to 44 on the CPU (each run
+alone, the bounds as below): 42 passed; 15 and 33 failed on row A's FID
+(49.1% and 38.5% from JAX's, at JAX rows of 1.09e-3 and 8.1e-4), every pixel
+difference within its bound (A at most 8.8 of 255).  Over the 44 salts the
+FID rows moved from 3e-4 to 5e-3, and the largest differences from JAX were
+A 49.1%, B 22.8%, C 8.0%, D 2.4%.  Replayed at salts 15 and 33 with JAX's own
+calibrated states, the port's variant-A FID lies within 1e-5 and 2.7% of
+JAX's (49.1% and 38.5% with its own states); teacher-forced on JAX's
+trajectory with JAX's states, its eps equals JAX's to 1e-6 at every step but
+one, where a fake-quant code on a rounding tie flips and spreads through the
+forward's later quantizers.  So the port does not depart from JAX given
+JAX's inputs: the spread is chained-quantizer drift.  The
+test now gives JAX's module a salt-free `hash` (crc32 of the name,
+`salt_free_hash`), so JAX takes the same draws in every process; at that
+draw the rows are within 2.0% (A), 9.5% (B), 1.0% (C) and 0.05% (D) of
+JAX's, the pixels 7.0, 4.6, 1.1 and 0.40 of 255.  Held: `FID_REL` and
+`PIXEL_DIFF`, as before."""
 import dataclasses
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +58,13 @@ from attentiondm_tpu_torch.utils.images import read_png
 STEPS, SAMPLES, BATCH, CALIB, SEED = 3, 32, 16, 2, 0
 FIELDS = ("init_range", "act_min", "act_max", "group_ranges", "alpha_logits")
 FID_REL = 0.3
+
+
+def salt_free_hash(name: str) -> int:
+    """Stands in for `hash` in JAX's ablation module: the variant names are
+    ASCII, and their crc32 is the same in every process (`hash` of a str is
+    salted by PYTHONHASHSEED)."""
+    return zlib.crc32(name.encode())
 PIXEL_DIFF = {"A_uniform_low": 16.0, "B_conv_low_attn_high": 12.0, "C_conv_high_attn_low": 2.5,
               "D_uniform_high": 1.0}
 
@@ -77,11 +100,10 @@ def chain(tmp_path_factory):
         calls.append((np.asarray(xs_in), list(seq), qs))
         return qs
 
-    jab.calibrate_ranges = recording
-    try:
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jab, "calibrate_ranges", recording)
+        mp.setattr(jab, "hash", salt_free_hash, raising=False)
         rows = jab.run_attention_ablation(config, str(out), params=jparams, ablation_cfg=jab.AblationConfig(**acfg))
-    finally:
-        jab.calibrate_ranges = j_calibrate_ranges
 
     shape = (jcfg.resolution, jcfg.resolution, jcfg.in_channels)
     key = jax.random.PRNGKey(SEED + 1)
@@ -95,7 +117,8 @@ def chain(tmp_path_factory):
             done += n
         return np.concatenate(xs)
 
-    x_init = {"fp": initial(key), **{v: initial(jax.random.fold_in(key, hash(v) % 997)) for v in jab.VARIANTS}}
+    x_init = {"fp": initial(key),
+              **{v: initial(jax.random.fold_in(key, salt_free_hash(v) % 997)) for v in jab.VARIANTS}}
     x_cal = np.asarray(jax.random.normal(jax.random.PRNGKey(SEED + 2), (CALIB, *shape)))
     return dict(config=config, jcfg=jcfg, rows=rows, acfg=acfg, x_init=x_init, x_cal=x_cal,
                 calls=dict(zip(jab.VARIANTS, calls)), np_params=jax.tree_util.tree_map(np.asarray, jparams), out=out)

@@ -86,10 +86,25 @@ def test_parsed_like_main_py(tmp_path, monkeypatch, jax_main, name):
 
 
 @pytest.mark.parametrize("flag", ["--tp", "--sp"])
-def test_parallel_degrees_raise(tmp_path, monkeypatch, flag):
+def test_parallel_degrees_raise(tmp_path, monkeypatch, caplog, flag):
+    """JAX's behaviour at world size 1: a degree of 2 does not divide the one
+    rank, so the run warns, falls back to pure DP and trains (the runner
+    pinned to the CPU; tests/test_runner.py's tiny config, 3 steps)."""
+    import yaml
+
+    from attentiondm_tpu_torch.runners import diffusion
+    from test_runner import tiny_config
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        main_torch.main(SERVE + [flag, "2"])
+    monkeypatch.setattr(diffusion, "default_device", lambda: __import__("torch").device("cpu"))
+    (tmp_path / "toy.yml").write_text(yaml.safe_dump(namespace2dict(tiny_config(tmp_path))))
+    with caplog.at_level(logging.INFO):
+        rc = main_torch.main(["--config", str(tmp_path / "toy.yml"), "--doc", "d", "--exp", str(tmp_path / "e"), "--ni",
+                              flag, "2"])
+    assert rc == 0, caplog.text
+    assert f"{flag} 2 must divide the device count (1)" in caplog.text and "falling back to pure DP" in caplog.text
+    assert "dp1 x tp1 x sp1" in caplog.text and "step: 3, loss:" in caplog.text
+    assert os.path.exists(tmp_path / "e" / "logs" / "d" / "ckpt.npz")
 
 
 def test_cli_imports_no_jax_and_needs_cuda(tmp_path):
@@ -103,7 +118,10 @@ def test_cli_imports_no_jax_and_needs_cuda(tmp_path):
         "    importlib.import_module(m.name)\n"
         "import torch\n"
         "for m in ('eval', 'eval.fid', 'eval.inception', 'eval.clip_score', 'tools.quality_protocol',\n"
-        "          'tools.real_ckpt', 'tools.train_bench'):\n"
+        "          'tools.real_ckpt', 'tools.train_bench', 'parallel', 'parallel.mesh', 'parallel.distributed',\n"
+        "          'parallel.tp', 'parallel.collectives', 'tools.conv_roofline', 'tools.conv_attack_probe',\n"
+        "          'tools.perf_probe_int8', 'tools.step_breakdown', 'tools.ab_serving_levers',\n"
+        "          'tools.bench_enhanced_mp', 'tools.gptq_imagenet64_probe'):\n"
         "    assert 'attentiondm_tpu_torch.' + m in sys.modules, m\n"
         "assert not torch.cuda.is_available()\n"
         "rc = main_torch.main(['--config', 'cifar10.yml', '--doc', 'd', '--sample', '--fp32', '--ni', '--exp', 'e'])\n"

@@ -109,7 +109,8 @@ def test_activation_statistics_exact():
 @pytest.mark.parametrize("streamed", [False, True])
 def test_sharded_statistics_matches_direct(streamed):
     """On-device float32 sums against the host statistics, over one array
-    (sliced into batches) or a stream of batches; a mesh raises."""
+    (sliced into batches) or a stream of batches; a one-rank mesh changes
+    nothing (the multi-rank mesh is tests/test_torch_parallel_train.py's)."""
     imgs = np.random.default_rng(5).random((32, 4, 4, 3)).astype(np.float32)
     mu_d, sig_d = calculate_activation_statistics([imgs], _mean_pool, device="cpu")
     src = (torch.from_numpy(imgs[i:i + 8]) for i in range(0, 32, 8)) if streamed else imgs
@@ -118,8 +119,12 @@ def test_sharded_statistics_matches_direct(streamed):
     np.testing.assert_allclose(sig_s, sig_d, rtol=1e-4, atol=1e-6)
     j_mu, j_sig = jfid.sharded_statistics(imgs, _mean_pool, batch_size=16)
     assert mu_s.dtype == np.asarray(j_mu).dtype == np.float32 and sig_s.dtype == np.asarray(j_sig).dtype
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sharded_statistics(imgs, _mean_pool, mesh=object(), device="cpu")
+    from attentiondm_tpu_torch.parallel import make_mesh
+
+    mu_m, sig_m = sharded_statistics(src if not streamed else (torch.from_numpy(imgs[i:i + 8]) for i in range(0, 32, 8)),
+                                     _mean_pool, mesh=make_mesh(), batch_size=16, device="cpu")
+    np.testing.assert_array_equal(mu_m, mu_s)
+    np.testing.assert_array_equal(sig_m, sig_s)
 
 
 def _write_pngs(d, n, seed, size=8):

@@ -1175,27 +1175,11 @@ def test_runner_serving_sample_on_the_card(dev, tmp_path, kind):
     `expected_launches` says for its flags, eight PNGs written, and the
     same sampler through the plain versions on the same generator within
     the chained bound (0.1 mean relative) of the kernels' run."""
-    import argparse
-
-    from attentiondm_tpu_torch.config import dict2namespace
     from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
     from attentiondm_tpu_torch.runners.diffusion import Diffusion
 
-    config = dict2namespace({
-        "data": {"dataset": "CIFAR10", "image_size": 8, "channels": 3, "rescaled": True},
-        "model": {"in_channels": 3, "out_ch": 3, "ch": 128, "ch_mult": [1, 2], "num_res_blocks": 1,
-                  "attn_resolutions": [8], "dropout": 0.0, "var_type": "fixedlarge", "ema": False},
-        "diffusion": {"beta_schedule": "linear", "beta_start": 1e-4, "beta_end": 0.02,
-                      "num_diffusion_timesteps": 1000},
-        "sampling": {"batch_size": 8}})
-    args = argparse.Namespace(
-        seed=3, timesteps=3, skip_type="quad", eta=0.5 if kind == "eta" else 0.0, sample_type=kind
-        if kind == "ddpm_noisy" else "generalized", fid=False, fid_stats=None, interpolation=False, sequence=False,
-        execution="serving", fp32=False, bitwidth=4, a_bitwidth=8, normgroup=0, compute_dtype="float32",
-        attn_variant="ddim", mixed_precision_attention=False, attn_int8=False, step_chunk=None, superbatch=None,
-        shared_fold=False, pack_int4=False, weight_opt="biascorr", weight_refine="off", adaround_iters=10,
-        calibrate_attention=False, calib_t_mode="real", sample_weight=2.0, calib_cache=None, ckpt_path=None,
-        use_pretrained=False, num_samples=8, image_folder=str(tmp_path / "img"), log_path=str(tmp_path / "log"))
+    args, config = _card_runner(tmp_path, "run", eta=0.5 if kind == "eta" else 0.0,
+                                sample_type=kind if kind == "ddpm_noisy" else "generalized")
     r = Diffusion(args, config)
     checks.reset_launches()
     r.sample()
@@ -1350,3 +1334,85 @@ def test_native_png_writer_on_the_card_machine(dev, tmp_path):
     for i in range(3, 9):
         np.testing.assert_array_equal(images.read_png(str(tmp_path / "n" / f"{i}.png")),
                                       images.read_png(str(tmp_path / "p" / f"{i}.png")))
+
+
+def _card_runner(tmp_path, name, **kw):
+    """(args, config) of the runner's serving path on the toy UNet at W4A8 (batch 8, 3 quad steps)."""
+    import argparse
+
+    from attentiondm_tpu_torch.config import dict2namespace
+
+    config = dict2namespace({
+        "data": {"dataset": "CIFAR10", "image_size": 8, "channels": 3, "rescaled": True},
+        "model": {"in_channels": 3, "out_ch": 3, "ch": 128, "ch_mult": [1, 2], "num_res_blocks": 1,
+                  "attn_resolutions": [8], "dropout": 0.0, "var_type": "fixedlarge", "ema": False},
+        "diffusion": {"beta_schedule": "linear", "beta_start": 1e-4, "beta_end": 0.02,
+                      "num_diffusion_timesteps": 1000},
+        "sampling": {"batch_size": 8}})
+    args = argparse.Namespace(
+        seed=3, timesteps=3, skip_type="quad", eta=0.0, sample_type="generalized", fid=False, fid_stats=None,
+        interpolation=False, sequence=False, execution="serving", fp32=False, bitwidth=4, a_bitwidth=8, normgroup=0,
+        compute_dtype="float32", attn_variant="ddim", mixed_precision_attention=False, attn_int8=False,
+        step_chunk=None, superbatch=None, shared_fold=False, pack_int4=False, weight_opt="biascorr",
+        weight_refine="off", adaround_iters=10, calibrate_attention=False, calib_t_mode="real", sample_weight=2.0,
+        calib_cache=None, ckpt_path=None, use_pretrained=False, num_samples=8,
+        image_folder=str(tmp_path / name / "img"), log_path=str(tmp_path / name / "log"))
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args, config
+
+
+def test_two_ranks_on_one_card_serve_the_one_rank_sample(dev, tmp_path):
+    """Two ranks sharing the card over gloo (`initialize_distributed` with
+    the card named) through the runner's `--fid --execution serving`
+    (`--calib_cache auto`: rank 0 calibrates and writes it): a batch of 8
+    split 4 / 4 through the serving kernels, each rank's launches
+    `expected_launches` at 4, the PNGs byte-equal to one rank's run on the
+    card."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from torch_parallel_worker import spawn_ranks
+
+    from attentiondm_tpu_torch.runners.diffusion import Diffusion
+
+    one, config = _card_runner(tmp_path, "one", fid=True)
+    r = Diffusion(one, config)
+    r.sample()
+    flags = {k: r.serving["kwargs"][k] for k in ("attn_int8", "attn_ranges", "residual_dtype")}
+    two, _ = _card_runner(tmp_path, "two", fid=True, calib_cache="auto")
+    res = spawn_ranks(tmp_path, 2, "runner", {"device": "cuda", "runs": [(two, config, "sample")]})
+    expected = checks.expected_launches(r.ucfg, 3, 4, **flags)
+    for rank in res:
+        assert rank[0]["counts"] == expected, (rank[0]["counts"], expected)
+    assert expected["K1"] and expected["K2"] and expected["K3"]
+    assert os.path.exists(os.path.join(two.log_path, "calib_cache.npz"))
+    names = sorted(os.listdir(one.image_folder))
+    assert names == sorted(os.listdir(two.image_folder)) and len(names) == 8
+    for n in names:
+        with open(os.path.join(one.image_folder, n), "rb") as f1, open(os.path.join(two.image_folder, n), "rb") as f2:
+            assert f1.read() == f2.read(), n
+
+
+@pytest.mark.parametrize("mode", ["tp", "sp"])
+def test_sharded_forward_on_the_card_matches_the_cpu(dev, tmp_path, mode):
+    """The tp 2 / sp 2 forward of two ranks sharing the card (gloo, host-
+    staged collectives) against the one-process forward on the CPU."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from torch_parallel_worker import spawn_ranks
+
+    from attentiondm_tpu_torch.models.unet import map_tree, unet_apply
+
+    toy = dict(ch=64, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,), resolution=16, dropout=0.0)
+    cfg = UNetConfig(**toy)
+    params = unet_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    t = np.array([17.0, 480.0], np.float32)
+    want = unet_apply(params, cfg, torch.tensor(x), torch.tensor(t)).numpy()
+    res = spawn_ranks(tmp_path, 2, "forward", dict(cfg=toy, params=map_tree(lambda a: a.numpy(), params), x=x, t=t,
+                                                   mode=mode, mesh=(1, 2), device="cuda"))
+    got = res[0]["eps"] if mode == "tp" else np.concatenate([r["eps"] for r in res], axis=1)
+    np.testing.assert_allclose(got, want, atol=1e-4)
