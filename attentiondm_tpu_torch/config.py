@@ -2,16 +2,15 @@
 
 The same YAML schema as the JAX package's configs (data / model / diffusion
 / training / sampling / optim groups).  A bare file name resolves against
-the configs the repository ships, `attentiondm_tpu/configs/` (read as data;
-nothing of that package is imported).
+the package's own copies, `attentiondm_tpu_torch/configs/` (byte-equal to
+the JAX package's, so the port runs on a tree that ships it alone).
 """
 from __future__ import annotations
 
 import argparse
 import os
 
-CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "attentiondm_tpu",
-                          "configs")
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 
 
 def dict2namespace(config: dict) -> argparse.Namespace:

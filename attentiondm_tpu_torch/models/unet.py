@@ -490,14 +490,22 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
     `parallel` (a `parallel.tp.UNetParallel`) runs the forward on one
     rank's shard: its params split over channels (tp) or x's rows of the
     images (sp), with the collectives where GSPMD puts JAX's; eps comes
-    back as this rank's part (sp: its rows).  Without it nothing changes."""
+    back as this rank's part (sp: its rows).  Under sp the levels from
+    `parallel.check_rows(cfg)` on run whole on every rank: the rows are
+    gathered before the downsample into the first of them and cut back to
+    this rank's after the upsample out of it.  Without it nothing changes."""
     check_ported(cfg)
-    ca = conv_apply or _default_conv_apply
-    par = parallel
-    if par is not None:
-        par.check_rows(cfg)
-        ca = par.conv(ca)
     num_levels = len(cfg.ch_mult)
+    ca_whole = conv_apply or _default_conv_apply
+    ca, par, rep = ca_whole, parallel, num_levels
+    if par is not None:
+        rep = par.check_rows(cfg)
+        ca = par.conv(ca_whole)
+
+    def at(level):
+        """(conv_apply, parallel context) of a level: split, or run whole."""
+        return (ca, par) if level < rep else (ca_whole, None)
+
     drop = _dropout(cfg, train, generator, dropout_masks)
 
     temb = get_timestep_embedding(t, cfg.ch)
@@ -510,32 +518,40 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
     hs = [ca("conv_in", x, params["conv_in"])]
     for i_level in range(num_levels):
         lp = params["down"][i_level]
+        ca_l, par_l = at(i_level)
         for i_block in range(cfg.num_res_blocks):
-            h = _resblock_apply(f"down.{i_level}.block.{i_block}", lp["block"][i_block], hs[-1], temb, ca, drop,
-                                gates, par)
+            h = _resblock_apply(f"down.{i_level}.block.{i_block}", lp["block"][i_block], hs[-1], temb, ca_l, drop,
+                                gates, par_l)
             if lp["attn"]:
-                h = _attn_apply(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx, gates,
-                                par)
+                h = _attn_apply(f"down.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca_l, cfg, attn_ctx,
+                                gates, par_l)
             hs.append(h)
         if i_level != num_levels - 1:
-            hs.append(_downsample(f"down.{i_level}.downsample", lp["downsample"], hs[-1], ca, cfg.resamp_with_conv,
-                                  par))
+            h = hs[-1]
+            if i_level + 1 == rep:  # the next level runs whole: gather the rows, downsample them whole
+                h, (ca_l, par_l) = par.gather_rows(h), at(rep)
+            hs.append(_downsample(f"down.{i_level}.downsample", lp["downsample"], h, ca_l, cfg.resamp_with_conv,
+                                  par_l))
 
     h = hs[-1]
-    h = _resblock_apply("mid.block_1", params["mid"]["block_1"], h, temb, ca, drop, gates, par)
-    h = _attn_apply("mid.attn_1", params["mid"]["attn_1"], h, ca, cfg, attn_ctx, gates, par)
-    h = _resblock_apply("mid.block_2", params["mid"]["block_2"], h, temb, ca, drop, gates, par)
+    ca_l, par_l = at(num_levels - 1)
+    h = _resblock_apply("mid.block_1", params["mid"]["block_1"], h, temb, ca_l, drop, gates, par_l)
+    h = _attn_apply("mid.attn_1", params["mid"]["attn_1"], h, ca_l, cfg, attn_ctx, gates, par_l)
+    h = _resblock_apply("mid.block_2", params["mid"]["block_2"], h, temb, ca_l, drop, gates, par_l)
 
     for i_level in reversed(range(num_levels)):
         lp = params["up"][i_level]
+        ca_l, par_l = at(i_level)
         for i_block in range(cfg.num_res_blocks + 1):
             h = _resblock_apply(f"up.{i_level}.block.{i_block}", lp["block"][i_block],
-                                torch.cat([h, hs.pop()], dim=-1), temb, ca, drop, gates, par)
+                                torch.cat([h, hs.pop()], dim=-1), temb, ca_l, drop, gates, par_l)
             if lp["attn"]:
-                h = _attn_apply(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca, cfg, attn_ctx, gates,
-                                par)
+                h = _attn_apply(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h, ca_l, cfg, attn_ctx,
+                                gates, par_l)
         if i_level != 0:
-            h = _upsample(f"up.{i_level}.upsample", lp["upsample"], h, ca, cfg.resamp_with_conv)
+            h = _upsample(f"up.{i_level}.upsample", lp["upsample"], h, ca_l, cfg.resamp_with_conv)
+            if i_level == rep:  # back to the split levels: this rank's rows
+                h = par.local_rows(h)
     assert not hs
 
     h = swish(_norm(h, params["norm_out"], par))

@@ -280,7 +280,7 @@ def attention_sites(cfg) -> list:
     return sites
 
 
-def attention_plan(cfg, *, attn_int8=True, attn_ranges=None) -> dict:
+def attention_plan(cfg, *, attn_int8=None, attn_ranges=None) -> dict:
     """The attention cores of one serving step under the attention flags, by
     the dispatchers' own predicates: {"K3.int8_core": [(L, C)], "K8": [...],
     "K9": [...], "K10": [...], "K11": [...], "refused": [(site, L, C,
@@ -293,12 +293,14 @@ def attention_plan(cfg, *, attn_int8=True, attn_ranges=None) -> dict:
     of a composed site needs its projections unpadded (C % 128 == 0);
     otherwise the site takes the f32 branch, as `_attn_fused` does.  The
     enhanced variant's sites run no attention kernel (their cores are plain
-    torch), so its plan is empty."""
+    torch), so its plan is empty.  `attn_int8` None is the variant's own
+    (True on the ddim one), as in `serving_unet_apply`."""
     from . import int8_attention as ia
 
     plan = {k: [] for k in ("K3.int8_core", "K8", "K9", "K10", "K11", "refused")}
     if cfg.attn_variant == "enhanced":
         return plan
+    attn_int8 = True if attn_int8 is None else attn_int8
     for site, L, C in attention_sites(cfg):
         if _k3_site(L, C):
             if attn_int8:
@@ -321,7 +323,7 @@ def attention_plan(cfg, *, attn_int8=True, attn_ranges=None) -> dict:
     return plan
 
 
-def require_attention_kernels(cfg, device, *, attn_int8=True, attn_ranges=None):
+def require_attention_kernels(cfg, device, *, attn_int8=None, attn_ranges=None):
     """Raise NotImplementedError, naming every site, where a serving step on
     `device` would reach an attention kernel that refuses its map; CPU
     tensors take the plain versions, which take any map."""
@@ -398,9 +400,9 @@ def gn_refused(cfg, batch: int, *, residual_dtype=torch.float32, dot_bf16=True, 
     f32), `dot_bf16` and the levers given (`lever_plan`'s keywords) whose
     CUDA kernel would refuse its shape: a resblock epilogue off K2's and
     K6's plans for conv1's output (bf16, or int32 with `dot_bf16=False`;
-    or over the whole-image budget and off K6's grid, where JAX
-    runs its XLA reference; kernel "K2/K6"), a K4 entry without a plan for
-    the residual's dtype
+    over the whole-image budget and off K6's grid `epilogue_route` sends it
+    to K2, so it is refused only where K2's plan is; kernel "K2/K6"), a K4
+    entry without a plan for the residual's dtype
     (`gn_act_quant_takes`: N above 2048, or above 1024 past 1024 rows, off
     the 8-channel grid), a K7 exit
     without a launch plan (`epilogue_residual_gn_stats_takes`: N above 1024,
@@ -452,12 +454,11 @@ def require_gn_kernels(cfg, device, batch: int, **flags):
     if refused:
         raise NotImplementedError(
             "GroupNorm / resblock sites off the CUDA kernels' shapes (N or C a multiple of 8 up to 1024, K4 up to 2048 "
-            "within 1024 rows, K6's "
-            "grid past the whole-image budget, HW up to 2^20 rows): "
+            "within 1024 rows, HW up to 2^20 rows): "
             + ", ".join(f"{site} (HW={HW}, C={C}) -> {kind}" for site, HW, C, kind in refused))
 
 
-def expected_launches(cfg, steps: int = 1, batch: int = 1, *, attn_int8=True, attn_ranges=None,
+def expected_launches(cfg, steps: int = 1, batch: int = 1, *, attn_int8=None, attn_ranges=None,
                       residual_dtype=torch.float32, dot_bf16=True, conv_pallas=False, **levers) -> dict:
     """Launch counts of `steps` serving steps, per kernel (K13 and K5 are
     K1's int32 3x3 and 1x1 launches, "K3.int8_core" the K3 launches that ran

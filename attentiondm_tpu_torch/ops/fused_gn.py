@@ -21,8 +21,9 @@ routes by JAX's own predicate: images within the TPU kernel's whole-image
 budget take K2 (`epilogue_gn_swish_quant_whole`, csrc/fused_gn.cu, a
 cluster of blocks per image), larger ones on the 128-channel grid take K6
 (`epilogue_gn_swish_quant_blocked`, csrc/fused_gn_blocked.cu, one launch
-over chunks of 1024 rows), and the rest raise.  Both launch as
-`epilogue_plan` says (csrc/gn_epilogue.cuh).
+over chunks of 1024 rows), larger ones off that grid K2 again where its
+plan takes them (JAX's XLA reference there), and the rest raise.  Both
+launch as `epilogue_plan` says (csrc/gn_epilogue.cuh).
 
 GroupNorm statistics follow the TPU kernel's `_gn_normalize`: per-group
 sum and sum of squares in float32, variance E[x^2] - mu^2 clamped at 0
@@ -137,9 +138,13 @@ def epilogue_gn_swish_quant_blocked_ref(dot, inv_ws, zcbias, temb, gn_scale, gn_
 
 
 def epilogue_route(shape, dtype) -> str:
-    """Which kernel takes a conv1 output of this shape: "K2" or "K6", by the
-    JAX dispatcher's predicate (`attentiondm_tpu/ops/fused_gn.py`
-    epilogue_gn_swish_quant).  Shapes JAX sends to its XLA reference raise."""
+    """Which kernel takes a conv1 output of this shape: "K2" or "K6".  Within
+    the whole-image budget K2, over it on K6's grid (N % 128 == 0, HW % 8 ==
+    0) K6, as JAX's dispatcher (`attentiondm_tpu/ops/fused_gn.py`
+    epilogue_gn_swish_quant).  Over the budget and off K6's grid JAX runs
+    its XLA reference; here K2 takes the shape where its launch plan does (N
+    a multiple of 8 up to 1024: the 4 MiB is the TPU's VMEM budget, not a
+    Hopper limit).  The rest raise, naming the shape."""
     N = shape[-1]
     HW = 1
     for d in shape[1:-1]:
@@ -149,10 +154,13 @@ def epilogue_route(shape, dtype) -> str:
         return "K2"
     if N % 128 == 0 and HW % 8 == 0:
         return "K6"
-    raise NotImplementedError(
-        f"epilogue_gn_swish_quant: HW={HW}, N={N} is over the whole-image budget and off the blocked "
-        f"kernel's grid (N % 128, HW % 8), where JAX runs its XLA reference; that branch is not ported "
-        f"(ROADMAP Queue 3)")
+    try:
+        epilogue_plan(shape[0], HW, N, dtype, "K2")
+    except NotImplementedError as e:
+        raise NotImplementedError(
+            f"epilogue_gn_swish_quant: B={shape[0]}, HW={HW}, N={N} ({dtype}) is over the whole-image budget, off "
+            f"the blocked kernel's grid (N % 128, HW % 8) and off K2's plans: {e}") from None
+    return "K2"
 
 
 # The launch plan of K2 and K6 (csrc/gn_epilogue.cuh), computed here and

@@ -27,14 +27,22 @@ the image's edges), the stride-2 downsample the first row of the rank
 below (zeros on the last rank, its (0, 1) pad), GroupNorm all-reduces its
 per-group sums over `model`, attention gathers K and V over `model`, and the
 loss's mean is taken over the whole mesh (`training.make_sharded_train_step`).
-A level whose height does not divide over the ranks raises ValueError, where
-GSPMD would pad.
+Level 0's height must divide over the ranks (ValueError otherwise, as JAX's
+`device_put` of the input refuses it).  Where a rank's rows of a level are
+odd before its downsample, GSPMD pads; here the rows are gathered over
+`model` before that downsample (`sp_levels`), the levels below run whole on
+every rank with the plain ops (no halo, no all-reduced sums, dense
+attention), and each rank takes its rows back after the matching upsample.
+The gather's backward sums the ranks' gradients (a reduce-scatter); the
+replicated levels' parameter gradients each hold only this rank's rows'
+share of the loss, so the mesh's all-reduce counts them once.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from . import collectives as col
@@ -135,6 +143,32 @@ def shard_batch_spatial(mesh: Mesh, x, *, data_axis: str = "data", spatial_axis:
     """This rank's slice of NHWC activations over batch (data) and image
     height (model)."""
     return local_slice(local_slice(x, mesh, data_axis, 0), mesh, spatial_axis, 1)
+
+
+def sp_levels(cfg, size: int) -> int:
+    """The first level of `cfg` that sp over `size` ranks runs replicated
+    (`len(cfg.ch_mult)`: none): the level after the first whose rows a rank
+    are odd, since a stride-2 downsample of an odd slice straddles two
+    ranks.  Level 0's height must divide over the ranks (ValueError)."""
+    levels = len(cfg.ch_mult)
+    res = cfg.resolution
+    if res % size:
+        raise ValueError(f"level 0 ({res}x{res}): its height does not divide over the {size} ranks of sp "
+                         f"(JAX's device_put of the input under P(data, model) refuses it too)")
+    for lvl in range(levels - 1):
+        if (res // size) % 2:
+            return lvl + 1
+        res //= 2
+    return levels
+
+
+def describe_sp(cfg, size: int) -> str:
+    """The sp plan in words: which levels split their rows and which run whole."""
+    rep, levels = sp_levels(cfg, size), len(cfg.ch_mult)
+    res = [cfg.resolution >> i for i in range(levels)]
+    split = ", ".join(f"{i} ({r}x{r}, {r // size} row(s) a rank)" for i, r in enumerate(res[:rep]))
+    whole = ", ".join(f"{i} ({r}x{r})" for i, r in enumerate(res) if i >= rep) or "none"
+    return f"sp {size}: levels split over the ranks {split}; levels replicated on every rank {whole}"
 
 
 def sharded_fraction(params, specs) -> float:
@@ -241,15 +275,19 @@ class UNetParallel:
         x = (d * torch.rsqrt(var + eps)).reshape(x.shape)
         return (x * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)).to(dtype)
 
-    def check_rows(self, cfg):
-        """Every level's height must divide over the group (GSPMD pads; the
-        port refuses)."""
-        if not self.sp:
-            return
-        res = cfg.resolution
-        for lvl in range(len(cfg.ch_mult)):
-            if res % self.size or (lvl != len(cfg.ch_mult) - 1 and (res // self.size) % 2):
-                raise ValueError(f"level {lvl} ({res}x{res}): its height does not split into even slices over the "
-                                 f"{self.size} ranks of sp")
-            res //= 2
+    def check_rows(self, cfg) -> int:
+        """The first level the forward runs replicated (`sp_levels`; tp and
+        an sp plan without one: `len(cfg.ch_mult)`).  Raises ValueError where
+        level 0's height does not divide over the sp ranks."""
+        return sp_levels(cfg, self.size) if self.sp else len(cfg.ch_mult)
 
+    def gather_rows(self, x):
+        """The whole image from every rank's rows (sp), before the first
+        replicated level; backward, each rank's rows of the summed gradient."""
+        return col.gather(x, 1, self.group)
+
+    def local_rows(self, x):
+        """This rank's rows of a whole (replicated) image, after the last
+        replicated level's upsample."""
+        h = x.shape[1] // self.size
+        return x.narrow(1, dist.get_rank(self.group) * h, h)

@@ -153,17 +153,22 @@ def _require_symmetric(symmetric):
                          "quant/int8_runtime.prepare_int8_runtime(symmetric=False) with int8_model_fn")
 
 
-def _require_attention_flags(cfg: UNetConfig, attn_int8, attn_ranges, mp_states):
-    """The attention flags that do not apply to the config's variant raise
-    (JAX ignores them): the enhanced block's core is always float32 (or the
-    mixed-precision one), so it takes neither `attn_int8` nor `attn_ranges`;
-    the ddim block has no mixed-precision core, so it takes no `mp_states`."""
-    if cfg.attn_variant == "enhanced" and (attn_int8 or attn_ranges is not None):
+def _require_attention_flags(cfg: UNetConfig, attn_int8, attn_ranges, mp_states) -> bool:
+    """The value of `attn_int8` for the config's variant: None is the
+    variant's own (True on the ddim block, JAX's default; False on the
+    enhanced one, whose core is float32).  A flag that does not apply to the
+    variant raises (JAX ignores it): the enhanced block's core is always
+    float32 (or the mixed-precision one), so it takes neither an explicit
+    `attn_int8=True` nor `attn_ranges`; the ddim block has no
+    mixed-precision core, so it takes no `mp_states`."""
+    enhanced = cfg.attn_variant == "enhanced"
+    if enhanced and (attn_int8 or attn_ranges is not None):
         raise ValueError("the enhanced attention variant's core is float32 (or the stage-3 mixed-precision core): "
-                         f"pass attn_int8=False and no attn_ranges (got attn_int8={attn_int8!r}, "
+                         f"pass attn_int8=False or None and no attn_ranges (got attn_int8={attn_int8!r}, "
                          f"attn_ranges {'given' if attn_ranges is not None else 'None'})")
-    if cfg.attn_variant != "enhanced" and mp_states:
+    if not enhanced and mp_states:
         raise ValueError("mp_states (the stage-3 mixed-precision core) apply to the enhanced attention variant only")
+    return not enhanced if attn_int8 is None else bool(attn_int8)
 
 
 # ---------------------------------------------------------------------------
@@ -653,7 +658,7 @@ def _attn_fused_enhanced(name, p, h_res, rt_i, qunet, qstates, step_idx, res_dty
 def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                        runtime: Dict[str, ServingLayer], qstates: Dict[str, ActQuantState],
                        x: torch.Tensor, t: torch.Tensor, step_idx: int, *,
-                       residual_dtype=torch.float32, attn_int8: bool = True, attn_ranges=None,
+                       residual_dtype=torch.float32, attn_int8=None, attn_ranges=None,
                        boundary_fusion: bool = False, dot_bf16: bool = True,
                        entry_pallas: bool = False, conv_pallas=False, resblock_pallas=False,
                        mp_states=None, mp_base_bits: int = 8, plain=False) -> torch.Tensor:
@@ -673,13 +678,14 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     tensor; `resblock_pallas` (True: where JAX's conv policy says so; "all":
     wherever it fits) runs identity-residual blocks as K12.
 
-    `attn_int8` (JAX's default, True) runs the attention logits as int8
-    products: K3's int8 core where the whole-block kernel takes the map, K8
-    on larger maps, or K9 / K10 where `attn_ranges` ({proj_name: [S]} from
+    `attn_int8` (None: the variant's own, True on the ddim block as JAX's
+    default) runs the attention logits as int8 products: K3's int8 core
+    where the whole-block kernel takes the map, K8 on larger maps, or K9 /
+    K10 where `attn_ranges` ({proj_name: [S]} from
     `calibrate_ranges(return_attn_ranges=True)`) has the site's q, k and v.
 
     The enhanced attention variant (`_attn_fused_enhanced`) takes
-    `attn_int8=False` and no `attn_ranges` (its core is float32), and
+    `attn_int8` None or False and no `attn_ranges` (its core is float32), and
     `mp_states` ({layer name: MPAttentionState}, stage 3) swaps its core for
     the mixed-precision one at `mp_base_bits`, at the timestep `t[0]` (the
     diffusion timestep, kept on the device).
@@ -690,7 +696,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     _check_flags(residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
                  resblock_pallas=resblock_pallas)
     check_ported(cfg)
-    _require_attention_flags(cfg, attn_int8, attn_ranges, mp_states)
+    attn_int8 = _require_attention_flags(cfg, attn_int8, attn_ranges, mp_states)
     rt_i = gather_step(runtime, step_idx)
     ar_i = None if attn_ranges is None else {k: a[step_idx] for k, a in attn_ranges.items()}
     res = residual_dtype
@@ -815,7 +821,7 @@ def _stream_generators(generator, n_mb: int):
 def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQuantState], seq,
                          betas: torch.Tensor, *, eta: float = 0.0, step_chunk=None,
                          micro_batch=None, residual_dtype=torch.float32, symmetric: bool = True,
-                         attn_int8: bool = True, attn_ranges=None, weight_extras=None,
+                         attn_int8=None, attn_ranges=None, weight_extras=None,
                          boundary_fusion: bool = False, dot_bf16: bool = True,
                          entry_pallas: bool = False, conv_pallas=False, resblock_pallas=False,
                          pack_int4: bool = False, rank1: bool = False, update: str = "ddim",
@@ -860,7 +866,7 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
     _check_flags(residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
                  resblock_pallas=resblock_pallas)
     _require_symmetric(symmetric)
-    _require_attention_flags(qunet.cfg, attn_int8, attn_ranges, mp_states)
+    attn_int8 = _require_attention_flags(qunet.cfg, attn_int8, attn_ranges, mp_states)
     if runtime is not None and step_chunk is not None:
         raise ValueError("a prebuilt runtime holds all steps' folds: incompatible with step_chunk's per-chunk folds")
     if rank1 and step_chunk is not None:

@@ -246,6 +246,7 @@ class Diffusion:
         from ..data.loader import iterate_batches
         from ..data.transforms import data_transform
         from ..parallel import gather_unet_params, shard_unet_params, unet_param_specs
+        from ..parallel.tp import describe_sp
         from ..training import get_optimizer, init_train_state, make_sharded_train_step, map_train_state
         from ..utils.metrics_log import MetricsLogger
         from ..utils.tb_writer import SummaryWriter
@@ -256,7 +257,8 @@ class Diffusion:
         n_all = mesh.size
         batch = config.training.batch_size
         batch -= batch % n_dev or 0
-        logging.info(f"training on {n_all} device(s) ({self.device}; dp{n_dev} x tp{tp} x sp{sp}), batch {batch}")
+        logging.info(f"training on {n_all} device(s) ({self.device}; dp{n_dev} x tp{tp} x sp{sp}), batch {batch}"
+                     + (f"; {describe_sp(self.ucfg, sp)}" if sp > 1 else ""))
         tx = get_optimizer(config)
         params = unet_init(torch.Generator().manual_seed(int(args.seed)), self.ucfg, self.device)
         state = init_train_state(params, tx, use_ema=bool(config.model.ema))

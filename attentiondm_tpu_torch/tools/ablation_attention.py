@@ -168,11 +168,9 @@ def run_attention_ablation(config, out_dir: str, *, params=None, extractor=None,
     return results
 
 
-def main(argv=None):
+def build_parser():
+    """The CLI's argument parser (run_attention_ablation_torch.sh passes its flags)."""
     import argparse
-
-    from ..config import load_config
-    from .activation_range import load_weights
 
     ap = argparse.ArgumentParser(description="attention-precision ablation (variants A-D)")
     ap.add_argument("--config", default="cifar10.yml")
@@ -189,7 +187,14 @@ def main(argv=None):
     ap.add_argument("--clip-random", action="store_true",
                     help="seeded random-init CLIP (scores comparable within this run only)")
     ap.add_argument("--device", default=None, help="torch device (default: the current CUDA device)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    from ..config import load_config
+    from .activation_range import load_weights
+
+    args = build_parser().parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
     device = default_device() if args.device is None else torch.device(args.device)

@@ -307,8 +307,10 @@ def make_sharded_train_step(mesh, cfg: UNetConfig, betas: torch.Tensor, tx: Grad
       (`parallel.tp`); the gradients all-reduce over `data`, and clipping
       sums the sharded leaves' squares over `model`.
     - spatial=True: data x spatial parallel.  The batch splits over `data`
-      and the image height over `model`; params stay whole, and every rank's
-      gradient of its rows' share of the loss all-reduces over the mesh.
+      and the image height over `model` (the levels `parallel.sp_levels`
+      replicates run whole on every rank, their dropout masks too); params
+      stay whole, and every rank's gradient of its rows' share of the loss
+      all-reduces over the mesh.
     `spatial` with `param_specs` raises ValueError: both shard the model axis."""
     from .parallel.collectives import all_reduce
     from .parallel.mesh import local_slice
@@ -325,13 +327,16 @@ def make_sharded_train_step(mesh, cfg: UNetConfig, betas: torch.Tensor, tx: Grad
     groups = [g for g in (mesh.groups.get("data"), model_g if spatial else None) if g is not None]
     mask_dim = None if par is None else 3 if par.tp else 1  # tp splits the masks' channels, sp their rows
     row_dim = 1 if par is not None and par.sp else None
+    # sp: the heights of the split levels; a mask of a level run whole stays whole
+    split = {cfg.resolution >> i for i in range(par.check_rows(cfg))} if row_dim else set()
 
     def cut(x, dim_model=None):
         x = local_slice(x, mesh, "data", 0)
         return x if dim_model is None else local_slice(x, mesh, "model", dim_model)
 
     def local(x0, t, e, masks):
-        masks = None if masks is None else [cut(mk, mask_dim) for mk in masks]
+        masks = None if masks is None else [cut(mk, None if row_dim and mk.shape[1] not in split else mask_dim)
+                                            for mk in masks]
         return cut(x0, row_dim), cut(t), cut(e, row_dim), masks
 
     def reduce(x):

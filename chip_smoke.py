@@ -7,12 +7,14 @@
 
 (`--profile` adds, after the last phase, torch.profiler's device time per
 kernel for one run of each sampler and one training step; `--paths` runs only the paths named,
-all eleven by default.)
+all eleven by default.  A path's samplers run `--steps` quad steps, or fewer where MAX_STEPS cuts
+them: church 2; imagenet64, celeba-wide and cifar10-enhanced 4; the CLI, training, quality and
+parallel paths 3.)
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
 3. then the CIFAR-10 W4A8 sampler (`UNetConfig()`, batch 128) and the LSUN
-   church W4A8 sampler (`configs/church.yml`, 256^2, batch 32, at most 4
+   church W4A8 sampler (`configs/church.yml`, 256^2, batch 32, at most 2
    steps), both with the f32 attention core (`attn_int8=False`):
    a. kernels: each kernel against its plain PyTorch version on the card at
       every distinct shape the path's serving step gives it
@@ -65,7 +67,7 @@ all eleven by default.)
       three levers, launch counts checked;
    d. weights (CIFAR-10): the W4 weight-quality pass on the same params,
       calibration and input, on the card (`weights_phase`): the Gram
-      collection, AdaRound (1000 Adam steps), GPTQ and bias correction, timed,
+      collection, AdaRound (200 Adam steps), GPTQ and bias correction, timed,
       with the Gram objectives of the offsets against round-to-nearest's
       (each sum must be below it); `refine_weight_extras` shared and per step
       (never worse than its init); every set of extras folded and served
@@ -91,7 +93,10 @@ all eleven by default.)
    a. kernels: K10, K9, K8, K11 and K3 with its int8 core against their plain
       versions at every shape a serving step gives them under the three
       attention settings (`ops.checks.attention_plan`), timed as above, and
-      K2 at every epilogue shape as in 3a; K11
+      K2 at every epilogue shape as in 3a, then once at a conv1 output over
+      the whole-image budget and off K6's grid (`offgrid_epilogue_phase`: B 8,
+      105 x 105, N 256, int32 and bf16; JAX's XLA reference there): routed
+      to K2, one launch, bit-equal, device time beside its bytes bound; K11
       also beside `F.scaled_dot_product_attention`, the library call for its
       function (`library_ms`; K8, K9 and K10 have none: no PyTorch call takes
       int8 q and k and returns an int8 requantized output);
@@ -128,7 +133,9 @@ all eleven by default.)
       `calibrate_mp_attention` at timesteps 0 / 250 / 500 / 750 / 999), the
       fold, then the sampler with the stage-3 core at base bits 4 (W4A8's
       --bitwidth) and without it: launch counts, the sampler's wall and device
-      time, the per-site and chained step each; how far the MP sample lies
+      time, the per-site and chained step each; the sampler with its default
+      `attn_int8` (None: no int8 core on the enhanced block) bit-equal to the
+      `attn_int8=False` sample, launch-counted; how far the MP sample lies
       from the plain one (it must differ) and from the fake-quant MP model's;
    c. levers: one per-site step of the MP sampler with the three levers,
       launch-counted.
@@ -157,7 +164,7 @@ all eleven by default.)
       and held site by site.
 8. cifar10-cli: the CLI, `main_torch.main(argv)` in this process, at
    cifar10.yml (ch 128, ch_mult 1-2-2-2, attention at 16^2), --batch_size
-   128 --num_samples 128 --timesteps --steps (at most 5) --skip_type quad --ni, the exp
+   128 --num_samples 128 --timesteps --steps (at most 3) --skip_type quad --ni, the exp
    tree under exp/chip_smoke_cli (`cli_phase`): (a) --execution serving with
    --ckpt_path to a reference-named torch state dict written from the seeded
    generator (the loaded params held equal to it) and --calib_cache auto
@@ -180,19 +187,19 @@ all eleven by default.)
    10240 training and 1024 test images made by `synthetic_batch` on the card
    and written as uint8 in CIFAR-10's pickle layout under
    exp/chip_smoke_train/datasets (`train_phase`; the cuts, printed: n_iters
-   30, snapshot_freq 10, the image count):
+   20, snapshot_freq 10, the image count):
    a. one step at full width on 4 images on the card against the same step
       on the CPU, given the same params, batch, t, eps and dropout masks: the
       loss and the gradient norm before clipping within 1e-5 relative, the
       params, Adam's moments and the EMA by `training.compare_train_states`;
-   b. `main_torch.main` trains 30 steps: every loss finite, the last 10
-      steps' mean below the first 10's, ckpt_1 / 10 / 20 / 30, ckpt.npz,
+   b. `main_torch.main` trains 20 steps: every loss finite, the last 10
+      steps' mean below the first 10's, ckpt_1 / 10 / 20, ckpt.npz,
       train_metrics.csv and the event file; no kernel launched; the step's
       median wall, device time by part (CUDA events: forward + backward,
       optimizer, EMA), images/s, peak memory and its bound (the convolution
       and attention FLOPs over 67 TFLOP/s);
-   c. --resume_training to 40 steps: the state loaded equal to ckpt.npz,
-      the steps logged 31..40;
+   c. --resume_training to 25 steps: the state loaded equal to ckpt.npz,
+      the steps logged 21..25;
    d. --test --fp32 on the EMA and (model.ema false) on the params, which
       must test lower; then --test --execution serving (the served step's
       launches against `expected_launches`): the eps-MSE and its coverage;
@@ -215,9 +222,9 @@ all eleven by default.)
       convolutions' f32 bound, counted by `FlopCounterMode`);
       `eval/fid.sharded_statistics` (JAX's float32 sums of f and f f^T) against
       float64 mean and `np.cov` over the same features (the error printed);
-   b. ladder: `tools/train_synthetic` trains the UNet 60 steps at batch 128
+   b. ladder: `tools/train_synthetic` trains the UNet 32 steps at batch 128
       (cut from 12000), then `tools/quality_protocol.run_protocol` on its EMA
-      at --steps quad steps (at most 5), batch 64, calibration batch 8, bits 8:8 and 4:8,
+      at --steps quad steps (at most 3), batch 64, calibration batch 8, bits 8:8 and 4:8,
       stage 2, the bf16 row, KID, the serving rows and `--adaround
       --weight_rows gptq`: the table as `[quality]` lines; every row finite,
       fp32 0, w8a8_s1 at or below w4a8_s1; each serving row (its sampler and
@@ -251,12 +258,12 @@ all eleven by default.)
       snapshot_freq cut to 5) at batch 128 on the CelebA fixture: every loss
       finite, no kernel launched; the step's wall, device time by part and
       peak memory;
-   c. sweep: `tools/serving_sweep` at celeba.yml, DDIM-4, batches 64 and
-      128, step_chunk none / 2 / shared / packed, 3 reps: each variant's
+   c. sweep: `tools/serving_sweep` at celeba.yml, DDIM-3, batches 64 and
+      128, step_chunk none / 2 / shared / packed, 2 reps: each variant's
       first run launch-counted against `expected_launches`, the chunked and
       packed runs bit-equal to the unchunked one, no error row; images/s per
       variant beside the card's name and power limit;
-   d. ablation: `tools/ablation_attention` A-D on (b)'s EMA, DDIM-2 (each
+   d. ablation: `tools/ablation_attention` A-D on (b)'s EMA, DDIM-1 (each
       variant's stage-1 calibration costs ~7 s a step at this width), 16
       samples a model, the seeded random Inception: the four rows;
    e. ranges: weight, activation and attention ranges at timesteps 0 and
@@ -292,7 +299,15 @@ all eleven by default.)
       one rank's (mu within 1e-6 of its largest magnitude, sigma within 1e-6
       of the second moment's, the summed quantities);
    c. each Hopper probe (`attentiondm_tpu_torch/tools/`) once at the
-      smallest setting its arguments allow (PROBE_ARGS), its JSON printed.
+      smallest setting its arguments allow (PROBE_ARGS), its JSON printed;
+   d. one sp train step of cifar10.yml at full width over SP8_RANKS = 8
+      ranks (an HGX node's card count) sharing the card over gloo
+      (`sp8_rank`), batch SP8_BATCH = 8: the 8x8 level holds one row a rank
+      before its downsample, so the rows are gathered there and the 4x4
+      level runs whole on every rank (`parallel.tp.sp_levels`, the plan
+      printed); the ranks' losses equal, the one-device step's within 1e-5,
+      the state held to the one-device step by `compare_train_states`, the
+      step's wall (its first call: a second one would cost another ~12 s).
    The path adds no row to the kernels line: its serving runs reach K1, K13,
    K5, K2 and K3, measured by the cifar10 path.
 Prints a JSON line of per-kernel results, then {"ok": true, "device": ...}
@@ -312,9 +327,11 @@ CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative erro
 BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32, "cifar10-enhanced": 128,
          "cifar10-f32": 128, "cifar10-cli": 128, "cifar10-train": 512, "cifar10-quality": 64, "celeba-data": 128,
          "cifar10-parallel": 128}
-# a shallower schedule where the path is long (the CLI's and the quality ladder's calibrations and per-step
-# refinement grow with the steps; cut from 10 so that eleven paths stay well inside the 1200 s limit)
-MAX_STEPS = {"church": 4, "imagenet64": 4, "cifar10-cli": 5, "cifar10-quality": 5}
+# a shallower schedule where the path is long (each stage-1 calibration, about 1.3 s a step at CIFAR-10 and 2 s at
+# celeba-wide on the H100, and the CLI's per-step refinement grow with the steps; cut from 10 so that eleven paths
+# stay well inside the 1200 s limit); the kernels' checks and per-step figures do not depend on it
+MAX_STEPS = {"church": 2, "imagenet64": 4, "celeba-wide": 4, "cifar10-enhanced": 4, "cifar10-cli": 3,
+             "cifar10-train": 3, "cifar10-quality": 3, "cifar10-parallel": 3}
 LEVER_ROUNDS = 3  # timed runs per lever setting, taken in turns
 F32_CORE = dict(attn_int8=False)  # the attention flag of the CIFAR-10 and church paths (bench.py's)
 # the three attention settings of the celeba-wide path; attn_ranges=True stands for the calibrated ranges
@@ -416,7 +433,8 @@ def path_config(path):
                 "UNetConfig(attn_variant=\"enhanced\") CIFAR-10")
     if path == "cifar10-parallel":
         return (UNetConfig(), DiffusionSchedule.create("linear", 1e-4, 0.02, 1000),
-                "UNetConfig() CIFAR-10 over torch.distributed: NCCL world 1, two ranks on the card over gloo, the probes")
+                "UNetConfig() CIFAR-10 over torch.distributed: NCCL world 1, two ranks on the card over gloo, the "
+                "probes, sp over 8 ranks")
     if path == "celeba-wide":
         config = load_config("celeba.yml")
         cfg = dataclasses.replace(UNetConfig.from_config(config), attn_resolutions=(64, 32, 16))
@@ -536,6 +554,17 @@ def _bit_equal(kind, label, got, want):
     return f
 
 
+def on_card(gen, dev):
+    """A generator on the card seeded by one draw from `gen` (the CPU's):
+    the kernel phases draw their inputs there, as a CPU draw of a church-sized
+    int8 activation takes seconds.  A generator already on the card is kept."""
+    import torch
+
+    if gen.device.type == "cuda":
+        return gen
+    return torch.Generator(device=dev).manual_seed(int(torch.randint(0, 2 ** 62, (), generator=gen)))
+
+
 def epilogue_phase(cfg, batch, gen, dev, report):
     """K2 and K6 at every resblock epilogue shape of a serving step, as the
     router sends the bf16 conv1 output (identity epilogue; the first channel
@@ -545,6 +574,8 @@ def epilogue_phase(cfg, batch, gen, dev, report):
     too, for its time.  Then one int32-input check a kernel (the conv's
     accumulator with inv_ws / zcbias) at the kernel's largest shape."""
     import torch
+
+    gen = on_card(gen, dev)
 
     from attentiondm_tpu_torch.ops import checks
     from attentiondm_tpu_torch.ops.fused_gn import (
@@ -557,12 +588,12 @@ def epilogue_phase(cfg, batch, gen, dev, report):
     _k1, k2, k6, _k3, _composed = checks.conv_plan(cfg)
 
     def randf(shape, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
 
     def args_of(HW, N, x_dtype):
         H = int(HW ** 0.5)
         if x_dtype == torch.int32:
-            dot = torch.randint(-20000, 20000, (batch, H, H, N), generator=gen, dtype=torch.int32).to(dev)
+            dot = torch.randint(-20000, 20000, (batch, H, H, N), generator=gen, dtype=torch.int32, device=dev)
             inv_ws, zcbias = randf((N,), 2e-5, 1e-4).abs(), randf((N,))
         else:
             dot = randf((batch, H, H, N), 2.0, 0.3).to(torch.bfloat16)
@@ -615,12 +646,68 @@ def epilogue_phase(cfg, batch, gen, dev, report):
     torch.cuda.empty_cache()
 
 
+OFFGRID = (8, 105, 256)  # batch, side (HW = 11025, HW % 8 = 1) and channels of the off-grid epilogue call
+
+
+def offgrid_epilogue_phase(gen, dev):
+    """`epilogue_gn_swish_quant` at a conv1 output over the whole-image
+    budget and off K6's grid (OFFGRID: B 8, 105 x 105, N 256), where JAX runs
+    its XLA reference, on int32 and bf16 input: the router names K2, the
+    call adds one K2 launch, its output is bit-equal to K2's plain version on
+    the card; its device time (`device_ms`) beside its bytes bound."""
+    import torch
+
+    gen = on_card(gen, dev)
+
+    from attentiondm_tpu_torch.ops.fused_gn import epilogue_gn_swish_quant, epilogue_gn_swish_quant_whole, \
+        epilogue_plan, epilogue_route
+
+    B, H, N = OFFGRID
+
+    def randf(shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+    for x_dtype in (torch.int32, torch.bfloat16):
+        if x_dtype == torch.int32:
+            dot = torch.randint(-20000, 20000, (B, H, H, N), generator=gen, dtype=torch.int32, device=dev)
+            inv_ws, zcbias = randf((N,), 2e-5, 1e-4).abs(), randf((N,))
+        else:
+            dot = randf((B, H, H, N), 2.0, 0.3).to(torch.bfloat16)
+            inv_ws, zcbias = torch.ones(N, device=dev), torch.zeros(N, device=dev)
+        zcbias[:N // 32] += 40.0
+        args = (dot, inv_ws, zcbias, randf((B, N)), randf((N,), 0.1, 1.0), randf((N,), 0.1),
+                torch.full((N,), 255 / 4.5, device=dev), torch.full((N,), round(255 / 4.5 * -0.5) + 128.0,
+                                                                    device=dev), 8)
+        route = epilogue_route(dot.shape, x_dtype)
+        if route != "K2":
+            raise AssertionError(f"off-grid epilogue {tuple(dot.shape)} {x_dtype}: routed to {route}, not K2")
+        before = epilogue_gn_swish_quant_whole.launches
+        got = epilogue_gn_swish_quant(*args)
+        if epilogue_gn_swish_quant_whole.launches != before + 1:
+            n = epilogue_gn_swish_quant_whole.launches - before
+            raise AssertionError(f"off-grid epilogue {tuple(dot.shape)}: {n} K2 launches, not 1")
+        f = _bit_equal("K2", f"off-grid B={B} HW={H * H} N={N} {x_dtype}", got,
+                       epilogue_gn_swish_quant(*args, plain=True))
+        dms = device_ms(lambda: epilogue_gn_swish_quant(*args))
+        b = bound(nbytes(*args[:8]) + dot.numel(), f32_flops=18 * dot.numel())
+        p = epilogue_plan(B, H * H, N, x_dtype, "K2")
+        print(f"[kernels] K2 off K6's grid over the whole-image budget (JAX's XLA reference there), "
+              f"{str(x_dtype).replace('torch.', '')} B={B} {H}x{H} (HW={H * H}, HW % 8 = {H * H % 8}) N={N}: routed "
+              f"to K2, one launch, {_fig(f)}, bit-equal; device {dms:.4f} ms {_bound_fig(b)} at 3.35 TB/s, device at "
+              f"{max(b) / dms:.1%} of it; plan: {p['cluster']} blocks an image, {p['rows']} rows a block, "
+              f"{p['threads']} threads, slab {'held' if p['held'] else 're-read from L2'}")
+        del args, dot, got
+    torch.cuda.empty_cache()
+
+
 def kernel_phase(cfg, batch, gen, dev, report, both_cores=False, levers=True):
     """Every kernel of the path's serving step (and, with `levers`, of its
     lever steps) against its plain version at the step's shapes, timed;
     `both_cores` also holds K3's int8 core at each K3 shape (printed, not
     counted: the path runs the f32 core)."""
     import torch
+
+    gen = on_card(gen, dev)
 
     from attentiondm_tpu_torch.ops import checks
     from attentiondm_tpu_torch.ops.fused_gn import epilogue_plan, epilogue_residual_gn_stats, gn_act_quant
@@ -634,10 +721,10 @@ def kernel_phase(cfg, batch, gen, dev, report, both_cores=False, levers=True):
     k1, _k2, _k6, k3, _composed = checks.conv_plan(cfg, widths=True)
 
     def randint8(shape, lo, hi):
-        return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8).to(dev)
+        return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8, device=dev)
 
     def randf(shape, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
 
     # K1: every distinct (H, Cp, Np, ksize, stride, mode) of a step, weighted by its count.
     # K13 (int32 3x3) is checked at every 3x3 stride-1 shape, and weighted by the
@@ -855,6 +942,8 @@ def attention_kernel_phase(cfg, batch, gen, dev, report):
     every shape one serving step gives them under the three attention
     settings, weighted by the launches of the step that runs them."""
     import torch
+
+    gen = on_card(gen, dev)
     import torch.nn.functional as F
 
     from attentiondm_tpu_torch.ops import checks
@@ -872,10 +961,10 @@ def attention_kernel_phase(cfg, batch, gen, dev, report):
               + ", ".join(f"{k} x{len(v)} {sorted(set(v))}" for k, v in plan.items() if v))
 
     def randint8(shape, lo, hi):
-        return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8).to(dev)
+        return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8, device=dev)
 
     def randf(shape, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
 
     def out_quant(C):  # proj_out's input quantization: 8 bits over about [-2, 2], integral zero points
         return torch.full((C,), 255 / 4.0, device=dev), randf((C,), 3.0).round()
@@ -910,7 +999,7 @@ def attention_kernel_phase(cfg, batch, gen, dev, report):
             del q8, k8, v8
     # K8: int32 projection accumulators that dequantize to a few units
     for (L, C), n in sorted(collections.Counter(plans["dynamic int8"]["K8"]).items()):
-        dots = [torch.randint(-20000, 20000, (batch, L, C), generator=gen, dtype=torch.int32).to(dev) for _ in range(3)]
+        dots = [torch.randint(-20000, 20000, (batch, L, C), generator=gen, dtype=torch.int32, device=dev) for _ in range(3)]
         epis = [(randf((C,), 2e-5, 1e-4).abs(), randf((C,), 0.2)) for _ in range(3)]
         osc, ozp = out_quant(C)
         b = bound(13 * dots[0].numel() + 8 * 4 * C, int8_ops=2 * batch * L * L * C, bf16_flops=2 * batch * L * L * C,
@@ -964,6 +1053,8 @@ def f32_kernel_phase(cfg, batch, gen, dev, report):
     runtime's step, weighted by that step's launches."""
     import torch
 
+    gen = on_card(gen, dev)
+
     from attentiondm_tpu_torch.models.unet import iter_conv_layers
     from attentiondm_tpu_torch.ops import checks
     from attentiondm_tpu_torch.ops.fused_gn import epilogue_gn_swish_quant, epilogue_residual_gn_stats, gn_act_quant
@@ -975,10 +1066,10 @@ def f32_kernel_phase(cfg, batch, gen, dev, report):
     f32 = torch.float32
 
     def randint8(shape, lo, hi):
-        return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8).to(dev)
+        return torch.randint(lo, hi + 1, shape, generator=gen, dtype=torch.int8, device=dev)
 
     def randf(shape, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
 
     def timed(fn, plain_reps=10):
         return time_ms(fn), device_ms(fn), time_ms(lambda: fn(plain=True), reps=plain_reps)
@@ -1104,7 +1195,7 @@ def f32_kernel_phase(cfg, batch, gen, dev, report):
     _k1, k2, _k6, _k3, _composed = checks.conv_plan(cfg, dot_bf16=False)
     for (HW, N), n in sorted(collections.Counter(k2).items()):
         H = int(HW ** 0.5)
-        dot = torch.randint(-20000, 20000, (batch, H, H, N), generator=gen, dtype=torch.int32).to(dev)
+        dot = torch.randint(-20000, 20000, (batch, H, H, N), generator=gen, dtype=torch.int32, device=dev)
         zcbias = randf((N,))
         zcbias[:N // 32] += 40.0
         args = (dot, randf((N,), 2e-5, 1e-4).abs(), zcbias, randf((batch, N)), randf((N,), 0.1, 1.0), randf((N,), 0.1),
@@ -1629,8 +1720,8 @@ def fold_forms_phase(ctx):
 
 
 WEIGHT_METHODS = {  # compute_weight_extras' settings of the runner's --weight_opt values
-    "adaround": dict(iters=1000), "gptq": dict(method="gptq"), "biascorr": dict(adaround_max_wbit=0)}
-REFINE_EPOCHS, REFINE_INNER = 2, 4  # the refinement's passes: shared mode epochs, per-step Adam iterations
+    "adaround": dict(iters=200), "gptq": dict(method="gptq"), "biascorr": dict(adaround_max_wbit=0)}
+REFINE_EPOCHS, REFINE_INNER = 1, 2  # the refinement's passes: shared mode epochs, per-step Adam iterations
 # the surrogate's convs against the served fold's on the same inputs (mean relative; float32 order only)
 SURROGATE_SITE_BOUND = 1e-4
 
@@ -1638,7 +1729,7 @@ SURROGATE_SITE_BOUND = 1e-4
 def weights_phase(ctx):
     """The W4 weight-quality pass on the path's params, calibration and
     input, all on the card: the Gram collection over 8 of the calibration
-    trajectory's steps, then AdaRound (1000 Adam steps), GPTQ and bias
+    trajectory's steps, then AdaRound (200 Adam steps, cut from 1000), GPTQ and bias
     correction alone (timed; the Gram objectives of AdaRound's and GPTQ's
     offsets summed over the layers must be below round-to-nearest's), the
     refinement of AdaRound's extras in the shared mode and per step (each
@@ -1812,7 +1903,7 @@ def weights_phase(ctx):
     torch.cuda.empty_cache()
 
 
-STAGE2_LR, STAGE2_EPOCHS = 0.02, 4  # the runner's --stage2_lr and teacher-matched passes (calib_epochs * 4)
+STAGE2_LR, STAGE2_EPOCHS = 0.02, 2  # the runner's --stage2_lr; teacher-matched passes (the runner's calib_epochs * 4, cut)
 ATTN_LOSS_WEIGHT = 0.5  # the runner's --attention_loss_weight, the attention-focused stage 2's entropy weight
 BEST_ITERATE_SLACK = 1e-6  # a re-evaluated objective may differ from the run's in the last bits
 
@@ -1918,7 +2009,7 @@ def enhanced_slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=Fals
         calibrate_ranges,
         select_calibration_images,
     )
-    from attentiondm_tpu_torch.quant.int8_serving import prepare_serving_runtime
+    from attentiondm_tpu_torch.quant.int8_serving import prepare_serving_runtime, serving_ddim_sampler
     from attentiondm_tpu_torch.quant.qunet import QuantizedUNet, make_quant_conv_apply
 
     R, shape = cfg.resolution, (batch, cfg.resolution, cfg.resolution, cfg.out_ch)
@@ -1981,6 +2072,17 @@ def enhanced_slice_phase(cfg, sched, label, steps, batch, gen, dev, profile=Fals
     mp_out, plain = outs["mp core"], outs["f32 core"]
     if torch.equal(mp_out, plain):
         raise AssertionError("the stage-3 core left the enhanced sample unchanged")
+    default = serving_ddim_sampler(qunet, params, qstates, seq, betas, runtime=runtime, residual_dtype=torch.bfloat16)
+    checks.reset_launches()
+    out = default(x)
+    counts_default = checks.read_launches()
+    want = checks.expected_launches(cfg, steps, batch, residual_dtype=torch.bfloat16)
+    print(f"[slice] the sampler with its default attn_int8 (None: the enhanced variant's own, no int8 core): "
+          f"bit-equal to the attn_int8=False sample: {torch.equal(out, plain)}; launches {counts_default} (expected "
+          f"{want})")
+    if not torch.equal(out, plain) or counts_default != want:
+        raise AssertionError("the enhanced sampler's default call differs from attn_int8=False")
+    del out
     qparams, _ = qunet.prepare_params(params)
 
     def fake_quant(xt, t, i):
@@ -2189,7 +2291,7 @@ def cli_phase(cfg, steps, batch, gen):
 
 TRAIN_EXP = "exp/chip_smoke_train"  # the training path's --exp tree (git-ignored), emptied before the path runs
 TRAIN_SET = (10240, 1024)  # the seeded CIFAR-10 stand-in: training images (cut from 50000) and test images
-TRAIN_ITERS, TRAIN_SNAPSHOT, TRAIN_MORE = 30, 10, 10  # n_iters, snapshot_freq (cut from 5M, 5000), resumed steps
+TRAIN_ITERS, TRAIN_SNAPSHOT, TRAIN_MORE = 20, 10, 5  # n_iters, snapshot_freq (cut from 5M, 5000), resumed steps
 SYNTH_STEPS, SYNTH_BATCH = 20, 128  # tools/train_synthetic.py's run per distribution
 PARITY_IMAGES = 4  # the card-vs-CPU step's batch
 
@@ -2540,7 +2642,7 @@ def train_phase(cfg, steps, gen, profile=False):
 
 
 QUALITY_EXP = "exp/chip_smoke_quality"  # the quality path's tree (git-ignored), emptied before the path runs
-QUALITY_TRAIN = (60, 128)  # train_synthetic's steps (cut from 12000) and batch
+QUALITY_TRAIN = (32, 128)  # train_synthetic's steps (cut from 12000) and batch
 QUALITY_LADDER = dict(batch=64, calib_batch=8, bit_configs=((8, 8), (4, 8)), stage2=True, serving=True, kid=True,
                       adaround=True, weight_rows="gptq")
 INCEPTION_CHECK, INCEPTION_IMAGES, INCEPTION_BATCH = 8, 1024, 256  # card vs CPU images; timed images and batch
@@ -2810,8 +2912,8 @@ CELEBA_SET = (256, 16, 16)  # the CelebA fixture's train / valid / test images (
 LSUN_SET = (64, 16)  # church_outdoor_{train,val}_lmdb images, 341x256 JPEGs
 FFHQ_SET, IMAGENET_SET = 64, 64  # FFHQ lmdb images (256^2 JPEGs under the 64 key), ImageNet folder images (64^2)
 DATA_ITERS = 5  # main_torch's training steps at celeba.yml's batch (n_iters and snapshot_freq, cut from 5M / 5000)
-SWEEP = dict(timesteps=4, batches=(64, 128), step_chunks="none,2,shared,packed", reps=3)
-ABLATION = dict(sampler="ddim", steps=2, num_samples=16, batch=16)  # cut from 4: each variant's stage-1 calibration costs ~7 s a step here
+SWEEP = dict(timesteps=3, batches=(64, 128), step_chunks="none,2,shared,packed", reps=2)  # chunks of 2 and 1 steps
+ABLATION = dict(sampler="ddim", steps=1, num_samples=16, batch=16)  # cut from 4: each variant's stage-1 calibration costs ~7 s a step here
 
 
 def _fixture_image(rng, w, h):
@@ -3107,6 +3209,8 @@ PAR_EXP = "exp/chip_smoke_parallel"  # the parallel path's tree (git-ignored), e
 PAR_RANKS, PAR_TRAIN_BATCH, PAR_FID_IMAGES = 2, 32, 256  # ranks sharing the card; the steps' batch; FID images
 PAR_BATCHES = 2  # the --fid runs' batches of BATCH["cifar10-parallel"]
 PAR_JOIN = 600  # seconds the path waits for its ranks
+SP8_RANKS, SP8_BATCH = 8, 8  # (d): an 8-card node's sp degree, its ranks sharing the one card; the step's batch
+SP8_JOIN = 180  # seconds (d) waits for its ranks
 # the smallest setting each probe's own arguments allow (its full-size run is recorded in PERF.md)
 PROBE_ARGS = {"conv_roofline": ["--batch", "2", "--reps", "2"],
               "conv_attack_probe": ["--batch", "2", "--reps", "2"],
@@ -3114,7 +3218,7 @@ PROBE_ARGS = {"conv_roofline": ["--batch", "2", "--reps", "2"],
               "step_breakdown": ["--batch", "8", "--steps", "2", "--rounds", "1"],
               "ab_serving_levers": ["--batch", "8", "--steps", "2", "--reps", "1"],
               "bench_enhanced_mp": ["--batch", "8", "--steps", "2", "--reps", "1"],
-              "gptq_imagenet64_probe": ["--steps", "1", "--batch", "1"]}
+              "gptq_imagenet64_probe": ["--steps", "1", "--batch", "1", "--config", "cifar10.yml"]}
 
 
 def _free_port() -> int:
@@ -3283,6 +3387,73 @@ def _rank_fid(rank, dev):
     return {"fid": out}
 
 
+def sp8_rank(rank, world, store):
+    """One of SP8_RANKS ranks sharing the card over gloo (spawned by
+    `parallel_phase` (d)): one sp train step of cifar10.yml at full width,
+    batch SP8_BATCH, over a (1, SP8_RANKS) mesh, where the 8x8 level holds
+    one row a rank before its downsample, so the 4x4 level runs whole on
+    every rank; the step's wall (its first call, warm-up included); rank 0
+    also takes the one-device step and holds the state to it.  Its results
+    to PAR_EXP/sp8_rank<r>.pt."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    from attentiondm_tpu_torch.config import load_config
+    from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from attentiondm_tpu_torch.models.unet import UNetConfig, unet_init
+    from attentiondm_tpu_torch.parallel import initialize_distributed, make_mesh
+    from attentiondm_tpu_torch.parallel.distributed import rank_device
+    from attentiondm_tpu_torch.parallel.tp import describe_sp
+    from attentiondm_tpu_torch.training import (compare_train_states, get_optimizer, init_train_state,
+                                                make_sharded_train_step, make_train_step)
+
+    initialize_distributed(f"file://{store}", world, rank, 120, device="cuda:0")
+    dev = rank_device()
+    config = load_config("cifar10.yml")
+    cfg, tx = UNetConfig.from_config(config), get_optimizer(config)
+    betas = DiffusionSchedule.from_config(config, device=dev).betas
+    kw = dict(grad_clip=config.optim.grad_clip, ema_rate=config.model.ema_rate)
+    x0 = torch.rand((SP8_BATCH, 32, 32, 3), generator=torch.Generator().manual_seed(3)).to(dev) * 2 - 1
+
+    def fresh():
+        return init_train_state(unet_init(torch.Generator().manual_seed(0), cfg, dev), tx)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(7)
+
+    step = make_sharded_train_step(make_mesh(axes=("data", "model"), shape=(1, world)), cfg, betas, tx, spatial=True,
+                                   **kw)
+    start = fresh()
+    (state, loss), seconds = _timed_s(lambda: step(start, x0, generator=gen()), dev)
+    res = {"loss": float(loss), "seconds": seconds, "plan": describe_sp(cfg, world)}
+    if rank == 0:
+        want, want_loss = make_train_step(cfg, betas, tx, **kw)(fresh(), x0, generator=gen())
+        res.update(cmp=compare_train_states(state, want, config.optim.lr, 1), one_device_loss=float(want_loss))
+    torch.save(res, f"{PAR_EXP}/sp8_rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn(fn, args, n, deadline, what):
+    """`fn(rank, *args)` on `n` spawned ranks; raises if they outlive `deadline` seconds (the rest killed)."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(fn, args=args, nprocs=n, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - (time.perf_counter() - t0))):
+            if time.perf_counter() - t0 > deadline:
+                raise AssertionError(f"{what}: the ranks did not finish in {deadline} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    return time.perf_counter() - t0
+
+
 def parallel_phase(cfg, steps):
     """The parallel runtime on the one card (`parallel/`), through
     `main_torch --fid --execution serving` at batch 128, PAR_BATCHES
@@ -3309,7 +3480,6 @@ def parallel_phase(cfg, steps):
     import numpy as np
     import torch
     import torch.distributed as dist
-    import torch.multiprocessing as mp
 
     import main_torch
     from attentiondm_tpu_torch.ops import checks
@@ -3360,21 +3530,11 @@ def parallel_phase(cfg, steps):
 
     # (b) the two ranks: the same --fid run over both (a fresh cache: rank 0 calibrates), the steps, the statistics
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ctx = mp.start_processes(parallel_rank, args=(PAR_RANKS, os.path.abspath(f"{PAR_EXP}/store"),
-                                                  argv("par2", "two_ranks")),
-                             nprocs=PAR_RANKS, join=False, start_method="spawn")
-    try:
-        while not ctx.join(timeout=max(1.0, PAR_JOIN - (time.perf_counter() - t0))):
-            if time.perf_counter() - t0 > PAR_JOIN:
-                raise AssertionError(f"parallel (b): the ranks did not finish in {PAR_JOIN} s")
-    finally:
-        for proc in ctx.processes:
-            if proc.is_alive():
-                proc.kill()
+    wall = _spawn(parallel_rank, (PAR_RANKS, os.path.abspath(f"{PAR_EXP}/store"), argv("par2", "two_ranks")),
+                  PAR_RANKS, PAR_JOIN, "parallel (b)")
     res = [torch.load(f"{PAR_EXP}/rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
     print(f"[parallel] (b) {PAR_RANKS} ranks on {res[0]['device']} over {res[0]['backend']}: "
-          f"{time.perf_counter() - t0:.1f} s with their start-up; gloo on CUDA tensors: {res[0]['gloo_cuda']}")
+          f"{wall:.1f} s with their start-up; gloo on CUDA tensors: {res[0]['gloo_cuda']}")
     if any(res[0]["gloo_cuda"][op] != "ok" for op in ("all_reduce", "all_gather", "broadcast")):
         raise AssertionError("parallel (b): gloo refuses a collective the port hands it on the card")
     cli = [r["cli"] for r in res]
@@ -3440,6 +3600,21 @@ def parallel_phase(cfg, steps):
         mod.main(args + ["--out", f"{PAR_EXP}/{name}.json"])
         torch.cuda.empty_cache()
         print(f"[parallel] (c) probe {name} {' '.join(args)}: {time.perf_counter() - t0:.1f} s")
+
+    # (d) sp over an 8-card node's ranks, sharing the card: levels whose rows do not split run whole
+    torch.cuda.empty_cache()
+    wall = _spawn(sp8_rank, (SP8_RANKS, os.path.abspath(f"{PAR_EXP}/store8")), SP8_RANKS, SP8_JOIN, "parallel (d)")
+    rows = [torch.load(f"{PAR_EXP}/sp8_rank{r}.pt", weights_only=False) for r in range(SP8_RANKS)]
+    cmp = rows[0]["cmp"]
+    print(f"[parallel] (d) sp {SP8_RANKS} step of cifar10.yml, batch {SP8_BATCH}, {SP8_RANKS} ranks sharing the card "
+          f"over gloo ({rows[0]['plan']}): losses {sorted({row['loss'] for row in rows})} (one device "
+          f"{rows[0]['one_device_loss']}); against the one-device step: {cmp}; the step "
+          f"{max(row['seconds'] for row in rows) * 1e3:.1f} ms wall (its first call); {wall:.1f} s with the ranks' "
+          f"start-up")
+    if len({row["loss"] for row in rows}) != 1 or not cmp["ok"]:
+        raise AssertionError(f"parallel (d): losses {[row['loss'] for row in rows]}, {cmp}")
+    if not abs(rows[0]["loss"] - rows[0]["one_device_loss"]) <= 1e-5 * abs(rows[0]["one_device_loss"]):
+        raise AssertionError(f"parallel (d): loss {rows[0]['loss']} vs one device's {rows[0]['one_device_loss']}")
 
 
 def batch_variance(qunet, params, qstates, seq, x) -> str:
@@ -3567,6 +3742,7 @@ def main(argv=None):
         elif path == "celeba-wide":
             phase(path, "attention kernels", attention_kernel_phase, cfg, BATCH[path], gen, dev, report)
             phase(path, "epilogue kernels", epilogue_phase, cfg, BATCH[path], gen, dev, report)
+            phase(path, "epilogue off K6's grid", offgrid_epilogue_phase, gen, dev)
             counts, ctx = phase(path, "slice", slice_phase, cfg, sched, label, steps, BATCH[path], gen, dev,
                                 args.profile, ATTN_SETTINGS)
             launches_of = {**{key: counts[run][key] for key, run in ATTN_RUN.items()},

@@ -9,6 +9,8 @@ step with and without the MP core (every attention site's input and output
 recorded), and a 2-step serving sampler with the MP core.  `gamma` is set to
 1 in the numpy tree both stacks load: at its init of 0 every enhanced block
 is the identity."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -140,6 +142,8 @@ def chain():
     sample = np.asarray(js.serving_ddim_sampler(jq, jparams, jqs, SEQ, betas, residual_dtype=jnp.bfloat16,
                                                 attn_int8=False, runtime=jrt, mp_states=jmps,
                                                 mp_base_bits=BASE_BITS)(jnp.asarray(x)))
+    # every compute flag at JAX's default: a float32 residual, attn_int8=True (which JAX ignores here)
+    sample_default = np.asarray(js.serving_ddim_sampler(jq, jparams, jqs, SEQ, betas)(jnp.asarray(x)))
     runtime = {k: ServingLayer(*(torch.tensor(np.asarray(a)) for a in (v.gq, v.inv_ws, v.zcbias, v.act_scale,
                                                                         v.act_zp)))
                for k, v in jrt.items()}
@@ -149,7 +153,7 @@ def chain():
                 eps_fp=eps_fp, stats=stats, mp_np=_mp_np(jmps),
                 mp_states=mp.from_jax_mp_states(_mp_np(jmps), device="cpu"), fq=fq, fq_sites=fq_sites, eps=eps,
                 sites=sites, qparams=jax.tree_util.tree_map(np.asarray, jqp),
-                sample=sample)
+                sample=sample, sample_default=sample_default)
 
 
 def _port():
@@ -399,19 +403,42 @@ def test_enhanced_sampler_matches_jax_and_chunks_bit_equal(chain):
     assert _rel(plain.numpy(), out.numpy()) > 1e-4
 
 
+def test_enhanced_default_sampler_matches_jax_default(chain):
+    """The sampler called with its defaults (`attn_int8=None`: the variant's
+    own, no int8 core on the enhanced block; a float32 residual) returns
+    JAX's default-argument sample within the enhanced sampler's bound, and
+    the `attn_int8=False` call's bits."""
+    cfg, q, sched = _port()
+    x = _t(chain["x"])
+    out = serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas)(x)
+    assert torch.isfinite(out).all()
+    rel = _rel(out.numpy(), chain["sample_default"])
+    assert rel < 1e-2, rel
+    assert torch.equal(out, serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas,
+                                                 attn_int8=False)(x))
+    with pytest.raises(ValueError, match="attn_int8=False or None"):
+        serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, attn_int8=True)
+
+
 @pytest.mark.parametrize("flags", [dict(), dict(attn_int8=True), dict(attn_int8=False, attn_ranges={})],
                          ids=["default", "attn_int8", "attn_ranges"])
 def test_enhanced_refuses_the_int8_attention_flags(chain, flags):
-    """The enhanced core is float32: `attn_int8` (True by default, as in JAX)
-    and `attn_ranges` raise ValueError in the step and the sampler, where JAX
-    ignores them; `mp_states` on the ddim variant too."""
+    """The enhanced core is float32: an explicit `attn_int8=True` and
+    `attn_ranges` raise ValueError in the step and the sampler, where JAX
+    ignores them; the default (`attn_int8=None`, the variant's own) takes
+    the float32 core, the bits of `attn_int8=False`; `mp_states` on the
+    ddim variant raise too."""
     cfg, q, sched = _port()
-    with pytest.raises(ValueError, match="attn_int8=False"):
-        serving_unet_apply(chain["params"], cfg, q, chain["runtime"], chain["qstates"], _t(chain["x"]), _t(chain["t"]),
-                           0, residual_dtype=torch.bfloat16, **flags)
-    with pytest.raises(ValueError, match="attn_int8=False"):
-        serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, residual_dtype=torch.bfloat16,
-                             **flags)
+    step = functools.partial(serving_unet_apply, chain["params"], cfg, q, chain["runtime"], chain["qstates"],
+                             _t(chain["x"]), _t(chain["t"]), 0, residual_dtype=torch.bfloat16)
+    if not flags:
+        assert torch.equal(step(), step(attn_int8=False))
+    else:
+        with pytest.raises(ValueError, match="attn_int8=False"):
+            step(**flags)
+        with pytest.raises(ValueError, match="attn_int8=False"):
+            serving_ddim_sampler(q, chain["params"], chain["qstates"], SEQ, sched.betas, residual_dtype=torch.bfloat16,
+                                 **flags)
     ddim = UNetConfig(**{**TOY, "attn_variant": "ddim"})
     with pytest.raises(ValueError, match="enhanced attention variant only"):
         serving_ddim_sampler(QuantizedUNet.create(ddim, 4, 8), {}, {}, SEQ, sched.betas,

@@ -329,7 +329,8 @@ def test_conv_plan_matches_the_forward(chain, dot_bf16):
 
 def test_jax_default_flags_are_the_ports():
     """The serving entry points' defaults are JAX's: residual float32,
-    attn_int8, dot_bf16, every lever off."""
+    attn_int8 (None, the variant's own, which is JAX's True on the ddim
+    variant), dot_bf16, every lever off."""
     import inspect
 
     from attentiondm_tpu.quant import int8_serving as js
@@ -337,5 +338,7 @@ def test_jax_default_flags_are_the_ports():
     for port, ref in ((serving_unet_apply, js.serving_unet_apply), (serving_ddim_sampler, js.serving_ddim_sampler)):
         pd, jd = inspect.signature(port).parameters, inspect.signature(ref).parameters
         assert pd["residual_dtype"].default == torch.float32 and jd["residual_dtype"].default == jnp.float32
-        for flag in ("attn_int8", "dot_bf16", "entry_pallas", "boundary_fusion", "conv_pallas", "resblock_pallas"):
+        assert pd["attn_int8"].default is None
+        assert srv._require_attention_flags(UNetConfig(), None, None, None) is jd["attn_int8"].default is True
+        for flag in ("dot_bf16", "entry_pallas", "boundary_fusion", "conv_pallas", "resblock_pallas"):
             assert pd[flag].default == jd[flag].default, flag

@@ -351,13 +351,17 @@ def test_gn_refused_names_the_sites(cfg, levers, kinds):
 
 
 def test_gn_refused_covers_every_kernel():
-    """An epilogue over the whole-image budget and off K6's grid (K2/K6), an
-    exit past K7's width, a K12 block past K12's: each named.  The epilogue
-    is a fused block's (128 channels: a block off the 128 grid takes the
-    unfused chain and has no epilogue kernel), its 105 x 105 map off K6's
-    8-row grid."""
+    """An epilogue over the whole-image budget and off K6's grid that K2's
+    plan refuses too (K2/K6), an exit past K7's width, a K12 block past
+    K12's: each named.  The epilogues are fused blocks' (a multiple of 128
+    channels: a block off the 128 grid takes the unfused chain and has no
+    epilogue kernel).  At 128 channels a 105 x 105 map, off K6's 8-row grid,
+    is K2's (where JAX runs its XLA reference) and refused by none; at 1152
+    channels a 35 x 35 map is past K2's 1024 too."""
     off_k6 = UNetConfig(ch=128, ch_mult=(1,), num_res_blocks=1, attn_resolutions=(), resolution=105, dropout=0.0)
-    assert {kind for *_s, kind in checks.gn_refused(off_k6, 2)} == {"K2/K6"}
+    assert checks.gn_refused(off_k6, 2) == []
+    past_k2 = UNetConfig(ch=128, ch_mult=(9,), num_res_blocks=1, attn_resolutions=(), resolution=35, dropout=0.0)
+    assert {kind for *_s, kind in checks.gn_refused(past_k2, 2)} == {"K2/K6"}
     assert not fg.epilogue_residual_gn_stats_takes(64, 1152) and fg.epilogue_residual_gn_stats_takes(64, 1024)
     from attentiondm_tpu_torch.ops.pallas_resblock import resblock_pallas_takes
 

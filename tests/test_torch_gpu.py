@@ -160,6 +160,19 @@ def test_k2_kernel_matches_plain(dev, gen, HW, N, x_dtype):
 
 
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.int32])
+def test_k2_takes_off_grid_shapes_over_the_budget(dev, gen, x_dtype):
+    """105 x 105 (HW % 8 = 1) at N = 256, over the whole-image budget and
+    off K6's grid, where JAX runs its XLA reference: the router takes K2,
+    one launch, the plain version's bits."""
+    args = _offset_group(_epilogue_args(gen, dev, 2, 105, 256, x_dtype))
+    assert fused_gn.epilogue_route(args[0].shape, x_dtype) == "K2"
+    before = epilogue_gn_swish_quant_whole.launches
+    got = epilogue_gn_swish_quant(*args)
+    assert epilogue_gn_swish_quant_whole.launches == before + 1
+    assert torch.equal(got, epilogue_gn_swish_quant(*args, plain=True))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.int32])
 @pytest.mark.parametrize("H", [256, 128])
 def test_k6_kernel_matches_plain(dev, gen, H, x_dtype):
     """K6 at the church shapes (N = 128), one channel group at a large
@@ -210,14 +223,18 @@ def test_epilogue_plan_refused_by_the_launcher(dev, gen, monkeypatch):
 
 def test_k6_raises_off_its_grid(dev):
     """Over the whole-image budget, N off the 128 grid: JAX's XLA reference
-    shape, not ported; the CUDA tensor raises instead of falling back."""
+    shape.  The router sends it to K2 (one launch, the plain version's bits);
+    K6 called directly raises instead of falling back."""
     N = 96
     dot = torch.zeros((1, 128, 128, N), dtype=torch.bfloat16, device=dev)
     v = torch.ones(N, device=dev)
+    args = (dot, v, v, torch.zeros((1, N), device=dev), v, v, v, v, 8)
+    assert fused_gn.epilogue_route(dot.shape, dot.dtype) == "K2"
+    before = epilogue_gn_swish_quant_whole.launches
+    assert torch.equal(epilogue_gn_swish_quant(*args), epilogue_gn_swish_quant(*args, plain=True))
+    assert epilogue_gn_swish_quant_whole.launches == before + 1
     with pytest.raises(NotImplementedError):
-        epilogue_gn_swish_quant(dot, v, v, torch.zeros((1, N), device=dev), v, v, v, v, 8)
-    with pytest.raises(NotImplementedError):
-        epilogue_gn_swish_quant_blocked(dot, v, v, torch.zeros((1, N), device=dev), v, v, v, v, 8)
+        epilogue_gn_swish_quant_blocked(*args)
 
 
 def _k3_args(gen, dev, B, L, C):
@@ -961,6 +978,26 @@ def test_serving_step_enhanced_kernels_match_plain(dev, gen, mp_core):
     assert not bad, bad
     plain = serving_unet_apply(params, cfg, q, runtime, qstates, x, t, 0, plain=True, **kw)
     assert torch.equal(eps, plain)
+
+
+def test_enhanced_default_sampler_on_the_card(dev, gen):
+    """The enhanced sampler with its default `attn_int8` (None: no int8
+    core on the enhanced block): the launches `expected_launches` gives at
+    the defaults, the bits of the `attn_int8=False` call, and an explicit
+    `attn_int8=True` still raises."""
+    from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
+
+    cfg, params, q, qstates, _ = _enhanced(gen, dev, steps=2)
+    betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device=dev).betas
+    x = _f(gen, (2, 8, 8, 3), dev)
+    checks.reset_launches()
+    out = serving_ddim_sampler(q, params, qstates, [0, 500], betas)(x)
+    assert checks.read_launches() == checks.expected_launches(cfg, 2, 2)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, serving_ddim_sampler(q, params, qstates, [0, 500], betas, attn_int8=False)(x))
+    with pytest.raises(ValueError, match="attn_int8=False or None"):
+        serving_ddim_sampler(q, params, qstates, [0, 500], betas, attn_int8=True)
 
 
 @pytest.mark.parametrize("head_split", ["aligned", "ref"])

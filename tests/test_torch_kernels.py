@@ -304,18 +304,22 @@ ROUTES = [
     ((1, 256, 256, 128), "bfloat16"), ((2, 682, 8, 256), "bfloat16"), ((2, 683, 8, 256), "bfloat16"),
     ((1, 64, 64, 512), "bfloat16"), ((2, 819, 8, 128), "int32"), ((2, 820, 8, 128), "int32"),
     ((1, 64, 64, 256), "int32"), ((1, 128, 128, 96), "bfloat16"), ((1, 105, 105, 128), "bfloat16"),
+    ((1, 64, 64, 1032), "bfloat16"),
 ]
 
 
 @pytest.mark.parametrize("shape,dtype", ROUTES, ids=[f"{'x'.join(map(str, s))}-{d}" for s, d in ROUTES])
 def test_epilogue_routes_like_jax(monkeypatch, shape, dtype):
     """The port sends a conv1 output to K2 or K6 at exactly the shapes where
-    JAX's dispatcher takes its whole-image or its blocked kernel; where JAX
+    JAX's dispatcher takes its whole-image or its blocked kernel.  Where JAX
     takes its XLA reference (over the budget, N off the 128 grid or HW not a
-    multiple of 8), the port raises."""
+    multiple of 8), the port takes K2 where K2's plan does (N a multiple of 8
+    up to 1024) and raises, naming the shape, elsewhere."""
     want = _jax_route(monkeypatch, shape, getattr(jnp, dtype))
+    if want == "xla" and shape[-1] % 8 == 0 and shape[-1] <= 1024:
+        want = "K2"
     if want == "xla":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=rf"HW={shape[1] * shape[2]}, N={shape[-1]}"):
             epilogue_route(shape, getattr(torch, dtype))
         with pytest.raises(NotImplementedError):
             epilogue_gn_swish_quant(torch.zeros(shape, dtype=getattr(torch, dtype)), *(torch.ones(shape[-1]),) * 2,

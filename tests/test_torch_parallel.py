@@ -297,15 +297,17 @@ def test_sp_forward_and_gradients_match_jax(forwards, mesh):
 
 
 def test_sp_rows_must_divide():
-    """A level whose height does not split into even slices raises, naming
-    it (GSPMD pads instead: ROADMAP Queue 3)."""
+    """Level 0's height must divide over the sp ranks (ValueError, naming
+    it, as JAX's device_put refuses it); a deeper level whose rows a rank
+    are odd before a downsample no longer raises: `check_rows` returns the
+    first level that runs whole on every rank (GSPMD pads there)."""
     from attentiondm_tpu_torch.models.unet import UNetConfig
     from attentiondm_tpu_torch.parallel.tp import UNetParallel
 
     par = UNetParallel(mode="sp", group=object(), size=4)
-    par.check_rows(UNetConfig(**TOY))  # 16 / 4 = 4 rows, then 8 / 4 = 2: whole
-    par.check_rows(UNetConfig(**{**TOY, "ch_mult": (1, 2, 2)}))  # the last level may hold 1 row a rank
-    with pytest.raises(ValueError, match=r"level 2 \(4x4\)"):  # 1 row a rank cannot downsample
-        par.check_rows(UNetConfig(**{**TOY, "ch_mult": (1, 2, 2, 2)}))
+    assert par.check_rows(UNetConfig(**TOY)) == 2  # 16 / 4 = 4 rows, then 8 / 4 = 2: every level splits
+    assert par.check_rows(UNetConfig(**{**TOY, "ch_mult": (1, 2, 2)})) == 3  # the last level may hold 1 row a rank
+    # level 2 (4x4) holds 1 row a rank, which cannot downsample: the rows are gathered before it, level 3 runs whole
+    assert par.check_rows(UNetConfig(**{**TOY, "ch_mult": (1, 2, 2, 2)})) == 3
     with pytest.raises(ValueError, match=r"level 0 \(12x12\)"):
         UNetParallel(mode="sp", group=object(), size=8).check_rows(UNetConfig(**{**TOY, "resolution": 12}))
