@@ -1,0 +1,1 @@
+"""Plain PyTorch references of the configurations: they import nothing of the program under test."""
