@@ -55,6 +55,20 @@ int8 conv already runs on K1 with its fused epilogue, so every value gives
 the same launches and the same output.  Asymmetric weight folds are the
 interception runtime's (quant/int8_runtime.py): `symmetric=False` raises
 ValueError here, as JAX refuses it.
+
+While a torch profiler collects, the sampler's call names its parts in the
+trace (`utils/profiling.trace_annotation`; with none collecting a span costs
+about 0.4 us and records nothing): the containers `adm.sample` (one call,
+its kernel-plan checks included), `adm.step` (the forward and the update)
+and `adm.attn` (one attention block), and the leaves `adm.views` (the
+step's views of the fold, `gather_step`), `adm.temb` (the time embedding,
+each resblock's projection of it), `adm.entry` (each GroupNorm ->
+swish -> quantize entry in plain torch or K4), `adm.halo` (each K1 input's
+quantized-zero halo and channel pad), `adm.quant_io` (the quantize before and
+the dequant after each K1 GEMM outside the fused resblock chain, and the
+fake quantization of convs off the fold), `adm.exit` (each block's slice,
+casts and residual add, or K7), `adm.skip` (the decoder's concat) and
+`adm.update` (the DDIM / DDPM rule).  No leaf opens inside another.
 """
 from __future__ import annotations
 
@@ -108,6 +122,7 @@ from ..ops.pallas_conv import (
 )
 from ..ops.pallas_resblock import resblock_pallas as _rb_kernel, resblock_pallas_fits
 from ..ops.quant_conv import _round_up
+from ..utils.profiling import trace_annotation
 from .int8_runtime import _eligible, _fold_all_steps
 from .primitives import div
 from .qunet import QuantizedUNet
@@ -392,11 +407,12 @@ def _entry_gn_quant(h_res, gn_p, quant_params, *, sums=None, entry_pallas=False,
     """Resblock / conv_out entry: GN -> swish -> quantize.  `entry_pallas`
     takes K4 where the image fits JAX's one-pass budget; with `sums`
     (boundary fusion) the plain entry is already one pass and stays."""
-    if entry_pallas and sums is None:
-        C = h_res.shape[-1]
-        if gn_act_quant_fits(h_res.numel() // (h_res.shape[0] * C), C):
-            return gn_act_quant(h_res, gn_p["scale"], gn_p["bias"], quant_params, plain=plain)
-    return gn_act_quant_xla(h_res, gn_p, quant_params, sums=sums)
+    with trace_annotation("adm.entry"):
+        if entry_pallas and sums is None:
+            C = h_res.shape[-1]
+            if gn_act_quant_fits(h_res.numel() // (h_res.shape[0] * C), C):
+                return gn_act_quant(h_res, gn_p["scale"], gn_p["bias"], quant_params, plain=plain)
+        return gn_act_quant_xla(h_res, gn_p, quant_params, sums=sums)
 
 
 def _pad_channels(xp, Cp):
@@ -409,27 +425,33 @@ def int8_conv(xq, gq_flat, ksize: int, *, gqt=None, plain: bool = False):
     Here and below `gqt` is the fold's K-major copy (`ServingLayer.gqt`),
     which the kernel reads; without it K1 transposes `gq_flat` per call."""
     assert ksize == 1, "use int8_conv3_qzero for 3x3 (quantized-zero halo)"
-    return _k1(_pad_channels(xq, gq_flat.shape[0]), gq_flat, ksize=1, gqt=gqt, plain=plain)
+    with trace_annotation("adm.halo"):
+        xp = _pad_channels(xq, gq_flat.shape[0])
+    return _k1(xp, gq_flat, ksize=1, gqt=gqt, plain=plain)
 
 
 def int8_conv3_qzero_down(xq, zp, a_bit, gq_flat, *, gqt=None, plain: bool = False):
     """3x3 stride-2 downsample with the asymmetric (0,1),(0,1) halo of
     quantized zeros -> int32 [B, H/2, W/2, Np] via K1."""
     B, H, W, C = xq.shape
-    xp = _qzero(zp, a_bit).expand(B, H + 1, W + 1, C).clone()
-    xp[:, :H, :W, :] = xq
-    return _k1(_pad_channels(xp, gq_flat.shape[0] // 9), gq_flat, ksize=3, stride=2, gqt=gqt, plain=plain)
+    with trace_annotation("adm.halo"):
+        xp = _qzero(zp, a_bit).expand(B, H + 1, W + 1, C).clone()
+        xp[:, :H, :W, :] = xq
+        xp = _pad_channels(xp, gq_flat.shape[0] // 9)
+    return _k1(xp, gq_flat, ksize=3, stride=2, gqt=gqt, plain=plain)
 
 
 def int8_conv3_qzero(xq, zp, a_bit, gq_flat, *, gqt=None, plain: bool = False):
     """3x3 int8 conv with the per-channel quantized-zero halo -> int32 via K1."""
-    xp = _pad_channels(_pad_qzero(xq, zp, a_bit), gq_flat.shape[0] // 9)
+    with trace_annotation("adm.halo"):
+        xp = _pad_channels(_pad_qzero(xq, zp, a_bit), gq_flat.shape[0] // 9)
     return _k1(xp, gq_flat, ksize=3, gqt=gqt, plain=plain)
 
 
 def _conv3_bf16(xq, zp, a_bit, lay_i: ServingLayer, *, plain: bool = False):
     """3x3 int8 conv -> pre-dequantized bf16 (the dot_bf16 layout) via K1."""
-    xp = _pad_channels(_pad_qzero(xq, zp, a_bit), lay_i.gq.shape[0] // 9)
+    with trace_annotation("adm.halo"):
+        xp = _pad_channels(_pad_qzero(xq, zp, a_bit), lay_i.gq.shape[0] // 9)
     return _k1(xp, lay_i.gq, lay_i.inv_ws, lay_i.zcbias, ksize=3, out_dtype=torch.bfloat16, gqt=lay_i.gqt,
                plain=plain)
 
@@ -458,16 +480,19 @@ def _conv_any(name, x, p, rt_i, qunet, qstates, step_idx, *, stride=1, padding="
     lay = rt_i.get(name)
     if lay is not None and stride == 1:
         a_bit = qunet.policy[name].a_bit
-        xq = _quant_i8(x.to(torch.float32), lay.act_scale, lay.act_zp, a_bit)
+        with trace_annotation("adm.quant_io"):
+            xq = _quant_i8(x.to(torch.float32), lay.act_scale, lay.act_zp, a_bit)
         if p["kernel"].shape[0] == 3:
             dot = int8_conv3_qzero(xq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
         else:
             dot = int8_conv(xq, lay.gq, 1, gqt=lay.gqt, plain=plain)
-        return _epilogue(dot, lay, p["kernel"].shape[3])
+        with trace_annotation("adm.quant_io"):
+            return _epilogue(dot, lay, p["kernel"].shape[3])
     pol = qunet.policy.get(name)
     if pol is not None and name in qstates:
-        xq = quantize_activation(x.to(torch.float32), qstates[name], step_idx, pol.a_bit)
-        return conv2d(xq.to(p["kernel"].dtype), p, stride=stride, padding=padding)
+        with trace_annotation("adm.quant_io"):
+            xq = quantize_activation(x.to(torch.float32), qstates[name], step_idx, pol.a_bit).to(p["kernel"].dtype)
+        return conv2d(xq, p, stride=stride, padding=padding)
     return conv2d(x, p, stride=stride, padding=padding)
 
 
@@ -512,17 +537,20 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, qstates
     a1, a2 = qunet.policy[f"{name}.conv1"], qunet.policy[f"{name}.conv2"]
     co1, co2 = p["conv1"]["kernel"].shape[3], p["conv2"]["kernel"].shape[3]
     # [B, co1]; from a shared timestep's one row (serving_unet_apply), expanded over the batch
-    tproj = dense(swish(temb_act), p["temb_proj"]).to(torch.float32).expand(h_res.shape[0], -1)
+    with trace_annotation("adm.temb"):
+        tproj = dense(swish(temb_act), p["temb_proj"]).to(torch.float32).expand(h_res.shape[0], -1)
 
     if not (c1 is not None and c2 is not None and c1.zcbias.shape[-1] == co1):
         # the unfused chain, each conv dispatched on its own
-        hf = h_res.to(torch.float32)
-        h = _conv_any(f"{name}.conv1", swish(group_norm(hf, p["norm1"])), p["conv1"], rt_i, qunet, qstates, step_idx,
-                      plain=plain)
-        h = swish(group_norm(h + tproj[:, None, None, :], p["norm2"]))
+        with trace_annotation("adm.entry"):
+            h = swish(group_norm(h_res.to(torch.float32), p["norm1"]))
+        h = _conv_any(f"{name}.conv1", h, p["conv1"], rt_i, qunet, qstates, step_idx, plain=plain)
+        with trace_annotation("adm.entry"):
+            h = swish(group_norm(h + tproj[:, None, None, :], p["norm2"]))
         h = _conv_any(f"{name}.conv2", h, p["conv2"], rt_i, qunet, qstates, step_idx, plain=plain)
         x_sc = _shortcut(name, p, h_res, rt_i, qunet, qstates, step_idx, plain=plain)
-        return (x_sc.to(torch.float32) + h).to(res_dtype), None
+        with trace_annotation("adm.exit"):
+            return (x_sc.to(torch.float32) + h).to(res_dtype), None
 
     # K12: identity-residual blocks outside boundary fusion run whole, gated
     # per shape by JAX's conv policy unless "all"
@@ -547,10 +575,11 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, qstates
 
     x_sc = _shortcut(name, p, h_res, rt_i, qunet, qstates, step_idx, plain=plain)
     B, Np = dot2.shape[0], dot2.shape[-1]
-    if want_exit_stats and Np == co2 and epilogue_residual_gn_stats_fits(dot2.numel() // (B * Np), Np):
-        return epilogue_residual_gn_stats(dot2, *epi2, x_sc, out_dtype=res_dtype, plain=plain)
-    h = dot2.to(torch.float32)[..., :co2] if dot_bf16 else _epilogue(dot2, c2, co2)
-    return (x_sc.to(torch.float32) + h).to(res_dtype), None
+    with trace_annotation("adm.exit"):
+        if want_exit_stats and Np == co2 and epilogue_residual_gn_stats_fits(dot2.numel() // (B * Np), Np):
+            return epilogue_residual_gn_stats(dot2, *epi2, x_sc, out_dtype=res_dtype, plain=plain)
+        h = dot2.to(torch.float32)[..., :co2] if dot_bf16 else _epilogue(dot2, c2, co2)
+        return (x_sc.to(torch.float32) + h).to(res_dtype), None
 
 
 def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=None, qstates=None, step_idx=0,
@@ -574,15 +603,18 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
     lays = [rt_i.get(n) for n in names]
     pols = [qunet.policy[n] for n in names]
     if any(lay is None for lay in lays):
-        hf = h_res.to(torch.float32)
-        h = group_norm(hf, p["norm"])
+        with trace_annotation("adm.entry"):
+            hf = h_res.to(torch.float32)
+            h = group_norm(hf, p["norm"])
 
         def fq_conv(key, x):
             return _conv_any(f"{name}.{key}", x, p[key], rt_i, qunet, qstates, step_idx, plain=plain)
 
         q, k, v = (fq_conv(key, h).reshape(B, L, C) for key in ("q", "k", "v"))
         h = spatial_attention(q, k, v, scale=C ** -0.5, plain=plain).reshape(B, H, W, C)
-        return (hf + fq_conv("proj_out", h)).to(res_dtype)
+        out = fq_conv("proj_out", h)
+        with trace_annotation("adm.exit"):
+            return (hf + out).to(res_dtype)
     lq, lk, lv, lo = lays
     qp = [(lay.act_scale, lay.act_zp, pol.a_bit) for lay, pol in zip(lays[:3], pols[:3])]
     scale = C ** -0.5
@@ -596,19 +628,20 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
             scale=scale, int8_core=bool(attn_int8), plain=plain,
         )
         return out.reshape(B, H, W, C)
-    hf = h_res.to(torch.float32)
-    hq, hk, hv = gn_act_quant_xla(hf, p["norm"], qp, act="none")
+    with trace_annotation("adm.entry"):
+        hf = h_res.to(torch.float32)
+        hq, hk, hv = gn_act_quant_xla(hf, p["norm"], qp, act="none")
     if attn_int8 and lq.zcbias.shape[-1] == C:
         dots = [int8_conv(a, lay.gq, 1, gqt=lay.gqt, plain=plain).reshape(B, L, C)
                 for a, lay in ((hq, lq), (hk, lk), (hv, lv))]
-        scales = None
         if ar_i is not None and all(f"{name}.{k}" in ar_i for k in ("q", "k", "v")):
-            scales = [torch.clamp(ar_i[f"{name}.{k}"], min=1e-12) / torch.full_like(ar_i[f"{name}.{k}"], 127.0)
-                      for k in ("q", "k", "v")]
-        if scales is not None:
-            q8, k8, v8 = (
-                torch.clamp(torch.round((d.to(torch.float32) * lay.inv_ws + lay.zcbias) / sc), -127, 127).to(torch.int8)
-                for d, lay, sc in zip(dots, (lq, lk, lv), scales))
+            with trace_annotation("adm.quant_io"):
+                scales = [torch.clamp(ar_i[f"{name}.{k}"], min=1e-12) / torch.full_like(ar_i[f"{name}.{k}"], 127.0)
+                          for k in ("q", "k", "v")]
+                q8, k8, v8 = (
+                    torch.clamp(torch.round((d.to(torch.float32) * lay.inv_ws + lay.zcbias) / sc), -127,
+                                127).to(torch.int8)
+                    for d, lay, sc in zip(dots, (lq, lk, lv), scales))
             oq = fused_int8_attention_static(q8, k8, v8, *scales, lo.act_scale, lo.act_zp, pols[3].a_bit,
                                              scale=scale, plain=plain)
         else:
@@ -617,12 +650,19 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
                                       scale=scale, plain=plain)
         oq = oq.reshape(B, H, W, C)
     else:
-        q, k, v = (_epilogue(int8_conv(a, lay.gq, 1, gqt=lay.gqt, plain=plain), lay, C).reshape(B, L, C)
-                   for a, lay in ((hq, lq), (hk, lk), (hv, lv)))
-        h = spatial_attention(q, k, v, scale=scale, plain=plain).reshape(B, H, W, C)
-        oq = _quant_i8(h, lo.act_scale, lo.act_zp, pols[3].a_bit)
-    out = _epilogue(int8_conv(oq, lo.gq, 1, gqt=lo.gqt, plain=plain), lo, C)
-    return (hf + out).to(res_dtype)
+        qkv = []
+        for a, lay in ((hq, lq), (hk, lk), (hv, lv)):
+            dot = int8_conv(a, lay.gq, 1, gqt=lay.gqt, plain=plain)
+            with trace_annotation("adm.quant_io"):
+                qkv.append(_epilogue(dot, lay, C).reshape(B, L, C))
+        h = spatial_attention(*qkv, scale=scale, plain=plain).reshape(B, H, W, C)
+        with trace_annotation("adm.quant_io"):
+            oq = _quant_i8(h, lo.act_scale, lo.act_zp, pols[3].a_bit)
+    dot = int8_conv(oq, lo.gq, 1, gqt=lo.gqt, plain=plain)
+    with trace_annotation("adm.quant_io"):
+        out = _epilogue(dot, lo, C)
+    with trace_annotation("adm.exit"):
+        return (hf + out).to(res_dtype)
 
 
 def _attn_fused_enhanced(name, p, h_res, rt_i, qunet, qstates, step_idx, res_dtype, *, mp_ctx=None, plain=False):
@@ -646,7 +686,8 @@ def _attn_fused_enhanced(name, p, h_res, rt_i, qunet, qstates, step_idx, res_dty
     q, k, v = q.reshape(B, H * W, Ck), k.reshape(B, H * W, Ck), v.reshape(B, H * W, C)
     out = enhanced_core(name, q, k.transpose(1, 2), v, qunet.cfg, mp_ctx)
     out = proj("output_conv", out.reshape(B, H, W, C))
-    return (p["gamma"].to(torch.float32) * out + hf).to(res_dtype)
+    with trace_annotation("adm.exit"):
+        return (p["gamma"].to(torch.float32) * out + hf).to(res_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -697,8 +738,9 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                  resblock_pallas=resblock_pallas)
     check_ported(cfg)
     attn_int8 = _require_attention_flags(cfg, attn_int8, attn_ranges, mp_states)
-    rt_i = gather_step(runtime, step_idx)
-    ar_i = None if attn_ranges is None else {k: a[step_idx] for k, a in attn_ranges.items()}
+    with trace_annotation("adm.views"):
+        rt_i = gather_step(runtime, step_idx)
+        ar_i = None if attn_ranges is None else {k: a[step_idx] for k, a in attn_ranges.items()}
     res = residual_dtype
     if cfg.attn_variant == "enhanced":
         mp_ctx = None
@@ -706,11 +748,14 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
             mp_ctx = dict(mp_states=mp_states, base_bits=mp_base_bits, timestep=t.reshape(-1)[0].to(torch.int64))
 
         def attn_site(nm, pp, hh):
-            return _attn_fused_enhanced(nm, pp, hh, rt_i, qunet, qstates, step_idx, res, mp_ctx=mp_ctx, plain=plain)
+            with trace_annotation("adm.attn"):
+                return _attn_fused_enhanced(nm, pp, hh, rt_i, qunet, qstates, step_idx, res, mp_ctx=mp_ctx,
+                                            plain=plain)
     else:
         def attn_site(nm, pp, hh):
-            return _attn_fused(nm, pp, hh, rt_i, qunet, res, attn_int8=attn_int8, ar_i=ar_i, qstates=qstates,
-                               step_idx=step_idx, plain=plain)
+            with trace_annotation("adm.attn"):
+                return _attn_fused(nm, pp, hh, rt_i, qunet, res, attn_int8=attn_int8, ar_i=ar_i, qstates=qstates,
+                                   step_idx=step_idx, plain=plain)
     num_levels = len(cfg.ch_mult)
     levers = dict(qstates=qstates, step_idx=step_idx, dot_bf16=dot_bf16, entry_pallas=bool(entry_pallas),
                   resblock_pallas=resblock_pallas, plain=plain)
@@ -722,8 +767,9 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     # the resblocks' projections of its one row: the same bits at any batch size (a [B, C] matmul's rounding
     # depends on B), so micro-batches give the whole batch's output
     t1 = t[:1] if t.ndim == 1 and t.shape[0] > 1 and t.stride(0) == 0 else t
-    temb = get_timestep_embedding(t1, cfg.ch)
-    temb = dense(swish(dense(temb, params["temb"]["dense0"])), params["temb"]["dense1"])
+    with trace_annotation("adm.temb"):
+        temb = get_timestep_embedding(t1, cfg.ch)
+        temb = dense(swish(dense(temb, params["temb"]["dense0"])), params["temb"]["dense1"])
 
     hs = [conv_site("conv_in", x.to(torch.float32)).to(res)]
     # boundary fusion: `sums` carries the previous fused exit's GroupNorm sums
@@ -750,11 +796,15 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
             elif lay is not None:
                 # int8 stride-2 downsample (asymmetric quantized-zero pad)
                 a_bit = qunet.policy[nm].a_bit
-                xq = _quant_i8(hs[-1].to(torch.float32), lay.act_scale, lay.act_zp, a_bit)
+                with trace_annotation("adm.quant_io"):
+                    xq = _quant_i8(hs[-1].to(torch.float32), lay.act_scale, lay.act_zp, a_bit)
                 dot = int8_conv3_qzero_down(xq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
-                hd = _epilogue(dot, lay, lookup(params, nm)["kernel"].shape[3])
+                with trace_annotation("adm.quant_io"):
+                    hd = _epilogue(dot, lay, lookup(params, nm)["kernel"].shape[3]).to(res)
             else:  # off the fold: the (0, 1) zero pad, then the fake-quant stride-2 conv, as the FP graph
-                hd = conv_site(nm, F.pad(hs[-1], (0, 0, 0, 1, 0, 1)), stride=2, padding="VALID")
+                with trace_annotation("adm.halo"):
+                    hd = F.pad(hs[-1], (0, 0, 0, 1, 0, 1))
+                hd = conv_site(nm, hd, stride=2, padding="VALID")
             hs.append(hd.to(res))
 
     h = hs[-1]
@@ -766,8 +816,10 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     for i_level in reversed(range(num_levels)):
         lp = params["up"][i_level]
         for i_block in range(cfg.num_res_blocks + 1):
-            h, _ = _resblock_fused(f"up.{i_level}.block.{i_block}", lp["block"][i_block],
-                                   torch.cat([h, hs.pop()], dim=-1), temb, rt_i, qunet, res, **levers)
+            with trace_annotation("adm.skip"):
+                h = torch.cat([h, hs.pop()], dim=-1)
+            h, _ = _resblock_fused(f"up.{i_level}.block.{i_block}", lp["block"][i_block], h, temb, rt_i, qunet, res,
+                                   **levers)
             if lp["attn"]:
                 h = attn_site(f"up.{i_level}.attn.{i_block}", lp["attn"][i_block], h)
         if i_level != 0:
@@ -778,9 +830,11 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                 # repeat the int8 entries (nearest resize commutes exactly with
                 # per-channel quantization)
                 a_bit = qunet.policy[nm].a_bit
-                xq = nearest_up2(_quant_i8(h.to(torch.float32), lay.act_scale, lay.act_zp, a_bit))
+                with trace_annotation("adm.quant_io"):
+                    xq = nearest_up2(_quant_i8(h.to(torch.float32), lay.act_scale, lay.act_zp, a_bit))
                 dot = int8_conv3_qzero(xq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
-                h = _epilogue(dot, lay, lookup(params, nm)["kernel"].shape[3]).to(res)
+                with trace_annotation("adm.quant_io"):
+                    h = _epilogue(dot, lay, lookup(params, nm)["kernel"].shape[3]).to(res)
             else:
                 h = nearest_up2(h)
                 if cfg.resamp_with_conv:
@@ -790,12 +844,15 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     # norm_out -> swish -> conv_out: int8, or off the fold the fake-quant float conv
     lay = rt_i.get("conv_out")
     if lay is None:
-        return conv_site("conv_out", swish(group_norm(h.to(torch.float32), params["norm_out"]))).to(torch.float32)
+        with trace_annotation("adm.entry"):
+            h = swish(group_norm(h.to(torch.float32), params["norm_out"]))
+        return conv_site("conv_out", h).to(torch.float32)
     a_bit = qunet.policy["conv_out"].a_bit
     (hq,) = _entry_gn_quant(h, params["norm_out"], [(lay.act_scale, lay.act_zp, a_bit)],
                             entry_pallas=bool(entry_pallas), plain=plain)
     dot = int8_conv3_qzero(hq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
-    return _epilogue(dot, lay, cfg.out_ch).to(torch.float32)
+    with trace_annotation("adm.quant_io"):
+        return _epilogue(dot, lay, cfg.out_ch).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -892,36 +949,39 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
         """Steps lo .. hi - 1 of the schedule, with the fold `rt` and states `qs` of those steps."""
         n, rule = x.shape[0], step_rule(update, eta, gen, noise)
         for i in range(lo, hi):
-            et = serving_unet_apply(params, qunet.cfg, qunet, rt, qs, x, t_rev[i].to(torch.float32).expand(n),
-                                    i - lo, attn_ranges=ar, **flags)
-            x, _ = rule(i, x, et, t_rev[i], at[i], at_next[i])
+            with trace_annotation("adm.step"):
+                et = serving_unet_apply(params, qunet.cfg, qunet, rt, qs, x, t_rev[i].to(torch.float32).expand(n),
+                                        i - lo, attn_ranges=ar, **flags)
+                with trace_annotation("adm.update"):
+                    x, _ = rule(i, x, et, t_rev[i], at[i], at_next[i])
         return x
 
     def sample(x, generator=None, noise=None):
-        mb = micro_batch or x.shape[0]
-        xs = list(x.split(mb))
-        for n in sorted({xi.shape[0] for xi in xs}):
-            require_gn_kernels(qunet.cfg, x.device, n, residual_dtype=residual_dtype, dot_bf16=dot_bf16,
-                               entry_pallas=entry_pallas, boundary_fusion=boundary_fusion,
-                               resblock_pallas=resblock_pallas)
-        require_attention_kernels(qunet.cfg, x.device, attn_int8=attn_int8, attn_ranges=attn_ranges)
-        gens = [None] * len(xs)
-        if noised and noise is None:
-            gens = _stream_generators(generator or torch.Generator(device=x.device).manual_seed(0), len(xs))
-        noises = [None] * len(xs)
-        if noise is not None:
-            noises = [[noise[i][j * mb:(j + 1) * mb] for i in range(S)] for j in range(len(xs))]
-        if step_chunk is None:
-            return run(x, runtime, qstates, attn_ranges, 0, S, gens[0], noises[0])
-        for c0 in range(0, S, step_chunk):
-            sl = slice(c0, min(c0 + step_chunk, S))
-            rt = fold(sl)
-            qs = _slice_states(qstates, sl)
-            ar = None if attn_ranges is None else {k: a[sl] for k, a in attn_ranges.items()}
-            for j, xj in enumerate(xs):
-                xs[j] = run(xj, rt, qs, ar, sl.start, sl.stop, gens[j], noises[j])
-            del rt
-        return torch.cat(xs)
+        with trace_annotation("adm.sample"):
+            mb = micro_batch or x.shape[0]
+            xs = list(x.split(mb))
+            for n in sorted({xi.shape[0] for xi in xs}):
+                require_gn_kernels(qunet.cfg, x.device, n, residual_dtype=residual_dtype, dot_bf16=dot_bf16,
+                                   entry_pallas=entry_pallas, boundary_fusion=boundary_fusion,
+                                   resblock_pallas=resblock_pallas)
+            require_attention_kernels(qunet.cfg, x.device, attn_int8=attn_int8, attn_ranges=attn_ranges)
+            gens = [None] * len(xs)
+            if noised and noise is None:
+                gens = _stream_generators(generator or torch.Generator(device=x.device).manual_seed(0), len(xs))
+            noises = [None] * len(xs)
+            if noise is not None:
+                noises = [[noise[i][j * mb:(j + 1) * mb] for i in range(S)] for j in range(len(xs))]
+            if step_chunk is None:
+                return run(x, runtime, qstates, attn_ranges, 0, S, gens[0], noises[0])
+            for c0 in range(0, S, step_chunk):
+                sl = slice(c0, min(c0 + step_chunk, S))
+                rt = fold(sl)
+                qs = _slice_states(qstates, sl)
+                ar = None if attn_ranges is None else {k: a[sl] for k, a in attn_ranges.items()}
+                for j, xj in enumerate(xs):
+                    xs[j] = run(xj, rt, qs, ar, sl.start, sl.stop, gens[j], noises[j])
+                del rt
+            return torch.cat(xs)
 
     sample.runtime = runtime
     return sample

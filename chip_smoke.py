@@ -1411,8 +1411,8 @@ def profile_sampler(label, run, wall_ms, top: int = 25, split: bool = False):
     """torch.profiler over one run of a sampler (or a training step): device
     time per kernel, and its share of the run's wall time; with `split`, the
     kernels' sum in cuDNN / cuBLAS's (`LIBRARY_KERNELS`) and the rest.
-    Autograd's nodes and the runtime's markers, which carry their kernels'
-    time again, are left out."""
+    Autograd's nodes, the runtime's markers and the serving call's `adm.*`
+    spans, which carry their kernels' time again, are left out."""
     import re
 
     import torch
@@ -1424,7 +1424,8 @@ def profile_sampler(label, run, wall_ms, top: int = 25, split: bool = False):
     rows = []
     for e in prof.key_averages():
         dt = getattr(e, "device_time_total", 0)
-        if (dt and not e.key.startswith(("aten::", "cuda", "autograd::")) and not re.search(r"Backward\d*$", e.key)
+        if (dt and not e.key.startswith(("aten::", "cuda", "autograd::", "adm."))
+                and not re.search(r"Backward\d*$", e.key)
                 and e.key not in ("Command Buffer Full", "torch::autograd::AccumulateGrad")):
             rows.append((dt / 1e3, e.count, e.key))
     rows.sort(reverse=True)

@@ -1,14 +1,10 @@
-"""PyTorch port vs the JAX package: `utils/profiling.py` (`trace_annotation`,
-`StepTimer`, `SmoothedValue` with its cross-process sum over a gloo group),
+"""PyTorch port vs the JAX package: `utils/profiling.py`'s `trace_annotation`,
 `utils/metrics_log.py`'s `AverageMeter` and `log_every`, and the native PNG
 writer (`native.write_png_batch`, the port's copy of `png_writer.cc` built
 with g++): its pixels equal `utils/images.write_png_batch`'s, its bytes JAX's
 native writer's."""
 import logging
 import os
-import subprocess
-import sys
-import textwrap
 
 import numpy as np
 import pytest
@@ -16,60 +12,8 @@ import torch
 
 from attentiondm_tpu.native import write_png_batch as j_write_png_batch
 from attentiondm_tpu.utils import metrics_log as jml
-from attentiondm_tpu.utils import profiling as jprof
 from attentiondm_tpu_torch import native
 from attentiondm_tpu_torch.utils import images, metrics_log, profiling
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def test_smoothed_value_matches_jax():
-    vals = [1.0, 2.5, -3.0, 4.0, 7.25, 0.5]
-    ours, theirs = profiling.SmoothedValue(window_size=4), jprof.SmoothedValue(window_size=4)
-    for i, v in enumerate(vals):
-        ours.update(v, n=i % 3 + 1)
-        theirs.update(v, n=i % 3 + 1)
-        assert (ours.median, ours.avg, ours.global_avg) == (theirs.median, theirs.avg, theirs.global_avg)
-    assert list(ours.deque) == list(theirs.deque) == vals[-4:]
-    ours.synchronize_between_processes()  # one process, no group: nothing changes
-    assert (ours.count, ours.total) == (theirs.count, theirs.total)
-    empty = profiling.SmoothedValue()
-    assert np.isnan(empty.median) and np.isnan(empty.avg) and empty.global_avg == 0.0
-
-
-def test_smoothed_value_sums_across_a_gloo_group(tmp_path):
-    """Two processes in a gloo group: each one's (count, total) becomes the
-    sum of both; the windows stay each process's own."""
-    code = textwrap.dedent("""
-        import sys, torch.distributed as dist
-        from attentiondm_tpu_torch.utils.profiling import SmoothedValue
-        rank = int(sys.argv[1])
-        dist.init_process_group("gloo", init_method="file://" + sys.argv[2], rank=rank, world_size=2)
-        s = SmoothedValue(window_size=2)
-        for v in ([1.0, 2.0, 3.0] if rank == 0 else [10.0]):
-            s.update(v)
-        s.synchronize_between_processes()
-        print(s.count, s.total, s.avg)
-        dist.destroy_process_group()
-    """)
-    env = {**os.environ, "PYTHONPATH": REPO}
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(tmp_path / "rdv")], env=env, cwd=REPO,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
-    outs = [p.communicate(timeout=120) for p in procs]
-    assert all(p.returncode == 0 for p in procs), outs
-    assert [o.split() for o, _ in outs] == [["4", "16.0", "2.5"], ["4", "16.0", "10.0"]]
-
-
-def test_step_timer():
-    t = profiling.StepTimer()
-    with t.lap():
-        pass
-    out = []
-    with t.lap(out):
-        out.append({"x": [torch.ones(3) * 2]})
-    assert len(t.times) == 2 and t.best >= 0 and t.mean >= t.best
-    assert np.isnan(profiling.StepTimer().best) and np.isnan(profiling.StepTimer().mean)
-
 
 def test_trace_annotation_names_a_profiler_region():
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
