@@ -24,7 +24,7 @@
 //      r + (acc * inv_ws + zcbias) rounded once to bf16, or kept in f32.
 // Launch 1 reads r as it is (bf16 or f32: K4's two input types), launch 4
 // adds it in EPI_RESADD_BF16 or EPI_RESADD_F32.
-// Launches 1 and 3 take the plans ops/fused_gn.epilogue_plan(..., "K4")
+// Launches 1 and 3 take the plans ops/fused_gn.epilogue_plan(..., "K4", halo=True)
 // gives their shape and input type (the image form at every serving shape).  Against the unfused resblock this drops the
 // plain-torch halo padding, the entry's separate passes and the exit's
 // dequant and add.  What still goes through device memory between the

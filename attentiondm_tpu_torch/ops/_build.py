@@ -70,8 +70,8 @@ SIGNATURES = {
     # q, k, v, out (f32), B, L, D, block_k, scale, stream
     "adm_flash_attention": [_P] * 4 + [_I] * 4 + [_F, _P],
     # x, x_is_f32, gn_scale, gn_bias, (scale, zp) x3, n_out, n_levels x3, out x3, swish,
-    # B, HW, N, groups, inv_count, plan, stream
-    "adm_gn_act_quant": [_P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 3 + [_I] * 5 + [_F, _TILE, _P],
+    # B, HW, N, groups, inv_count, scratch partial and flags (the blocked form; else null), plan, stream
+    "adm_gn_act_quant": [_P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 3 + [_I] * 5 + [_F, _P, _P, _TILE, _P],
     # dot, dot_is_int32, inv_ws, zcbias, x_res, res_is_f32, out, out_is_f32, sums, B, HW, N, groups, plan,
     # channels a thread, stream
     "adm_epilogue_residual_gn_stats": [_P, _I, _P, _P, _P, _I, _P, _I, _P] + [_I] * 4 + [_TILE, _I, _P],

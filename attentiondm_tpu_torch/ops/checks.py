@@ -338,14 +338,18 @@ def require_attention_kernels(cfg, device, *, attn_int8=None, attn_ranges=None):
 
 
 def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, resblock_pallas=False,
-               dot_bf16=True) -> dict:
-    """The sites of one serving step that the three levers send through K4,
-    K7 and K12, from the config and the forward's own predicates (no
-    tensors): {"K4": [(site, HW, C)], "K7": [(site, HW, N)], "K12": [(site,
-    H, C)]}.  A site is a resblock's name, or "conv_out" for its entry.
-    Only a `fused_block` takes a lever; K12 also needs `dot_bf16` (JAX's
-    gate).  The residual's dtype moves no site: JAX's predicates read
-    shapes only."""
+               dot_bf16=True, residual_dtype=torch.float32) -> dict:
+    """The sites of one serving step that run on K4, K7 and K12, from the
+    config and the forward's own predicates (no tensors): {"K4": [(site,
+    HW, C)], "K7": [(site, HW, N)], "K12": [(site, H, C)]}.  A site is a
+    resblock's name, "conv_out" for its entry, or a composed attention
+    block's name for its three-output entry.  K4 takes every entry of a
+    `fused_block` that carries no K7 sums and is not K12's, conv_out's and
+    the composed attention blocks', wherever `gn_act_quant_takes` admits
+    the shape at the residual's dtype, at either value of `entry_pallas`
+    (JAX's lever, which moves nothing here).  Only a `fused_block` takes
+    the two other levers; K12 also needs `dot_bf16` (JAX's gate)."""
+    del entry_pallas  # every entry K4 takes runs on it whatever its value
     from ..models.unet import iter_conv_layers
     from .pallas_conv import conv3_pallas_wins
     from .pallas_resblock import resblock_pallas_fits
@@ -369,7 +373,7 @@ def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, re
                 and (resblock_pallas == "all" or conv3_pallas_wins(batch, H, H, cin, cin))):
             plan["K12"].append((name, H, cin))
             return
-        if entry_pallas and not entry_sums and fused_gn.gn_act_quant_fits(H * H, cin):
+        if not entry_sums and fused_gn.gn_act_quant_takes(batch, H * H, cin, residual_dtype):
             plan["K4"].append((name, H * H, cin))
         if want and cout % 128 == 0 and fused_gn.epilogue_residual_gn_stats_fits(H * H, cout):
             plan["K7"].append((name, H * H, cout))
@@ -389,8 +393,12 @@ def lever_plan(cfg, batch: int, *, entry_pallas=False, boundary_fusion=False, re
     for lvl in reversed(range(levels)):
         for j in range(nrb + 1):
             block(f"up.{lvl}.block.{j}", lvl)
-    if entry_pallas and cin_of["conv_out"] >= 64 and fused_gn.gn_act_quant_fits(res[0] * res[0], cin_of["conv_out"]):
+    if cin_of["conv_out"] >= 64 and fused_gn.gn_act_quant_takes(batch, res[0] * res[0], cin_of["conv_out"],
+                                                                residual_dtype):
         plan["K4"].append(("conv_out", res[0] * res[0], cin_of["conv_out"]))
+    if cfg.attn_variant != "enhanced":  # the composed attention blocks' entries: no swish, three outputs
+        plan["K4"] += [(site, L, C) for site, L, C in attention_sites(cfg)
+                       if not _k3_site(L, C) and fused_gn.gn_act_quant_takes(batch, L, C, residual_dtype, 3)]
     return plan
 
 
@@ -401,13 +409,11 @@ def gn_refused(cfg, batch: int, *, residual_dtype=torch.float32, dot_bf16=True, 
     CUDA kernel would refuse its shape: a resblock epilogue off K2's and
     K6's plans for conv1's output (bf16, or int32 with `dot_bf16=False`;
     over the whole-image budget and off K6's grid `epilogue_route` sends it
-    to K2, so it is refused only where K2's plan is; kernel "K2/K6"), a K4
-    entry without a plan for the residual's dtype
-    (`gn_act_quant_takes`: N above 2048, or above 1024 past 1024 rows, off
-    the 8-channel grid), a K7 exit
-    without a launch plan (`epilogue_residual_gn_stats_takes`: N above 1024,
+    to K2, so it is refused only where K2's plan is; kernel "K2/K6"), a K7
+    exit without a launch plan (`epilogue_residual_gn_stats_takes`: N above 1024,
     off the 8-channel grid, past 32 * 32 windows), a K12 block off
-    `resblock_pallas_takes` at the residual's dtype.  On the card
+    `resblock_pallas_takes` at the residual's dtype.  No entry is refused:
+    one that no form of K4 takes runs in plain torch.  On the card
     `serving_ddim_sampler` raises with them before its first step
     (`require_gn_kernels`)."""
     from ..models.unet import iter_conv_layers
@@ -415,7 +421,7 @@ def gn_refused(cfg, batch: int, *, residual_dtype=torch.float32, dot_bf16=True, 
 
     if residual_dtype not in fused_gn.RESIDUAL_DTYPES:
         raise ValueError(f"residual_dtype={residual_dtype!r}: the serving path's residual stream is bf16 or f32")
-    plan = lever_plan(cfg, batch, dot_bf16=dot_bf16, **levers)
+    plan = lever_plan(cfg, batch, dot_bf16=dot_bf16, residual_dtype=residual_dtype, **levers)
     whole = {site for site, _H, _C in plan["K12"]}
     levels = len(cfg.ch_mult)
     dot = torch.bfloat16 if dot_bf16 else torch.int32
@@ -434,8 +440,6 @@ def gn_refused(cfg, batch: int, *, residual_dtype=torch.float32, dot_bf16=True, 
             fused_gn.epilogue_plan(batch, H * H, N, dot, kind)
         except NotImplementedError:
             refused.append((block, H * H, N, "K2/K6"))
-    refused += [(site, HW, C, "K4") for site, HW, C in plan["K4"]
-                if not fused_gn.gn_act_quant_takes(batch, HW, C, residual_dtype)]
     refused += [(site, HW, N, "K7") for site, HW, N in plan["K7"]
                 if not fused_gn.epilogue_residual_gn_stats_takes(HW, N)]
     refused += [(site, H * H, C, "K12") for site, H, C in plan["K12"]
@@ -453,8 +457,8 @@ def require_gn_kernels(cfg, device, batch: int, **flags):
     refused = gn_refused(cfg, batch, **flags)
     if refused:
         raise NotImplementedError(
-            "GroupNorm / resblock sites off the CUDA kernels' shapes (N or C a multiple of 8 up to 1024, K4 up to 2048 "
-            "within 1024 rows, HW up to 2^20 rows): "
+            "GroupNorm / resblock sites off the CUDA kernels' shapes (N or C a multiple of 8 up to 1024, HW up to "
+            "2^20 rows): "
             + ", ".join(f"{site} (HW={HW}, C={C}) -> {kind}" for site, HW, C, kind in refused))
 
 
@@ -467,16 +471,17 @@ def expected_launches(cfg, steps: int = 1, batch: int = 1, *, attn_int8=None, at
     levers given
     (`lever_plan`'s keywords; none: the levers-off path).  A block K12 takes
     launches neither its two K1 convs nor its K2 / K6 epilogue; a composed
-    attention site launches K1 four times, and so does an enhanced one (in
-    1x1 int32 mode: K5), with no K3 and no core kernel.  `residual_dtype`
-    (bf16 or f32) and `conv_pallas` change no count; they are taken so that
-    a sampler's flags pass whole."""
+    attention site launches K1 four times and K4 once where it takes the
+    map, an enhanced one K1 four times (in 1x1 int32 mode: K5), with no K3
+    and no core kernel.  `residual_dtype` (bf16 or f32), `conv_pallas` and
+    `entry_pallas` change no count; they are taken so that a sampler's
+    flags pass whole."""
     del conv_pallas  # every int8 conv is K1 whatever its value
     if residual_dtype not in fused_gn.RESIDUAL_DTYPES:
         raise ValueError(f"residual_dtype={residual_dtype!r}: the serving path's residual stream is bf16 or f32")
     k1, k2, k6, k3, _composed = conv_plan(cfg, dot_bf16=dot_bf16)
     attn = attention_plan(cfg, attn_int8=attn_int8, attn_ranges=attn_ranges)
-    plan = lever_plan(cfg, batch, dot_bf16=dot_bf16, **levers)
+    plan = lever_plan(cfg, batch, dot_bf16=dot_bf16, residual_dtype=residual_dtype, **levers)
     whole = {site for site, _H, _C in plan["K12"]}
     k1 = [c for c in k1 if c[0].rsplit(".", 1)[0] not in whole]
     taken = [(H * H, C) for _site, H, C in plan["K12"]]

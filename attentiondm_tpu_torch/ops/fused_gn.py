@@ -7,7 +7,10 @@ exit plus the next entry's statistics).
 K4 (csrc/gn_act_quant.cu): GroupNorm -> swish or none -> one to three int8
 quantizations of the same normalized tensor, on K2's kernels
 (csrc/gn_epilogue.cuh) with x as the producer, launched as
-`epilogue_plan(..., "K4")` says.  K7
+`epilogue_plan(..., "K4")` says: the image form up to 32 windows, the
+blocked form (K6's grid) past them on the 128-channel grid, the cluster form
+elsewhere.  The serving step routes every entry that `gn_act_quant_takes`
+admits to it.  K7
 (csrc/epilogue_residual_gn_stats.cu): residual' = x_res + dequant(dot) and
 the per-(image, group) sums [B, 2, G] of the f32 residual', which
 `gn_finalize_sums` turns into the next GroupNorm's mean and rstd; on the
@@ -181,6 +184,7 @@ IMAGE_ROWS = (1, 2, 4, 8, 16, 32)  # row groups of threads an image (or slice) t
 K7_MAX_THREADS = 256  # K7's launch bound (csrc/gn_epilogue.cuh GNE_K7_THREADS; up to 255 registers: a batch of rows)
 K7_BLOCK = 128  # the threads a K7 block aims at, where its row groups and slices allow (PERF.md)
 K7_VECS = (8, 4, 2, 1)  # the channels a K7 thread may take
+K4_BLOCKED_THREADS = (128, 512)  # the blocked form's blocks: WAVE_THREADS over the items, within these (PERF.md)
 
 
 def max_threads(n_out: int) -> int:
@@ -204,9 +208,10 @@ def _k2_smem(wpb: int, N: int, itemsize: int, threads: int, held: bool) -> int:
 
 
 @functools.lru_cache(maxsize=None)  # the wrappers ask once a call; a plan is a few dozen Python operations
-def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str, n_out: int = 1) -> dict:
+def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str, n_out: int = 1, halo: bool = False) -> dict:
     """How K2 ("K2"), K6 ("K6") or K4's kernel ("K4", with `n_out` int8
-    outputs) spreads one call over the card.
+    outputs, written halo'd where `halo`: K12's launches) spreads one call
+    over the card.
 
     K2: a thread-block cluster of `cluster` blocks per image, each owning
     `wpb` consecutive 32-row windows (`rows` = 32 * wpb rows; the image's last
@@ -231,8 +236,14 @@ def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str, n_out: int = 1) -> 
     per slice of whole groups, no cluster), at least one row group a window
     where a plan has that many, and of those the one whose threads come
     nearest a wave (WAVE_THREADS; by ratio, ties to the more threads);
-    larger images take the cluster form, ranked as K2's, bounded at
-    `max_threads(n_out)`.  The image form takes N up to IMAGE_MAX_N: past
+    larger images on the 128-channel grid with at most `SMS` chunks take the
+    blocked form (`blocked_plans`: K6's persistent grid over (image, chunk)
+    items, the block nearest a wave of threads over the B x chunks items,
+    WAVE_THREADS / items held within K4_BLOCKED_THREADS, by ratio, ties to
+    the fewer: few items want large blocks, many items small ones, whose
+    apply passes run beside other blocks' first reads),
+    unless the output is halo'd; the rest take the cluster form, ranked as
+    K2's, bounded at `max_threads(n_out)`.  The image form takes N up to IMAGE_MAX_N: past
     1024 channels a row group of 8-channel threads outgrows the block, so
     the plan slices the image into more blocks of whole groups (a thread
     keeps its 8 channels and its registers), and the wave rule above picks
@@ -255,7 +266,7 @@ def epilogue_plan(B: int, HW: int, N: int, dtype, kind: str, n_out: int = 1) -> 
 
     Raises NotImplementedError for a shape the kernels do not take."""
     if kind == "K4":
-        return _k4_plan(B, HW, N, dtype, n_out)
+        return _k4_plan(B, HW, N, dtype, n_out, halo)
     if kind == "K7":
         return _k7_plan(B, HW, N, dtype)
     if dtype not in (torch.bfloat16, torch.int32):
@@ -294,7 +305,7 @@ def _cluster_rank(p, B: int, N: int, itemsize: int):
 _ITEMSIZE = {torch.bfloat16: 2, torch.float32: 4, torch.int32: 4}
 
 
-def _k4_plan(B: int, HW: int, N: int, dtype, n_out: int) -> dict:
+def _k4_plan(B: int, HW: int, N: int, dtype, n_out: int, halo: bool) -> dict:
     if dtype not in _ITEMSIZE or not 1 <= n_out <= 3:
         raise NotImplementedError(f"epilogue_plan: K4 with {dtype} and {n_out} outputs (bf16, f32 or int32 in, "
                                   f"1 to 3 outputs)")
@@ -308,6 +319,11 @@ def _k4_plan(B: int, HW: int, N: int, dtype, n_out: int) -> dict:
         V, nwin = N // VEC, -(-HW // WIN)
         image = [p for p in image if p["row_groups"] >= nwin] or image
         return min(image, key=lambda p: (abs(math.log2(B * V * p["row_groups"] / WAVE_THREADS)), -p["row_groups"]))
+    blocked = [] if halo else blocked_plans(HW, N, n_out)
+    if blocked:
+        lo, hi = K4_BLOCKED_THREADS
+        aim = min(hi, max(lo, WAVE_THREADS // (B * blocked[0]["blocks_per_image"])))
+        return min(blocked, key=lambda p: (abs(math.log2(p["threads"] / aim)), p["threads"]))
     plans = k2_plans(HW, N, itemsize, max_threads(n_out), kind="K4")
     if not plans:
         raise NotImplementedError(f"epilogue_plan: K4 at HW={HW}, N={N} (what a block's shared memory holds; "
@@ -349,6 +365,31 @@ def image_plans(B: int, HW: int, N: int, n_out: int = 1) -> list:
         if smem <= SMEM_MAX:
             plans.append(dict(kind="K4", form="image", slices=ns, row_groups=R, threads=T, smem=smem))
     return plans
+
+
+def _blocked_smem(N: int, threads: int) -> int:
+    """csrc/gn_epilogue.cuh entry_blocked_smem: the round buffer [R, 2, N]
+    and chunk sums [2, N] of a chunk's sums, the image's channel sums [2, N]."""
+    return 4 * 2 * N * (threads // (N // VEC) + 2)
+
+
+def blocked_plans(HW: int, N: int, n_out: int = 1) -> list:
+    """Every plan of K4's blocked form for images of HW rows (more than 32
+    windows, at most `SMS` chunks of CHUNK rows) and N channels (a multiple
+    of 128 up to MAX_N): per number of row groups R (IMAGE_ROWS), blocks of
+    R x (N / 8) threads within `max_threads(n_out)`.  One
+    cooperative launch of resident blocks takes (image, chunk) items in
+    image-major order (`blocks_per_image` = chunks an image): an item sums
+    its chunk, the image's last arrival adds the chunks' sums in
+    `window_sum`'s order, and each item applies its chunk.  An image's
+    chunks must all be in flight at once."""
+    nwin, nchunk = -(-HW // WIN), -(-HW // CHUNK)
+    if N % 128 or N > MAX_N or nwin <= WIN or nchunk > SMS or HW > WIN * WIN * CHUNK:
+        return []
+    V = N // VEC
+    return [dict(kind="K4", form="blocked", blocks_per_image=nchunk, rows=CHUNK, threads=R * V,
+                 smem=_blocked_smem(N, R * V))
+            for R in IMAGE_ROWS if R * V <= max_threads(n_out)]
 
 
 def k7_plans(HW: int, N: int) -> list:
@@ -403,10 +444,12 @@ def _k7_plan(B: int, HW: int, N: int, dtype) -> dict:
                key=lambda p: (abs(math.log2(p["threads"] / K7_BLOCK)), -p["threads"]))
 
 
-def k4_plans(B: int, HW: int, N: int, itemsize: int, n_out: int = 1) -> list:
-    """Every plan K4's kernel takes for this shape: the image form's and the
-    cluster form's (`k2_plans` at `max_threads(n_out)`)."""
-    return image_plans(B, HW, N, n_out) + k2_plans(HW, N, itemsize, max_threads(n_out), kind="K4")
+def k4_plans(B: int, HW: int, N: int, itemsize: int, n_out: int = 1, halo: bool = False) -> list:
+    """Every plan K4's kernel takes for this shape: the image form's, the
+    blocked form's (not with a halo'd output) and the cluster form's
+    (`k2_plans` at `max_threads(n_out)`)."""
+    blocked = [] if halo else blocked_plans(HW, N, n_out)
+    return image_plans(B, HW, N, n_out) + blocked + k2_plans(HW, N, itemsize, max_threads(n_out), kind="K4")
 
 
 @functools.lru_cache(maxsize=None)
@@ -416,10 +459,12 @@ def _plan_ints(vals: tuple):
 
 def plan_args(plan: dict):
     """The six ints a GroupNorm launcher reads (csrc/gn_epilogue.cuh GnPlan):
-    form, blocks an image or channel slices, windows a block (0 in the image
-    form), threads, shared bytes, held."""
+    form, blocks an image, channel slices or chunks an image, windows a block
+    (0 in the image and blocked forms), threads, shared bytes, held."""
     if plan["form"] == "image":
         return _plan_ints((1, plan["slices"], 0, plan["threads"], plan["smem"], 0))
+    if plan["form"] == "blocked":
+        return _plan_ints((2, plan["blocks_per_image"], 0, plan["threads"], plan["smem"], 0))
     return _plan_ints((0, plan["cluster"], plan["wpb"], plan["threads"], plan["smem"], int(plan["held"])))
 
 
@@ -538,13 +583,6 @@ epilogue_gn_swish_quant_blocked.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def gn_act_quant_fits(HW: int, C: int) -> bool:
-    """JAX's predicate for the one-pass entry kernel (a whole f32 image and
-    its int8 output within 4 MiB); callers that route the entry
-    (`quant/int8_serving._entry_gn_quant`) gate on it."""
-    return HW * C * 5 <= WHOLE_IMAGE_BYTES
-
-
 def gn_act_quant_ref(x, gn_scale, gn_bias, quant_params, *, act: str = "swish"):
     """Plain version of K4."""
     B, C = x.shape[0], x.shape[-1]
@@ -558,7 +596,8 @@ def gn_act_quant_takes(B: int, HW: int, C: int, dtype=torch.bfloat16, n_out: int
     """Whether K4's CUDA kernel takes a [B, HW, C] input of `dtype` with
     `n_out` outputs: bf16 or f32, and a launch plan (`epilogue_plan(...,
     "K4")`: C a multiple of 8 and of its groups, up to 2048 in the image
-    form, 1024 past 32 windows)."""
+    form, 1024 past 32 windows).  The serving step sends every GroupNorm
+    entry it admits (without K7's sums) to K4."""
     if dtype not in RESIDUAL_DTYPES:
         return False
     try:
@@ -589,6 +628,10 @@ def gn_act_quant(x, gn_scale, gn_bias, quant_params, *, groups: int = GROUPS, ac
         raise NotImplementedError(f"gn_act_quant: {x.dtype}, {n_out} outputs (K4 takes bf16 or f32, 1 to 3 "
                                   f"outputs)")
     plan = epilogue_plan(B, HW, C, x.dtype, "K4", n_out)
+    partial = flags = None
+    if plan["form"] == "blocked":  # chunk sums [B, nchunk, 2, C] then mean / rstd [B, 2, g]; counters zeroed
+        partial = torch.empty(B * (plan["blocks_per_image"] * 2 * C + 2 * g), dtype=torch.float32, device=x.device)
+        flags = torch.zeros(1 + 2 * B, dtype=torch.int32, device=x.device)
     x = x.contiguous()
     vecs = [_build.f32c(v, x.device) for v in (gn_scale, gn_bias)]
     vecs += [_build.f32c(v, x.device) for (s, z, _b) in quant_params for v in (s, z)]
@@ -600,7 +643,9 @@ def gn_act_quant(x, gn_scale, gn_bias, quant_params, *, groups: int = GROUPS, ac
     err = _build.kernels().adm_gn_act_quant(
         x.data_ptr(), int(x.dtype == torch.float32), *(v.data_ptr() for v in vecs), *pad, *pad, n_out,
         *(2 ** (b - 1) for (_s, _z, b) in quant_params), *pad, *(o.data_ptr() for o in outs), *pad,
-        int(act == "swish"), B, HW, C, g, 1.0 / (HW * (C // g)), plan_args(plan), _build.stream_ptr(x.device))
+        int(act == "swish"), B, HW, C, g, 1.0 / (HW * (C // g)), *(None if t is None else t.data_ptr()
+                                                                    for t in (partial, flags)),
+        plan_args(plan), _build.stream_ptr(x.device))
     _build.check(err, "adm_gn_act_quant")
     gn_act_quant.launches += 1
     return tuple(outs)

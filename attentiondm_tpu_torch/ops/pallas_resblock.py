@@ -15,8 +15,10 @@ buffer, and the GEMM with a dequant + residual-add epilogue.  The residual
 is bf16 or float32 (the float32 residual stream, JAX's default), read as it
 is by the first launch and added by the last (K1's EPI_RESADD_BF16 or
 EPI_RESADD_F32), the output at the same dtype.  The two GroupNorm launches
-take `epilogue_plan(..., "K4")`'s plans for the residual's dtype and for
-int32 input, and write the halos' borders themselves.  The
+take `epilogue_plan(..., "K4", halo=True)`'s plans for the residual's dtype
+and for int32 input (the image form, or past 32 windows the cluster form:
+K4's blocked form writes dense rows), and write the halos' borders
+themselves.  The
 plain version composes the plain versions of the same stages, so its
 float32 sums run in the same order and the two agree to the bit.
 
@@ -72,7 +74,7 @@ def resblock_pallas_takes(B: int, H: int, W: int, C: int, dtype=torch.bfloat16) 
         return False
     try:
         for d in (dtype, torch.int32):
-            epilogue_plan(B, H * W, C, d, "K4")
+            epilogue_plan(B, H * W, C, d, "K4", halo=True)
     except NotImplementedError:
         return False
     return True
@@ -127,7 +129,7 @@ def resblock_pallas(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, 
     out = torch.empty_like(r)
     g = min(GROUPS, C)
     t = conv_tiles(B, H, W, 3, 1, C)
-    plan1, plan3 = (plan_args(epilogue_plan(B, H * W, C, dtype, "K4")) for dtype in (r.dtype, torch.int32))
+    plan1, plan3 = (plan_args(epilogue_plan(B, H * W, C, dtype, "K4", halo=True)) for dtype in (r.dtype, torch.int32))
     err = _build.kernels().adm_resblock(
         r.data_ptr(), int(r.dtype == torch.float32), tproj.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half1)), 2 ** (a_bit1 - 1),
         g1_t.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half2)), 2 ** (a_bit2 - 1), g2_t.data_ptr(),

@@ -3,8 +3,9 @@
 
 Activations are int8-resident between convs.  Per resblock:
 
-  entry:   GroupNorm -> swish -> quantize in plain torch (`gn_act_quant_xla`),
-           or K4 (`entry_pallas`, where the image fits JAX's budget)
+  entry:   GroupNorm -> swish -> quantize on K4 (ops/fused_gn.gn_act_quant)
+           wherever one of its forms takes the shape; in plain torch
+           (`gn_act_quant_xla`) with K7's sums or where none does
   conv1:   K1, 3x3, bf16 epilogue (`acc*inv_ws + zcbias`)
   middle:  K2 or K6 (ops/fused_gn.py, routed by image size): +temb ->
            GroupNorm -> swish -> int8
@@ -19,14 +20,14 @@ behind one call.
 
 Attention blocks route as in JAX (`_attn_fused`): a map that
 `fused_attention_block_fits` lets in is K3 (ops/int8_attention.py) whole,
-with `int8_core=attn_int8`; a larger one is composed of a plain GroupNorm ->
+with `int8_core=attn_int8`; a larger one is composed of a GroupNorm ->
 three quants, three K1 1x1 GEMMs and a core, K9 or K10 at the calibrated
 `attn_ranges` (static scales), K8 without them (dynamic scales), or with
 `attn_int8=False` the float32 `spatial_attention` (K11 at L >= 1024), then
-proj_out's K1 GEMM.  The enhanced variant's block (`_attn_fused_enhanced`)
-has no GroupNorm entry: its four 1x1 projections are K1 GEMMs on the
-quantized residual stream around a float32 (or stage-3 mixed-precision)
-core in plain torch.  The stride-2 downsample, the int8-domain nearest
+proj_out's K1 GEMM; its three-output entry is routed as a resblock's.  The
+enhanced variant's block (`_attn_fused_enhanced`) has no GroupNorm entry:
+its four 1x1 projections are K1 GEMMs on the quantized residual stream
+around a float32 (or stage-3 mixed-precision) core in plain torch.  The stride-2 downsample, the int8-domain nearest
 upsample and `conv_out` are K1 in int32 mode with a plain-torch dequant.
 `conv_in` (3 input channels) stays on the fake-quant float conv.
 
@@ -52,8 +53,10 @@ JAX does not define raises ValueError.  `conv_pallas` takes JAX's
 values (False, True, "all", or a collection of (H, Cp, Np) triples): on the
 TPU it moved a 3x3 conv from XLA's conv to the Pallas kernel; here every
 int8 conv already runs on K1 with its fused epilogue, so every value gives
-the same launches and the same output.  Asymmetric weight folds are the
-interception runtime's (quant/int8_runtime.py): `symmetric=False` raises
+the same launches and the same output.  `entry_pallas` (True or False) is
+alike: on the TPU it moved the entries that fit a VMEM budget to the Pallas
+kernel; here every entry K4 takes runs on K4 at either value.  Asymmetric
+weight folds are the interception runtime's (quant/int8_runtime.py): `symmetric=False` raises
 ValueError here, as JAX refuses it.
 
 While a torch profiler collects, the sampler's call names its parts in the
@@ -101,7 +104,7 @@ from ..ops.fused_gn import (
     epilogue_residual_gn_stats,
     epilogue_residual_gn_stats_fits,
     gn_act_quant,
-    gn_act_quant_fits,
+    gn_act_quant_takes,
     gn_finalize_sums,
     quant_i8 as _quant_i8,
 )
@@ -137,7 +140,7 @@ def _conv_pallas_ok(value) -> bool:
         isinstance(t, (tuple, list)) and len(t) == 3 and all(isinstance(i, int) for i in t) for t in value)
 
 
-def _check_flags(*, residual_dtype, dot_bf16, conv_pallas, resblock_pallas):
+def _check_flags(*, residual_dtype, dot_bf16, entry_pallas, conv_pallas, resblock_pallas):
     """The compute-path flags of `serving_unet_apply`: JAX's values are
     taken; any other raises ValueError, where JAX would treat it as some
     other value (a truthy `resblock_pallas` or `conv_pallas` as True) or fail
@@ -147,6 +150,8 @@ def _check_flags(*, residual_dtype, dot_bf16, conv_pallas, resblock_pallas):
                          "or torch.bfloat16")
     if dot_bf16 is not True and dot_bf16 is not False:
         raise ValueError(f"dot_bf16={dot_bf16!r}: True or False")
+    if entry_pallas is not True and entry_pallas is not False:
+        raise ValueError(f"entry_pallas={entry_pallas!r}: True or False")
     if not _conv_pallas_ok(conv_pallas):
         raise ValueError(f"conv_pallas={conv_pallas!r}: False, True, 'all' or a collection of (H, Cp, Np) triples")
     if not (resblock_pallas is False or resblock_pallas is True
@@ -403,16 +408,19 @@ def gn_act_quant_xla(x, gn_p, quant_params, *, act="swish", sums=None):
     return tuple(_quant_i8(h, s, z, b) for (s, z, b) in quant_params)
 
 
-def _entry_gn_quant(h_res, gn_p, quant_params, *, sums=None, entry_pallas=False, plain=False):
-    """Resblock / conv_out entry: GN -> swish -> quantize.  `entry_pallas`
-    takes K4 where the image fits JAX's one-pass budget; with `sums`
-    (boundary fusion) the plain entry is already one pass and stays."""
+def _entry_gn_quant(h_res, gn_p, quant_params, *, act="swish", sums=None, plain=False):
+    """A GroupNorm -> act -> quantize entry (a resblock's norm1, conv_out's
+    norm_out, a composed attention block's norm with three outputs): K4
+    wherever `gn_act_quant_takes` admits the shape, its plain version with
+    `plain` or on the CPU.  With `sums` (boundary fusion) the plain entry is
+    already one pass and stays, as it does where no form of K4 takes the
+    shape."""
     with trace_annotation("adm.entry"):
-        if entry_pallas and sums is None:
-            C = h_res.shape[-1]
-            if gn_act_quant_fits(h_res.numel() // (h_res.shape[0] * C), C):
-                return gn_act_quant(h_res, gn_p["scale"], gn_p["bias"], quant_params, plain=plain)
-        return gn_act_quant_xla(h_res, gn_p, quant_params, sums=sums)
+        if sums is None:
+            B, C = h_res.shape[0], h_res.shape[-1]
+            if gn_act_quant_takes(B, h_res.numel() // (B * C), C, h_res.dtype, len(quant_params)):
+                return gn_act_quant(h_res, gn_p["scale"], gn_p["bias"], quant_params, act=act, plain=plain)
+        return gn_act_quant_xla(h_res, gn_p, quant_params, act=act, sums=sums)
 
 
 def _pad_channels(xp, Cp):
@@ -519,7 +527,7 @@ def _shortcut(name, p, h_res, rt_i, qunet, qstates, step_idx, *, plain=False):
 
 
 def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, qstates=None, step_idx=0, entry_sums=None,
-                    want_exit_stats=False, dot_bf16=True, entry_pallas=False, resblock_pallas=False, plain=False):
+                    want_exit_stats=False, dot_bf16=True, resblock_pallas=False, plain=False):
     """norm1 -> swish -> conv1 -> (+temb) -> norm2 -> swish -> conv2 (+shortcut),
     fused where the fold covers both convs with conv1's output unpadded
     (JAX's `fused`).  Returns (residual', exit sums or None).
@@ -567,7 +575,7 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, qstates
             return out, None
 
     (hq,) = _entry_gn_quant(h_res, p["norm1"], [(c1.act_scale, c1.act_zp, a1.a_bit)], sums=entry_sums,
-                            entry_pallas=entry_pallas, plain=plain)
+                            plain=plain)
     dot1, epi1 = _conv3_dot(hq, c1.act_zp, a1.a_bit, c1, dot_bf16, plain=plain)
     hq2 = epilogue_gn_swish_quant(dot1, *epi1, tproj, p["norm2"]["scale"], p["norm2"]["bias"], c2.act_scale,
                                   c2.act_zp, a2.a_bit, plain=plain)
@@ -587,7 +595,8 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
     """DDIM single-head attention with int8 q/k/v/proj_out projections.
 
     Where the map fits JAX's whole-block budget: K3, with `int8_core =
-    attn_int8`.  Else the composed branch: one plain GroupNorm pass quantizes
+    attn_int8`.  Else the composed branch: one GroupNorm entry
+    (`_entry_gn_quant`, no swish: K4 where it takes the map) quantizes
     the normalized tensor at the three projections' scales, the 1x1
     projections are K1 GEMMs to int32, and the core is K9 / K10 at the
     step's calibrated ranges `ar_i` (the quantization at scale absmax / 127
@@ -628,9 +637,7 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
             scale=scale, int8_core=bool(attn_int8), plain=plain,
         )
         return out.reshape(B, H, W, C)
-    with trace_annotation("adm.entry"):
-        hf = h_res.to(torch.float32)
-        hq, hk, hv = gn_act_quant_xla(hf, p["norm"], qp, act="none")
+    hq, hk, hv = _entry_gn_quant(h_res, p["norm"], qp, act="none", plain=plain)
     if attn_int8 and lq.zcbias.shape[-1] == C:
         dots = [int8_conv(a, lay.gq, 1, gqt=lay.gqt, plain=plain).reshape(B, L, C)
                 for a, lay in ((hq, lq), (hk, lk), (hv, lv))]
@@ -662,7 +669,7 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
     with trace_annotation("adm.quant_io"):
         out = _epilogue(dot, lo, C)
     with trace_annotation("adm.exit"):
-        return (hf + out).to(res_dtype)
+        return (h_res.to(torch.float32) + out).to(res_dtype)
 
 
 def _attn_fused_enhanced(name, p, h_res, rt_i, qunet, qstates, step_idx, res_dtype, *, mp_ctx=None, plain=False):
@@ -712,9 +719,12 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     accumulator.  `conv_pallas` takes JAX's values and changes nothing here
     (every int8 conv is K1 already).
 
-    The three levers, each routed by JAX's predicates: `entry_pallas` sends
-    every resblock and conv_out entry whose image fits through K4;
-    `boundary_fusion` fuses a resblock exit with the next block's GroupNorm
+    Every resblock, conv_out and composed attention entry runs on K4
+    wherever `gn_act_quant_takes` admits its shape.  `entry_pallas` (True or
+    False), the lever that on the TPU sent the entries within a VMEM budget
+    through the Pallas kernel, takes JAX's values and, as `conv_pallas`,
+    changes nothing here.  The two other levers, each routed by JAX's
+    predicates: `boundary_fusion` fuses a resblock exit with the next block's GroupNorm
     statistics (K7) where that block's norm1 reads exactly the exit's
     tensor; `resblock_pallas` (True: where JAX's conv policy says so; "all":
     wherever it fits) runs identity-residual blocks as K12.
@@ -734,8 +744,8 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
     `t` [B]: the batch's timesteps; one timestep expanded over the batch
     (stride 0) computes its embedding once.  `plain=True` runs the kernels'
     plain versions instead, on any device (for comparisons)."""
-    _check_flags(residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
-                 resblock_pallas=resblock_pallas)
+    _check_flags(residual_dtype=residual_dtype, dot_bf16=dot_bf16, entry_pallas=entry_pallas,
+                 conv_pallas=conv_pallas, resblock_pallas=resblock_pallas)
     check_ported(cfg)
     attn_int8 = _require_attention_flags(cfg, attn_int8, attn_ranges, mp_states)
     with trace_annotation("adm.views"):
@@ -757,8 +767,8 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                 return _attn_fused(nm, pp, hh, rt_i, qunet, res, attn_int8=attn_int8, ar_i=ar_i, qstates=qstates,
                                    step_idx=step_idx, plain=plain)
     num_levels = len(cfg.ch_mult)
-    levers = dict(qstates=qstates, step_idx=step_idx, dot_bf16=dot_bf16, entry_pallas=bool(entry_pallas),
-                  resblock_pallas=resblock_pallas, plain=plain)
+    levers = dict(qstates=qstates, step_idx=step_idx, dot_bf16=dot_bf16, resblock_pallas=resblock_pallas,
+                  plain=plain)
 
     def conv_site(nm, h, **kw):
         return _conv_any(nm, h, lookup(params, nm), rt_i, qunet, qstates, step_idx, plain=plain, **kw)
@@ -848,8 +858,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
             h = swish(group_norm(h.to(torch.float32), params["norm_out"]))
         return conv_site("conv_out", h).to(torch.float32)
     a_bit = qunet.policy["conv_out"].a_bit
-    (hq,) = _entry_gn_quant(h, params["norm_out"], [(lay.act_scale, lay.act_zp, a_bit)],
-                            entry_pallas=bool(entry_pallas), plain=plain)
+    (hq,) = _entry_gn_quant(h, params["norm_out"], [(lay.act_scale, lay.act_zp, a_bit)], plain=plain)
     dot = int8_conv3_qzero(hq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
     with trace_annotation("adm.quant_io"):
         return _epilogue(dot, lay, cfg.out_ch).to(torch.float32)
@@ -920,8 +929,8 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
     timestep, not the step, so a chunk takes them whole.  `plain=True` runs
     every kernel's plain version instead (the other side of a check)."""
     _check_update(update)
-    _check_flags(residual_dtype=residual_dtype, dot_bf16=dot_bf16, conv_pallas=conv_pallas,
-                 resblock_pallas=resblock_pallas)
+    _check_flags(residual_dtype=residual_dtype, dot_bf16=dot_bf16, entry_pallas=entry_pallas,
+                 conv_pallas=conv_pallas, resblock_pallas=resblock_pallas)
     _require_symmetric(symmetric)
     attn_int8 = _require_attention_flags(qunet.cfg, attn_int8, attn_ranges, mp_states)
     if runtime is not None and step_chunk is not None:

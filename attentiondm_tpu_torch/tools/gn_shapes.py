@@ -27,7 +27,10 @@ card's name and power limit.  `--plans` also times, at every shape, each K2
 plan `ops.fused_gn.k2_plans` offers, K6 at 128, 256 and 512 threads a block,
 and each K4 plan `ops.fused_gn.k4_plans` offers (the plan `epilogue_plan`
 picks is marked `*`), each checked against the plain version; K7 under
-each plan `ops.fused_gn.k7_plans` offers, each checked to the bit.
+each plan `ops.fused_gn.k7_plans` offers, each checked to the bit.  At
+each K4 shape that takes the blocked form, `K4.blocked` lines check it to
+the bit on the f32 stream and bf16 with 1 and 3 outputs and time it beside
+its bytes bound and beside the cluster form's plan.
 
 K7 rows: `K7` on the serving path's inputs at an identity-shortcut exit
 (bf16 conv2 output, bf16 residual, bf16 out), `K7.f32_res` on the same
@@ -97,16 +100,18 @@ def sweep(kind, B, HW, N, a, chosen):
         fused_gn.epilogue_plan = plan_of
 
 
-def entry_args(B, HW, C, gen, dev, n_out=1):
-    """A bf16 residual (one channel group at offset 40) and n_out 8-bit quantizations, as chip_smoke's K4 check."""
+def entry_args(B, HW, C, gen, dev, n_out=1, dtype=torch.bfloat16):
+    """A residual of `dtype` (one channel group at offset 40) and n_out 8-bit quantizations (output i at a range
+    shifted by i / 2), as chip_smoke's K4 check."""
     def randf(shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
 
     x = randf((B, HW, C), 2.0, 0.3)
     x[..., :C // 32] += 40.0
     sc = 255 / 4.5
-    qp = [(torch.full((C,), sc, device=dev), torch.full((C,), round(sc * -0.5) + 128.0, device=dev), 8)] * n_out
-    return (x.to(torch.bfloat16), randf((C,), 0.1, 1.0), randf((C,), 0.1), qp)
+    qp = [(torch.full((C,), sc, device=dev), torch.full((C,), round(sc * (-0.5 - i / 2)) + 128.0, device=dev), 8)
+          for i in range(n_out)]
+    return (x.to(dtype), randf((C,), 0.1, 1.0), randf((C,), 0.1), qp)
 
 
 def resblock_args(B, H, C, gen, dev):
@@ -166,6 +171,43 @@ def sweep_k4(B, HW, C, a, chosen):
         fused_gn.epilogue_plan = plan_of_
 
 
+def blocked_rows(B, HW, C, gen, dev, n, rows, plans=False):
+    """K4's blocked form at a shape past 32 windows, on the f32 stream and bf16, with 1 and 3 outputs (3 with
+    act="none", as the composed attention entry): bit-equal to the plain version, its device time beside the
+    bytes bound (x read once, n_out B written) and beside the cluster form's plan at the same shape; with
+    `plans`, also every other plan `blocked_plans` offers, each checked to the bit."""
+    plan_of_ = fused_gn.epilogue_plan
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_out in (1, 3):
+            a = entry_args(B, HW, C, gen, dev, n_out, dtype)
+            act = "swish" if n_out == 1 else "none"
+            blocked = plan_of_(B, HW, C, dtype, "K4", n_out)
+            cluster = min(fused_gn.k2_plans(HW, C, a[0].element_size(), fused_gn.max_threads(n_out), kind="K4"),
+                          key=lambda p: fused_gn._cluster_rank(p, B, C, a[0].element_size()))
+            want = fused_gn.gn_act_quant(*a, act=act, plain=True)
+            times = {}
+            others = [(f"threads={p['threads']}", p) for p in fused_gn.blocked_plans(HW, C, n_out) if p != blocked]
+            try:
+                for form, plan in [("blocked", blocked), ("cluster", cluster)] + (others if plans else []):
+                    fused_gn.epilogue_plan = lambda *_, plan=plan: plan
+                    equal = all(torch.equal(g, w) for g, w in zip(fused_gn.gn_act_quant(*a, act=act), want))
+                    if not equal:
+                        raise SystemExit(f"gn_shapes: K4's {form} plan {plan} at B={B} HW={HW} C={C} {dtype} "
+                                         f"{n_out} outputs differs from its plain version")
+                    times[form] = chip_smoke.device_ms(lambda: fused_gn.gn_act_quant(*a, act=act))
+            finally:
+                fused_gn.epilogue_plan = plan_of_
+            b = max(chip_smoke.bound(chip_smoke.nbytes(a[0]) + n_out * a[0].numel()))
+            rows.append(dict(kind="K4.blocked", B=B, shape=f"HW={HW} C={C}", dtype=str(dtype), n_out=n_out,
+                             per_step=n, device_ms=times["blocked"], cluster_ms=times["cluster"], bound_ms=b,
+                             share=b / times["blocked"], plan=blocked, cluster_plan=cluster))
+            print(f"  K4.blocked B={B} HW={HW} C={C} {str(dtype)[6:]} {n_out} out x{n}/step: bit-equal; device "
+                  f"{times['blocked']:.4f} ms, bound {b:.4f} ms ({b / times['blocked']:.1%}), cluster form "
+                  f"{times['cluster']:.4f} ms ({times['cluster'] / times['blocked']:.2f}x); plan {blocked}"
+                  + "".join(f"; {k} {v:.4f} ms" for k, v in times.items() if k not in ("blocked", "cluster")))
+            del a, want
+
+
 def exit_args(B, HW, N, gen, dev):
     """K7's inputs at an identity-shortcut exit, as chip_smoke's check: bf16 conv2 output with the identity
     dequant and the bf16 residual stream, one channel group at offset 40."""
@@ -223,6 +265,8 @@ def lever_rows(path, cfg, B, gen, dev, args, rows, only):
             if args.plans and hasattr(fused_gn, "k4_plans"):
                 sweep_k4(B, HW, C, a, chosen)
             del a, got
+            if chosen and chosen.get("form") == "blocked":
+                blocked_rows(B, HW, C, gen, dev, n, rows, args.plans)
     if "K7" in only:
         k7 = fused_gn.epilogue_residual_gn_stats
         for (HW, N), n in sorted(collections.Counter((HW, N) for _s, HW, N in plan["K7"]).items()):

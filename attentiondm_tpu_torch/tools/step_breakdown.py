@@ -7,7 +7,7 @@ same sampler with one component stubbed out, all in one process, the
 variants timed in turns (`--rounds`), each run between CUDA events ending on
 a device sync.  The deltas attribute the step's time:
   - attn=identity        every attention block returns its input;
-  - entry=quantize-only  the resblock / conv_out GroupNorm entry only
+  - entry=quantize-only  the GroupNorm entries (K4, or plain torch) only
                          quantizes (no statistics, no normalize);
   - epilogue=plain       the resblock epilogue (K2 / K6) is replaced by its
                          plain torch version, called directly: a timing
@@ -36,7 +36,7 @@ from . import probe
 VARIANTS = ("full", "attn=identity", "entry=quantize-only", "epilogue=plain", "unet=identity")
 
 
-def _entry_stub(h_res, gn_p, quant_params, *, sums=None, entry_pallas=False, plain=False):
+def _entry_stub(h_res, gn_p, quant_params, *, act="swish", sums=None, plain=False):
     hf = h_res.to(torch.float32)
     return tuple(quant_i8(hf, s, z, b) for (s, z, b) in quant_params)
 

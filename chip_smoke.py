@@ -864,11 +864,14 @@ def kernel_phase(cfg, batch, gen, dev, report, both_cores=False, levers=True):
         sc = 255 / (hi - lo)
         return torch.full((C,), sc, device=dev), torch.full((C,), round(sc * lo) + 128.0, device=dev)
 
-    def plan_fig(HW, C, dtype):
-        p = epilogue_plan(batch, HW, C, dtype, "K4")
+    def plan_fig(HW, C, dtype, n_out=1):
+        p = epilogue_plan(batch, HW, C, dtype, "K4", n_out)
         if p["form"] == "image":
             return (f"image form, {p['slices']} channel slice(s) an image, a block a slice, "
                     f"{p['row_groups']} row groups, {p['threads']} threads")
+        if p["form"] == "blocked":
+            return (f"blocked form, {p['blocks_per_image']} chunks of {p['rows']} rows an image, {p['threads']} "
+                    f"threads a resident block")
         return (f"cluster form, {p['cluster']} blocks an image, {p['rows']} rows a block, {p['threads']} threads, "
                 f"slab {'held in shared memory' if p['held'] else 're-read from L2'}")
 
@@ -886,6 +889,22 @@ def kernel_phase(cfg, batch, gen, dev, report, both_cores=False, levers=True):
         print(f"[kernels] K4 gn_act_quant B={batch} HW={HW} C={C} x{n}/step (entry_pallas alone x{m}): {_fig(f)}, "
               f"bit-equal; kernel {ms:.4f} ms device {dms:.4f} ms plain {pms:.4f} ms {_bound_fig(b)}, device at "
               f"{max(b) / dms:.1%} of it; plan: {plan_fig(HW, C, torch.bfloat16)}")
+        if epilogue_plan(batch, HW, C, torch.float32, "K4")["form"] == "blocked":
+            # the blocked form on the f32 stream the serving defaults run, and with three outputs (no swish: the
+            # composed attention's entry), each bit-equal, beside its bytes bound (x read once, n_out B written)
+            for dtype, n_out in ((torch.float32, 1), (torch.float32, 3), (torch.bfloat16, 3)):
+                xb = x.to(dtype)
+                qp = [(*quant(C, -0.5 - i / 2, 4.0 - i / 2), 8) for i in range(n_out)]
+                act = "swish" if n_out == 1 else "none"
+                f = _bit_equal("K4", f"{dtype} {n_out} outputs HW={HW} C={C}",
+                               gn_act_quant(xb, *args[1:3], qp, act=act),
+                               gn_act_quant(xb, *args[1:3], qp, act=act, plain=True))
+                dms = device_ms(lambda: gn_act_quant(xb, *args[1:3], qp, act=act))
+                b = bound(nbytes(xb) + n_out * xb.numel())
+                print(f"[kernels] K4 gn_act_quant {str(dtype)[6:]} in, {n_out} output(s), act {act}, B={batch} HW={HW} "
+                      f"C={C}: {_fig(f)}, bit-equal; device {dms:.4f} ms {_bound_fig(b)}, device at "
+                      f"{max(b) / dms:.1%} of it; plan: {plan_fig(HW, C, dtype, n_out)}")
+                del xb
         del x, args
 
     # K7 as the serving path calls it at an identity-shortcut exit: bf16 conv2 output (identity dequant), the

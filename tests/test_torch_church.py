@@ -186,8 +186,9 @@ def _port():
 def test_kernel_sites_follow_the_plan(chain):
     """One serving step calls K1, K2, K6 and K3 at the sites `conv_plan`
     derives from the config (K6 at the 112^2 level, K3 at C = 512), as JAX
-    does; on the CPU every site runs the plain versions, so each agrees
-    exactly."""
+    does, and K4 at every GroupNorm entry `lever_plan` names (JAX's XLA
+    entry at levers off); on the CPU every site runs the plain versions, so
+    each agrees exactly."""
     cfg, q, _ = _port()
     records = []
     with checks.per_site(records):
@@ -198,9 +199,11 @@ def test_kernel_sites_follow_the_plan(chain):
     kinds = [r[0] for r in records]
     assert [kinds.count(k) for k in ("K1", "K2", "K6", "K3")] == [len(k1), len(k2), len(k6), len(k3)]
     assert (len(k6), len(k3)) == (3, 4) and {c for _, c in k3} == {512}
-    assert [k for k in kinds if k != "K1"] == [
+    assert [k for k in kinds if k not in ("K1", "K4")] == [
         k if k == "K3" else checks.fused_gn.epilogue_route(a[0].shape, torch.bfloat16)
         for k, a, _kw, _out in chain["sites"]]
+    entries = 1 + sum(1 for name, *_ in k1 if name.endswith(".conv1"))
+    assert kinds.count("K4") == len(checks.lever_plan(cfg, 1)["K4"]) == entries
     assert all(r[2]["ok"] and r[2]["max_abs_err"] == 0 for r in records)
 
 

@@ -74,8 +74,10 @@ def _rel(a, b):
 
 
 def _jflags(kw):
-    """The port's flags as JAX's: dtypes by name."""
-    out = dict(kw)
+    """The port's flags as JAX's: dtypes by name, and `entry_pallas`: the
+    port runs every GroupNorm entry K4 takes on K4 at any flags, and on this
+    toy every entry fits JAX's budget, so JAX's K4 at every entry."""
+    out = {**kw, "entry_pallas": True}
     if "residual_dtype" in out:
         out["residual_dtype"] = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[out["residual_dtype"]]
     return out
@@ -239,7 +241,7 @@ def test_f32_stream_blocks_match_jax_teacher_forced(chain, name):
             jout, jsums = js._resblock_fused(
                 bname, p, h, jnp.asarray(temb_act.numpy()), jrt_i, m["jq"], m["jqs"], 0, jnp.float32,
                 entry_sums=None if es is None else jnp.asarray(es.numpy()), want_exit_stats=kw.get("want_exit_stats", False),
-                dot_bf16=kw["dot_bf16"], entry_pallas=kw["entry_pallas"], resblock_pallas=kw["resblock_pallas"])
+                dot_bf16=kw["dot_bf16"], entry_pallas=True, resblock_pallas=kw["resblock_pallas"])
         assert out.dtype == torch.float32, bname
         got, want = out.numpy().astype(np.float64), np.asarray(jout).astype(np.float64)
         assert _rel(got, want) < BLOCK_REL, bname

@@ -4,15 +4,19 @@ GroupNorm launches, held on the CPU with torch alone.
 
 - At every K4 and K12 shape of the CIFAR-10 (batch 128), LSUN church and
   ImageNet-64 (batch 32) serving steps with the three levers (K4 up to 2048
-  channels), and at toy shapes, for 1 to
+  channels, and past 32 windows on church's and ImageNet-64's 64^2 to 256^2
+  entries), and at toy shapes, for 1 to
   3 outputs and bf16, f32 (and K12's int32) input: the plan and every other
   plan `k4_plans` offers cover every (row, channel) of an image exactly once,
   in whole 32-row windows, whole groups and whole 8-channel vectors, within a
   block's threads and shared memory; images of at most 32 windows take the
-  image form where a plan of it fits.
+  image form where a plan of it fits, larger ones on the 128-channel grid
+  the blocked form (not K12's, whose output is halo'd), the rest the
+  cluster form.
 - A plain-torch emulation of the kernels' split sums (the image form's
   windows and channel slices; the cluster form as `test_torch_gn_plan`
-  emulates it) equals `window_sum` and the group sums to the bit.
+  emulates it; the blocked form's chunks, added by the image's last
+  arrival) equals `window_sum` and the group sums to the bit.
 - The halo'd consumer: the row -> offset map and the border cells each
   block writes, emulated, give `pad_qzero` of the dense output.
 - `epilogue_plan(..., "K4")` raises off the kernel, and `checks.gn_refused`
@@ -48,11 +52,12 @@ K4_SHAPES = {
     "cifar10": {(1024, 128): 2, (256, 128): 1, (64, 256): 1, (16, 256): 1, (16, 512): 3, (64, 512): 3,
                 (256, 512): 2, (256, 384): 1, (1024, 384): 1, (1024, 256): 2},
     "church": {(4096, 128): 1, (1024, 256): 1, (256, 256): 1, (64, 512): 1, (64, 1024): 3, (256, 1024): 2,
-               (256, 768): 1, (1024, 768): 1, (1024, 512): 2},
+               (256, 768): 1, (1024, 768): 1, (1024, 512): 2, (4096, 256): 1, (4096, 384): 1, (4096, 512): 2,
+               (16384, 128): 2, (16384, 256): 2, (16384, 384): 1, (65536, 128): 3, (65536, 256): 3},
     # the decoder's entries past 1024 channels: (64, 2048), (64, 1536), (256, 1536)
     "imagenet64": {(4096, 128): 3, (1024, 128): 1, (256, 256): 1, (64, 512): 1, (64, 1024): 1, (64, 2048): 3,
                    (64, 1536): 1, (256, 1536): 1, (256, 1024): 2, (256, 768): 1, (1024, 768): 1, (1024, 512): 2,
-                   (1024, 384): 1},
+                   (1024, 384): 1, (4096, 256): 3, (4096, 384): 1},
 }
 # (H, C) of the K12 blocks
 K12_SHAPES = {"cifar10": [(16, 256), (4, 256)], "church": [(16, 512), (8, 512)],
@@ -77,11 +82,15 @@ def test_shapes_are_the_serving_steps(path):
 
 
 def _blocks(plan, B, HW, N):
-    """Per block of one launch: [(image, rows [p0, p1), channels [c0, c1), row groups)]."""
+    """Per block of one launch (the blocked form: per item): [(image, rows [p0, p1), channels [c0, c1), row
+    groups)]."""
     if plan["form"] == "image":
         ns, R = plan["slices"], plan["row_groups"]
         Ns = N // ns
         return [[(blk // ns, 0, HW, blk % ns * Ns, (blk % ns + 1) * Ns, R)] for blk in range(B * ns)]
+    if plan["form"] == "blocked":
+        R, k = plan["threads"] // (N // fg.VEC), plan["blocks_per_image"]
+        return [[(b, j * fg.CHUNK, min((j + 1) * fg.CHUNK, HW), 0, N, R)] for b in range(B) for j in range(k)]
     rows, R = plan["rows"], plan["threads"] // (N // fg.VEC)
     return [[(b, j * rows, min((j + 1) * rows, HW), 0, N, R)] for b in range(B) for j in range(plan["cluster"])]
 
@@ -95,6 +104,11 @@ def _check_plan(plan, B, HW, N, itemsize, n_out):
         assert nwin <= fg.WIN and N % plan["slices"] == 0 and Ns % fg.VEC == 0 and Ns % cg == 0  # whole groups
         assert plan["threads"] == Ns // fg.VEC * plan["row_groups"] and plan["row_groups"] <= HW
         assert plan["smem"] == fg._image_smem(nwin, Ns)
+    elif plan["form"] == "blocked":  # K6's grid: whole chunks, all of an image's in flight at once
+        assert N % 128 == 0 and N <= fg.MAX_N and nwin > fg.WIN and plan["rows"] == fg.CHUNK
+        assert plan["blocks_per_image"] == -(-HW // fg.CHUNK) <= fg.SMS
+        assert plan["threads"] % V == 0 and 1 <= plan["threads"] // V <= fg.WIN
+        assert plan["smem"] == fg._blocked_smem(N, plan["threads"])
     else:
         assert 1 <= plan["cluster"] <= max(fg.CLUSTERS) and plan["threads"] % V == 0 and plan["threads"] >= V
         if plan["wpb"] >= fg.WIN:
@@ -118,6 +132,7 @@ def test_k4_plan_covers_every_row_once(B, HW, N, n_out, dtype):
     assert plan["kind"] == "K4"
     assert (plan["form"] == "image") == bool(fg.image_plans(B, HW, N, n_out))
     assert plan["form"] == "image" or -(-HW // fg.WIN) > fg.WIN
+    assert (plan["form"] == "blocked") == (plan["form"] != "image" and bool(fg.blocked_plans(HW, N, n_out)))
     _check_plan(plan, B, HW, N, DTYPES[dtype], n_out)
     for other in fg.k4_plans(B, HW, N, DTYPES[dtype], n_out):
         _check_plan(other, B, HW, N, DTYPES[dtype], n_out)
@@ -126,9 +141,14 @@ def test_k4_plan_covers_every_row_once(B, HW, N, n_out, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int32])
 @pytest.mark.parametrize("B,HW,N", K12_CASES, ids=str)
 def test_k12_plans_cover_every_row_once(B, HW, N, dtype):
-    """K12's first launch (bf16 residual) and third (conv1's int32 accumulator)."""
-    plan = fg.epilogue_plan(B, HW, N, dtype, "K4")
+    """K12's first launch (bf16 residual) and third (conv1's int32 accumulator): halo'd, so never the
+    blocked form."""
+    plan = fg.epilogue_plan(B, HW, N, dtype, "K4", halo=True)
+    assert plan["form"] != "blocked"
     _check_plan(plan, B, HW, N, DTYPES[dtype], 1)
+    for other in fg.k4_plans(B, HW, N, DTYPES[dtype], 1, halo=True):
+        assert other["form"] != "blocked"
+        _check_plan(other, B, HW, N, DTYPES[dtype], 1)
 
 
 @pytest.mark.parametrize("B,HW,N", [(B, HW, N) for B, HW, N in K4_CASES if -(-HW // fg.WIN) <= fg.WIN], ids=str)
@@ -151,6 +171,25 @@ def test_image_form_comes_nearest_a_wave(B, HW, N):
         assert off(plan) < off(p) or (off(plan) == off(p) and plan["row_groups"] >= p["row_groups"])
 
 
+@pytest.mark.parametrize("B,HW,N,form", [
+    (32, 1024, 128, "image"), (32, 1056, 128, "blocked"), (32, 65536, 256, "blocked"), (4, 132 * 1024, 128, "blocked"),
+    (4, 133 * 1024, 128, "cluster"), (32, 4096, 160, "cluster"), (32, 4096, 1024, "blocked"), (2, 1600, 96, "cluster"),
+], ids=str)
+def test_k4_form_follows_the_shape(B, HW, N, form):
+    """`epilogue_plan(..., "K4")`: the image form up to 32 windows, the
+    blocked form past them on the 128-channel grid with at most 132 chunks
+    an image, the cluster form elsewhere; one output or three, f32 or bf16."""
+    for n_out in (1, 3):
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = fg.epilogue_plan(B, HW, N, dtype, "K4", n_out)
+            assert plan["form"] == form, (n_out, dtype, plan)
+            if form == "blocked":
+                aim = min(512, max(128, fg.WAVE_THREADS // (B * plan["blocks_per_image"])))
+                assert plan in fg.blocked_plans(HW, N, n_out)
+                assert all(abs(np.log2(plan["threads"] / aim)) <= abs(np.log2(p["threads"] / aim))
+                           for p in fg.blocked_plans(HW, N, n_out))
+
+
 def test_k3_launch_is_bounded_for_three_outputs():
     """Three outputs take at most 256 threads a block (the constants of three quantizations)."""
     for L, C in [(256, 256), (16, 256), (256, 512), (64, 512), (1024, 128)]:
@@ -170,10 +209,13 @@ def test_epilogue_plan_k4_raises_off_the_kernel(HW, N, dtype, n_out):
 
 def test_plan_args_pack_both_forms():
     image = fg.epilogue_plan(128, 16, 256, torch.bfloat16, "K4")
-    cluster = fg.epilogue_plan(32, 4096, 128, torch.bfloat16, "K4")
+    cluster = fg.epilogue_plan(32, 4096, 160, torch.bfloat16, "K4")  # off the 128 grid
+    blocked = fg.epilogue_plan(32, 4096, 128, torch.bfloat16, "K4")
+    assert (image["form"], cluster["form"], blocked["form"]) == ("image", "cluster", "blocked")
     assert list(fg.plan_args(image)) == [1, image["slices"], 0, image["threads"], image["smem"], 0]
     assert list(fg.plan_args(cluster)) == [0, cluster["cluster"], cluster["wpb"], cluster["threads"], cluster["smem"],
                                            int(cluster["held"])]
+    assert list(fg.plan_args(blocked)) == [2, 4, 0, blocked["threads"], blocked["smem"], 0]
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +274,18 @@ def _cluster_emulated(h, plan):
     return _seq(S)
 
 
+def _blocked_emulated(h, plan):
+    """The blocked form's group sums [2, G] of one image: each item's chunk summed per channel (its windows,
+    each by one row group in row order, added in order), then, by the image's last arrival, the chunks'
+    sums in groups of 32 chunks in order, the groups in order, and the channels of each group in order."""
+    HW, N = h.shape
+    g = min(fg.GROUPS, N)
+    part = [_seq(list(_window_sums(h[k * fg.CHUNK:min((k + 1) * fg.CHUNK, HW)])))
+            for k in range(plan["blocks_per_image"])]
+    red = _seq([_seq(part[k0:k0 + fg.WIN]) for k0 in range(0, len(part), fg.WIN)])
+    return torch.stack([_seq(list(red[:, k * (N // g):(k + 1) * (N // g)].movedim(1, 0))) for k in range(g)], 1)
+
+
 def _image(HW, N, seed):
     rng = np.random.default_rng(seed)
     h = rng.normal(0.3, 2.0, (HW, N)).astype(np.float32)
@@ -250,6 +304,8 @@ def test_split_sums_equal_window_sum(B, HW, N):
     for plan in fg.k4_plans(B, HW, N, 2, 1):
         if plan["form"] == "image":
             got = _image_emulated(h, plan)
+        elif plan["form"] == "blocked":
+            got = _blocked_emulated(h, plan)
         else:
             red = _cluster_emulated(h, plan)
             got = torch.stack([fg._seq_sum(red[i].reshape(g, N // g), -1) for i in range(2)])
@@ -293,7 +349,7 @@ def test_halo_map_and_border_equal_pad_qzero(B, HW, N, dtype):
     per-channel quantized zero: the halo'd buffer equals `pad_qzero` of the
     dense output."""
     H = W = int(HW ** 0.5)
-    plan = fg.epilogue_plan(B, HW, N, dtype, "K4")
+    plan = fg.epilogue_plan(B, HW, N, dtype, "K4", halo=True)
     rng = np.random.default_rng(HW + N)
     dense = torch.from_numpy(rng.integers(-128, 128, (B, HW, N)).astype(np.int8))
     zp = torch.from_numpy(rng.normal(0.0, 60.0, N).astype(np.float32))
@@ -334,13 +390,19 @@ WIDER = UNetConfig(ch=128, ch_mult=(1, 9), num_res_blocks=1, attn_resolutions=()
 
 @pytest.mark.parametrize("cfg,levers,kinds", [
     (UNetConfig(), LEVERS, set()), (_config("church"), LEVERS, set()), (_config("church"), {}, set()),
-    (WIDE, {}, set()), (WIDE, dict(entry_pallas=True), set()), (WIDER, LEVERS, {"K2/K6", "K4", "K7"}),
+    (WIDE, {}, set()), (WIDE, dict(entry_pallas=True), set()), (WIDER, LEVERS, {"K2/K6", "K7"}),
 ], ids=["cifar10", "church", "church_off", "wide_off", "wide_entry", "wide_levers"])
 def test_gn_refused_names_the_sites(cfg, levers, kinds):
+    """No entry is refused: one past K4's widths (WIDER's 2304-channel concats) runs in plain torch, and
+    `lever_plan` leaves it out of K4's sites."""
     refused = checks.gn_refused(cfg, 4, **levers)
     assert {kind for *_site, kind in refused} == kinds
     for site, HW, C, kind in refused:
-        assert (C > 2048 and site.startswith("up.1.block")) if kind == "K4" else C > 1024
+        assert C > 1024
+    k4 = checks.lever_plan(cfg, 4, **levers)["K4"]
+    assert all(fg.gn_act_quant_takes(4, HW, C) for _s, HW, C in k4)
+    if cfg is WIDER:
+        assert not any(C > 2048 for _s, _HW, C in k4) and not fg.gn_act_quant_takes(4, 16, 2304)
     checks.require_gn_kernels(cfg, "cpu", 4, **levers)
     if refused:
         site, HW, C, kind = refused[0]
@@ -370,9 +432,11 @@ def test_gn_refused_covers_every_kernel():
 
 
 def test_every_plan_is_listed_once():
-    """`k4_plans` offers no plan twice, and the image form only up to 32 windows."""
+    """`k4_plans` offers no plan twice, the image form only up to 32 windows, the blocked form only past
+    them."""
     for B, HW, N in K4_CASES:
         plans = fg.k4_plans(B, HW, N, 2)
         keys = [tuple(sorted(p.items())) for p in plans]
         assert len(set(keys)) == len(keys)
-        assert all(p["form"] == "cluster" for p in plans) or -(-HW // fg.WIN) <= fg.WIN
+        assert all(p["form"] in ("cluster", "blocked") for p in plans) or -(-HW // fg.WIN) <= fg.WIN
+        assert all(p["form"] != "blocked" for p in plans) or -(-HW // fg.WIN) > fg.WIN

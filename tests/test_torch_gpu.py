@@ -561,11 +561,12 @@ def test_k4_outputs_and_inputs_bit_equal(dev, gen, B, HW, C, n_out, act, x_dtype
 
 @pytest.mark.parametrize("n_out", [1, 3])
 @pytest.mark.parametrize("B,HW,C", [(128, 16, 256), (32, 64, 1024), (32, 256, 768), (128, 1024, 384), (5, 48, 96),
-                                    (2, 1600, 256), (32, 64, 2048), (32, 256, 1536), (3, 400, 1152)], ids=str)
+                                    (2, 1600, 256), (32, 64, 2048), (32, 256, 1536), (3, 400, 1152), (3, 4196, 384),
+                                    (2, 2048, 1024)], ids=str)
 def test_k4_every_plan_bit_equal(dev, gen, monkeypatch, B, HW, C, n_out):
     """K4 under every plan `k4_plans` offers at the shape (each row-group
-    count and slicing of the image form, each cluster plan), not only the one
-    `epilogue_plan` picks."""
+    count and slicing of the image form, each block size of the blocked
+    form, each cluster plan), not only the one `epilogue_plan` picks."""
     args = _k4_args(gen, dev, B, HW, C, n_out)
     want = gn_act_quant(*args, act="none", plain=True)
     plans = fused_gn.k4_plans(B, HW, C, 2, n_out)
@@ -605,10 +606,11 @@ def test_k12_every_plan_bit_equal(dev, gen, monkeypatch, B, H, C):
     halo'd rows and the border: the plain version's bits."""
     args = _k12_args(gen, dev, B, H, C)
     want = resblock_pallas(*args, plain=True)
-    plans = {dt: fused_gn.k4_plans(B, H * H, C, size) for dt, size in ((torch.bfloat16, 2), (torch.int32, 4))}
+    plans = {dt: fused_gn.k4_plans(B, H * H, C, size, halo=True)
+             for dt, size in ((torch.bfloat16, 2), (torch.int32, 4))}
     for i in range(max(map(len, plans.values()))):
-        monkeypatch.setattr(fused_gn, "epilogue_plan",
-                            lambda B_, HW, N, dtype, kind, n_out=1, i=i: plans[dtype][i % len(plans[dtype])])
+        monkeypatch.setattr(fused_gn, "epilogue_plan", lambda B_, HW, N, dtype, kind, n_out=1, halo=False, i=i:
+                            plans[dtype][i % len(plans[dtype])])
         from attentiondm_tpu_torch.ops import pallas_resblock
 
         monkeypatch.setattr(pallas_resblock, "epilogue_plan", fused_gn.epilogue_plan)
@@ -617,10 +619,11 @@ def test_k12_every_plan_bit_equal(dev, gen, monkeypatch, B, H, C):
 
 
 def test_sampler_refuses_gn_sites_before_step_0(dev, gen):
-    """A config whose decoder concat (2304 channels) no K4 plan takes stops in
-    `sample(x)` with `entry_pallas` before any kernel launches, naming the
-    site; without the lever its resblock epilogues (1152 channels, past K2's
-    1024) are named, and no K4 site."""
+    """A config whose resblock epilogues (1152 channels, past K2's 1024) no
+    kernel takes stops in `sample(x)` before any kernel launches, naming the
+    site, with `entry_pallas` or without; its decoder concat (2304 channels),
+    which no K4 plan takes, is no refused site: that entry runs in plain
+    torch."""
     from attentiondm_tpu_torch.diffusion.schedules import DiffusionSchedule
     from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
 
@@ -631,11 +634,11 @@ def test_sampler_refuses_gn_sites_before_step_0(dev, gen):
     betas = DiffusionSchedule.create("linear", 1e-4, 0.02, 1000, device=dev).betas
     x = _f(gen, (2, 8, 8, 3), dev)
     checks.reset_launches()
-    with pytest.raises(NotImplementedError, match=r"up\.1\.block\.0 \(HW=16, C=2304\) -> K4"):
-        serving_ddim_sampler(q, params, qstates, [0], betas, runtime={}, residual_dtype=torch.bfloat16, entry_pallas=True)(x)
-    with pytest.raises(NotImplementedError, match=r"mid\.block_1 \(HW=16, C=1152\) -> K2/K6") as refused:
-        serving_ddim_sampler(q, params, qstates, [0], betas, runtime={}, residual_dtype=torch.bfloat16)(x)
-    assert "-> K4" not in str(refused.value)
+    for levers in (dict(entry_pallas=True), {}):
+        with pytest.raises(NotImplementedError, match=r"mid\.block_1 \(HW=16, C=1152\) -> K2/K6") as refused:
+            serving_ddim_sampler(q, params, qstates, [0], betas, runtime={}, residual_dtype=torch.bfloat16,
+                                 **levers)(x)
+        assert "-> K4" not in str(refused.value)
     assert not any(checks.read_launches().values())
 
 

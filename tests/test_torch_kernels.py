@@ -564,7 +564,6 @@ SHAPES = [(128, 32, 128), (128, 32, 256), (128, 16, 256), (128, 8, 256), (128, 4
 def test_lever_predicates_match_jax(B, H, C):
     """The routing predicates the port copied from JAX, at the CIFAR-10 and
     church shapes and off the grid."""
-    assert tfg.gn_act_quant_fits(H * H, C) == jfg.gn_act_quant_fits(H * H, C)
     assert tfg.epilogue_residual_gn_stats_fits(H * H, C) == jfg.epilogue_residual_gn_stats_fits(H * H, C)
     assert trb.resblock_pallas_fits(B, H, H, C) == jrb.resblock_pallas_fits(B, H, H, C)
     assert tpc.conv3_pallas_wins(B, H, H, C, C) == jpc.conv3_pallas_wins(B, H, H, C, C)

@@ -6,8 +6,12 @@ config against the sites the forward visits.
 
 The JAX side runs once per module (calibration, fold, then per lever setting
 one serving step and a 2-step sampler), its Pallas kernels in interpret
-mode, on the toy of tests/test_torch_serving.py: K4 at six entries, K7 at
-down.1.block.0 feeding mid.block_1, K12 at down.0.block.0 and mid.block_2.
+mode, on the toy of tests/test_torch_serving.py: K4 at six entries with
+`entry_pallas`, K7 at down.1.block.0 feeding mid.block_1, K12 at
+down.0.block.0 and mid.block_2.  The port runs every GroupNorm entry that
+K4 takes on K4 at either value of `entry_pallas`; each setting's JAX side
+runs under the port's flags, JAX's XLA entry where `entry_pallas` is off
+(on this toy it gives the codes of K4's plain version at every entry).
 The launch-plan tests run the port alone on a deeper toy that has what the
 plan's rules need: two blocks a level (a K7 exit that feeds the next norm1,
 and two in a row into mid.block_1), an identity block at 8x8 with 256
@@ -97,10 +101,10 @@ def _jax_chain():
     common = dict(residual_dtype=jnp.bfloat16, attn_int8=False)
     eps, sample = {}, {}
     for name, kw in {"off": {}, **LEVERS}.items():
-        eps[name] = np.asarray(j_model_fn(jq, jrt, jparams, jqs, **common, **kw)(jnp.asarray(x), jnp.asarray(t), 0))
+        kw = {**common, **kw}
+        eps[name] = np.asarray(j_model_fn(jq, jrt, jparams, jqs, **kw)(jnp.asarray(x), jnp.asarray(t), 0))
         if name != "off":
-            sample[name] = np.asarray(j_sampler(jq, jparams, jqs, SEQ, betas, runtime=jrt, **common, **kw)(
-                jnp.asarray(x)))
+            sample[name] = np.asarray(j_sampler(jq, jparams, jqs, SEQ, betas, runtime=jrt, **kw)(jnp.asarray(x)))
     runtime = {k: ServingLayer(*(torch.tensor(np.asarray(a)) for a in
                                  (v.gq, v.inv_ws, v.zcbias, v.act_scale, v.act_zp)))
                for k, v in jrt.items()}
@@ -182,7 +186,7 @@ def test_lever_blocks_match_jax_teacher_forced(chain, name):
             jnp.asarray(temb_act.numpy()), jrt_i, chain["jq"], None, 0, jnp.bfloat16,
             entry_sums=None if es is None else jnp.asarray(es.numpy()),
             want_exit_stats=kw["want_exit_stats"] if "want_exit_stats" in kw else False, dot_bf16=True,
-            entry_pallas=kw["entry_pallas"], resblock_pallas=kw["resblock_pallas"])
+            entry_pallas=LEVERS[name].get("entry_pallas", False), resblock_pallas=kw["resblock_pallas"])
         got, want = out.float().numpy(), np.asarray(jout).astype(np.float32)
         assert (np.abs(got - want) <= np.abs(want) * 2.0 ** -7).all(), bname
         assert (sums is None) == (jsums is None), bname
@@ -208,14 +212,18 @@ def test_lever_sampler_matches_jax(chain, name):
 def test_levers_change_the_step_as_in_jax(chain):
     """The levers are not a no-op: K7's consumer normalizes with sum /
     sum-of-squares statistics and K12 keeps conv1's output in f32, so each
-    moves the output, in the port as in JAX, and by a like amount."""
+    moves the output, in the port as in JAX, and by a like amount.
+    `entry_pallas` is `conv_pallas`'s like: the same output and launches at
+    either value, the step within the lever's bound of JAX's K4 step."""
     off = _step(chain).numpy()
     for name in ("boundary_fusion", "resblock_pallas", "all_three"):
         port = _rel(_step(chain, **LEVERS[name]).numpy(), off)
         ref = _rel(chain["eps"][name], chain["eps"]["off"])
         assert port > 0 and ref > 0 and 0.2 < port / ref < 5, (name, port, ref)
-    assert np.array_equal(_step(chain, entry_pallas=True).numpy(), off) == np.array_equal(
-        chain["eps"]["entry_pallas"], chain["eps"]["off"])
+    assert np.array_equal(_step(chain, entry_pallas=True).numpy(), off)
+    assert _rel(off, chain["eps"]["entry_pallas"]) < STEP_BOUND["entry_pallas"]
+    cfg = UNetConfig(**TOY)
+    assert checks.expected_launches(cfg, 1, B, entry_pallas=True) == checks.expected_launches(cfg, 1, B)
 
 
 @pytest.fixture(scope="module")
@@ -314,7 +322,7 @@ FULL_WIDTH = {
                 ["down.1.block.1", "mid.block_2"],
                 {"K1": 60, "K2": 20, "K6": 0, "K3": 6, "K5": 13, "K13": 4, "K4": 17, "K7": 4, "K12": 2}),
     "church": (32, ["down.3.block.0", "down.5.block.0", "down.5.block.1"], ["down.4.block.1", "mid.block_2"],
-               {"K1": 91, "K2": 20, "K6": 10, "K3": 6, "K5": 20, "K13": 6, "K4": 13, "K7": 3, "K12": 2}),
+               {"K1": 91, "K2": 20, "K6": 10, "K3": 6, "K5": 20, "K13": 6, "K4": 28, "K7": 3, "K12": 2}),
 }
 
 
@@ -332,11 +340,11 @@ def test_lever_plan_at_full_width(model):
     assert [s for s, *_ in plan["K7"]] == k7 and [s for s, *_ in plan["K12"]] == k12
     assert expected_launches(cfg, 1, batch, **ALL) == counts
     off = expected_launches(cfg, 1, batch)
-    assert (off["K4"], off["K7"], off["K12"]) == (0, 0, 0)
-    # entry_pallas alone: every resblock and conv_out entry whose image fits HW * C * 5 <= 4 MiB
+    # levers off: K4 at every resblock and conv_out entry (church's 16 past 32 windows on the blocked form);
+    # entry_pallas moves nothing
     entries = 1 + sum(1 for name, *_ in checks.conv_plan(cfg)[0] if name.endswith(".conv1"))
-    over = {"cifar10": 0, "church": 15}[model]  # church entries at 64^2 x 256 and larger
-    assert expected_launches(cfg, 1, batch, entry_pallas=True)["K4"] == entries - over
+    assert (off["K4"], off["K7"], off["K12"]) == (entries, 0, 0) and entries == {"cifar10": 23, "church": 33}[model]
+    assert expected_launches(cfg, 1, batch, entry_pallas=True) == off
     # resblock_pallas alone: each K12 block takes two K1 convs and one K2 with it
     rb = expected_launches(cfg, 1, batch, resblock_pallas="all")
     assert rb["K1"] == off["K1"] - 2 * rb["K12"] and rb["K2"] + rb["K6"] == off["K2"] + off["K6"] - rb["K12"]
@@ -345,3 +353,93 @@ def test_lever_plan_at_full_width(model):
     assert expected_launches(cfg, 3, batch, **ALL) == {k: 3 * n for k, n in counts.items()}
     # the default attention flags (attn_int8=True) only switch K3's six launches to the int8 core
     assert checks.expected_launches(cfg, 1, batch, **ALL) == {**counts, "K3.int8_core": 6}
+
+
+# ---------------------------------------------------------------------------
+# the entry's routing: K4 wherever it takes the shape
+# ---------------------------------------------------------------------------
+
+
+def _entry_inputs(shape, n_out, seed):
+    """A residual (one channel group at offset 40), GroupNorm params and n_out 8-bit quantizations (output i
+    at a range shifted by i / 2), as the card's K4 checks draw them."""
+    rng = np.random.default_rng(seed)
+    C = shape[-1]
+    x = rng.normal(0.3, 2.0, shape).astype(np.float32)
+    x[..., :C // 32] += 40.0
+    gn = {"scale": torch.from_numpy(rng.normal(1.0, 0.1, C).astype(np.float32)),
+          "bias": torch.from_numpy(rng.normal(0.0, 0.1, C).astype(np.float32))}
+    sc = 255 / 4.5
+    qp = [(torch.full((C,), sc), torch.full((C,), round(sc * (-0.5 - i / 2)) + 128.0), 8) for i in range(n_out)]
+    return torch.from_numpy(x), gn, qp
+
+
+@pytest.mark.parametrize("shape,n_out,act,sums,route", [
+    ((2, 8, 8, 128), 1, "swish", False, "K4"),  # the image form
+    ((2, 40, 40, 128), 1, "swish", False, "K4"),  # past 32 windows: the blocked form
+    ((2, 40, 40, 160), 1, "swish", False, "K4"),  # past 32 windows off the 128 grid: the cluster form
+    ((2, 40, 40, 256), 3, "none", False, "K4"),  # the composed attention's entry
+    ((2, 40, 40, 128), 1, "swish", True, "plain"),  # K7's sums: the plain entry is one pass already
+    ((1, 4, 4, 2304), 1, "swish", False, "plain"),  # past K4's 2048 channels
+    ((1, 40, 40, 1152), 3, "none", False, "plain"),  # past 1024 channels beyond 32 windows
+], ids=str)
+def test_entry_routes_by_what_k4_takes(monkeypatch, shape, n_out, act, sums, route):
+    """`_entry_gn_quant` sends an entry to K4 (`gn_act_quant`, its plain
+    version on the CPU) wherever `gn_act_quant_takes` admits the shape, and
+    keeps `gn_act_quant_xla` with K7's sums or where no form takes it; its
+    output is the chosen path's."""
+    from attentiondm_tpu_torch.ops import fused_gn as fg
+
+    x, gn, qp = _entry_inputs(shape, n_out, sum(shape) + n_out)
+    B, C = shape[0], shape[-1]
+    assert fg.gn_act_quant_takes(B, x.numel() // (B * C), C, x.dtype, n_out) == (route == "K4" or sums)
+    called = []
+    for name in ("gn_act_quant", "gn_act_quant_xla"):
+        monkeypatch.setattr(srv, name,
+                            lambda *a, _fn=getattr(srv, name), _n=name, **k: called.append(_n) or _fn(*a, **k))
+    s = None
+    if sums:
+        xg = x.reshape(B, -1, 32, C // 32)
+        s = torch.stack([xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))], 1)
+    got = srv._entry_gn_quant(x, gn, qp, act=act, sums=s)
+    assert called == (["gn_act_quant"] if route == "K4" else ["gn_act_quant_xla"])
+    want = (fg.gn_act_quant_ref(x, gn["scale"], gn["bias"], qp, act=act) if route == "K4"
+            else srv.gn_act_quant_xla(x, gn, qp, act=act, sums=s))
+    assert len(got) == n_out and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n_out,act", [(1, "swish"), (1, "none"), (3, "swish"), (3, "none")])
+@pytest.mark.parametrize("shape", [(2, 40, 40, 128), (1, 48, 48, 256), (2, 33, 32, 384)], ids=str)
+def test_k4_entry_within_the_bound_of_the_plain_entry(shape, n_out, act):
+    """Past 32 windows (church's blocked-form entries, scaled down), what an
+    entry computes on the CPU now (K4's plain version: E[x^2] - mu^2 in
+    `window_sum`'s order, h * (1 / (1 + exp(-h)))) against what it computed
+    before (`gn_act_quant_xla`: torch's two-pass variance and sigmoid):
+    within `STEP_BOUND["entry_pallas"]` (mean relative difference of the
+    codes), and no int8 code more than 1 LSB apart."""
+    from attentiondm_tpu_torch.ops import fused_gn as fg
+
+    x, gn, qp = _entry_inputs(shape, n_out, sum(shape) + 7 * n_out)
+    got = fg.gn_act_quant_ref(x, gn["scale"], gn["bias"], qp, act=act)
+    want = srv.gn_act_quant_xla(x, gn, qp, act=act)
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs()
+        assert d.max().item() <= 1
+        assert (d.mean() / w.float().abs().mean()).item() < STEP_BOUND["entry_pallas"]
+
+
+def test_entry_pallas_values_route_alike(deep):
+    """`entry_pallas` takes JAX's values, True and False, and either gives
+    the same K4 sites (every entry of the deep toy) and the same output; any
+    other value raises, as `conv_pallas`'s do."""
+    def step(**kw):
+        return serving_unet_apply(deep["params"], deep["cfg"], deep["q"], deep["runtime"], deep["qstates"], deep["x"],
+                                  torch.full((B,), 500.0), 0, residual_dtype=torch.bfloat16, attn_int8=False, **kw)
+
+    seen = [_visited(deep, levers) for levers in ({}, dict(entry_pallas=False), dict(entry_pallas=True))]
+    assert seen[0] == seen[1] == seen[2]
+    entries = 1 + sum(1 for name, *_ in checks.conv_plan(deep["cfg"])[0] if name.endswith(".conv1"))
+    assert sum(1 for kind, *_ in seen[0] if kind == "K4") == entries
+    assert torch.equal(step(entry_pallas=True), step(entry_pallas=False))
+    with pytest.raises(ValueError, match="entry_pallas"):
+        step(entry_pallas="all")

@@ -73,7 +73,8 @@ def test_uncovered_sampler_matches_jax(chain):
 def test_uncovered_launch_plan_matches_the_forward(chain):
     """`conv_plan` / `expected_launches` on the narrow toy: only the convs
     the fold covers, each in int32 mode (3x3: K13; the 4x4 attention's four
-    projections: K5), no epilogue kernel, no K3, no lever site."""
+    projections: K5), no epilogue kernel, no K3, no K7 or K12 site; K4 at
+    the composed attention's three-output entry alone (no block is fused)."""
     m = chain["narrow"]
     k1, epi = k1_modes(lambda: _step(m, chain["x"], chain["t"], **F32))
     plan, k2, k6, k3, composed = checks.conv_plan(m["cfg"])
@@ -84,7 +85,8 @@ def test_uncovered_launch_plan_matches_the_forward(chain):
                                       resblock_pallas="all")
     assert counts["K5"] == sum(1 for c in k1 if c[0] == 1) == 8  # the 4x4 attention's projections, 4 shortcuts
     assert counts["K13"] == sum(1 for c in k1 if c[0] == 3) and counts["K2"] + counts["K3"] == 0
-    assert (counts["K4"], counts["K7"], counts["K12"]) == (0, 0, 0)
+    assert (counts["K4"], counts["K7"], counts["K12"]) == (1, 0, 0)
+    assert [site for site, *_ in checks.lever_plan(m["cfg"], 2)["K4"]] == ["mid.attn_1"]
     assert checks.gn_refused(m["cfg"], 2, entry_pallas=True, boundary_fusion=True, resblock_pallas="all") == []
 
 
