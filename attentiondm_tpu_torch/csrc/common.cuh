@@ -27,7 +27,8 @@ static __device__ __forceinline__ float to_f32(float v) { return v; }
 
 // GroupNorm statistics, in the TPU kernel's _gn_normalize form: per-group
 // sum S and sum of squares S2 in f32, mean = S/n, var = max(S2/n - mean^2,
-// 0), rstd = 1/sqrt(var + eps).
+// 0), rstd = 1/sqrt(var + eps), eps the model's (1e-6 the DDPM UNet's, 1e-5
+// ADM's), handed in by every launcher.
 //
 // The f32 sums follow one fixed order, the windowed order of XLA's CPU
 // reduction: over the rows of a channel, windows of GN_WIN consecutive rows
@@ -45,12 +46,12 @@ constexpr int GN_WIN = 32;
 constexpr int GN_CHUNK = GN_WIN * GN_WIN;
 
 // mean and rstd of one group from its f32 sums
-static __device__ __forceinline__ void gn_finalize(float S, float S2, float inv_count, float* mean,
+static __device__ __forceinline__ void gn_finalize(float S, float S2, float inv_count, float eps, float* mean,
                                                    float* rstd) {
   const float m = S * inv_count;
   const float var = fmaxf(S2 * inv_count - m * m, 0.f);
   *mean = m;
-  *rstd = 1.0f / sqrtf(var + 1e-6f);
+  *rstd = 1.0f / sqrtf(var + eps);
 }
 
 // Group sums from the per-channel sums in red[0:N] (S) and red[N:2N] (S2):

@@ -39,6 +39,11 @@
 //     overlap), and each thread exponentiates the entries it wrote, once, at
 //     D = 256 straight from the registers that hold the tile's logits; the row
 //     statistics (m, denominator, alpha) live in registers.
+// Heads (ADM's multi-head blocks): q, k, v are [B, L, H * D] with head h on
+// channels [h D, (h + 1) D); a block owns queries of one (image, head), and
+// every row is read and written at the stride H * D.  H = 1 is the single-head
+// layout.  D = 64 (ADM's heads): BQ = 64 or 128 as at D = 128, one float4 of
+// channels a thread in p . v.
 // Rows are padded by 4 floats (8 where lane pairs split the channels), which
 // keeps every float4 read of a quarter warp on distinct banks and every row
 // 16-byte aligned for cp.async.
@@ -71,7 +76,7 @@ static __device__ __forceinline__ float row_sum(float v) {
 template <int D, int BQ, int TK, int IBMAX, int TXQ, int SPLIT>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                       float* __restrict__ o, int L, int ib, float scale) {
+                       float* __restrict__ o, int L, int ib, int H, float scale) {
   // QK layout: thread (ty, txq, g) owns queries ty + TY i and keys txq + TXQ j of a tile, and of the
   // channels the float4 chunks g, g + SPLIT, ... (the SPLIT partial dots meet by shuffle); p.v layout:
   // thread (ty, tx) owns the same queries and channels 4 (tx + TX j) .. + 3, tx = txq * SPLIT + g
@@ -83,18 +88,19 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* S = T + 2 * TK * LD;   // [BQ][SLD], the inner block's logits, then p
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX, g = tx % SPLIT, txq = tx / SPLIT;
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ;
-  const long long base = (long long)b * L * D;
+  const int b = blockIdx.y / H, h = blockIdx.y - b * H, q0 = blockIdx.x * BQ;
+  const long long RS = (long long)H * D;  // a row's stride
+  const long long base = (long long)b * L * RS + (long long)h * D;
   const int nkt = ib / TK, ntiles = (L / ib) * 2 * nkt;
 
   // tile n of the stream: per inner block its nkt K tiles, then its nkt V tiles
   auto load_tile = [&](int n) {
     const int blk = n / (2 * nkt), r = n - blk * 2 * nkt;
-    const float* src = (r >= nkt ? v : k) + base + (long long)(blk * ib + (r % nkt) * TK) * D;
+    const float* src = (r >= nkt ? v : k) + base + (long long)(blk * ib + (r % nkt) * TK) * RS;
     float* dst = T + (n & 1) * TK * LD;
     for (int i = tid; i < TK * (D / 4); i += FA_THREADS) {
       const int row = i / (D / 4), c4 = i - row * (D / 4);
-      cp_async16(dst + row * LD + c4 * 4, src + (long long)row * D + c4 * 4);
+      cp_async16(dst + row * LD + c4 * 4, src + (long long)row * RS + c4 * 4);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
@@ -102,7 +108,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int i = tid; i < BQ * (D / 4); i += FA_THREADS) {
     const int r = i / (D / 4), c4 = i - r * (D / 4);
-    float4 x = *reinterpret_cast<const float4*>(q + base + (long long)(q0 + r) * D + c4 * 4);
+    float4 x = *reinterpret_cast<const float4*>(q + base + (long long)(q0 + r) * RS + c4 * 4);
     x.x *= scale;
     x.y *= scale;
     x.z *= scale;
@@ -263,7 +269,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NC; ++j) {
       const float4 r = make_float4(acc[i][j][0] / den[i], acc[i][j][1] / den[i], acc[i][j][2] / den[i],
                                    acc[i][j][3] / den[i]);
-      *reinterpret_cast<float4*>(o + base + (long long)(q0 + ty + TY * i) * D + (tx + TX * j) * 4) = r;
+      *reinterpret_cast<float4*>(o + base + (long long)(q0 + ty + TY * i) * RS + (tx + TX * j) * 4) = r;
     }
   }
 }
@@ -271,8 +277,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 static int fa_gcd(int a, int b) { return b ? fa_gcd(b, a % b) : a; }
 
 template <int D, int BQ, int TK, int IBMAX, int TXQ, int SPLIT>
-static cudaError_t launch_flash(const float* q, const float* k, const float* v, float* o, int B, int L, int bk,
-                                float scale, cudaStream_t s) {
+static cudaError_t launch_flash(const float* q, const float* k, const float* v, float* o, int B, int L, int H,
+                                int bk, float scale, cudaStream_t s) {
   // the inner block: the caller's key block, or the largest part of it that fits
   const int ib = fa_gcd(bk, IBMAX);
   if (L % BQ != 0 || ib % TK != 0 || L % bk != 0) return cudaErrorInvalidValue;
@@ -280,22 +286,28 @@ static cudaError_t launch_flash(const float* q, const float* k, const float* v, 
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D, BQ, TK, IBMAX, TXQ, SPLIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  flash_attention_kernel<D, BQ, TK, IBMAX, TXQ, SPLIT><<<dim3(L / BQ, B), FA_THREADS, smem, s>>>(q, k, v, o, L, ib, scale);
+  flash_attention_kernel<D, BQ, TK, IBMAX, TXQ, SPLIT><<<dim3(L / BQ, B * H), FA_THREADS, smem, s>>>(q, k, v, o, L, ib,
+                                                                                                   H, scale);
   return cudaGetLastError();
 }
 
-// q, k, v, out: [B, L, D] f32; bk: the online softmax's key block
+// q, k, v, out: [B, L, H * D] f32 (H heads of D channels); bk: the online softmax's key block
 extern "C" int adm_flash_attention(const void* q, const void* k, const void* v, void* out, int B, int L, int D,
-                                   int bk, float scale, void* stream) {
+                                   int H, int bk, float scale, void* stream) {
   const float *qp = static_cast<const float*>(q), *kp = static_cast<const float*>(k),
               *vp = static_cast<const float*>(v);
   float* op = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FA_GO(...) return (int)launch_flash<__VA_ARGS__>(qp, kp, vp, op, B, L, bk, scale, s)
+#define FA_GO(...) return (int)launch_flash<__VA_ARGS__>(qp, kp, vp, op, B, L, H, bk, scale, s)
   // D = 128: 128 queries a block (8 x 4 register tiles in q . k^T) where that still fills the card's
   // 132 SMs, else 64; D = 256: 64 queries, the channels of q . k^T split over lane pairs
+  if (H < 1) return (int)cudaErrorInvalidValue;
+  if (D == 64 && H > 1) {
+    if (L % 128 == 0 && (long long)(L / 128) * B * H >= 132) FA_GO(64, 128, 64, 128, 16, 1);
+    FA_GO(64, 64, 64, 128, 16, 1);
+  }
   if (D == 128) {
-    if (L % 128 == 0 && (long long)(L / 128) * B >= 132) FA_GO(128, 128, 64, 128, 16, 1);
+    if (L % 128 == 0 && (long long)(L / 128) * B * H >= 132) FA_GO(128, 128, 64, 128, 16, 1);
     FA_GO(128, 64, 64, 128, 16, 1);
   }
   if (D == 256) FA_GO(256, 64, 64, 64, 16, 2);

@@ -1,4 +1,4 @@
-// K2: fused conv1 epilogue -> +temb -> GroupNorm(32, eps 1e-6) -> swish ->
+// K2: fused conv1 epilogue -> +temb -> GroupNorm(32, eps) -> swish ->
 // per-channel asymmetric int8 quant, the middle of every serving resblock
 // whose image fits the TPU kernel's whole-image budget (larger ones take
 // K6, fused_gn_blocked.cu).
@@ -32,7 +32,7 @@ extern "C" int adm_epilogue_gn_swish_quant(const void* x, int x_is_int32, const 
                                            const void* zcbias, const void* temb, const void* gn_scale,
                                            const void* gn_bias, const void* act_scale,
                                            const void* act_zp, void* out, int B, int HW, int N,
-                                           int groups, int n_levels, float inv_count, int cluster, int wpb,
+                                           int groups, int n_levels, float inv_count, float eps, int cluster, int wpb,
                                            int threads, int smem, int held, void* stream) {
   EpiArgs a = {};
   a.x = x;
@@ -45,7 +45,7 @@ extern "C" int adm_epilogue_gn_swish_quant(const void* x, int x_is_int32, const 
   a.act_zp[0] = static_cast<const float*>(act_zp);
   a.out[0] = static_cast<int8_t*>(out);
   a.n_levels[0] = n_levels;
-  a.B = B; a.HW = HW; a.N = N; a.G = groups; a.swish = 1; a.inv_count = inv_count;
+  a.B = B; a.HW = HW; a.N = N; a.G = groups; a.swish = 1; a.inv_count = inv_count; a.eps = eps;
   const GnPlan p = {0, cluster, wpb, threads, smem, held};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_int32) return (int)launch_gn<int32_t, true, 1, false>(a, p, s);

@@ -1,4 +1,4 @@
-// K6: K2's function -- conv1 epilogue -> +temb -> GroupNorm(32, eps 1e-6) ->
+// K6: K2's function -- conv1 epilogue -> +temb -> GroupNorm(32, eps) ->
 // swish -> int8 -- for images over the whole-image budget: the 256^2 and
 // 128^2 resblocks of the LSUN church / bedroom models.
 //
@@ -34,7 +34,7 @@ extern "C" int adm_epilogue_gn_swish_quant_blocked(const void* x, int x_is_int32
                                                    const void* act_scale, const void* act_zp,
                                                    void* partial, void* flags, void* out, int B, int HW,
                                                    int N, int groups, int n_levels, float inv_count,
-                                                   int threads, int smem, void* stream) {
+                                                   float eps, int threads, int smem, void* stream) {
   EpiArgs a = {};
   a.x = x;
   a.inv_ws = static_cast<const float*>(inv_ws);
@@ -49,7 +49,7 @@ extern "C" int adm_epilogue_gn_swish_quant_blocked(const void* x, int x_is_int32
   a.swish = 1;
   a.partial = static_cast<float*>(partial);
   a.flags = static_cast<int*>(flags);
-  a.B = B; a.HW = HW; a.N = N; a.G = groups; a.inv_count = inv_count;
+  a.B = B; a.HW = HW; a.N = N; a.G = groups; a.inv_count = inv_count; a.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_int32) return (int)launch_k6<int32_t>(a, threads, smem, s);
   return (int)launch_k6<__nv_bfloat16>(a, threads, smem, s);

@@ -1,4 +1,4 @@
-// K4: GroupNorm(32, eps 1e-6) -> swish or none -> n_out per-channel
+// K4: GroupNorm(32, eps) -> swish or none -> n_out per-channel
 // asymmetric int8 quantizations of the same normalized tensor: the entry of
 // every serving resblock and of conv_out, and the composed attention block's
 // three-output entry, wherever a form below takes the shape.
@@ -60,7 +60,7 @@ extern "C" int adm_gn_act_quant(const void* x, int x_is_f32, const void* gn_scal
                                 const void* s0, const void* z0, const void* s1, const void* z1,
                                 const void* s2, const void* z2, int n_out, int n0, int n1, int n2,
                                 void* out0, void* out1, void* out2, int swish, int B, int HW, int N,
-                                int groups, float inv_count, void* partial, void* flags, const int* plan,
+                                int groups, float inv_count, float eps, void* partial, void* flags, const int* plan,
                                 void* stream) {
   if (n_out < 1 || n_out > 3) return (int)cudaErrorInvalidValue;
   EpiArgs a = {};
@@ -79,7 +79,7 @@ extern "C" int adm_gn_act_quant(const void* x, int x_is_f32, const void* gn_scal
   }
   a.partial = static_cast<float*>(partial);
   a.flags = static_cast<int*>(flags);
-  a.B = B; a.HW = HW; a.N = N; a.G = groups; a.swish = swish; a.inv_count = inv_count;
+  a.B = B; a.HW = HW; a.N = N; a.G = groups; a.swish = swish; a.inv_count = inv_count; a.eps = eps;
   const GnPlan p = {plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
   return (int)launch_nout(a, n_out, x_is_f32, p, static_cast<cudaStream_t>(stream));
 }

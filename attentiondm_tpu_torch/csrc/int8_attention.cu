@@ -374,7 +374,7 @@ extern "C" int adm_fused_attention_block(const void* x, int x_is_f32, const void
                                          const void* eqkv, const void* sqo, int n_o, const void* wo,
                                          void* q8, void* k8, void* v8, void* qf, void* kf, void* vf,
                                          void* o8, void* amax, void* out, int B, int L, int C, int groups,
-                                         float inv_count, float scale, int bm, int cols, int bq, int vk,
+                                         float inv_count, float eps, float scale, int bm, int cols, int bq, int vk,
                                          int smem, const int* gn_plan, void* stream) {
   if (!core_plan_ok(L, C, bq, vk, smem) || groups > 32 || C % groups != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -390,7 +390,7 @@ extern "C" int adm_fused_attention_block(const void* x, int x_is_f32, const void
     ga.out[i] = static_cast<int8_t*>(q8s[i]);
     ga.n_levels[i] = ns[i];
   }
-  ga.B = B; ga.HW = L; ga.N = C; ga.G = groups; ga.swish = 0; ga.inv_count = inv_count;
+  ga.B = B; ga.HW = L; ga.N = C; ga.G = groups; ga.swish = 0; ga.inv_count = inv_count; ga.eps = eps;
   const GnPlan gp = {gn_plan[0], gn_plan[1], gn_plan[2], gn_plan[3], gn_plan[4], gn_plan[5]};
   cudaError_t err = launch_gn_x<3, false>(ga, x_is_f32, gp, s);
   if (err != cudaSuccess) return (int)err;

@@ -44,7 +44,7 @@ using namespace adm;
 // producer's epilogue vectors are set by the caller where it has one
 static EpiArgs halo_args(const void* x, const void* gn_scale, const void* gn_bias, const void* scale,
                          const void* zp, int n_levels, void* pad, int B, int H, int W, int C, int G,
-                         float inv_count) {
+                         float inv_count, float eps) {
   EpiArgs a = {};
   a.x = x;
   a.gn_scale = static_cast<const float*>(gn_scale);
@@ -53,7 +53,7 @@ static EpiArgs halo_args(const void* x, const void* gn_scale, const void* gn_bia
   a.act_zp[0] = static_cast<const float*>(zp);
   a.out[0] = static_cast<int8_t*>(pad);
   a.n_levels[0] = n_levels;
-  a.B = B; a.HW = H * W; a.N = C; a.G = G; a.swish = 1; a.halo_w = W; a.inv_count = inv_count;
+  a.B = B; a.HW = H * W; a.N = C; a.G = G; a.swish = 1; a.halo_w = W; a.inv_count = inv_count; a.eps = eps;
   return a;
 }
 
@@ -81,19 +81,19 @@ static IgemmArgs conv_args(const void* pad, const void* gt, const void* inv_ws, 
 // plan3: the GroupNorm launches' plans (ops/fused_gn.plan_args)
 extern "C" int adm_resblock(const void* r, int r_is_f32, const void* tproj, const void* const* v1, int n1, const void* g1t,
                             const void* const* v2, int n2, const void* g2t, void* pad1, void* acc, void* pad2,
-                            void* out, int B, int H, int W, int C, int groups, float inv_count, const int* tile,
+                            void* out, int B, int H, int W, int C, int groups, float inv_count, float eps, const int* tile,
                             const int* plan1, const int* plan3, void* stream) {
   if (C % 128 != 0 || C > 1024 || groups > 32 || C % groups != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   cudaError_t err = launch_gn_x<1, true>(
-      halo_args(r, v1[0], v1[1], v1[2], v1[3], n1, pad1, B, H, W, C, groups, inv_count), r_is_f32, plan_of(plan1), s);
+      halo_args(r, v1[0], v1[1], v1[2], v1[3], n1, pad1, B, H, W, C, groups, inv_count, eps), r_is_f32, plan_of(plan1), s);
   if (err != cudaSuccess) return (int)err;
 
   err = launch_igemm<3, EPI_I32>(conv_args(pad1, g1t, v1[4], v1[5], acc, B, H, W, C, tile), s);
   if (err != cudaSuccess) return (int)err;
 
-  EpiArgs a3 = halo_args(acc, v2[0], v2[1], v2[2], v2[3], n2, pad2, B, H, W, C, groups, inv_count);
+  EpiArgs a3 = halo_args(acc, v2[0], v2[1], v2[2], v2[3], n2, pad2, B, H, W, C, groups, inv_count, eps);
   a3.inv_ws = static_cast<const float*>(v1[4]);
   a3.zcbias = static_cast<const float*>(v1[5]);
   a3.temb = static_cast<const float*>(tproj);

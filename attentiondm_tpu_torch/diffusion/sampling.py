@@ -89,9 +89,13 @@ def ddpm_step(xt, et, at, atm1, t, noise):
 def step_rule(update: str, eta: float = 0.0, generator: torch.Generator | None = None, noise=None):
     """The per-step update `(i, xt, et, t, at, at_next) -> (x_next, x0)` of
     "ddim" (noised at `eta` > 0) or "ddpm" (always noised; `eta` unused),
-    its noise from `draw_noise`.  Every sampler of the package steps with it."""
+    its noise from `draw_noise`.  Every sampler of the package steps with it.
+    A model output wider than x (ADM's `learn_sigma`: eps, then the
+    variance's channels) gives its first channels as eps."""
 
     def rule(i, xt, et, t, at, at_next):
+        if et.shape[-1] != xt.shape[-1]:
+            et = et[..., :xt.shape[-1]]
         if update == "ddpm":
             return ddpm_step(xt, et, at, at_next, t, draw_noise(i, xt, generator, noise))
         e = draw_noise(i, xt, generator, noise) if eta > 0 else torch.zeros_like(xt)

@@ -46,12 +46,39 @@ class UNetConfig:
     resolution: int = 32
     attn_variant: str = "ddim"
     attn_heads: int = 8
+    # ADM (models/adm.py): model_type "adm" with guided-diffusion's flags
+    model_type: str = "ddpm"
+    num_head_channels: int = 64
+    learn_sigma: bool = False
+    gn_eps: float = 1e-6
+
+    def __repr__(self) -> str:
+        """The dataclass's repr, without the ADM fields on a DDPM config: the
+        string JAX's `UNetConfig` gives, which calibration caches carry as
+        their model signature (quant/calib_cache.py)."""
+        adm = ("model_type", "num_head_channels", "learn_sigma", "gn_eps")
+        shown = [f.name for f in dataclasses.fields(self) if self.model_type == "adm" or f.name not in adm]
+        return f"UNetConfig({', '.join(f'{n}={getattr(self, n)!r}' for n in shown)})"
 
     @classmethod
     def from_config(cls, config) -> "UNetConfig":
         """Build from a config namespace (`config.load_config`): its `model`
-        group, with `attn_resolutions` as a list of resolutions."""
+        group, with `attn_resolutions` as a list of resolutions.  A `model.type`
+        of "adm" reads guided-diffusion's flags (`num_channels`,
+        `channel_mult`, `num_res_blocks`, `attention_resolutions`,
+        `num_head_channels`, `use_scale_shift_norm`, `resblock_updown`,
+        `learn_sigma`, `dropout`) and takes GroupNorm's eps 1e-5."""
         m, d = config.model, config.data
+        if getattr(m, "type", None) == "adm":
+            if not (m.use_scale_shift_norm and m.resblock_updown):
+                raise NotImplementedError("the port's ADM takes use_scale_shift_norm and resblock_updown True "
+                                          "(guided-diffusion's LSUN and ImageNet flags)")
+            return cls(in_channels=getattr(m, "in_channels", d.channels),
+                       out_ch=d.channels * (2 if m.learn_sigma else 1), ch=m.num_channels,
+                       ch_mult=tuple(m.channel_mult), num_res_blocks=m.num_res_blocks,
+                       attn_resolutions=tuple(m.attention_resolutions), dropout=m.dropout, resamp_with_conv=True,
+                       resolution=d.image_size, model_type="adm", num_head_channels=m.num_head_channels,
+                       learn_sigma=bool(m.learn_sigma), gn_eps=1e-5)
         return cls(
             in_channels=m.in_channels,
             out_ch=getattr(m, "out_ch", getattr(m, "out_channels", d.channels)),
@@ -73,6 +100,10 @@ def check_ported(cfg: UNetConfig):
     """Raise for a config the port's forward does not cover."""
     if cfg.attn_variant not in ("ddim", "enhanced"):
         raise ValueError(f"attn_variant must be 'ddim' or 'enhanced', got {cfg.attn_variant!r}")
+    if cfg.model_type not in ("ddpm", "adm"):
+        raise ValueError(f"model_type must be 'ddpm' or 'adm', got {cfg.model_type!r}")
+    if cfg.model_type == "adm" and cfg.attn_variant != "ddim":
+        raise ValueError("ADM's attention is its own multi-head block: attn_variant stays 'ddim'")
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int) -> torch.Tensor:
@@ -187,6 +218,10 @@ def unet_init(gen: torch.Generator, cfg: UNetConfig, device) -> Params:
     """Random params with the JAX init's structure and distributions (not its
     numbers), drawn on the CPU from `gen` and moved to `device`."""
     check_ported(cfg)
+    if cfg.model_type == "adm":
+        from .adm import adm_init
+
+        return map_tree(lambda a: a.to(device), adm_init(gen, cfg, _init_conv, _init_dense, _init_norm))
     num_levels = len(cfg.ch_mult)
     in_ch_mult = (1,) + tuple(cfg.ch_mult)
     params: dict = {
@@ -493,8 +528,20 @@ def unet_apply(params: Params, cfg: UNetConfig, x: torch.Tensor, t: torch.Tensor
     back as this rank's part (sp: its rows).  Under sp the levels from
     `parallel.check_rows(cfg)` on run whole on every rank: the rows are
     gathered before the downsample into the first of them and cut back to
-    this rank's after the upsample out of it.  Without it nothing changes."""
+    this rank's after the upsample out of it.  Without it nothing changes.
+
+    An ADM config (`cfg.model_type == "adm"`, models/adm.py) takes
+    `conv_apply`, `train` and its dropout; `attn_ctx`, `compute_dtype`,
+    `gates` and `parallel` are the DDPM UNet's and raise there."""
     check_ported(cfg)
+    if cfg.model_type == "adm":
+        if attn_ctx is not None or compute_dtype is not None or gates is not None or parallel is not None:
+            raise NotImplementedError("ADM's forward takes conv_apply, train and dropout: no attn_ctx, compute_dtype, "
+                                      "gates or parallel")
+        from .adm import adm_apply
+
+        return adm_apply(params, cfg, x, t, conv_apply or _default_conv_apply,
+                         _dropout(cfg, train, generator, dropout_masks))
     num_levels = len(cfg.ch_mult)
     ca_whole = conv_apply or _default_conv_apply
     ca, par, rep = ca_whole, parallel, num_levels
@@ -583,6 +630,11 @@ ATTN_PROJS = {"ddim": ("q", "k", "v", "proj_out"),
 def iter_conv_layers(cfg: UNetConfig):
     """Yield (name, in_channels, kernel_size) for every conv the forward routes
     through `conv_apply`, in call order (lockstep with `unet_apply`)."""
+    if cfg.model_type == "adm":
+        from .adm import adm_conv_layers
+
+        yield from adm_conv_layers(cfg)
+        return
     num_levels = len(cfg.ch_mult)
     in_ch_mult = (1,) + tuple(cfg.ch_mult)
     curr_res = cfg.resolution

@@ -47,17 +47,17 @@ SIGNATURES = {
     # bm, cols, rows, imgs, stream
     "adm_int8_conv": [_P] * 6 + [_I] * 14 + [_P],
     # x, x_is_int32, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp, out,
-    # B, HW, N, groups, n_levels, inv_count, the plan (cluster, wpb, threads, smem, held), stream
-    "adm_epilogue_gn_swish_quant": [_P, _I] + [_P] * 8 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # B, HW, N, groups, n_levels, inv_count, eps, the plan (cluster, wpb, threads, smem, held), stream
+    "adm_epilogue_gn_swish_quant": [_P, _I] + [_P] * 8 + [_I] * 5 + [_F, _F] + [_I] * 5 + [_P],
     # x ... act_zp as above, scratch `partial` [B, nchunk, 2, groups] f32 and `flags` [B + 1] int32 zeroed,
-    # out, B, HW, N, groups, n_levels, inv_count, the plan (threads, smem), stream
-    "adm_epilogue_gn_swish_quant_blocked": [_P, _I] + [_P] * 10 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+    # out, B, HW, N, groups, n_levels, inv_count, eps, the plan (threads, smem), stream
+    "adm_epilogue_gn_swish_quant_blocked": [_P, _I] + [_P] * 10 + [_I] * 5 + [_F, _F] + [_I] * 2 + [_P],
     # x, x_is_f32, gn (2,C), sqkv (6,C), n_q, n_k, n_v, wq, wk, wv, eqkv (6,C), sqo (4,C), n_o, wo,
     # scratch q8 k8 v8 qf kf vf o8, amax [B, 2] zeroed (the int8 core) or null (the f32 core), out,
-    # B, L, C, groups, inv_count, scale, bm, cols (the projections' M tiling), the core's plan (bq, vk, smem),
-    # the GroupNorm launch's plan, stream; the weights K-major
+    # B, L, C, groups, inv_count, eps, scale, bm, cols (the projections' M tiling), the core's plan (bq, vk,
+    # smem), the GroupNorm launch's plan, stream; the weights K-major
     "adm_fused_attention_block": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
-    + [_P] * 9 + [_I] * 4 + [_F, _F] + [_I] * 5 + [_TILE, _P],
+    + [_P] * 9 + [_I] * 4 + [_F, _F, _F] + [_I] * 5 + [_TILE, _P],
     # K3's core alone: q, k, v (f32), scratch q8, k8, amax (int8 core) or nulls, sqo (2, C), n_levels, out,
     # logits or null, B, L, C, plan (bq, vk, smem), scale, stream
     "adm_attention_core": [_P] * 7 + [_I, _P, _P] + [_I] * 6 + [_F, _P],
@@ -67,18 +67,19 @@ SIGNATURES = {
     # dot q k v (int32), (inv_ws, zcbias) x3, out_scale, out_zp, n_levels, scratch amax [B, 2] zeroed, q8, k8,
     # v^T bf16 [B, C, L], out, B, L, C, scale, plan (bq, stages, smem), stream
     "adm_fused_int8_attention": [_P] * 11 + [_I] + [_P] * 5 + [_I] * 3 + [_F] + [_I] * 3 + [_P],
-    # q, k, v, out (f32), B, L, D, block_k, scale, stream
-    "adm_flash_attention": [_P] * 4 + [_I] * 4 + [_F, _P],
+    # q, k, v, out (f32), B, L, D (a head's), heads, block_k, scale, stream
+    "adm_flash_attention": [_P] * 4 + [_I] * 5 + [_F, _P],
     # x, x_is_f32, gn_scale, gn_bias, (scale, zp) x3, n_out, n_levels x3, out x3, swish,
-    # B, HW, N, groups, inv_count, scratch partial and flags (the blocked form; else null), plan, stream
-    "adm_gn_act_quant": [_P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 3 + [_I] * 5 + [_F, _P, _P, _TILE, _P],
+    # B, HW, N, groups, inv_count, eps, scratch partial and flags (the blocked form; else null), plan, stream
+    "adm_gn_act_quant": [_P, _I] + [_P] * 8 + [_I] * 4 + [_P] * 3 + [_I] * 5 + [_F, _F, _P, _P, _TILE, _P],
     # dot, dot_is_int32, inv_ws, zcbias, x_res, res_is_f32, out, out_is_f32, sums, B, HW, N, groups, plan,
     # channels a thread, stream
     "adm_epilogue_residual_gn_stats": [_P, _I, _P, _P, _P, _I, _P, _I, _P] + [_I] * 4 + [_TILE, _I, _P],
     # r, r_is_f32, tproj, v1 (six vector pointers: gn scale, gn bias, act scale, act zp, inv_ws, zcbias), n1, g1,
-    # v2, n2, g2, scratch pad1 acc pad2, out, B, H, W, C, groups, inv_count, tile (bm, cols, rows, imgs),
+    # v2, n2, g2, scratch pad1 acc pad2, out, B, H, W, C, groups, inv_count, eps, tile (bm, cols, rows, imgs),
     # the two GroupNorm launches' plans, stream; g1, g2 K-major
-    "adm_resblock": [_P, _I, _P, _VEC6, _I, _P, _VEC6, _I, _P] + [_P] * 4 + [_I] * 5 + [_F, _TILE, _TILE, _TILE, _P],
+    "adm_resblock": [_P, _I, _P, _VEC6, _I, _P, _VEC6, _I, _P] + [_P] * 4 + [_I] * 5 + [_F, _F, _TILE, _TILE, _TILE,
+                                                                                       _P],
 }
 
 

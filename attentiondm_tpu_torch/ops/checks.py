@@ -138,8 +138,9 @@ def per_site(records: list):
         "fused_int8_attention": lambda *a: "K8",
         "fused_int8_attention_static":
             lambda q, *a: "K10" if ia.static_core_takes_flash(q.shape[1], q.shape[2]) else "K9",
-        # the dense float32 softmax of a short map is no kernel and has no second version
-        "spatial_attention": lambda q, *a: "K11" if takes_flash(q.shape[1], q.shape[2]) else None,
+        # the dense float32 softmax of a short one-head map is no kernel and has no second version
+        "head_attention": lambda q, k, v, heads, *a: "K11" if heads > 1 or takes_flash(q.shape[1], q.shape[2])
+        else None,
     }
     # the interception runtime's products (quantized_conv2d_int8 / _prefolded): K1's int32 3x3 and 1x1 modes
     qc_kinds = {"conv3x3_int8_dot": lambda *a: "K13", "int8_matmul": lambda *a: "K5"}
@@ -262,6 +263,71 @@ def conv_plan(cfg, widths=False, *, dot_bf16=True):
     return k1, epi["K2"], epi["K6"], k3, composed
 
 
+def adm_step_plan(cfg, batch: int, *, dot_bf16=True, residual_dtype=torch.float32) -> dict:
+    """One serving step of ADM's UNet (models/adm.py, `_serving_adm_apply`)
+    as its kernel calls, from the block list and the forward's own
+    predicates: {"K1": [(name, H_out, Cp, Np, ksize, mode)], "K2": [(site,
+    HW, N)], "K6": [...], "K4": [(site, HW, C)], "K11": [(site, L, C,
+    heads)], "K3": [(site, L, C)], "plain": [(site, what)]}.  A `fused_block` resblock
+    launches K4 at its entry (at the low resolution in an upsampling block;
+    a downsampling block's entry, whose pool sits before its quantizer,
+    runs in plain torch), K1 for conv1 and conv2 in `dot_bf16`'s mode with
+    K2 / K6 between them, and K1's int32 1x1 mode for a `nin_shortcut`; an
+    unfused one K1 in int32 mode for each conv of at least 64 input
+    channels.  An attention block of several heads is composed: K4 with
+    three outputs, four K1 1x1 GEMMs and K11 with heads; one head routes as
+    the DDPM's block (`_k3_site`).  conv_in runs on the fake-quant float
+    conv, conv_out on K4 and K1's int32 3x3 mode."""
+    from ..models.adm import adm_blocks, heads_of
+
+    def rup(c):
+        return (c + 127) // 128 * 128
+
+    dot = torch.bfloat16 if dot_bf16 else torch.int32
+    plan = {k: [] for k in ("K1", "K2", "K6", "K4", "K11", "K3", "plain")}
+    for kind, name, H, cin, cout, rs in adm_blocks(cfg):
+        if kind == "attn":
+            heads = heads_of(cfg, cin)
+            if cin < 64:
+                plan["plain"].append((name, "fake-quant projections"))
+                if heads > 1 or takes_flash(H * H, cin):
+                    plan["K11"].append((name, H * H, cin, heads))
+                continue
+            if heads == 1 and _k3_site(H * H, cin):
+                plan["K3"].append((name, H * H, cin))
+                continue
+            if fused_gn.gn_act_quant_takes(batch, H * H, cin, residual_dtype, 3):
+                plan["K4"].append((name, H * H, cin))
+            else:
+                plan["plain"].append((name, "entry"))
+            plan["K1"] += [(f"{name}.{s}", H, rup(cin), rup(cin), 1, torch.int32) for s in ("q", "k", "v", "proj_out")]
+            if heads > 1 or takes_flash(H * H, cin):
+                plan["K11"].append((name, H * H, cin, heads))
+            continue
+        Ho = H // 2 if rs == "down" else 2 * H if rs == "up" else H
+        if fused_block(cin, cout):
+            if rs == "down" or not fused_gn.gn_act_quant_takes(batch, H * H, cin, residual_dtype):
+                plan["plain"].append((name, "entry"))
+            else:
+                plan["K4"].append((name, H * H, cin))
+            plan["K1"].append((f"{name}.conv1", Ho, rup(cin), rup(cout), 3, dot))
+            plan[fused_gn.epilogue_route((1, Ho, Ho, cout), dot)].append((name, Ho * Ho, cout))
+            plan["K1"].append((f"{name}.conv2", Ho, rup(cout), rup(cout), 3, dot))
+        else:
+            plan["plain"].append((name, "unfused chain"))
+            for conv, c_in, c_out in (("conv1", cin, cout), ("conv2", cout, cout)):
+                if c_in >= 64:
+                    plan["K1"].append((f"{name}.{conv}", Ho, rup(c_in), rup(c_out), 3, torch.int32))
+        if cin != cout and cin >= 64:
+            plan["K1"].append((f"{name}.nin_shortcut", Ho, rup(cin), rup(cout), 1, torch.int32))
+    c0 = cfg.ch * cfg.ch_mult[0]
+    if c0 >= 64:
+        if fused_gn.gn_act_quant_takes(batch, cfg.resolution ** 2, c0, residual_dtype):
+            plan["K4"].append(("conv_out", cfg.resolution ** 2, c0))
+        plan["K1"].append(("conv_out", cfg.resolution, rup(c0), rup(cfg.out_ch), 3, torch.int32))
+    return plan
+
+
 def attention_sites(cfg) -> list:
     """(site, L, C) of every attention block of a serving step that the int8
     path covers (q projection eligible), in forward order; either variant."""
@@ -299,6 +365,13 @@ def attention_plan(cfg, *, attn_int8=None, attn_ranges=None) -> dict:
 
     plan = {k: [] for k in ("K3.int8_core", "K8", "K9", "K10", "K11", "refused")}
     if cfg.attn_variant == "enhanced":
+        return plan
+    if cfg.model_type == "adm":  # the float32 core: K11 with heads where more than one (`adm_step_plan`)
+        adm = adm_step_plan(cfg, 1)
+        plan["K11"] = [(L, C) for _site, L, C, _heads in adm["K11"]]
+        plan["refused"] = ([(site, L, C, "K3") for site, L, C in adm["K3"] if not ia.k3_takes(L, C)]
+                           + [(site, L, C, "K11") for site, L, C, heads in adm["K11"]
+                              if not flash_takes(L, C // heads, min(512, L), heads)])
         return plan
     attn_int8 = True if attn_int8 is None else attn_int8
     for site, L, C in attention_sites(cfg):
@@ -421,6 +494,17 @@ def gn_refused(cfg, batch: int, *, residual_dtype=torch.float32, dot_bf16=True, 
 
     if residual_dtype not in fused_gn.RESIDUAL_DTYPES:
         raise ValueError(f"residual_dtype={residual_dtype!r}: the serving path's residual stream is bf16 or f32")
+    if cfg.model_type == "adm":  # its conv1 epilogues (`adm_step_plan`); no K7 or K12
+        adm = adm_step_plan(cfg, batch, dot_bf16=dot_bf16, residual_dtype=residual_dtype)
+        dot = torch.bfloat16 if dot_bf16 else torch.int32
+        refused = []
+        for kind in ("K2", "K6"):
+            for site, HW, N in adm[kind]:
+                try:
+                    fused_gn.epilogue_plan(batch, HW, N, dot, kind)
+                except NotImplementedError:
+                    refused.append((site, HW, N, "K2/K6"))
+        return refused
     plan = lever_plan(cfg, batch, dot_bf16=dot_bf16, residual_dtype=residual_dtype, **levers)
     whole = {site for site, _H, _C in plan["K12"]}
     levels = len(cfg.ch_mult)
@@ -479,6 +563,14 @@ def expected_launches(cfg, steps: int = 1, batch: int = 1, *, attn_int8=None, at
     del conv_pallas  # every int8 conv is K1 whatever its value
     if residual_dtype not in fused_gn.RESIDUAL_DTYPES:
         raise ValueError(f"residual_dtype={residual_dtype!r}: the serving path's residual stream is bf16 or f32")
+    if cfg.model_type == "adm":  # `adm_step_plan`'s calls; no K7 / K12, no int8 core
+        adm = adm_step_plan(cfg, batch, dot_bf16=dot_bf16, residual_dtype=residual_dtype)
+        k1 = adm["K1"]
+        counts = {key: 0 for key in launch_counters()}
+        counts.update({"K1": len(k1), "K5": sum(1 for c in k1 if c[4] == 1),
+                       "K13": sum(1 for c in k1 if c[4] == 3 and c[5] == torch.int32),
+                       "K3.int8_core": 0, **{k: len(adm[k]) for k in ("K2", "K6", "K4", "K11", "K3")}})
+        return {k: n * steps for k, n in counts.items()}
     k1, k2, k6, k3, _composed = conv_plan(cfg, dot_bf16=dot_bf16)
     attn = attention_plan(cfg, attn_int8=attn_int8, attn_ranges=attn_ranges)
     plan = lever_plan(cfg, batch, dot_bf16=dot_bf16, residual_dtype=residual_dtype, **levers)

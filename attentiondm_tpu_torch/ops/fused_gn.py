@@ -32,7 +32,9 @@ GroupNorm statistics follow the TPU kernel's `_gn_normalize`: per-group
 sum and sum of squares in float32, variance E[x^2] - mu^2 clamped at 0
 (not torch's two-pass `var`).  The float32 sums run in one fixed order,
 `window_sum`'s, in the kernels and here alike, so kernel and plain version
-give the same bits (csrc/common.cuh).  Swish is written
+give the same bits (csrc/common.cuh).  Every kernel and plain version
+takes GroupNorm's `eps` (default `GN_EPS`, the DDPM UNet's 1e-6; ADM's
+1e-5), handed to the kernels as a float32.  Swish is written
 `h * (1 / (1 + exp(-h)))`, the kernel's formula.
 """
 from __future__ import annotations
@@ -46,7 +48,8 @@ import torch.nn.functional as F
 from ..quant.primitives import div
 from . import _build
 
-GROUPS = 32  # the UNet's GroupNorm (eps 1e-6)
+GROUPS = 32  # the UNet's GroupNorm
+GN_EPS = 1e-6  # the DDPM UNet's GroupNorm eps (ADM's is 1e-5): every kernel and plain version takes `eps`
 WIN = 32  # rows per window of the float32 sums (csrc/common.cuh GN_WIN)
 CHUNK = WIN * WIN  # rows per K6 block (GN_CHUNK)
 WHOLE_IMAGE_BYTES = 4 * 1024 * 1024  # JAX's whole-image budget for K2: HW * N * (in bytes + 1)
@@ -75,10 +78,10 @@ def window_sum(x):
     return _seq_sum(x, -2)
 
 
-def _finalize(s_g, s2_g, inv_count: float):
+def _finalize(s_g, s2_g, inv_count: float, eps: float = GN_EPS):
     mean_g = s_g * inv_count
     var_g = torch.clamp(s2_g * inv_count - mean_g * mean_g, min=0.0)
-    return mean_g, div(1.0, torch.sqrt(var_g + 1e-6))
+    return mean_g, div(1.0, torch.sqrt(var_g + eps))
 
 
 def _normalize(x, mean_g, rstd_g, gn_scale, gn_bias):
@@ -88,7 +91,7 @@ def _normalize(x, mean_g, rstd_g, gn_scale, gn_bias):
     return (x - mean_c) * rstd_c * gn_scale + gn_bias
 
 
-def gn_normalize(x, gn_scale, gn_bias):
+def gn_normalize(x, gn_scale, gn_bias, eps: float = GN_EPS):
     """x [B, HW, C] float32 -> GroupNorm(x) with E[x^2]-mu^2 statistics,
     summed per channel by `window_sum`, then per group in channel order."""
     B, HW, C = x.shape
@@ -96,7 +99,7 @@ def gn_normalize(x, gn_scale, gn_bias):
     cg = C // g
     s_g = _seq_sum(window_sum(x).reshape(B, g, cg), -1)
     s2_g = _seq_sum(window_sum(x * x).reshape(B, g, cg), -1)
-    mean_g, rstd_g = _finalize(s_g, s2_g, 1.0 / (HW * cg))
+    mean_g, rstd_g = _finalize(s_g, s2_g, 1.0 / (HW * cg), eps)
     return _normalize(x, mean_g, rstd_g, gn_scale, gn_bias)
 
 
@@ -116,14 +119,14 @@ def _epilogue_h(dot, inv_ws, zcbias, temb):
 
 
 def epilogue_gn_swish_quant_ref(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale,
-                                act_zp, a_bit: int):
+                                act_zp, a_bit: int, eps: float = GN_EPS):
     """Plain version of K2."""
-    h = gn_normalize(_epilogue_h(dot, inv_ws, zcbias, temb), gn_scale.float(), gn_bias.float())
+    h = gn_normalize(_epilogue_h(dot, inv_ws, zcbias, temb), gn_scale.float(), gn_bias.float(), eps)
     return quant_i8(swish(h), act_scale, act_zp, a_bit).reshape(dot.shape)
 
 
 def epilogue_gn_swish_quant_blocked_ref(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale,
-                                        act_zp, a_bit: int):
+                                        act_zp, a_bit: int, eps: float = GN_EPS):
     """Plain version of K6, in its order: per chunk of CHUNK rows the
     channel sums (`window_sum`) and their group sums, then the chunks' group
     sums in chunk order."""
@@ -135,7 +138,7 @@ def epilogue_gn_swish_quant_blocked_ref(dot, inv_ws, zcbias, temb, gn_scale, gn_
     hc = F.pad(h, (0, 0, 0, nchunk * CHUNK - HW)).reshape(B, nchunk, CHUNK, N)
     s_g = _seq_sum(_seq_sum(window_sum(hc).reshape(B, nchunk, g, cg), -1), 1)
     s2_g = _seq_sum(_seq_sum(window_sum(hc * hc).reshape(B, nchunk, g, cg), -1), 1)
-    mean_g, rstd_g = _finalize(s_g, s2_g, 1.0 / (HW * cg))
+    mean_g, rstd_g = _finalize(s_g, s2_g, 1.0 / (HW * cg), eps)
     h = _normalize(h, mean_g, rstd_g, gn_scale.float(), gn_bias.float())
     return quant_i8(swish(h), act_scale, act_zp, a_bit).reshape(dot.shape)
 
@@ -506,7 +509,7 @@ def _vectors(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp):
 
 
 def epilogue_gn_swish_quant(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp,
-                            a_bit: int, *, plain: bool = False):
+                            a_bit: int, *, eps: float = GN_EPS, plain: bool = False):
     """dot [B, H, W, N] (bf16 or int32) -> int8 [B, H, W, N] input of the next
     conv; temb [B, N] is the time-embedding projection added before the
     statistics.  Routes to K2 or K6 (`epilogue_route`); `plain=True` runs
@@ -515,11 +518,11 @@ def epilogue_gn_swish_quant(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_sc
         raise NotImplementedError(f"epilogue_gn_swish_quant: dot dtype {dot.dtype}")
     kernel = {"K2": epilogue_gn_swish_quant_whole, "K6": epilogue_gn_swish_quant_blocked}
     return kernel[epilogue_route(dot.shape, dot.dtype)](dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale,
-                                                         act_zp, a_bit, plain=plain)
+                                                         act_zp, a_bit, eps=eps, plain=plain)
 
 
 def epilogue_gn_swish_quant_whole(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp,
-                                  a_bit: int, *, plain: bool = False):
+                                  a_bit: int, *, eps: float = GN_EPS, plain: bool = False):
     """K2: `epilogue_gn_swish_quant`, a cluster of blocks per image
     (`epilogue_plan(..., "K2")`), at any shape the plan takes (N a multiple of
     8 up to 1024, HW up to 32 * 32 * CHUNK rows as shared memory allows).
@@ -528,7 +531,7 @@ def epilogue_gn_swish_quant_whole(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, 
     version on any device."""
     args = (dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp, a_bit)
     if plain or dot.device.type == "cpu":
-        return epilogue_gn_swish_quant_ref(*args)
+        return epilogue_gn_swish_quant_ref(*args, eps)
     B, N = dot.shape[0], dot.shape[-1]
     HW = dot.numel() // (B * N)
     g = min(GROUPS, N)
@@ -538,7 +541,7 @@ def epilogue_gn_swish_quant_whole(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, 
     out = torch.empty(dot.shape, dtype=torch.int8, device=dot.device)
     err = _build.kernels().adm_epilogue_gn_swish_quant(
         dot.data_ptr(), int(dot.dtype == torch.int32), *(v.data_ptr() for v in vecs), out.data_ptr(),
-        B, HW, N, g, 2 ** (a_bit - 1), 1.0 / (HW * (N // g)),
+        B, HW, N, g, 2 ** (a_bit - 1), 1.0 / (HW * (N // g)), eps,
         *(int(plan[k]) for k in ("cluster", "wpb", "threads", "smem", "held")), _build.stream_ptr(dot.device))
     _build.check(err, "adm_epilogue_gn_swish_quant")
     epilogue_gn_swish_quant_whole.launches += 1
@@ -549,14 +552,14 @@ epilogue_gn_swish_quant_whole.launches = 0
 
 
 def epilogue_gn_swish_quant_blocked(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp,
-                                    a_bit: int, *, plain: bool = False):
+                                    a_bit: int, *, eps: float = GN_EPS, plain: bool = False):
     """K6: `epilogue_gn_swish_quant` for images over the whole-image budget
     (N a multiple of 128): one launch of resident blocks over (image, chunk
     of CHUNK rows) items (`epilogue_plan(..., "K6")`).  `plain=True` runs the
     plain version on any device."""
     if plain or dot.device.type == "cpu":
         return epilogue_gn_swish_quant_blocked_ref(dot, inv_ws, zcbias, temb, gn_scale, gn_bias,
-                                                   act_scale, act_zp, a_bit)
+                                                   act_scale, act_zp, a_bit, eps)
     B, N = dot.shape[0], dot.shape[-1]
     HW = dot.numel() // (B * N)
     plan = epilogue_plan(B, HW, N, dot.dtype, "K6")
@@ -568,7 +571,7 @@ def epilogue_gn_swish_quant_blocked(dot, inv_ws, zcbias, temb, gn_scale, gn_bias
     out = torch.empty(dot.shape, dtype=torch.int8, device=dot.device)
     err = _build.kernels().adm_epilogue_gn_swish_quant_blocked(
         dot.data_ptr(), int(dot.dtype == torch.int32), *(v.data_ptr() for v in vecs), partial.data_ptr(),
-        flags.data_ptr(), out.data_ptr(), B, HW, N, g, 2 ** (a_bit - 1), 1.0 / (HW * (N // g)), plan["threads"],
+        flags.data_ptr(), out.data_ptr(), B, HW, N, g, 2 ** (a_bit - 1), 1.0 / (HW * (N // g)), eps, plan["threads"],
         plan["smem"], _build.stream_ptr(dot.device))
     _build.check(err, "adm_epilogue_gn_swish_quant_blocked")
     epilogue_gn_swish_quant_blocked.launches += 1
@@ -583,10 +586,10 @@ epilogue_gn_swish_quant_blocked.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def gn_act_quant_ref(x, gn_scale, gn_bias, quant_params, *, act: str = "swish"):
+def gn_act_quant_ref(x, gn_scale, gn_bias, quant_params, *, act: str = "swish", eps: float = GN_EPS):
     """Plain version of K4."""
     B, C = x.shape[0], x.shape[-1]
-    h = gn_normalize(x.to(torch.float32).reshape(B, -1, C), gn_scale.float(), gn_bias.float())
+    h = gn_normalize(x.to(torch.float32).reshape(B, -1, C), gn_scale.float(), gn_bias.float(), eps)
     if act == "swish":
         h = swish(h)
     return tuple(quant_i8(h, s, z, b).reshape(x.shape) for (s, z, b) in quant_params)
@@ -608,7 +611,7 @@ def gn_act_quant_takes(B: int, HW: int, C: int, dtype=torch.bfloat16, n_out: int
 
 
 def gn_act_quant(x, gn_scale, gn_bias, quant_params, *, groups: int = GROUPS, act: str = "swish",
-                 plain: bool = False):
+                 eps: float = GN_EPS, plain: bool = False):
     """K4: x [B, H, W, C] or [B, HW, C] (bf16 or f32) -> a tuple of int8
     tensors of x's shape, one per (act_scale [C], act_zp [C], a_bit) of
     `quant_params` (1 to 3), each the quantized GroupNorm(x) after `act`
@@ -619,7 +622,7 @@ def gn_act_quant(x, gn_scale, gn_bias, quant_params, *, groups: int = GROUPS, ac
     if groups != GROUPS:
         raise NotImplementedError(f"gn_act_quant: groups={groups} (the UNet's GroupNorm has {GROUPS})")
     if plain or x.device.type == "cpu":
-        return gn_act_quant_ref(x, gn_scale, gn_bias, quant_params, act=act)
+        return gn_act_quant_ref(x, gn_scale, gn_bias, quant_params, act=act, eps=eps)
     B, C = x.shape[0], x.shape[-1]
     HW = x.numel() // (B * C)
     g = min(GROUPS, C)
@@ -643,7 +646,7 @@ def gn_act_quant(x, gn_scale, gn_bias, quant_params, *, groups: int = GROUPS, ac
     err = _build.kernels().adm_gn_act_quant(
         x.data_ptr(), int(x.dtype == torch.float32), *(v.data_ptr() for v in vecs), *pad, *pad, n_out,
         *(2 ** (b - 1) for (_s, _z, b) in quant_params), *pad, *(o.data_ptr() for o in outs), *pad,
-        int(act == "swish"), B, HW, C, g, 1.0 / (HW * (C // g)), *(None if t is None else t.data_ptr()
+        int(act == "swish"), B, HW, C, g, 1.0 / (HW * (C // g)), eps, *(None if t is None else t.data_ptr()
                                                                     for t in (partial, flags)),
         plan_args(plan), _build.stream_ptr(x.device))
     _build.check(err, "adm_gn_act_quant")
@@ -674,9 +677,10 @@ def epilogue_residual_gn_stats_takes(HW: int, N: int) -> bool:
     return bool(k7_plans(HW, N))
 
 
-def gn_finalize_sums(sums, HW: int, cg: int):
-    """[B, 2, G] sum / sum of squares -> (mean [B, G], rstd [B, G])."""
-    return _finalize(sums[:, 0, :], sums[:, 1, :], 1.0 / (HW * cg))
+def gn_finalize_sums(sums, HW: int, cg: int, eps: float = GN_EPS):
+    """[B, 2, G] sum / sum of squares -> (mean [B, G], rstd [B, G]): K7's
+    sums finalized at GroupNorm's `eps`."""
+    return _finalize(sums[:, 0, :], sums[:, 1, :], 1.0 / (HW * cg), eps)
 
 
 def epilogue_residual_gn_stats_ref(dot, inv_ws, zcbias, x_res, *, out_dtype=torch.float32):

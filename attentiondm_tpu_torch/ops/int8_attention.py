@@ -54,7 +54,7 @@ import torch
 
 from . import _build
 from .attention import NEG_INF
-from .fused_gn import GROUPS, epilogue_plan, gn_normalize, plan_args, quant_i8
+from .fused_gn import GN_EPS, GROUPS, epilogue_plan, gn_normalize, plan_args, quant_i8
 from .pallas_conv import conv_tiles, k_major
 from .precision import exact_f32
 from .quant_conv import int8_matmul_ref
@@ -390,11 +390,11 @@ attention_core.launches = 0
 
 
 def fused_attention_block_ref(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant, o_weights,
-                              *, scale: float, int8_core: bool = False):
+                              *, scale: float, int8_core: bool = False, eps: float = GN_EPS):
     """Plain version of `fused_attention_block`, in the TPU kernel's order."""
     B, L, C = x.shape
     xf = x.to(torch.float32)
-    h = gn_normalize(xf, gn_scale.float(), gn_bias.float()).reshape(B * L, C)
+    h = gn_normalize(xf, gn_scale.float(), gn_bias.float(), eps).reshape(B * L, C)
     q, k, v = (
         (int8_matmul_ref(quant_i8(h, s, z, b), gq).to(torch.float32) * iw + zc).reshape(B, L, C)
         for (s, z, b), (gq, iw, zc) in zip(qkv_quant, qkv_weights)
@@ -407,7 +407,7 @@ def fused_attention_block_ref(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_qu
 
 
 def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant, o_weights, *,
-                          scale: float, int8_core: bool = False, plain: bool = False):
+                          scale: float, int8_core: bool = False, eps: float = GN_EPS, plain: bool = False):
     """x [B, L, C] residual -> x + attention(x), at x's dtype.
 
     qkv_quant: [(act_scale [C], act_zp [C], a_bit)] * 3 for q, k, v;
@@ -415,8 +415,8 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
     optionally with a fourth entry, gq's K-major copy [C, C] (`gq.T`, which
     the kernel's GEMMs read; made on the fly where absent);
     o_quant / o_weights: the same for proj_out.  `int8_core` runs q . k^T in
-    int8 at per-image dynamic scales.  `plain=True` runs the plain version on
-    any device."""
+    int8 at per-image dynamic scales.  `eps` is the GroupNorm's.  `plain=True`
+    runs the plain version on any device."""
     B, L, C = x.shape
     weights = [tuple(w) for w in (*qkv_weights, o_weights)]
     for w in weights:
@@ -424,7 +424,7 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
             raise ValueError(f"fused_attention_block: weights {tuple(w[0].shape)} != ({C}, {C})")
     if plain or x.device.type == "cpu":
         return fused_attention_block_ref(x, gn_scale, gn_bias, qkv_quant, [w[:3] for w in weights[:3]], o_quant,
-                                         weights[3][:3], scale=scale, int8_core=int8_core)
+                                         weights[3][:3], scale=scale, int8_core=int8_core, eps=eps)
     if x.dtype not in (torch.bfloat16, torch.float32) or not k3_takes(L, C):
         raise NotImplementedError(
             f"fused_attention_block on CUDA: bf16 or f32 residual, C in {K3_WIDTHS}, L <= {K3_MAX_L}; got "
@@ -452,7 +452,8 @@ def fused_attention_block(x, gn_scale, gn_bias, qkv_quant, qkv_weights, o_quant,
         wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), eqkv.data_ptr(), sqo.data_ptr(),
         2 ** (bo - 1), wo.data_ptr(),
         *(t.data_ptr() for t in scratch8[:3]), *(t.data_ptr() for t in scratchf), scratch8[3].data_ptr(),
-        None if amax is None else amax.data_ptr(), out.data_ptr(), B, L, C, g, 1.0 / (L * (C // g)), float(scale),
+        None if amax is None else amax.data_ptr(), out.data_ptr(), B, L, C, g, 1.0 / (L * (C // g)), eps,
+        float(scale),
         tiles.BM, tiles.cols, plan.bq, plan.vk, plan.smem,
         plan_args(epilogue_plan(B, L, C, x.dtype, "K4", 3)), _build.stream_ptr(x.device))
     _build.check(err, "adm_fused_attention_block")

@@ -32,6 +32,7 @@ import torch
 
 from . import _build
 from .fused_gn import (
+    GN_EPS,
     GROUPS,
     RESIDUAL_DTYPES,
     epilogue_gn_swish_quant_ref,
@@ -81,18 +82,18 @@ def resblock_pallas_takes(B: int, H: int, W: int, C: int, dtype=torch.bfloat16) 
 
 
 def resblock_pallas_ref(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, gn2_bias, q2, g2_flat,
-                        sb2, *, a_bit1: int = 8, a_bit2: int = 8, out_dtype=torch.bfloat16):
+                        sb2, *, a_bit1: int = 8, a_bit2: int = 8, out_dtype=torch.bfloat16, eps: float = GN_EPS):
     """Plain version of K12: the plain versions of its stages, chained."""
-    (hq,) = gn_act_quant_ref(r, gn1_scale, gn1_bias, [(q1[0], q1[1], a_bit1)])
+    (hq,) = gn_act_quant_ref(r, gn1_scale, gn1_bias, [(q1[0], q1[1], a_bit1)], eps=eps)
     acc = int8_conv_ref(pad_qzero(hq, q1[1], a_bit1), g1_flat)
-    hq2 = epilogue_gn_swish_quant_ref(acc, sb1[0], sb1[1], tproj, gn2_scale, gn2_bias, q2[0], q2[1], a_bit2)
+    hq2 = epilogue_gn_swish_quant_ref(acc, sb1[0], sb1[1], tproj, gn2_scale, gn2_bias, q2[0], q2[1], a_bit2, eps)
     acc = int8_conv_ref(pad_qzero(hq2, q2[1], a_bit2), g2_flat)
     return (r.to(torch.float32) + (acc.to(torch.float32) * sb2[0] + sb2[1])).to(out_dtype)
 
 
 def resblock_pallas(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, gn2_bias, q2, g2_flat, sb2,
                     *, a_bit1: int = 8, a_bit2: int = 8, groups: int = GROUPS, out_dtype=torch.bfloat16,
-                    g1_t=None, g2_t=None, plain: bool = False):
+                    g1_t=None, g2_t=None, eps: float = GN_EPS, plain: bool = False):
     """r [B, H, W, C] residual -> the resblock's output at `out_dtype`.
 
     tproj [B, C] float32 is dense(swish(temb)); gn*_scale / gn*_bias [C];
@@ -108,7 +109,7 @@ def resblock_pallas(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, 
         raise ValueError(f"resblock_pallas: folds {tuple(g1_flat.shape)}, {tuple(g2_flat.shape)} != ({9 * C}, {C})")
     if plain or r.device.type == "cpu":
         return resblock_pallas_ref(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, gn2_bias, q2,
-                                   g2_flat, sb2, a_bit1=a_bit1, a_bit2=a_bit2, out_dtype=out_dtype)
+                                   g2_flat, sb2, a_bit1=a_bit1, a_bit2=a_bit2, out_dtype=out_dtype, eps=eps)
     if (r.dtype != out_dtype or not resblock_pallas_takes(B, H, W, C, r.dtype)
             or g1_flat.dtype != torch.int8 or g2_flat.dtype != torch.int8):
         raise NotImplementedError(
@@ -134,7 +135,7 @@ def resblock_pallas(r, tproj, gn1_scale, gn1_bias, q1, g1_flat, sb1, gn2_scale, 
         r.data_ptr(), int(r.dtype == torch.float32), tproj.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half1)), 2 ** (a_bit1 - 1),
         g1_t.data_ptr(), _build.VEC6(*(v.data_ptr() for v in half2)), 2 ** (a_bit2 - 1), g2_t.data_ptr(),
         pad1.data_ptr(), acc.data_ptr(), pad2.data_ptr(), out.data_ptr(),
-        B, H, W, C, g, 1.0 / (H * W * (C // g)), _build.TILE(t.BM, t.cols, t.rows, t.imgs), plan1, plan3,
+        B, H, W, C, g, 1.0 / (H * W * (C // g)), eps, _build.TILE(t.BM, t.cols, t.rows, t.imgs), plan1, plan3,
         _build.stream_ptr(r.device))
     _build.check(err, "adm_resblock")
     resblock_pallas.launches += 1

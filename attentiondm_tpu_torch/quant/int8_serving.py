@@ -23,7 +23,8 @@ Attention blocks route as in JAX (`_attn_fused`): a map that
 with `int8_core=attn_int8`; a larger one is composed of a GroupNorm ->
 three quants, three K1 1x1 GEMMs and a core, K9 or K10 at the calibrated
 `attn_ranges` (static scales), K8 without them (dynamic scales), or with
-`attn_int8=False` the float32 `spatial_attention` (K11 at L >= 1024), then
+`attn_int8=False` the float32 `head_attention` (one head: `spatial_attention`,
+K11 at L >= 1024; ADM's several: K11 with heads), then
 proj_out's K1 GEMM; its three-output entry is routed as a resblock's.  The
 enhanced variant's block (`_attn_fused_enhanced`) has no GroupNorm entry:
 its four 1x1 projections are K1 GEMMs on the quantized residual stream
@@ -71,7 +72,17 @@ quantized-zero halo and channel pad), `adm.quant_io` (the quantize before and
 the dequant after each K1 GEMM outside the fused resblock chain, and the
 fake quantization of convs off the fold), `adm.exit` (each block's slice,
 casts and residual add, or K7), `adm.skip` (the decoder's concat) and
-`adm.update` (the DDIM / DDPM rule).  No leaf opens inside another.
+`adm.update` (the DDIM / DDPM rule), and on ADM's graph `adm.resample` (the
+pool or nearest x2 of a resampling resblock's branch and skip; the
+embedding projection and the scale-shift fold are `adm.temb`'s).  No leaf
+opens inside another.
+
+ADM's UNet (`cfg.model_type == "adm"`, models/adm.py) serves through the
+same kernels (`_serving_adm_apply`, `_resblock_adm`): its resblocks fold the
+timestep's scale-shift into norm2's affine (K2 / K6 with a zero temb), its
+resampling resblocks pool before (down) or upsample the int8 codes after
+(up) the entry's quantizer, and its multi-head attention blocks take the
+composed branch around K11 with heads; every GroupNorm at its eps 1e-5.
 """
 from __future__ import annotations
 
@@ -83,6 +94,7 @@ import torch
 import torch.nn.functional as F
 
 from ..diffusion.sampling import _seq_alphas, step_rule
+from ..models.adm import adm_blocks, adm_timestep_embedding, heads_of, scale_shift
 from ..models.unet import (
     UNetConfig,
     avg_pool2,
@@ -99,6 +111,7 @@ from ..models.unet import (
     swish,
 )
 from ..ops.fused_gn import (
+    GN_EPS,
     RESIDUAL_DTYPES,
     epilogue_gn_swish_quant,
     epilogue_residual_gn_stats,
@@ -108,7 +121,7 @@ from ..ops.fused_gn import (
     gn_finalize_sums,
     quant_i8 as _quant_i8,
 )
-from ..ops.attention import spatial_attention
+from ..ops.attention import head_attention
 from ..ops.checks import require_attention_kernels, require_gn_kernels
 from ..ops.int8_attention import (
     fused_attention_block,
@@ -182,6 +195,11 @@ def _require_attention_flags(cfg: UNetConfig, attn_int8, attn_ranges, mp_states)
     `attn_int8=True` nor `attn_ranges`; the ddim block has no
     mixed-precision core, so it takes no `mp_states`."""
     enhanced = cfg.attn_variant == "enhanced"
+    if cfg.model_type == "adm":
+        if attn_int8 or attn_ranges is not None or mp_states:
+            raise ValueError("ADM's multi-head blocks take the float32 core (K11 with heads): pass attn_int8=False "
+                             f"or None and no attn_ranges or mp_states (got attn_int8={attn_int8!r})")
+        return False
     if enhanced and (attn_int8 or attn_ranges is not None):
         raise ValueError("the enhanced attention variant's core is float32 (or the stage-3 mixed-precision core): "
                          f"pass attn_int8=False or None and no attn_ranges (got attn_int8={attn_int8!r}, "
@@ -384,8 +402,8 @@ def runtime_nbytes(runtime: Dict[str, ServingLayer]) -> int:
 # ---------------------------------------------------------------------------
 
 
-def gn_act_quant_xla(x, gn_p, quant_params, *, act="swish", sums=None):
-    """GroupNorm(32 groups, eps 1e-6) -> act -> quantize in plain torch, two
+def gn_act_quant_xla(x, gn_p, quant_params, *, act="swish", sums=None, eps=GN_EPS):
+    """GroupNorm(32 groups, `eps`) -> act -> quantize in plain torch, two
     passes (stats, then a fused normalize/swish/quantize); one int8 output
     per (scale, zp, bit).
 
@@ -396,9 +414,9 @@ def gn_act_quant_xla(x, gn_p, quant_params, *, act="swish", sums=None):
     g = min(32, C)
     if sums is None:
         xg = xf.reshape(B, -1, g, C // g)
-        mean, rstd = xg.mean(dim=(1, 3)), torch.rsqrt(xg.var(dim=(1, 3), correction=0) + 1e-6)
+        mean, rstd = xg.mean(dim=(1, 3)), torch.rsqrt(xg.var(dim=(1, 3), correction=0) + eps)
     else:
-        mean, rstd = gn_finalize_sums(sums, xf.numel() // (B * C), C // g)
+        mean, rstd = gn_finalize_sums(sums, xf.numel() // (B * C), C // g, eps)
     shape = (B,) + (1,) * (xf.ndim - 2) + (C,)
     mean_c = mean.repeat_interleave(C // g, dim=1).reshape(shape)
     rstd_c = rstd.repeat_interleave(C // g, dim=1).reshape(shape)
@@ -408,19 +426,20 @@ def gn_act_quant_xla(x, gn_p, quant_params, *, act="swish", sums=None):
     return tuple(_quant_i8(h, s, z, b) for (s, z, b) in quant_params)
 
 
-def _entry_gn_quant(h_res, gn_p, quant_params, *, act="swish", sums=None, plain=False):
+def _entry_gn_quant(h_res, gn_p, quant_params, *, act="swish", sums=None, eps=GN_EPS, plain=False):
     """A GroupNorm -> act -> quantize entry (a resblock's norm1, conv_out's
     norm_out, a composed attention block's norm with three outputs): K4
     wherever `gn_act_quant_takes` admits the shape, its plain version with
     `plain` or on the CPU.  With `sums` (boundary fusion) the plain entry is
     already one pass and stays, as it does where no form of K4 takes the
-    shape."""
+    shape.  `eps` is the model's GroupNorm eps."""
     with trace_annotation("adm.entry"):
         if sums is None:
             B, C = h_res.shape[0], h_res.shape[-1]
             if gn_act_quant_takes(B, h_res.numel() // (B * C), C, h_res.dtype, len(quant_params)):
-                return gn_act_quant(h_res, gn_p["scale"], gn_p["bias"], quant_params, act=act, plain=plain)
-        return gn_act_quant_xla(h_res, gn_p, quant_params, act=act, sums=sums)
+                return gn_act_quant(h_res, gn_p["scale"], gn_p["bias"], quant_params, act=act, eps=eps,
+                                    plain=plain)
+        return gn_act_quant_xla(h_res, gn_p, quant_params, act=act, sums=sums, eps=eps)
 
 
 def _pad_channels(xp, Cp):
@@ -527,10 +546,12 @@ def _shortcut(name, p, h_res, rt_i, qunet, qstates, step_idx, *, plain=False):
 
 
 def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, qstates=None, step_idx=0, entry_sums=None,
-                    want_exit_stats=False, dot_bf16=True, resblock_pallas=False, plain=False):
+                    want_exit_stats=False, dot_bf16=True, resblock_pallas=False, resample=None, plain=False):
     """norm1 -> swish -> conv1 -> (+temb) -> norm2 -> swish -> conv2 (+shortcut),
     fused where the fold covers both convs with conv1's output unpadded
-    (JAX's `fused`).  Returns (residual', exit sums or None).
+    (JAX's `fused`).  Returns (residual', exit sums or None).  An ADM
+    resblock (`qunet.cfg.model_type == "adm"`) is `_resblock_adm`'s, with
+    its `resample` ("down", "up" or None).
 
     `dot_bf16`: each conv is K1 with its dequant fused, writing bf16, and
     K2 / K6 read that; without it the convs write K1's int32 accumulator and
@@ -541,6 +562,9 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, qstates
     sums over this block's input (norm1 skips its statistics pass);
     `want_exit_stats` asks the exit for residual' and the next norm1's sums
     in one pass (K7)."""
+    if _is_adm(qunet):
+        return _resblock_adm(name, p, h_res, temb_act, rt_i, qunet, res_dtype, qstates=qstates, step_idx=step_idx,
+                             dot_bf16=dot_bf16, resample=resample, plain=plain)
     c1, c2 = rt_i.get(f"{name}.conv1"), rt_i.get(f"{name}.conv2")
     a1, a2 = qunet.policy[f"{name}.conv1"], qunet.policy[f"{name}.conv2"]
     co1, co2 = p["conv1"]["kernel"].shape[3], p["conv2"]["kernel"].shape[3]
@@ -590,6 +614,86 @@ def _resblock_fused(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, qstates
         return (x_sc.to(torch.float32) + h).to(res_dtype), None
 
 
+def _is_adm(qunet) -> bool:
+    """Whether the model served is ADM's (a `QuantizedUNet`'s config says so;
+    a stand-in that carries only a policy serves the DDPM's blocks)."""
+    cfg = getattr(qunet, "cfg", None)
+    return cfg is not None and cfg.model_type == "adm"
+
+
+def _resample(h, resample):
+    """ADM's resampling of a resblock's branch: the 2x2 average pool
+    ("down", in float32), nearest x2 ("up", at h's dtype: int8 codes too),
+    or h as it is."""
+    if resample is None:
+        return h
+    with trace_annotation("adm.resample"):
+        return avg_pool2(h.to(torch.float32)) if resample == "down" else nearest_up2(h)
+
+
+def _resblock_adm(name, p, h_res, temb_act, rt_i, qunet, res_dtype, *, qstates=None, step_idx=0, dot_bf16=True,
+                  resample=None, plain=False):
+    """ADM's resblock: norm1 -> swish -> (resample) -> conv1 -> GN(h) * (1 +
+    scale) + shift -> swish -> conv2, plus the skip (resampled the same way,
+    then the 1x1 `nin_shortcut` where the channels change).  Returns
+    (residual', None).
+
+    Every image of a call shares the timestep, so the scale-shift folds
+    into norm2's affine once a step: gamma' = gamma (1 + scale), beta' =
+    beta (1 + scale) + shift, which K2 / K6 apply with a zero temb add.  An
+    upsampling block quantizes at the low resolution (K4) and repeats the
+    int8 codes (nearest x2 commutes with the per-channel quantizer); a
+    downsampling block pools the swish output in float32 before it
+    quantizes (the pool does not commute), its GroupNorm in plain torch.  A
+    block off the fold (`fused_block`) runs the unfused chain of the DDPM's
+    (plain GroupNorm, `_conv_any`)."""
+    cfg = qunet.cfg
+    eps = cfg.gn_eps
+    c1, c2 = rt_i.get(f"{name}.conv1"), rt_i.get(f"{name}.conv2")
+    a1, a2 = qunet.policy[f"{name}.conv1"], qunet.policy[f"{name}.conv2"]
+    co1, co2 = p["conv1"]["kernel"].shape[3], p["conv2"]["kernel"].shape[3]
+    with trace_annotation("adm.temb"):
+        gain, shift = scale_shift(dense(swish(temb_act), p["temb_proj"]).to(torch.float32))
+        if gain.shape[0] != 1:
+            raise ValueError("ADM serving folds the timestep's scale-shift into norm2 once a call: the batch must "
+                             "share one timestep (a stride-0 t, as the samplers pass it)")
+        norm2 = {"scale": p["norm2"]["scale"].to(torch.float32) * gain[0],
+                 "bias": p["norm2"]["bias"].to(torch.float32) * gain[0] + shift[0]}
+    B = h_res.shape[0]
+
+    if not (c1 is not None and c2 is not None and c1.zcbias.shape[-1] == co1):
+        with trace_annotation("adm.entry"):
+            h = swish(group_norm(h_res.to(torch.float32), p["norm1"], eps=eps))
+        h = _conv_any(f"{name}.conv1", _resample(h, resample), p["conv1"], rt_i, qunet, qstates, step_idx,
+                      plain=plain)
+        with trace_annotation("adm.entry"):
+            h = swish(group_norm(h, norm2, eps=eps))
+        h = _conv_any(f"{name}.conv2", h, p["conv2"], rt_i, qunet, qstates, step_idx, plain=plain)
+        x_sc = _shortcut(name, p, _resample(h_res, resample), rt_i, qunet, qstates, step_idx, plain=plain)
+        with trace_annotation("adm.exit"):
+            return (x_sc.to(torch.float32) + h).to(res_dtype), None
+
+    q1 = [(c1.act_scale, c1.act_zp, a1.a_bit)]
+    if resample == "down":
+        with trace_annotation("adm.entry"):
+            h = swish(group_norm(h_res.to(torch.float32), p["norm1"], eps=eps))
+        h = _resample(h, resample)
+        with trace_annotation("adm.entry"):
+            hq = _quant_i8(h, *q1[0])
+    else:
+        (hq,) = _entry_gn_quant(h_res, p["norm1"], q1, eps=eps, plain=plain)
+        hq = _resample(hq, resample)
+    dot1, epi1 = _conv3_dot(hq, c1.act_zp, a1.a_bit, c1, dot_bf16, plain=plain)
+    zero = _identity_of(c1.inv_ws[:co1])[1]
+    hq2 = epilogue_gn_swish_quant(dot1, *epi1, zero.expand(B, -1), norm2["scale"], norm2["bias"], c2.act_scale,
+                                  c2.act_zp, a2.a_bit, eps=eps, plain=plain)
+    dot2, _epi2 = _conv3_dot(hq2, c2.act_zp, a2.a_bit, c2, dot_bf16, plain=plain)
+    x_sc = _shortcut(name, p, _resample(h_res, resample), rt_i, qunet, qstates, step_idx, plain=plain)
+    with trace_annotation("adm.exit"):
+        h = dot2.to(torch.float32)[..., :co2] if dot_bf16 else _epilogue(dot2, c2, co2)
+        return (x_sc.to(torch.float32) + h).to(res_dtype), None
+
+
 def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=None, qstates=None, step_idx=0,
                 plain=False):
     """DDIM single-head attention with int8 q/k/v/proj_out projections.
@@ -601,43 +705,51 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
     projections are K1 GEMMs to int32, and the core is K9 / K10 at the
     step's calibrated ranges `ar_i` (the quantization at scale absmax / 127
     in plain torch, as XLA fuses it into the projection epilogues), K8
-    without them, or with `attn_int8=False` the float32 `spatial_attention`;
+    without them, or with `attn_int8=False` the float32 `head_attention`;
     then proj_out's int8 GEMM, dequant and the residual add.  Where the fold
     does not cover the projections (fewer than 64 channels), JAX's
     fake-quant branch: plain GroupNorm, the four projections as fake-quant
-    float convs (`qstates` at `step_idx`) around `spatial_attention`."""
+    float convs (`qstates` at `step_idx`) around `head_attention`.
+
+    ADM's blocks (`qunet.cfg.model_type == "adm"`) attend in heads of
+    `num_head_channels` at scale d^-1/2 with their GroupNorm's eps: a block
+    of more than one head takes the composed branch with the float32 core
+    `head_attention` (K11 with heads); one head routes as above."""
     B, H, W, C = h_res.shape
     L = H * W
+    adm = _is_adm(qunet)
+    heads = heads_of(qunet.cfg, C) if adm else 1
+    eps = qunet.cfg.gn_eps if adm else GN_EPS
+    scale = (C // heads) ** -0.5
     names = [f"{name}.{k}" for k in ("q", "k", "v", "proj_out")]
     lays = [rt_i.get(n) for n in names]
     pols = [qunet.policy[n] for n in names]
     if any(lay is None for lay in lays):
         with trace_annotation("adm.entry"):
             hf = h_res.to(torch.float32)
-            h = group_norm(hf, p["norm"])
+            h = group_norm(hf, p["norm"], eps=eps)
 
         def fq_conv(key, x):
             return _conv_any(f"{name}.{key}", x, p[key], rt_i, qunet, qstates, step_idx, plain=plain)
 
         q, k, v = (fq_conv(key, h).reshape(B, L, C) for key in ("q", "k", "v"))
-        h = spatial_attention(q, k, v, scale=C ** -0.5, plain=plain).reshape(B, H, W, C)
+        h = head_attention(q, k, v, heads, scale=scale, plain=plain).reshape(B, H, W, C)
         out = fq_conv("proj_out", h)
         with trace_annotation("adm.exit"):
             return (hf + out).to(res_dtype)
     lq, lk, lv, lo = lays
     qp = [(lay.act_scale, lay.act_zp, pol.a_bit) for lay, pol in zip(lays[:3], pols[:3])]
-    scale = C ** -0.5
-    if fused_attention_block_fits(L, C) and all(tuple(lay.gq.shape) == (C, C) for lay in lays):
+    if heads == 1 and fused_attention_block_fits(L, C) and all(tuple(lay.gq.shape) == (C, C) for lay in lays):
         out = fused_attention_block(
             h_res.to(res_dtype).reshape(B, L, C),
             p["norm"]["scale"], p["norm"]["bias"], qp,
             [(lay.gq, lay.inv_ws, lay.zcbias, lay.gqt) for lay in lays[:3]],
             (lo.act_scale, lo.act_zp, pols[3].a_bit),
             (lo.gq, lo.inv_ws, lo.zcbias, lo.gqt),
-            scale=scale, int8_core=bool(attn_int8), plain=plain,
+            scale=scale, int8_core=bool(attn_int8), eps=eps, plain=plain,
         )
         return out.reshape(B, H, W, C)
-    hq, hk, hv = _entry_gn_quant(h_res, p["norm"], qp, act="none", plain=plain)
+    hq, hk, hv = _entry_gn_quant(h_res, p["norm"], qp, act="none", eps=eps, plain=plain)
     if attn_int8 and lq.zcbias.shape[-1] == C:
         dots = [int8_conv(a, lay.gq, 1, gqt=lay.gqt, plain=plain).reshape(B, L, C)
                 for a, lay in ((hq, lq), (hk, lk), (hv, lv))]
@@ -662,7 +774,7 @@ def _attn_fused(name, p, h_res, rt_i, qunet, res_dtype, *, attn_int8=True, ar_i=
             dot = int8_conv(a, lay.gq, 1, gqt=lay.gqt, plain=plain)
             with trace_annotation("adm.quant_io"):
                 qkv.append(_epilogue(dot, lay, C).reshape(B, L, C))
-        h = spatial_attention(*qkv, scale=scale, plain=plain).reshape(B, H, W, C)
+        h = head_attention(*qkv, heads, scale=scale, plain=plain).reshape(B, H, W, C)
         with trace_annotation("adm.quant_io"):
             oq = _quant_i8(h, lo.act_scale, lo.act_zp, pols[3].a_bit)
     dot = int8_conv(oq, lo.gq, 1, gqt=lo.gqt, plain=plain)
@@ -700,6 +812,69 @@ def _attn_fused_enhanced(name, p, h_res, rt_i, qunet, qstates, step_idx, res_dty
 # ---------------------------------------------------------------------------
 # fused forward
 # ---------------------------------------------------------------------------
+
+
+def _require_adm_levers(cfg: UNetConfig, boundary_fusion, resblock_pallas):
+    """ADM's resblocks take neither K7's fused exit nor K12 (their norm2 is
+    the scale-shift fold's, their entries resample): both levers raise."""
+    if cfg.model_type == "adm" and (boundary_fusion or resblock_pallas):
+        raise ValueError("ADM serving takes neither boundary_fusion nor resblock_pallas (its resblocks scale-shift "
+                         "and resample)")
+
+
+def _serving_adm_apply(params, cfg: UNetConfig, qunet, rt_i, qstates, x, t, step_idx, res, dot_bf16, plain):
+    """ADM's serving forward (models/adm.py's graph): conv_in on the
+    fake-quant float conv, every resblock through `_resblock_fused` (its
+    `resample` given) and every attention block through `_attn_fused`,
+    looked up at call time, then norm_out -> K4 -> conv_out (K1).  The
+    batch shares one timestep (the scale-shift fold's): a stride-0 t, as the
+    samplers pass it, or one whose entries are all equal (checked here)."""
+    t1 = t[:1] if t.ndim == 1 and t.shape[0] > 1 and t.stride(0) == 0 else t
+    if t1.ndim == 1 and t1.shape[0] > 1:
+        if not bool((t1 == t1[0]).all()):
+            raise ValueError("ADM serving folds the timestep's scale-shift into norm2 once a call: the batch must share "
+                             "one timestep")
+        t1 = t1[:1]
+    with trace_annotation("adm.temb"):
+        temb = adm_timestep_embedding(t1, cfg.ch)
+        temb = dense(swish(dense(temb, params["temb"]["dense0"])), params["temb"]["dense1"])
+    h = _conv_any("conv_in", x.to(torch.float32), params["conv_in"], rt_i, qunet, qstates, step_idx,
+                  plain=plain).to(res)
+    hs = [h]
+    for kind, name, _H, _cin, _cout, rs in adm_blocks(cfg):
+        part, p = name.split(".")[0], lookup(params, name)
+        if kind == "attn":
+            with trace_annotation("adm.attn"):
+                h = _attn_fused(name, p, h, rt_i, qunet, res, attn_int8=False, qstates=qstates, step_idx=step_idx,
+                                plain=plain)
+            if part == "down":
+                hs[-1] = h
+            continue
+        if part == "up" and rs is None:
+            with trace_annotation("adm.skip"):
+                h = torch.cat([h, hs.pop()], dim=-1)
+        h, _ = _resblock_fused(name, p, h, temb, rt_i, qunet, res, qstates=qstates, step_idx=step_idx,
+                               dot_bf16=dot_bf16, resample=rs, plain=plain)
+        if part == "down":
+            hs.append(h)
+    assert not hs
+    return _conv_out(params, cfg, qunet, rt_i, qstates, step_idx, h, plain)
+
+
+def _conv_out(params, cfg: UNetConfig, qunet, rt_i, qstates, step_idx, h, plain):
+    """norm_out -> swish -> conv_out: the entry (K4) and K1's int32 3x3 mode,
+    or off the fold the fake-quant float conv."""
+    lay = rt_i.get("conv_out")
+    if lay is None:
+        with trace_annotation("adm.entry"):
+            h = swish(group_norm(h.to(torch.float32), params["norm_out"], eps=cfg.gn_eps))
+        return _conv_any("conv_out", h, params["conv_out"], rt_i, qunet, qstates, step_idx,
+                         plain=plain).to(torch.float32)
+    a_bit = qunet.policy["conv_out"].a_bit
+    (hq,) = _entry_gn_quant(h, params["norm_out"], [(lay.act_scale, lay.act_zp, a_bit)], eps=cfg.gn_eps, plain=plain)
+    dot = int8_conv3_qzero(hq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
+    with trace_annotation("adm.quant_io"):
+        return _epilogue(dot, lay, cfg.out_ch).to(torch.float32)
 
 
 @exact_f32()
@@ -748,10 +923,13 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                  conv_pallas=conv_pallas, resblock_pallas=resblock_pallas)
     check_ported(cfg)
     attn_int8 = _require_attention_flags(cfg, attn_int8, attn_ranges, mp_states)
+    _require_adm_levers(cfg, boundary_fusion, resblock_pallas)
     with trace_annotation("adm.views"):
         rt_i = gather_step(runtime, step_idx)
         ar_i = None if attn_ranges is None else {k: a[step_idx] for k, a in attn_ranges.items()}
     res = residual_dtype
+    if cfg.model_type == "adm":
+        return _serving_adm_apply(params, cfg, qunet, rt_i, qstates, x, t, step_idx, res, dot_bf16, plain)
     if cfg.attn_variant == "enhanced":
         mp_ctx = None
         if mp_states:
@@ -850,18 +1028,7 @@ def serving_unet_apply(params, cfg: UNetConfig, qunet: QuantizedUNet,
                 if cfg.resamp_with_conv:
                     h = conv_site(nm, h).to(res)
     assert not hs
-
-    # norm_out -> swish -> conv_out: int8, or off the fold the fake-quant float conv
-    lay = rt_i.get("conv_out")
-    if lay is None:
-        with trace_annotation("adm.entry"):
-            h = swish(group_norm(h.to(torch.float32), params["norm_out"]))
-        return conv_site("conv_out", h).to(torch.float32)
-    a_bit = qunet.policy["conv_out"].a_bit
-    (hq,) = _entry_gn_quant(h, params["norm_out"], [(lay.act_scale, lay.act_zp, a_bit)], plain=plain)
-    dot = int8_conv3_qzero(hq, lay.act_zp, a_bit, lay.gq, gqt=lay.gqt, plain=plain)
-    with trace_annotation("adm.quant_io"):
-        return _epilogue(dot, lay, cfg.out_ch).to(torch.float32)
+    return _conv_out(params, cfg, qunet, rt_i, qstates, step_idx, h, plain)
 
 
 # ---------------------------------------------------------------------------
@@ -933,6 +1100,7 @@ def serving_ddim_sampler(qunet: QuantizedUNet, params, qstates: Dict[str, ActQua
                  conv_pallas=conv_pallas, resblock_pallas=resblock_pallas)
     _require_symmetric(symmetric)
     attn_int8 = _require_attention_flags(qunet.cfg, attn_int8, attn_ranges, mp_states)
+    _require_adm_levers(qunet.cfg, boundary_fusion, resblock_pallas)
     if runtime is not None and step_chunk is not None:
         raise ValueError("a prebuilt runtime holds all steps' folds: incompatible with step_chunk's per-chunk folds")
     if rank1 and step_chunk is not None:

@@ -171,6 +171,11 @@ class Diffusion:
             if path.endswith(".npz"):
                 return load_params(path, unet_init(torch.Generator().manual_seed(0), self.ucfg, "cpu"), self.device,
                                    ema=bool(self.config.model.ema))
+            if self.ucfg.model_type == "adm":  # a guided-diffusion state dict (lsun_bedroom.pt ...)
+                from ..models.adm import from_guided_diffusion
+
+                return from_guided_diffusion(torch.load(path, map_location="cpu", weights_only=True), self.ucfg,
+                                             self.device)
             # CelebA-style training checkpoints carry the EMA weights in the list's tail
             ema = self.config.data.dataset.upper() == "CELEBA" and bool(self.config.model.ema)
             return load_torch_checkpoint(path, self.ucfg, ema=ema, device=self.device)

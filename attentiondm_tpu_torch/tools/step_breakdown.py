@@ -36,14 +36,15 @@ from . import probe
 VARIANTS = ("full", "attn=identity", "entry=quantize-only", "epilogue=plain", "unet=identity")
 
 
-def _entry_stub(h_res, gn_p, quant_params, *, act="swish", sums=None, plain=False):
+def _entry_stub(h_res, gn_p, quant_params, *, act="swish", sums=None, eps=fused_gn.GN_EPS, plain=False):
     hf = h_res.to(torch.float32)
     return tuple(quant_i8(hf, s, z, b) for (s, z, b) in quant_params)
 
 
-def _epilogue_stub(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp, a_bit, *, plain=False):
+def _epilogue_stub(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp, a_bit, *, eps=fused_gn.GN_EPS,
+                   plain=False):
     return fused_gn.epilogue_gn_swish_quant_ref(dot, inv_ws, zcbias, temb, gn_scale, gn_bias, act_scale, act_zp,
-                                                a_bit)
+                                                a_bit, eps)
 
 
 @contextlib.contextmanager

@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py [--steps 10] [--seed 0] [--profile]
                           [--paths cifar10,church,celeba-wide,imagenet64,cifar10-enhanced,cifar10-f32,cifar10-cli,
-                                   cifar10-train,cifar10-quality,celeba-data,cifar10-parallel]
+                                   cifar10-train,cifar10-quality,celeba-data,cifar10-parallel,adm-bedroom]
 
 (`--profile` adds, after the last phase, torch.profiler's device time per
 kernel for one run of each sampler and one training step; `--paths` runs only the paths named,
-all eleven by default.  A path's samplers run `--steps` quad steps, or fewer where MAX_STEPS cuts
-them: church 2; imagenet64, celeba-wide and cifar10-enhanced 4; the CLI, training, quality and
-parallel paths 3.)
+all twelve by default; `adm-bedroom` is ADM's LSUN-bedroom UNet at full width, batch 16, its
+own `--steps` uniform steps, about 4 min.  A path's samplers run `--steps` quad steps, or fewer
+where MAX_STEPS cuts them: church 2; imagenet64, celeba-wide and cifar10-enhanced 4; the CLI,
+training, quality and parallel paths 3.)
 
 1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the CUDA kernels from attentiondm_tpu_torch/csrc/;
@@ -326,10 +327,11 @@ import time
 CHAINED_BOUND = 0.1  # whole step, kernels vs plain versions: mean relative error (gross faults only)
 BATCH = {"cifar10": 128, "church": 32, "celeba-wide": 64, "imagenet64": 32, "cifar10-enhanced": 128,
          "cifar10-f32": 128, "cifar10-cli": 128, "cifar10-train": 512, "cifar10-quality": 64, "celeba-data": 128,
-         "cifar10-parallel": 128}
+         "cifar10-parallel": 128, "adm-bedroom": 16}
 # a shallower schedule where the path is long (each stage-1 calibration, about 1.3 s a step at CIFAR-10 and 2 s at
-# celeba-wide on the H100, and the CLI's per-step refinement grow with the steps; cut from 10 so that eleven paths
-# stay well inside the 1200 s limit); the kernels' checks and per-step figures do not depend on it
+# celeba-wide on the H100, and the CLI's per-step refinement grow with the steps; cut from 10 so that the eleven DDPM
+# paths stay well inside the 1200 s limit with ADM's beside them); the kernels' checks and per-step figures do not
+# depend on it
 MAX_STEPS = {"church": 2, "imagenet64": 4, "celeba-wide": 4, "cifar10-enhanced": 4, "cifar10-cli": 3,
              "cifar10-train": 3, "cifar10-quality": 3, "cifar10-parallel": 3}
 LEVER_ROUNDS = 3  # timed runs per lever setting, taken in turns
@@ -446,6 +448,10 @@ def path_config(path):
     if path == "imagenet64":
         config = load_config("imagenet64.yml")
         return UNetConfig.from_config(config), DiffusionSchedule.from_config(config), "imagenet64.yml ImageNet-64"
+    if path == "adm-bedroom":
+        config = load_config("adm_lsun_bedroom.yml")
+        return (UNetConfig.from_config(config), DiffusionSchedule.from_config(config),
+                "adm_lsun_bedroom.yml ADM's LSUN-bedroom UNet (guided-diffusion)")
     config = load_config("church.yml")
     return (UNetConfig.from_config(config), DiffusionSchedule.from_config(config),
             "church.yml LSUN church_outdoor")
@@ -3683,6 +3689,73 @@ def batch_variance(qunet, params, qstates, seq, x) -> str:
             f"equal: {torch.equal(eps_w[:h], eps_h)} (the difference is outside the kernels)")
 
 
+ADM_FLAGS = dict(attn_int8=False, residual_dtype=None)  # the bedroom cell's: the f32 core, the float32 stream
+
+
+def adm_phase(cfg, sched, label, steps, batch, gen, dev, report):
+    """ADM's LSUN-bedroom UNet at full width: K11 with heads at each
+    attention shape of its step against the plain version (and timed), then
+    the FP teacher (2 images), stage-1 calibration and the fold, and the
+    serving sampler (`steps` uniform steps at `batch`, the float32 stream,
+    the f32 core), its launches held to `expected_launches`, one step
+    teacher-forced site by site and chained (`step_checks`)."""
+    import torch
+
+    from attentiondm_tpu_torch.diffusion.sampling import ddim_sample, make_timestep_seq
+    from attentiondm_tpu_torch.models.adm import adm_blocks, heads_of
+    from attentiondm_tpu_torch.models.unet import count_params, unet_apply, unet_init
+    from attentiondm_tpu_torch.ops import checks
+    from attentiondm_tpu_torch.ops.attention import head_attention
+    from attentiondm_tpu_torch.quant.calibrate import calibrate_ranges
+    from attentiondm_tpu_torch.quant.int8_serving import prepare_serving_runtime, runtime_nbytes
+    from attentiondm_tpu_torch.quant.qunet import QuantizedUNet
+
+    shapes = sorted({(H * H, C) for kind, _n, H, C, _co, _rs in adm_blocks(cfg) if kind == "attn"})
+    for L, C in shapes:
+        n = sum(1 for kind, _n, H, c, _co, _rs in adm_blocks(cfg) if kind == "attn" and (H * H, c) == (L, C))
+        heads = heads_of(cfg, C)
+        q, k, v = (torch.randn((batch, L, C), generator=gen).to(dev) for _ in range(3))
+        scale = cfg.num_head_channels ** -0.5
+        got = head_attention(q, k, v, heads, scale=scale)
+        want = head_attention(q, k, v, heads, scale=scale, plain=True)
+        f = checks.compare("K11", got, want)
+        t = time_ms(lambda: head_attention(q, k, v, heads, scale=scale))
+        tp = time_ms(lambda: head_attention(q, k, v, heads, scale=scale, plain=True), reps=5)
+        bytes_ms, ops_ms = checks.bound_ms(16 * batch * L * C, tf32x3_flops=4 * batch * L * L * C)
+        print(f"[kernels] K11.heads B={batch} L={L} C={C} heads={heads} x{n}/step: {_fig(f)}; kernel {t:.3f} ms "
+              f"plain {tp:.3f} ms bound {max(ops_ms, bytes_ms):.3f} ms (its float32 products as 3xTF32, the rate "
+              f"K3's core reaches)")
+        if not f["ok"]:
+            raise AssertionError(f"K11 with heads at L={L}, C={C}: {f}")
+        report.add("K11", f["max_abs_err"], t, tp, (bytes_ms, ops_ms), weight=n, dev_ms=t)
+    R = cfg.resolution
+    params = unet_init(gen, cfg, dev)
+    print(f"[adm] {label}: {R}^2, {count_params(params) / 1e6:.2f}M params, W4A8, {steps} uniform steps, batch {batch}")
+    betas = sched.betas.to(dev)
+    seq = make_timestep_seq(1000, steps, "uniform")
+    x_small = torch.randn((2, R, R, cfg.in_channels), generator=gen).to(dev)
+    with torch.no_grad():
+        _, traj, _ = clock("FP teacher trajectory (2 images)", lambda: ddim_sample(
+            lambda xt, t, i: unet_apply(params, cfg, xt, t), x_small, seq, betas, keep_trajectory=True), "adm")
+        xs_in = torch.cat([x_small[None], traj[:-1]])
+        qunet = QuantizedUNet.create(cfg, 4, 8)
+        qstates = clock("stage-1 calibration", lambda: calibrate_ranges(qunet, params, qunet.init_state(steps, dev),
+                                                                        xs_in, seq), "adm")
+        runtime = clock("per-step fold", lambda: prepare_serving_runtime(qunet, params, qstates), "adm")
+    print(f"[adm] fold size: {runtime_nbytes(runtime) / 1e9:.3f} GB for {steps} steps")
+    x = torch.randn((batch, R, R, cfg.in_channels), generator=gen).to(dev)
+    ctx = dict(cfg=cfg, params=params, qunet=qunet, qstates=qstates, runtime=runtime, seq=seq, betas=betas,
+               xs_in=xs_in, x=x, steps=steps, batch=batch, dev=dev)
+    flags = {**ADM_FLAGS, "residual_dtype": torch.float32}
+    with torch.no_grad():
+        sample, out, counts = run_sampler(ctx, "f32 core, float32 stream", flags, tag="adm")
+        best = min(time_ms(lambda: sample(x), reps=1) for _ in range(2))
+    print(f"[adm] serving sampler: {best:.1f} ms for {steps} steps at batch {batch} = {batch / best * 1e3:.2f} images/s "
+          f"({best / steps:.2f} ms/step; information only); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    return counts, ctx
+
+
 def phase(path, name, fn, *args, **kwargs):
     """fn(*args, **kwargs), and its host-clock seconds printed."""
     t0 = time.perf_counter()
@@ -3698,7 +3771,7 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also print torch.profiler's device time per kernel for one sampler run")
     ap.add_argument("--paths", default=",".join(BATCH),
-                    help=f"the paths to run, comma-separated (default: all of {', '.join(BATCH)})")
+                    help=f"the paths to run, comma-separated among {', '.join(BATCH)} (default: all)")
     args = ap.parse_args(argv)
     paths = args.paths.split(",")
     if not paths or any(p not in BATCH for p in paths):
@@ -3748,6 +3821,9 @@ def main(argv=None):
                                 args.profile)
             lever_counts = phase(path, "levers", levers_phase, ctx, timed=False)
             launches_of = {**counts["mp core"], **{key: lever_counts[key] for key in ("K4", "K7", "K12")}}
+        elif path == "adm-bedroom":
+            counts, ctx = phase(path, "adm", adm_phase, cfg, sched, label, steps, BATCH[path], gen, dev, report)
+            launches_of = counts
         elif path == "cifar10-f32":
             phase(path, "kernels", f32_kernel_phase, cfg, BATCH[path], gen, dev, report)
             counts, ctx = phase(path, "slice", slice_phase, cfg, sched, label, steps, BATCH[path], gen, dev,

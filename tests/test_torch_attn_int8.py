@@ -394,7 +394,7 @@ def test_attention_sites_match_jax_teacher_forced(chain, setting):
     ar_i = None if flags["attn_ranges"] is None else {k: a[0] for k, a in flags["attn_ranges"].items()}
     calls = []
     saved = {n: getattr(srv, n) for n in ("fused_attention_block", "fused_int8_attention",
-                                          "fused_int8_attention_static", "spatial_attention")}
+                                          "fused_int8_attention_static", "head_attention")}
     try:
         for n, fn in saved.items():
             setattr(srv, n, lambda *a, _n=n, _fn=fn, **k: (calls.append((_n, k.get("int8_core"))), _fn(*a, **k))[1])
@@ -407,7 +407,7 @@ def test_attention_sites_match_jax_teacher_forced(chain, setting):
     finally:
         for n, fn in saved.items():
             setattr(srv, n, fn)
-    core = {"static": "fused_int8_attention_static", "dynamic": "fused_int8_attention", "f32": "spatial_attention"}
+    core = {"static": "fused_int8_attention_static", "dynamic": "fused_int8_attention", "f32": "head_attention"}
     int8 = setting != "f32"
     assert calls == [(core[setting], None) if s in COMPOSED else ("fused_attention_block", int8)
                      for s, _h, _o in chain["sites"][setting]]

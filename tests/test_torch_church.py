@@ -77,11 +77,14 @@ def _rel(a, b):
 @pytest.mark.parametrize("name", ["church.yml", "cifar10.yml", "bedroom.yml"])
 def test_from_config_matches_jax(name):
     """`UNetConfig.from_config` and `DiffusionSchedule.from_config` of a
-    shipped config give JAX's fields (schedules: float32 tensors equal)."""
+    shipped config give JAX's fields (schedules: float32 tensors equal); the
+    fields JAX's config lacks (the port's ADM ones) keep their DDPM defaults."""
     cfg, jcfg = load_config(name), j_load_config(name)
     assert namespace2dict(cfg) == namespace2dict(jcfg)
+    jc = JConfig.from_config(jcfg)
     assert UNetConfig.from_config(cfg) == UNetConfig(**{
-        f: getattr(JConfig.from_config(jcfg), f) for f in UNetConfig.__dataclass_fields__})
+        f: getattr(jc, f) for f in UNetConfig.__dataclass_fields__ if hasattr(jc, f)})
+    assert UNetConfig.from_config(cfg).model_type == "ddpm" and UNetConfig.from_config(cfg).gn_eps == 1e-6
     sched, jsched = DiffusionSchedule.from_config(cfg, device="cpu"), JSchedule.from_config(jcfg)
     for f in ("betas", "alphas_cumprod", "logvar"):
         np.testing.assert_array_equal(getattr(sched, f).numpy(), np.asarray(getattr(jsched, f)), err_msg=f)

@@ -1456,3 +1456,109 @@ def test_sharded_forward_on_the_card_matches_the_cpu(dev, tmp_path, mode):
                                                    mode=mode, mesh=(1, 2), device="cuda"))
     got = res[0]["eps"] if mode == "tp" else np.concatenate([r["eps"] for r in res], axis=1)
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+# ADM's LSUN-bedroom UNet: K11 with heads, the GroupNorm kernels at eps 1e-5, one serving step of a toy ADM
+
+
+@pytest.mark.parametrize("B,L,C", [(2, 1024, 512), (2, 256, 1024), (2, 64, 1024), (3, 64, 128)])
+def test_k11_heads_match_plain(dev, gen, B, L, C):
+    from attentiondm_tpu_torch.ops.attention import head_attention
+
+    q, k, v = (_f(gen, (B, L, C), dev) for _ in range(3))
+    heads = C // 64
+    flash_attention.launches = 0
+    got = head_attention(q, k, v, heads, scale=64 ** -0.5)
+    assert flash_attention.launches == 1
+    want = head_attention(q, k, v, heads, scale=64 ** -0.5, plain=True)
+    assert checks.compare("K11", got, want)["ok"]
+    qh, kh, vh = (a.reshape(B, L, heads, 64).transpose(1, 2) for a in (q, k, v))
+    w = torch.softmax(torch.einsum("bhlc,bhmc->bhlm", qh, kh) * 64 ** -0.5, -1)
+    ind = torch.einsum("bhlm,bhmc->bhlc", w, vh).transpose(1, 2).reshape(B, L, C)
+    assert float((got - ind).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("B,HW,C,n_out,dtype", [
+    (2, 65536, 256, 1, torch.float32), (2, 1024, 1536, 1, torch.float32), (2, 64, 2048, 1, torch.float32),
+    (2, 4096, 768, 1, torch.float32), (2, 1024, 512, 3, torch.float32), (2, 256, 1024, 3, torch.bfloat16)])
+def test_k4_at_adm_eps_bit_equal(dev, gen, B, HW, C, n_out, dtype):
+    x = _f(gen, (B, HW, C), dev, 1e-2).to(dtype)
+    gs, gb = _f(gen, (C,), dev, 0.1, 1.0), _f(gen, (C,), dev)
+    qp = [(_f(gen, (C,), dev, 1.0, 20.0), _f(gen, (C,), dev), 8)] * n_out
+    act = "swish" if n_out == 1 else "none"
+    got = gn_act_quant(x, gs, gb, qp, act=act, eps=1e-5)
+    want = gn_act_quant(x, gs, gb, qp, act=act, eps=1e-5, plain=True)
+    at6 = gn_act_quant(x, gs, gb, qp, act=act, eps=1e-6, plain=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(got[0], at6[0])
+
+
+@pytest.mark.parametrize("H,N", [(256, 256), (128, 256), (64, 512), (32, 512), (16, 1024), (8, 1024)])
+def test_k2_k6_at_adm_eps_with_the_scale_shift_fold(dev, gen, H, N):
+    B = 2
+    dot = _f(gen, (B, H, H, N), dev, 3e-2).to(torch.bfloat16)
+    ones, zeros = torch.ones(N, device=dev), torch.zeros(N, device=dev)
+    gain, shift = _f(gen, (N,), dev, 0.3, 1.0), _f(gen, (N,), dev)
+    gs, gb = _f(gen, (N,), dev, 0.1, 1.0), _f(gen, (N,), dev)
+    s, z = _f(gen, (N,), dev, 1.0, 20.0), _f(gen, (N,), dev)
+    args = (dot, ones, zeros, zeros.expand(B, -1), gs * gain, gb * gain + shift, s, z, 8)
+    got = epilogue_gn_swish_quant(*args, eps=1e-5)
+    assert torch.equal(got, epilogue_gn_swish_quant(*args, eps=1e-5, plain=True))
+    assert not torch.equal(got, epilogue_gn_swish_quant(*args, eps=1e-6, plain=True))
+
+
+def test_k3_and_k12_at_adm_eps(dev, gen):
+    B, L, C = 2, 64, 1024
+    x = _f(gen, (B, L, C), dev, 1e-2)
+    gs, gb = _f(gen, (C,), dev, 0.1, 1.0), _f(gen, (C,), dev)
+    qq = [(_f(gen, (C,), dev, 1.0, 20.0), _f(gen, (C,), dev), 8)] * 3
+    w = [(_i8(gen, (C, C), -8, 7, dev), _f(gen, (C,), dev, 1e-3, 1e-2), _f(gen, (C,), dev, 1e-2))] * 3
+    oq, ow = (_f(gen, (C,), dev, 1.0, 20.0), _f(gen, (C,), dev), 8), w[0]
+    for eps in (1e-5, 1e-6):
+        got = fused_attention_block(x, gs, gb, qq, w, oq, ow, scale=C ** -0.5, eps=eps)
+        want = fused_attention_block(x, gs, gb, qq, w, oq, ow, scale=C ** -0.5, eps=eps, plain=True)
+        assert checks.compare("K3", got, want)["ok"]
+    Cr, H = 128, 8
+    r = _f(gen, (B, H, H, Cr), dev, 1e-2)
+    v = lambda: (_f(gen, (Cr,), dev, 1.0, 20.0), _f(gen, (Cr,), dev))  # noqa: E731
+    g1, g2 = _i8(gen, (9 * Cr, Cr), -8, 7, dev), _i8(gen, (9 * Cr, Cr), -8, 7, dev)
+    sb = (_f(gen, (Cr,), dev, 1e-4, 1e-3), _f(gen, (Cr,), dev, 1e-2))
+    a = (r, _f(gen, (B, Cr), dev), gs[:Cr], gb[:Cr], v(), g1, sb, gs[:Cr], gb[:Cr], v(), g2, sb)
+    got = resblock_pallas(*a, out_dtype=torch.float32, eps=1e-5)
+    want = resblock_pallas(*a, out_dtype=torch.float32, eps=1e-5, plain=True)
+    assert checks.compare("K12", got, want)["ok"]
+
+
+def test_serving_step_adm_kernels_match_plain(dev, gen):
+    """One serving forward of a toy ADM (128 channels, 1-2-2, heads of 64 at
+    16^2 and 8^2): every kernel call against its plain version on the same
+    inputs, the launch counts `checks.expected_launches` derives for ADM,
+    and the sampler's launches over three steps."""
+    from attentiondm_tpu_torch.quant.int8_serving import serving_ddim_sampler
+
+    cfg = UNetConfig(ch=128, ch_mult=(1, 2, 2), num_res_blocks=1, attn_resolutions=(16, 8), resolution=32,
+                     dropout=0.0, out_ch=6, model_type="adm", num_head_channels=64, learn_sigma=True, gn_eps=1e-5)
+    B = 2
+    params = unet_init(gen, cfg, dev)
+    q = QuantizedUNet.create(cfg, 4, 8)
+    qstates = q.init_state(3, dev)
+    for st in qstates.values():
+        st.group_ranges[..., 0], st.group_ranges[..., 1] = -1.0, 4.0
+    runtime = prepare_serving_runtime(q, params, qstates)
+    x = _f(gen, (B, 32, 32, 3), dev)
+    t = torch.tensor(500.0, device=dev).expand(B)
+    checks.reset_launches()
+    records = []
+    with checks.per_site(records):
+        eps = serving_unet_apply(params, cfg, q, runtime, qstates, x, t, 0, attn_int8=False)
+    assert checks.read_launches() == checks.expected_launches(cfg, 1, B, attn_int8=False)
+    assert eps.shape == (B, 32, 32, 6) and torch.isfinite(eps).all()
+    bad = [r for r in records if not r[2]["ok"]]
+    assert not bad, bad
+    assert {r[0] for r in records} == {"K1", "K2", "K4", "K11"}
+    betas = torch.linspace(1e-4, 0.02, 1000, device=dev)
+    sample = serving_ddim_sampler(q, params, qstates, [0, 333, 666], betas, runtime=runtime, attn_int8=False)
+    checks.reset_launches()
+    out = sample(x)
+    assert checks.read_launches() == checks.expected_launches(cfg, 3, B, attn_int8=False)
+    assert out.shape == x.shape and torch.isfinite(out).all()
